@@ -1,0 +1,136 @@
+"""Paged KV cache: pre-allocated device pool + host page allocator
+(counterpart of ``mxnet_tpu/serving/decode/paged_kv.py``).
+
+The device side is ONE tensor per engine, ``(layers, 2, num_pages,
+page_size, heads, head_dim)`` (k and v stacked on axis 1), allocated
+once on the engine's device; the decode steps write into it in place.
+The host side is a free-list page allocator with per-slot page tables:
+slots acquire pages at admission, the tables go to the device with each
+step as ``(max_slots, pages_per_slot)`` int32, and eviction returns
+pages to the free list for the next request.
+
+The reference scattered masked rows to a sentinel row one past the pool
+and let XLA drop them; torch has no drop mode, so the engine passes
+only the valid rows to the scatter (the host knows them).
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+import numpy as onp
+import torch
+
+from ... import telemetry
+from ...base import MXNetError
+from ...context import resolve_device
+
+__all__ = ["PageAllocator", "PagedKVCache", "OutOfPagesError"]
+
+
+class OutOfPagesError(MXNetError):
+    """The pool has no free pages for the attempted allocation."""
+
+
+class PageAllocator:
+    """Free-list page allocator (host-side, O(1) alloc/free)."""
+
+    def __init__(self, num_pages: int):
+        self.num_pages = int(num_pages)
+        self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
+        self._lock = threading.Lock()
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    @property
+    def used(self) -> int:
+        return self.num_pages - len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        with self._lock:
+            if n > len(self._free):
+                raise OutOfPagesError(
+                    f"requested {n} pages, {len(self._free)} free "
+                    f"of {self.num_pages}")
+            pages = [self._free.pop() for _ in range(n)]
+        return pages
+
+    def free(self, pages: List[int]) -> None:
+        with self._lock:
+            self._free.extend(pages)
+
+
+class PagedKVCache:
+    """One engine's KV state: device pool + slot page tables.
+
+    ``pages_per_slot`` bounds a single slot's table width; a slot's
+    token capacity is ``pages_per_slot * page_size``."""
+
+    def __init__(self, *, layers: int, num_pages: int, page_size: int,
+                 heads: int, head_dim: int, max_slots: int,
+                 pages_per_slot: Optional[int] = None,
+                 dtype=torch.float32, device=None):
+        self.layers = int(layers)
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.heads = int(heads)
+        self.head_dim = int(head_dim)
+        self.max_slots = int(max_slots)
+        self.pages_per_slot = int(
+            pages_per_slot if pages_per_slot is not None
+            else max(1, num_pages // max(1, max_slots)))
+        self.device = resolve_device(device)
+        self.pool = torch.zeros(
+            (self.layers, 2, self.num_pages, self.page_size,
+             self.heads, self.head_dim), dtype=dtype, device=self.device)
+        self.allocator = PageAllocator(self.num_pages)
+        # host page-table rows; a freed slot's row is zeros (page 0 is a
+        # valid id, never read: its length is 0)
+        self.tables = onp.zeros((self.max_slots, self.pages_per_slot),
+                                onp.int32)
+        self._slot_pages: Dict[int, List[int]] = {}
+
+    @property
+    def slot_capacity(self) -> int:
+        """Max tokens (prompt + generated) one slot can hold."""
+        return self.pages_per_slot * self.page_size
+
+    def pages_used(self) -> int:
+        return self.allocator.used
+
+    def pages_for(self, tokens: int) -> int:
+        return -(-int(tokens) // self.page_size)
+
+    def acquire(self, slot: int, tokens: int) -> None:
+        """Allocate pages covering ``tokens`` positions for ``slot``
+        and write its table row.  Raises :class:`OutOfPagesError`
+        (leaving the slot untouched) when the free list is short."""
+        if slot in self._slot_pages:
+            raise MXNetError(f"slot {slot} already holds pages")
+        need = self.pages_for(tokens)
+        if need > self.pages_per_slot:
+            raise MXNetError(
+                f"{tokens} tokens need {need} pages > pages_per_slot "
+                f"{self.pages_per_slot}")
+        pages = self.allocator.alloc(need)
+        self._slot_pages[slot] = pages
+        row = onp.zeros((self.pages_per_slot,), onp.int32)
+        row[:need] = pages
+        self.tables[slot] = row
+        telemetry.gauge("decode.pages_used").set(self.pages_used())
+
+    def release(self, slot: int) -> int:
+        """Return ``slot``'s pages to the free list; returns the count
+        recycled (0 when the slot held none)."""
+        pages = self._slot_pages.pop(slot, None)
+        if not pages:
+            return 0
+        self.allocator.free(pages)
+        self.tables[slot] = 0
+        telemetry.gauge("decode.pages_used").set(self.pages_used())
+        return len(pages)
+
+    def slot_pages(self, slot: int) -> List[int]:
+        return list(self._slot_pages.get(slot, ()))

@@ -1,0 +1,465 @@
+"""Continuous batching for autoregressive decode (counterpart of
+``mxnet_tpu/serving/decode/scheduler.py``, same behaviour).
+
+The :class:`DecodeScheduler` admits requests into fixed decode *slots*
+and evicts them per engine step, not per batch.  One ``decode_step``
+covers the whole ``(max_slots,)`` grid — the active-slot mask, per-slot
+positions and page tables are int tensors, so admission and completion
+never change a shape; a request joining mid-flight costs one table row.
+On a CUDA engine the background thread launches the kernels on its own
+current stream.
+
+Each step (one turn of :meth:`step`, driven by the background thread
+or manually):
+
+1. expire — queued requests and active slots whose deadline passed
+   fail with ``RequestTimeoutError``; evicted slots return their pages
+   to the free list (``decode.evictions``);
+2. admit — free slots pull from the queue when the page budget
+   (prompt + max_new [+ spec window]) fits; pages are acquired in full
+   at admission so generation can never run out mid-flight;
+3. prefill — each admitted slot feeds ONE pow2-bucketed prompt chunk
+   (chunked prefill: long prompts interleave with running decodes
+   instead of stalling them); the final chunk yields the first token
+   (TTFT);
+4. decode — one batched token step over every decoding slot, either
+   plain ``decode_step`` or the speculative draft→verify pair
+   (``k`` proposals drafted, verified in one target dispatch,
+   accepted prefix committed — greedy output is token-identical to
+   the non-speculative path);
+5. account — one telemetry step record (source
+   ``serving.DecodeScheduler``) with the decode extras the report
+   tools reconcile, plus ``serving.request`` span closure and SLO
+   request feed (TTFT + latency) for finished slots.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import List, Optional
+
+import numpy as onp
+
+from ... import telemetry, tracing
+from ...base import getenv_int
+from .. import slo
+from ..batcher import _Future, _getenv_float
+from ..engine import (BadRequestError, QueueFullError,
+                      RequestTimeoutError, ServingClosedError)
+from .engine import DecodeEngine
+from .paged_kv import OutOfPagesError
+
+__all__ = ["DecodeScheduler"]
+
+
+class _Request:
+    __slots__ = ("prompt", "max_new", "eos", "future", "deadline",
+                 "t_submit", "t_admit", "rid", "span", "ttft_ms",
+                 "generated", "prefilled", "pending", "pos_next")
+
+    def __init__(self, prompt, max_new, eos, deadline, rid):
+        self.prompt = prompt
+        self.max_new = max_new
+        self.eos = eos
+        self.future = _Future()
+        self.deadline = deadline
+        self.t_submit = time.perf_counter()
+        self.t_admit = None
+        self.rid = rid
+        self.span = None
+        self.ttft_ms = None
+        self.generated: List[int] = []
+        self.prefilled = 0       # prompt tokens written so far
+        self.pending = None      # committed-but-unconsumed token
+        self.pos_next = 0        # position the pending token occupies
+
+
+class DecodeScheduler:
+    """Continuous batcher over a :class:`DecodeEngine`.
+
+    Knobs (constructor arg > env var > default): ``queue_depth`` /
+    ``MXNET_SERVING_QUEUE_DEPTH`` (256), ``timeout_ms`` (default
+    per-request deadline, None = none), ``max_new_tokens`` default for
+    :meth:`submit` (32)."""
+
+    def __init__(self, engine: DecodeEngine,
+                 queue_depth: Optional[int] = None,
+                 timeout_ms: Optional[float] = None,
+                 max_new_tokens: int = 32,
+                 start: bool = True):
+        self.engine = engine
+        self.queue_depth = max(1, queue_depth if queue_depth is not None
+                               else getenv_int("MXNET_SERVING_QUEUE_DEPTH",
+                                               256))
+        self.timeout_ms = timeout_ms
+        self.max_new_tokens = int(max_new_tokens)
+        self._q: deque = deque()
+        self._cv = threading.Condition()
+        self._step_lock = threading.Lock()
+        self._slots: List[Optional[_Request]] = [None] * engine.max_slots
+        self._closed = False
+        self._drain = True
+        self._thread: Optional[threading.Thread] = None
+        self._gauge_q = telemetry.gauge("serving.queue_depth")
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._last_compiles = engine.compiles
+        if start:
+            self.start()
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self):
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._loop, name="mxnet-serving-decode",
+                daemon=True)
+            self._thread.start()
+        return self
+
+    def close(self, drain: bool = True,
+              timeout: Optional[float] = 30.0) -> None:
+        """Stop admission.  ``drain=True`` runs every in-flight slot
+        (and queued request) to completion before returning;
+        ``drain=False`` fails them all with
+        :class:`ServingClosedError` and frees their pages."""
+        with self._cv:
+            if self._closed:
+                return
+            self._closed = True
+            self._drain = drain
+            self._cv.notify_all()
+        if not drain:
+            with self._step_lock:      # serialize against a live step
+                with self._cv:
+                    while self._q:
+                        r = self._q.popleft()
+                        self._finish_error(
+                            r, ServingClosedError(
+                                "server shut down before this request "
+                                "was admitted"))
+                    self._gauge_q.set(0)
+                for s, r in enumerate(self._slots):
+                    if r is None:
+                        continue
+                    self.engine.release_slot(s)
+                    telemetry.counter("decode.evictions").inc()
+                    self._slots[s] = None
+                    self._finish_error(
+                        r, ServingClosedError(
+                            "server shut down mid-generation"))
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join(timeout)
+        if drain:
+            # no thread (manual mode) or a wedged one: drain inline
+            while self._has_work():
+                self.step()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def pending(self) -> int:
+        with self._cv:
+            return len(self._q)
+
+    def active(self) -> int:
+        return sum(1 for r in self._slots if r is not None)
+
+    def _has_work(self) -> bool:
+        with self._cv:
+            return bool(self._q) or any(
+                r is not None for r in self._slots)
+
+    # -- admission ----------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: Optional[int] = None,
+               eos: Optional[int] = None,
+               timeout_ms: Optional[float] = None) -> _Future:
+        """Admit one generation request; the future resolves to the
+        list of generated token ids.  Raises
+        :class:`BadRequestError` (empty prompt, bad token ids, page
+        budget), :class:`QueueFullError`, :class:`ServingClosedError`
+        — all before the request is queued."""
+        if self._closed:
+            raise ServingClosedError("server is draining/closed")
+        max_new = (int(max_new_tokens) if max_new_tokens is not None
+                   else self.max_new_tokens)
+        prompt = [int(t) for t in prompt]
+        vocab = self.engine.model.vocab_size
+        if not prompt:
+            telemetry.counter("serving.rejected.shape").inc()
+            raise BadRequestError(
+                "empty prompt: decode needs at least one token")
+        if max_new < 1:
+            telemetry.counter("serving.rejected.shape").inc()
+            raise BadRequestError(
+                f"max_new_tokens must be >= 1, got {max_new}")
+        if any(t < 0 or t >= vocab for t in prompt):
+            telemetry.counter("serving.rejected.shape").inc()
+            raise BadRequestError(
+                f"prompt token out of range [0, {vocab})")
+        need = self._budget(len(prompt), max_new)
+        if need > self.engine.slot_capacity:
+            telemetry.counter("serving.rejected.shape").inc()
+            raise BadRequestError(
+                f"prompt+max_new needs {need} positions > slot "
+                f"capacity {self.engine.slot_capacity} "
+                f"(pages_per_slot * page_size)")
+        ms = timeout_ms if timeout_ms is not None else self.timeout_ms
+        deadline = (time.perf_counter() + ms / 1e3
+                    if ms is not None else None)
+        rid = slo.next_request_id()
+        with self._cv:
+            if self._closed:
+                raise ServingClosedError("server is draining/closed")
+            if len(self._q) >= self.queue_depth:
+                telemetry.counter("serving.rejected.queue_full").inc()
+                raise QueueFullError(
+                    f"queue at depth {self.queue_depth}; load shed")
+            r = _Request(prompt, max_new, eos, deadline, rid)
+            r.span = tracing.begin("serving.request", request_id=rid,
+                                   kind="generate")
+            self._q.append(r)
+            self._gauge_q.set(len(self._q))
+            self._cv.notify()
+        return r.future
+
+    def _budget(self, prompt_len: int, max_new: int) -> int:
+        """Positions a request can ever touch — the speculative window
+        may write up to ``spec_k`` past the last committed token."""
+        extra = self.engine.spec_k if self.engine.spec_enabled else 0
+        return prompt_len + max_new + extra
+
+    # -- completion helpers --------------------------------------------------
+
+    def _observe(self, r: _Request, ok: bool, error: str = "") -> None:
+        now = time.perf_counter()
+        entry = {
+            "id": r.rid, "ok": ok, "kind": "generate",
+            "latency_ms": round((now - r.t_submit) * 1e3, 3),
+            "queue_ms": round(((r.t_admit or now) - r.t_submit) * 1e3, 3),
+            "ts": round(time.time(), 3)}
+        if r.ttft_ms is not None:
+            entry["ttft_ms"] = r.ttft_ms
+        if error:
+            entry["error"] = error
+        slo.observe_request(entry)
+
+    def _finish_ok(self, r: _Request) -> None:
+        tracing.end(r.span, tokens=len(r.generated),
+                    ttft_ms=r.ttft_ms)
+        self._observe(r, ok=True)
+        r.future.set_result(list(r.generated))
+
+    def _finish_error(self, r: _Request, exc: Exception) -> None:
+        tracing.end(r.span, error=type(exc).__name__)
+        self._observe(r, ok=False, error=type(exc).__name__)
+        r.future.set_exception(exc)
+
+    # -- the step ------------------------------------------------------------
+
+    def step(self) -> dict:
+        """One scheduler turn: expire → admit → prefill → decode →
+        account.  Returns the decode extras dict it recorded."""
+        with self._step_lock:
+            return self._step_locked()
+
+    def _step_locked(self) -> dict:
+        eng = self.engine
+        t_step = time.perf_counter()
+        token = telemetry.begin_step()
+        now = time.perf_counter()
+        evictions = 0
+        new_tokens = 0
+        prefill_tokens = 0
+        ttfts: List[float] = []
+        completed = 0
+
+        # 1. expire queued requests
+        with self._cv:
+            live = deque()
+            for r in self._q:
+                if r.deadline is not None and now > r.deadline:
+                    telemetry.counter("serving.timeouts").inc()
+                    self._finish_error(r, RequestTimeoutError(
+                        "request expired in queue before admission"))
+                else:
+                    live.append(r)
+            if len(live) != len(self._q):
+                self._q = live
+            self._gauge_q.set(len(self._q))
+
+        # 1b. evict overdue active slots (frees their pages)
+        for s, r in enumerate(self._slots):
+            if r is None or r.deadline is None or now <= r.deadline:
+                continue
+            eng.release_slot(s)
+            self._slots[s] = None
+            evictions += 1
+            telemetry.counter("decode.evictions").inc()
+            telemetry.counter("serving.timeouts").inc()
+            self._finish_error(r, RequestTimeoutError(
+                "deadline expired mid-generation; slot evicted"))
+
+        # 2. admit into free slots while the page budget fits
+        with self._cv:
+            for s in range(len(self._slots)):
+                if self._slots[s] is not None or not self._q:
+                    continue
+                r = self._q[0]
+                need = self._budget(len(r.prompt), r.max_new)
+                if not eng.can_admit(need):
+                    break            # head-of-line: preserve order
+                self._q.popleft()
+                try:
+                    eng.acquire_slot(s, need)
+                except OutOfPagesError:
+                    self._q.appendleft(r)
+                    break
+                r.t_admit = now
+                self._slots[s] = r
+                tracing.instant("decode.admit", request_id=r.rid,
+                                slot=s, prompt_tokens=len(r.prompt))
+            self._gauge_q.set(len(self._q))
+
+        # 3. chunked prefill — one chunk per prefilling slot per step
+        for s, r in enumerate(self._slots):
+            if r is None or r.prefilled >= len(r.prompt):
+                continue
+            chunk = r.prompt[r.prefilled:
+                             r.prefilled + eng.prefill_chunk]
+            t0 = time.perf_counter()
+            nxt = eng.prefill_chunk_step(s, chunk, r.prefilled)
+            tracing.record_span("decode.prefill", t0,
+                                time.perf_counter(), request_id=r.rid,
+                                slot=s, tokens=len(chunk))
+            r.prefilled += len(chunk)
+            prefill_tokens += len(chunk)
+            telemetry.counter("decode.prefill_tokens").inc(len(chunk))
+            if r.prefilled >= len(r.prompt):
+                # final chunk: first generated token → TTFT
+                r.ttft_ms = round(
+                    (time.perf_counter() - r.t_submit) * 1e3, 3)
+                ttfts.append(r.ttft_ms)
+                r.pos_next = len(r.prompt)
+                new_tokens += 1
+                if self._commit(s, r, int(nxt)):
+                    completed += 1
+
+        # 4. one batched decode step over every decoding slot
+        decoding = [s for s, r in enumerate(self._slots)
+                    if r is not None and r.pending is not None]
+        if decoding:
+            n = eng.max_slots
+            toks = onp.zeros((n,), onp.int32)
+            pos = onp.zeros((n,), onp.int32)
+            act = onp.zeros((n,), bool)
+            for s in decoding:
+                r = self._slots[s]
+                toks[s], pos[s], act[s] = r.pending, r.pos_next, True
+            if eng.spec_enabled:
+                greedy, accepted = eng.spec_step(toks, pos, act)
+                k = eng.spec_k
+                for s in decoding:
+                    r = self._slots[s]
+                    take = int(accepted[s]) + 1
+                    self._spec_proposed += k
+                    self._spec_accepted += int(accepted[s])
+                    done = False
+                    for j in range(take):
+                        new_tokens += 1
+                        if self._commit(s, r, int(greedy[s, j])):
+                            completed += 1
+                            done = True
+                            break
+                    if not done:
+                        r.pos_next += take
+                telemetry.counter("decode.spec_proposed").inc(
+                    k * len(decoding))
+                telemetry.counter("decode.spec_accepted").inc(
+                    sum(int(accepted[s]) for s in decoding))
+                if self._spec_proposed:
+                    telemetry.gauge("decode.spec_accept_rate").set(
+                        round(self._spec_accepted
+                              / self._spec_proposed, 4))
+            else:
+                nxt = eng.decode_step(toks, pos, act)
+                for s in decoding:
+                    r = self._slots[s]
+                    new_tokens += 1
+                    if self._commit(s, r, int(nxt[s])):
+                        completed += 1
+                    else:
+                        r.pos_next += 1
+
+        # 5. account
+        active = self.active()
+        telemetry.counter("decode.tokens").inc(new_tokens)
+        telemetry.counter("decode.steps").inc()
+        telemetry.gauge("decode.slots_active").set(active)
+        compiles = eng.compiles - self._last_compiles
+        self._last_compiles = eng.compiles
+        extra = {
+            "tokens": new_tokens,
+            "prefill_tokens": prefill_tokens,
+            "slots_active": active,
+            "max_slots": eng.max_slots,
+            "pages_used": eng.cache.pages_used(),
+            "num_pages": eng.num_pages,
+            "evictions": evictions,
+            "completed": completed,
+            "queue_depth": self.pending(),
+            "compiles": compiles,
+            "spec_proposed": self._spec_proposed,
+            "spec_accepted": self._spec_accepted,
+            "step_ms": round((time.perf_counter() - t_step) * 1e3, 3),
+        }
+        if ttfts:
+            extra["ttft_ms"] = ttfts
+        telemetry.end_step(token, "serving.DecodeScheduler",
+                           extra={"decode": extra})
+        return extra
+
+    def _commit(self, s: int, r: _Request, tok: int) -> bool:
+        """Append one emitted token; on eos/max_new finish the request,
+        release its pages and free the slot.  Returns True when the
+        request completed, else leaves ``tok`` as the slot's pending
+        token (the caller advances ``pos_next``)."""
+        r.generated.append(tok)
+        if (len(r.generated) >= r.max_new
+                or (r.eos is not None and tok == r.eos)):
+            self.engine.release_slot(s)
+            self._slots[s] = None
+            self._finish_ok(r)
+            return True
+        r.pending = tok
+        return False
+
+    # -- background loop -----------------------------------------------------
+
+    def _loop(self):
+        idle_wait = _getenv_float("MXNET_DECODE_IDLE_WAIT_S", 0.005)
+        while True:
+            with self._cv:
+                has_work = bool(self._q) or any(
+                    r is not None for r in self._slots)
+                if self._closed and not (self._drain and has_work):
+                    break
+                if not has_work:
+                    self._cv.wait(idle_wait)
+                    continue
+            self.step()
+
+    def stats(self) -> dict:
+        return {
+            "queue_depth": self.pending(),
+            "slots_active": self.active(),
+            "max_slots": self.engine.max_slots,
+            "pages_used": self.engine.cache.pages_used(),
+            "spec_proposed": self._spec_proposed,
+            "spec_accepted": self._spec_accepted,
+            "compiles": self.engine.compiles,
+            "closed": self._closed,
+        }

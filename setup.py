@@ -25,8 +25,10 @@ setup(
     version="0.1.0",
     description=("TPU-native deep learning framework with the MXNet "
                  "capability surface (JAX/XLA/Pallas backend)"),
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
-    package_data={"mxnet_tpu": ["lib/*.so"]},
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
+    package_data={"mxnet_tpu": ["lib/*.so"],
+                  "mxnet_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "ml_dtypes"],
     extras_require={"onnx": ["protobuf>=3.20"]},

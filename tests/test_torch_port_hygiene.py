@@ -1,0 +1,66 @@
+"""The port stands alone: mxnet_tpu_torch and chip_smoke.py import
+neither JAX nor the reference package, and the port's entry points run
+on the GPU unless the caller asks for the CPU."""
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from mxnet_tpu_torch.base import MXNetError
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "mxnet_tpu_torch"
+# a path such as ``mxnet_tpu/ops/rope.py`` cites the reference kernel a
+# port replaces (file and line); the bare package name or a dotted
+# module path would be a use of it
+REFERENCE = re.compile(r"\bmxnet_tpu\b(?!_torch|/)")
+JAX_IMPORT = re.compile(r"\bimport jax\b|\bfrom jax\b")
+
+
+SOURCES = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
+    ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_reference_or_jax(path):
+    code = path.read_text()
+    assert not REFERENCE.search(code), REFERENCE.search(code)
+    assert not JAX_IMPORT.search(code), JAX_IMPORT.search(code)
+
+
+def test_importing_the_whole_port_loads_no_jax_or_reference():
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import mxnet_tpu_torch
+        for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
+                                       "mxnet_tpu_torch."):
+            importlib.import_module(m.name)
+        bad = sorted(n for n in sys.modules
+                     if n == "jax" or n.startswith("jax.")
+                     or n == "mxnet_tpu" or n.startswith("mxnet_tpu."))
+        print(len([n for n in sys.modules
+                   if n.startswith("mxnet_tpu_torch")]), bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 20 and bad.strip() == "[]", out.stdout
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from mxnet_tpu_torch.serving import DecodeModel
+    from mxnet_tpu_torch.serving.decode.paged_kv import PagedKVCache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="device='cpu'"):
+        DecodeModel(48, dim=32, n_heads=4, n_layers=2)
+    with pytest.raises(MXNetError, match="device='cpu'"):
+        PagedKVCache(layers=1, num_pages=2, page_size=2, heads=1,
+                     head_dim=8, max_slots=1)
+    m = DecodeModel(48, dim=32, n_heads=4, n_layers=2, device="cpu")
+    assert m.params["embed"].device.type == "cpu"
