@@ -6,12 +6,16 @@
 Phases, each printing one JSON line; any failure raises, so the script
 exits non-zero and prints no result:
 
-1. build   — nvcc-build the paged_attention library from
-             mxnet_tpu_torch/csrc/ and compile the Triton rope kernel
-             (both at once) into build/torch_kernels/.
-2. parity  — each kernel against its plain PyTorch version on the card,
-             at the decode-serving shapes (fp32 atol/rtol 1e-4, bf16
-             2e-2).
+1. build   — nvcc-build the paged_attention and flash_attention
+             libraries from mxnet_tpu_torch/csrc/ and compile the Triton
+             rope kernel (all at once) into build/torch_kernels/.
+2. parity  — each kernel against its plain PyTorch version on the card:
+             rope and paged attention at the decode-serving shapes (fp32
+             atol/rtol 1e-4, bf16 2e-2); flash attention K1 (out, LSE)
+             and K2/K3 (dk, dv / dq) at the training shape (BH 64, S 2048,
+             D 64, causal) in bf16 (2e-2) and fp32 (1e-4 forward, 1e-3
+             gradients), plus ragged 100x180 non-causal, 257 causal and
+             head dim 128, on both compiled tiles.
 3. serve   — the decode-serving path at the full width of the repo's
              transformer LM (vocab 32000, dim 512, 8 heads, 8 layers,
              2048-position slots): DecodeModel → DecodeEngine →
@@ -22,12 +26,27 @@ exits non-zero and prints no result:
              launched and no plain version may have run.
 4. spec    — 4 of those requests again with a draft model and spec_k=4;
              the output must be token-identical.
-5. times   — each kernel's median time (CUDA events) at the serve
-             shapes beside its bound, its plain version's time and its
-             launches per engine step.
-6. profile — torch.profiler over one decode step and one prefill chunk
-             at the serve shapes: host ms, device busy ms, idle share and
-             the kernels by device time.
+5. train   — the training path at the full width of bench.py's
+             transformer row (vocab 32000, units 512, 8 layers, 8 heads,
+             max_len 2048, tied weights, batch 8 x 2048, Adam lr 3e-4,
+             bf16 compute): TransformerLM + SoftmaxCrossEntropyLoss +
+             SPMDTrainer, one warm step, 5 timed ``step`` calls and one
+             ``run_steps(..., 4)`` on a fixed batch.  Losses must be
+             finite and fall; the flash kernels must launch 8 times per
+             step each and no plain version may run.
+6. train_check — fp32, TF32 off, one forward and backward of the same
+             weights with use_flash=True and use_flash=False (the dense
+             attention_reference): the loss and every gradient agree.
+7. times   — each kernel's median time (CUDA events, cold L2) beside its
+             bound, its plain version's time and its launches per step;
+             rope and paged attention at the serve shapes, the flash
+             kernels at the training shape with
+             scaled_dot_product_attention's forward / backward as the
+             library yardstick.
+8. profile — torch.profiler over one decode step and one prefill chunk
+             at the serve shapes, and over one training step: host ms,
+             device busy ms, idle share and the kernels by device
+             time.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
@@ -46,11 +65,16 @@ import numpy as onp
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 
 VOCAB, DIM, HEADS, LAYERS, MLP = 32000, 512, 8, 8, 4
 SLOTS, PAGE, PAGES_PER_SLOT, NUM_PAGES = 8, 16, 128, 1024
 HEAD_DIM = DIM // HEADS
 SPEC_K = 4
+# the training row: bench.py's _transformer_bench
+BATCH, SEQ, LR = 8, 2048, 3e-4
+TRAIN_BH = BATCH * HEADS
+DEV = "cuda"
 NO_LIBRARY = ("no single PyTorch call computes it: scaled_dot_product_"
               "attention needs the pages gathered into a dense tensor "
               "first, and torch has no rotary-embedding operator")
@@ -71,7 +95,7 @@ def max_err(got, ref, atol, rtol):
     return float(err.max())
 
 
-def phase_build(torch, rope_mod, pa_mod):
+def phase_build(torch, rope_mod, pa_mod, fa_mod):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -84,18 +108,26 @@ def phase_build(torch, rope_mod, pa_mod):
         out = fn()
         return out, time.perf_counter() - s
 
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:     # one nvcc per source, at once
         pa = ex.submit(timed, pa_mod.build)
+        fa = ex.submit(timed, fa_mod.build)
         rp = ex.submit(timed, rope_mod.build)
         (log, nvcc_s), pa_s = pa.result()
+        (fa_log, fa_nvcc_s), fa_s = fa.result()
         _, rope_s = rp.result()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+
+    def ptxas(text):
+        return [ln.strip() for ln in text.splitlines()
+                if "registers" in ln or "spill" in ln or "Compiling" in ln]
+
     emit({"phase": "build", "gpu": smi,
           "seconds": round(time.perf_counter() - t0, 3),
           "paged_attention_nvcc_s": round(nvcc_s, 3),
           "paged_attention_s": round(pa_s, 3),
-          "rope_triton_s": round(rope_s, 3), "ptxas": ptxas})
+          "flash_attention_nvcc_s": round(fa_nvcc_s, 3),
+          "flash_attention_s": round(fa_s, 3),
+          "rope_triton_s": round(rope_s, 3), "ptxas": ptxas(log),
+          "flash_ptxas": ptxas(fa_log)})
     return smi
 
 
@@ -162,6 +194,188 @@ def phase_parity(torch, rope_mod, pa_mod):
             errs["paged_attention"] = e
     emit(out)
     return errs
+
+
+def flash_case(torch, bh, sq, sk, d, dtype, seed):
+    """q, k, v, dO as (BH, S, D) on the card, from a numpy seed."""
+    rng = onp.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.as_tensor(rng.randn(*shape),
+                               dtype=torch.float32).to(DEV, dtype)
+
+    return t(bh, sq, d), t(bh, sk, d), t(bh, sk, d), t(bh, sq, d)
+
+
+def flash_check(torch, fa_mod, case, causal, tile, tol_fwd, tol_grad):
+    """K1 against the plain forward, and K2 / K3 against the plain
+    backward on the plain forward's residuals; max |err| of each."""
+    q, k, v, do = case
+    scale = 1.0 / q.shape[-1] ** 0.5
+    out, lse = fa_mod.flash_fwd(q, k, v, causal=causal, tile=tile)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = fa_mod.flash_forward_reference(q, k, v, causal, scale)
+    errs = {"out": max_err(out, ref_out, tol_fwd, tol_fwd),
+            "lse": max_err(lse, ref_lse, tol_fwd, tol_fwd)}
+    delta = fa_mod._delta(do, ref_out)
+    dk, dv = fa_mod.flash_bwd_dkdv(q, k, v, do, ref_lse, delta,
+                                   causal=causal, tile=tile)
+    dq = fa_mod.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal,
+                             tile=tile)
+    torch.cuda.synchronize()
+    rdk, rdv = fa_mod._dkdv_reference(q, k, v, do, ref_lse, delta, causal,
+                                      scale)
+    rdq = fa_mod._dq_reference(q, k, v, do, ref_lse, delta, causal, scale)
+    for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        errs[name] = max_err(got, ref, tol_grad, tol_grad)
+    return errs
+
+
+def phase_flash_parity(torch, fa_mod):
+    """Flash attention K1 / K2 / K3 against their plain versions."""
+    rows, errs = [], {}
+    tols = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-3)}
+    cases = [((TRAIN_BH, SEQ, SEQ, HEAD_DIM), True, (64,)),
+             ((6, 100, 180, 64), False, (32, 64)),
+             ((6, 257, 257, 64), True, (32, 64)),
+             ((4, 300, 300, 128), True, (32, 64))]
+    for shape, causal, tiles in cases:
+        for dtype, (tf, tg) in tols.items():
+            case = flash_case(torch, *shape, dtype, seed=sum(shape))
+            for tile in tiles:
+                e = flash_check(torch, fa_mod, case, causal, tile, tf, tg)
+                rows.append({"bh_sq_sk_d": shape, "causal": causal,
+                             "dtype": str(dtype), "tile": tile,
+                             "max_abs_err": e})
+                if shape[1] == SEQ and dtype == torch.bfloat16:
+                    errs = {"flash_fwd": max(e["out"], e["lse"]),
+                            "flash_bwd_dkdv": max(e["dk"], e["dv"]),
+                            "flash_bwd_dq": e["dq"]}
+            del case
+    torch.cuda.empty_cache()
+    emit({"phase": "parity_flash", "tolerance": {"bf16": 2e-2,
+                                                 "fp32_forward": 1e-4,
+                                                 "fp32_grads": 1e-3},
+          "cases": rows})
+    return errs
+
+
+def train_model(torch, use_flash=True, seed=0):
+    """The full-width training row's model on the card, initialized
+    (Xavier, host generator seeded with ``seed``) and its deferred dims
+    filled by a short forward."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import TransformerLM
+    net = TransformerLM(VOCAB, units=DIM, num_layers=LAYERS,
+                        num_heads=HEADS, max_len=SEQ, tie_weights=True,
+                        use_flash=use_flash)
+    net.initialize(init=initializer.Xavier(), device=DEV,
+                   generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        net(torch.zeros((1, 8), dtype=torch.int32, device=DEV))
+    return net
+
+
+def train_batch(torch, seed=2):
+    rng = onp.random.RandomState(seed)
+    return tuple(torch.as_tensor(rng.randint(0, VOCAB, size=(BATCH, SEQ))
+                                 .astype(onp.int32), device=DEV)
+                 for _ in range(2))
+
+
+def phase_train(torch, fa_mod):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    t0 = time.perf_counter()
+    net = train_model(torch)
+    trainer = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam",
+                          optimizer_params={"learning_rate": LR},
+                          dtype="bfloat16", device=DEV)
+    data, label = train_batch(torch)
+    setup_s = time.perf_counter() - t0
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    losses = [float(trainer.step(data, label))]          # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*fns)
+    step_ms = []
+    for _ in range(5):
+        s0 = time.perf_counter()
+        losses.append(float(trainer.step(data, label)))  # float() syncs
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+    s0 = time.perf_counter()
+    window = trainer.run_steps(data, label, 4)
+    losses += [float(x) for x in window.cpu()]
+    window_ms = (time.perf_counter() - s0) * 1e3
+    counts = {f.__name__: {"launches": f.launches,
+                           "plain_calls": f.plain_calls} for f in fns}
+    peak = torch.cuda.max_memory_allocated()
+    steps = 5 + 4
+    for name, c in counts.items():
+        if c["launches"] != LAYERS * steps or c["plain_calls"]:
+            raise AssertionError(f"{name} did not train through its kernel"
+                                 f" ({LAYERS} launches a step for {steps} "
+                                 f"steps): {c}")
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    med = sorted(step_ms)[len(step_ms) // 2]
+    emit({"phase": "train",
+          "model": {"vocab": VOCAB, "units": DIM, "layers": LAYERS,
+                    "heads": HEADS, "max_len": SEQ, "tied": True,
+                    "batch": BATCH, "seq": SEQ, "dtype": "bfloat16",
+                    "optimizer": "adam", "lr": LR},
+          "setup_s": round(setup_s, 3), "losses": losses,
+          "step_ms": step_ms, "step_ms_median": med,
+          "run_steps_4_ms": window_ms,
+          "tokens_per_s": BATCH * SEQ / (med / 1e3),
+          "tokens_per_s_run_steps": 4 * BATCH * SEQ / (window_ms / 1e3),
+          "max_memory_allocated_bytes": peak,
+          "counts": counts, "launches_per_step": LAYERS})
+    return trainer, data, label, counts
+
+
+def phase_train_check(torch):
+    """fp32 (TF32 off) flash vs dense: one forward and backward of the
+    same weights.  Tolerances: loss rtol 1e-5; each gradient's max |err|
+    within 1e-3 of its own max |value| (f32 sums in another order through
+    eight layers)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    data, label = train_batch(torch, seed=3)
+    flash = train_model(torch, use_flash=True)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def loss_and_grads(net):
+        params = net.collect_params()
+        out = net(data)
+        loss = loss_fn(out, label).float().mean()
+        grads = torch.autograd.grad(loss, [p.data()
+                                           for p in params.values()])
+        return float(loss.detach()), dict(zip(params, grads))
+
+    loss_f, grads_f = loss_and_grads(flash)
+    dense = train_model(torch, use_flash=False, seed=1)
+    for name, p in dense.collect_params().items():
+        p.set_data(flash.collect_params()[name].data().detach())
+    del flash
+    torch.cuda.empty_cache()
+    loss_d, grads_d = loss_and_grads(dense)
+    if abs(loss_f - loss_d) > 1e-5 * abs(loss_d):
+        raise AssertionError(f"flash loss {loss_f} != dense {loss_d}")
+    worst = 0.0
+    for name, gd in grads_d.items():
+        scale = float(gd.abs().max())
+        err = float((grads_f[name] - gd).abs().max())
+        if err > 1e-3 * scale:
+            raise AssertionError(f"{name}: flash vs dense gradient max "
+                                 f"|err| {err} beyond 1e-3 x {scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+    emit({"phase": "train_check", "dtype": "float32", "tf32": False,
+          "loss_flash": loss_f, "loss_dense": loss_d,
+          "gradients": len(grads_d), "worst_grad_err_over_max": worst,
+          "tolerance": {"loss_rtol": 1e-5, "grad_err_over_max": 1e-3}})
+    del dense, grads_f, grads_d
+    torch.cuda.empty_cache()
 
 
 class StepRecords:
@@ -384,6 +598,74 @@ def phase_times(torch, rope_mod, pa_mod, eng, prompts, counts, errs, smi):
     return kernels
 
 
+def flash_times(torch, fa_mod, train_counts, errs, smi):
+    """K1 / K2 / K3 rows at the training shape (BH 64, S 2048, D 64,
+    causal, bf16): cold-L2 ms, plain ms, bound and library ms."""
+    import torch.nn.functional as F
+    q, k, v, do = flash_case(torch, TRAIN_BH, SEQ, SEQ, HEAD_DIM,
+                             torch.bfloat16, seed=21)
+    scale = 1.0 / HEAD_DIM ** 0.5
+    out, lse = fa_mod.flash_fwd(q, k, v, causal=True)
+    delta = fa_mod._delta(do, out)
+    as4 = [t.reshape(BATCH, HEADS, SEQ, HEAD_DIM).detach()
+           .requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*as4, is_causal=True)
+    do4 = do.reshape(BATCH, HEADS, SEQ, HEAD_DIM)
+    pairs = TRAIN_BH * SEQ * (SEQ + 1) // 2      # causal (q, k) pairs
+    prod = 2 * HEAD_DIM * pairs                  # flops of one product
+    mat = TRAIN_BH * SEQ * HEAD_DIM * 2          # one bf16 (BH, S, D)
+    vec = TRAIN_BH * SEQ * 4                     # one f32 (BH, S)
+    lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        *as4, is_causal=True))
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
+        lib_out, as4, do4, retain_graph=True))
+    specs = [
+        ("flash_fwd", "mxnet_tpu/ops/attention.py:84",
+         lambda: fa_mod.flash_fwd(q, k, v, causal=True),
+         lambda: fa_mod.flash_forward_reference(q, k, v, True, scale),
+         4 * mat + vec, 2 * prod, 0, lib_fwd),
+        ("flash_bwd_dkdv", "mxnet_tpu/ops/attention.py:255",
+         lambda: fa_mod.flash_bwd_dkdv(q, k, v, do, lse, delta,
+                                       causal=True),
+         lambda: fa_mod._dkdv_reference(q, k, v, do, lse, delta, True,
+                                        scale),
+         6 * mat + 2 * vec, prod, 3 * prod, lib_bwd),
+        ("flash_bwd_dq", "mxnet_tpu/ops/attention.py:307",
+         lambda: fa_mod.flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
+         lambda: fa_mod._dq_reference(q, k, v, do, lse, delta, True, scale),
+         5 * mat + 2 * vec, prod, 2 * prod, lib_bwd)]
+    kernels = []
+    for name, repl, kern, plain, nbytes, ops16, ops32, lib in specs:
+        ms = device_ms(torch, kern)
+        plain_ms = device_ms(torch, plain, runs=10)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (ops16 / BF16_FLOPS + ops32 / FP32_FLOPS) * 1e3
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+            "replaces": repl, "launches": train_counts[name]["launches"],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib})
+    emit({"phase": "times_flash", "gpu": smi,
+          "shape": {"bh": TRAIN_BH, "seq": SEQ, "head_dim": HEAD_DIM,
+                    "causal": True, "dtype": "bfloat16"},
+          "launches_per_step": {k["name"]: LAYERS for k in kernels},
+          "bound_rates": {"bf16_products_tflops": BF16_FLOPS / 1e12,
+                          "f32_products_tflops": FP32_FLOPS / 1e12,
+                          "bytes_tb_s": HBM_BYTES_PER_S / 1e12},
+          "library": "scaled_dot_product_attention(is_causal=True): "
+                     "forward for flash_fwd, its backward (dq, dk, dv "
+                     "together) for flash_bwd_dkdv and flash_bwd_dq",
+          "kernels": [{key: r[key] for key in ("name", "ms", "plain_ms",
+                                               "bound_ms", "library_ms")}
+                      for r in kernels]})
+    del as4, lib_out
+    torch.cuda.empty_cache()
+    return kernels
+
+
 def profiled(torch, fn, n):
     """Host wall ms per call of ``fn`` (which ends in a device sync),
     device busy ms per call and the kernels by device time, from
@@ -441,6 +723,18 @@ def phase_profile(torch, eng, prompts):
     emit(out)
 
 
+def phase_profile_train(torch, trainer, data, label):
+    """Where one full-width bf16 training step spends its time."""
+    def step():
+        float(trainer.step(data, label))          # float() syncs
+
+    step()
+    wall, busy, top = profiled(torch, step, 2)
+    emit({"phase": "profile_train", "host_ms": wall,
+          "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
+          "top_kernels": top})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -448,17 +742,23 @@ def main():
               "script measures the port on a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mxnet_tpu_torch.ops import attention as fa_mod
     from mxnet_tpu_torch.ops import paged_attention as pa_mod
     from mxnet_tpu_torch.ops import rope as rope_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_build(torch, rope_mod, pa_mod)
+    smi = phase_build(torch, rope_mod, pa_mod, fa_mod)
     errs = phase_parity(torch, rope_mod, pa_mod)
+    errs.update(phase_flash_parity(torch, fa_mod))
     model, eng, prompts, outs, counts = phase_serve(torch, rope_mod, pa_mod)
     phase_spec(torch, pa_mod, model, prompts, outs)
+    trainer, data, label, train_counts = phase_train(torch, fa_mod)
+    phase_train_check(torch)
     kernels = phase_times(torch, rope_mod, pa_mod, eng, prompts, counts,
                           errs, smi)
+    kernels += flash_times(torch, fa_mod, train_counts, errs, smi)
     phase_profile(torch, eng, prompts)
+    phase_profile_train(torch, trainer, data, label)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ why), with a plain PyTorch version beside it that serves CPU tensors
 and is the oracle the kernel is held against.
 
 Ported so far: decode serving (``serving.decode``) with its two kernels,
-``ops.paged_attention`` and ``ops.rope``.
+``ops.paged_attention`` and ``ops.rope``; transformer-LM training
+(``gluon``, ``initializer``, ``optimizer``, ``parallel.SPMDTrainer``)
+with the three flash-attention kernels of ``ops.attention``.
 """
 from .base import MXNetError  # noqa: F401
 

@@ -12,9 +12,11 @@ from typing import Any, Dict
 import numpy as onp
 import torch
 
+from .base import MXNetError
 from .context import resolve_device
 
-__all__ = ["decode_params_from_numpy"]
+__all__ = ["decode_params_from_numpy", "load_collected_params",
+           "collected_params_to_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -34,3 +36,32 @@ def decode_params_from_numpy(tree: Dict[str, Any], device=None) -> dict:
             "layers": [{k: _tensor(v, dev) for k, v in lp.items()}
                        for lp in tree["layers"]],
             "lnf": _tensor(tree["lnf"], dev)}
+
+
+def load_collected_params(net, arrays: Dict[str, Any], device=None) -> None:
+    """Load the reference net's ``collect_params()`` (hierarchical name →
+    array) into the port's ``net`` by name, on ``device`` (default
+    ``cuda``).  The two name sets must be equal, and each array's shape
+    must match the parameter's declared shape (a dim still unknown to a
+    deferred parameter is filled in)."""
+    dev = resolve_device(device)
+    params = net.collect_params()
+    missing = sorted(set(params) - set(arrays))
+    extra = sorted(set(arrays) - set(params))
+    if missing or extra:
+        raise MXNetError(f"parameter names differ: missing {missing}, "
+                         f"extra {extra}")
+    for name, p in params.items():
+        a = onp.asarray(arrays[name])
+        want = p.shape or ()
+        if len(want) != a.ndim or any(w > 0 and w != s
+                                      for w, s in zip(want, a.shape)):
+            raise MXNetError(f"{name}: shape {a.shape} does not match "
+                             f"{tuple(want)}")
+        p.set_data(_tensor(a, dev))
+
+
+def collected_params_to_numpy(net) -> Dict[str, onp.ndarray]:
+    """The port's parameters by hierarchical name, as numpy arrays."""
+    return {name: p.data().detach().float().cpu().numpy()
+            for name, p in net.collect_params().items()}

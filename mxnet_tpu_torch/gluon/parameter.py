@@ -1,0 +1,178 @@
+"""Gluon Parameter (counterpart of ``mxnet_tpu/gluon/parameter.py``).
+
+A ``Parameter`` describes one weight of a Block — shape (possibly with
+unknown dims, filled in by the first forward: deferred init), type,
+initializer, ``grad_req`` and lr/wd multipliers — and holds its value as
+a ``torch.nn.Parameter`` once initialized.  Gradients come from
+``torch.autograd``.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Optional
+
+import torch
+
+from .. import initializer as init_mod
+from ..base import MXNetError
+from ..context import resolve_device
+
+__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
+           "torch_dtype"]
+
+
+class DeferredInitializationError(MXNetError):
+    """Parameter accessed before its shape is known."""
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """``"float32"``/``"bfloat16"``/a ``torch.dtype`` → ``torch.dtype``."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    t = getattr(torch, str(dtype), None)
+    if not isinstance(t, torch.dtype):
+        raise MXNetError(f"unknown dtype {dtype!r}")
+    return t
+
+
+def _shape_known(shape) -> bool:
+    return shape is not None and all(s > 0 for s in shape)
+
+
+class Parameter:
+    """A weight, bias or state tensor of a Block.  ``grad_req`` is
+    ``'write'`` or ``'null'``; deferred init completes on the first
+    forward that sees the missing dims."""
+
+    def __init__(self, name: str = "weight", grad_req: str = "write",
+                 shape=None, dtype="float32", lr_mult: float = 1.0,
+                 wd_mult: float = 1.0, init=None, allow_deferred_init=False):
+        if grad_req not in ("write", "null"):
+            raise MXNetError(f"grad_req {grad_req!r}: the port takes "
+                             f"'write' or 'null'")
+        self._name = name
+        self._shape = tuple(shape) if shape is not None else None
+        self.dtype = torch_dtype(dtype)
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
+        self.init = init
+        self.allow_deferred_init = allow_deferred_init
+        self.grad_req = grad_req
+        self._data: Optional[torch.nn.Parameter] = None
+        # (initializer, device, generator) kept until the shape is known
+        self._deferred_init = None
+        # a stand-in tensor that data() returns while set (the trainer's
+        # low-precision copy inside a step)
+        self._override: Optional[torch.Tensor] = None
+
+    @property
+    def name(self) -> str:
+        return self._name
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        if self._shape is None:
+            self._shape = tuple(new_shape)
+            return
+        if len(self._shape) != len(new_shape):
+            raise MXNetError(f"shape rank mismatch for {self.name}: "
+                             f"{self._shape} vs {tuple(new_shape)}")
+        merged = []
+        for s0, s1 in zip(self._shape, new_shape):
+            if s0 <= 0:
+                merged.append(s1)
+            elif s1 <= 0 or s0 == s1:
+                merged.append(s0)
+            else:
+                raise MXNetError(f"incompatible shape for {self.name}: "
+                                 f"{self._shape} vs {tuple(new_shape)}")
+        self._shape = tuple(merged)
+
+    def __repr__(self):
+        return f"Parameter {self.name} (shape={self.shape}, " \
+               f"dtype={self.dtype})"
+
+    # -- init --------------------------------------------------------------
+    def initialize(self, init=None, device=None, default_init=None,
+                   force_reinit=False, generator=None):
+        """Draw the value now, or once the shape is known.  ``device``
+        defaults to ``cuda`` (``"cpu"`` on request); ``generator`` is the
+        host ``torch.Generator`` values are drawn from (a fresh one
+        seeded with 0 when left out)."""
+        if self._data is not None and not force_reinit:
+            return
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        eff = self.init if init is None else init
+        eff = eff or default_init or init_mod.Uniform()
+        if not _shape_known(self.shape):
+            if not self.allow_deferred_init:
+                raise MXNetError(f"cannot initialize {self.name}: shape "
+                                 f"{self.shape} unknown and deferred init "
+                                 f"not allowed")
+            self._deferred_init = (eff, dev, generator)
+            return
+        self._finish_init(eff, dev, generator)
+
+    def _finish_init(self, initializer, device, generator):
+        initializer = init_mod.create(initializer)
+        value = initializer.init_array(self.name, self.shape, self.dtype,
+                                       generator)
+        self._set(value.to(device))
+        self._deferred_init = None
+
+    def _finish_deferred_init(self, inferred_shape=None):
+        if inferred_shape is not None:
+            self.shape = inferred_shape
+        if self._deferred_init is None:
+            raise DeferredInitializationError(
+                f"parameter {self.name} was not initialized — call "
+                f"net.initialize() first")
+        self._finish_init(*self._deferred_init)
+
+    def _set(self, value: torch.Tensor):
+        self._data = torch.nn.Parameter(
+            value.detach().clone(), requires_grad=self.grad_req != "null")
+
+    # -- access ------------------------------------------------------------
+    def _check_initialized(self):
+        if self._data is not None:
+            return
+        if self._deferred_init is not None:
+            raise DeferredInitializationError(
+                f"parameter {self.name} deferred (shape {self.shape}): run "
+                f"a forward pass first")
+        raise MXNetError(f"parameter {self.name} has not been "
+                         f"initialized; call net.initialize()")
+
+    def data(self) -> torch.Tensor:
+        if self._override is not None:
+            return self._override
+        self._check_initialized()
+        return self._data
+
+    def set_data(self, data):
+        """Replace the value: the shape must agree with the declared one
+        (unknown dims are filled in); the value is cast to the
+        parameter's type and, when already initialized, copied in place
+        on the parameter's device."""
+        data = torch.as_tensor(data)
+        self.shape = tuple(data.shape)
+        if self._data is None:
+            self._set(data.to(self.dtype))
+            self._deferred_init = None
+            return
+        if tuple(data.shape) != tuple(self._data.shape):
+            raise MXNetError(f"set_data: shape {tuple(data.shape)} != "
+                             f"{tuple(self._data.shape)} of {self.name}")
+        with torch.no_grad():
+            self._data.copy_(data.to(self._data.device, self._data.dtype))
+
+
+class ParameterDict(OrderedDict):
+    """Hierarchical name → Parameter, in registration order."""

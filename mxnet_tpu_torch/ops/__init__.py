@@ -1,5 +1,9 @@
-"""Operators of the port that carry a hand-written kernel.  Importing a
-module registers its :class:`~mxnet_tpu_torch.kernels.KernelSpec`."""
-from . import paged_attention, rope  # noqa: F401
+"""Operators of the port.  ``attention``, ``paged_attention`` and
+``rope`` carry hand-written kernels; importing one registers its
+:class:`~mxnet_tpu_torch.kernels.KernelSpec`.  ``nn``, ``tensor`` and
+``optimizer_ops`` are plain PyTorch."""
+from . import attention, paged_attention, rope  # noqa: F401
+from . import nn, optimizer_ops, tensor  # noqa: F401
 
-__all__ = ["paged_attention", "rope"]
+__all__ = ["attention", "paged_attention", "rope", "nn", "optimizer_ops",
+           "tensor"]

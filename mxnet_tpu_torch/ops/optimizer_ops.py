@@ -1,0 +1,51 @@
+"""Optimizer update ops (counterpart of the part of
+``mxnet_tpu/ops/optimizer_ops.py`` the training path calls).  Each is a
+pure function returning the new ``(weight, *state)``; the caller writes
+them back.  ``<op>_multi`` applies the same arithmetic to lists of
+tensors with PyTorch's multi-tensor (``_foreach``) ops: one launch per
+step of the formula for all parameters, instead of one per parameter,
+which is what keeps a trainer's update from being bound by the host."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["adam_update", "adam_update_multi"]
+
+
+def _apply_wd_rescale(grad, weight, rescale_grad, clip_gradient, wd):
+    g = grad * rescale_grad
+    if clip_gradient is not None and clip_gradient >= 0:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    return g + wd * weight
+
+
+def adam_update(weight, grad, mean, var, *, lr, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """One Adam step exactly as the reference op writes it: no bias
+    correction here (callers that want it fold it into ``lr``)."""
+    g = _apply_wd_rescale(grad, weight, rescale_grad, clip_gradient, wd)
+    m = beta1 * mean + (1 - beta1) * g
+    v = beta2 * var + (1 - beta2) * torch.square(g)
+    return weight - lr * m / (torch.sqrt(v) + epsilon), m, v
+
+
+def adam_update_multi(weights, grads, means, variances, *, lrs, wds,
+                      beta1=0.9, beta2=0.999, epsilon=1e-8,
+                      rescale_grad=1.0, clip_gradient=-1.0):
+    """:func:`adam_update` over lists of tensors (``lrs`` and ``wds`` one
+    per tensor), element by element the same operations in the same
+    order; returns the lists ``(weights, means, variances)``."""
+    g = torch._foreach_mul(grads, rescale_grad)
+    if clip_gradient is not None and clip_gradient >= 0:
+        g = torch._foreach_clamp_max(
+            torch._foreach_clamp_min(g, -clip_gradient), clip_gradient)
+    g = torch._foreach_add(g, torch._foreach_mul(weights, wds))
+    m = torch._foreach_add(torch._foreach_mul(means, beta1),
+                           torch._foreach_mul(g, 1 - beta1))
+    v = torch._foreach_add(torch._foreach_mul(variances, beta2),
+                           torch._foreach_mul(torch._foreach_mul(g, g),
+                                              1 - beta2))
+    step = torch._foreach_div(torch._foreach_mul(m, lrs),
+                              torch._foreach_add(torch._foreach_sqrt(v),
+                                                 epsilon))
+    return torch._foreach_sub(weights, step), m, v

@@ -1,5 +1,6 @@
 """Span flight recorder (the part of ``mxnet_tpu/tracing.py`` that
-decode serving calls): ``begin``/``end`` for spans that cross threads,
+decode serving and training call): ``begin``/``end`` for spans that
+cross threads, ``span`` for a ``with`` block,
 ``record_span`` for intervals measured out of band, ``instant`` for
 markers.  Completed spans land as Chrome-trace ``"X"`` events in a
 bounded ring (``MXNET_TRACE_BUFFER``, default 4096).
@@ -20,8 +21,8 @@ from typing import Any, Dict, List, Optional
 
 from . import telemetry
 
-__all__ = ["begin", "end", "record_span", "instant", "enabled", "enable",
-           "disable", "recent"]
+__all__ = ["begin", "end", "span", "record_span", "instant", "enabled",
+           "enable", "disable", "recent"]
 
 _LOCK = threading.Lock()
 _PID = os.getpid()
@@ -88,6 +89,37 @@ def end(sp, **attrs) -> None:
     sp.attrs.update(attrs)
     _store(sp.name, sp.t0, time.perf_counter(), sp.tid,
            dict(sp.attrs, span_id=sp.span_id))
+
+
+class _SpanScope:
+    """``with span(...) as sp:`` — ``sp.annotate(**attrs)`` adds to the
+    span's attributes before it ends."""
+
+    __slots__ = ("_sp",)
+
+    def __init__(self, sp):
+        self._sp = sp
+
+    def __enter__(self):
+        return self
+
+    def annotate(self, **attrs):
+        if self._sp is not _NULL:
+            self._sp.attrs.update(attrs)
+
+    def __exit__(self, *exc):
+        end(self._sp)
+        return False
+
+
+_NULL_SCOPE = _SpanScope(_NULL)
+
+
+def span(name: str, **attrs) -> _SpanScope:
+    """A span around a ``with`` block on this thread."""
+    if not enabled():
+        return _NULL_SCOPE
+    return _SpanScope(Span(name, attrs))
 
 
 def record_span(name: str, t_start: float, t_end: float, **attrs) -> None:

@@ -64,3 +64,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                      head_dim=8, max_slots=1)
     m = DecodeModel(48, dim=32, n_heads=4, n_layers=2, device="cpu")
     assert m.params["embed"].device.type == "cpu"
+
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import TransformerLM
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    net = TransformerLM(48, units=32, num_layers=1, num_heads=4, max_len=16)
+    with pytest.raises(MXNetError, match="device='cpu'"):
+        net.initialize()
+    net.initialize(device="cpu")
+    net(torch.zeros((1, 4), dtype=torch.int32))
+    assert net.embed.weight.data().device.type == "cpu"
+    with pytest.raises(MXNetError, match="device='cpu'"):
+        SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam")
+    tr = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam",
+                     device="cpu")
+    assert tr.device.type == "cpu"
