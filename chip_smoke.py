@@ -6,16 +6,22 @@
 Phases, each printing one JSON line; any failure raises, so the script
 exits non-zero and prints no result:
 
-1. build   — nvcc-build the paged_attention and flash_attention
-             libraries from mxnet_tpu_torch/csrc/ and compile the Triton
-             rope kernel (all at once) into build/torch_kernels/.
+1. build   — nvcc-build the paged_attention, flash_attention and
+             layernorm_residual libraries from mxnet_tpu_torch/csrc/,
+             compile the Triton rope kernel and the rtc module's cubin
+             (all at once) into build/torch_kernels/, and time the rtc
+             compile cold and from its on-disk cache.
 2. parity  — each kernel against its plain PyTorch version on the card:
              rope and paged attention at the decode-serving shapes (fp32
              atol/rtol 1e-4, bf16 2e-2); flash attention K1 (out, LSE)
              and K2/K3 (dk, dv / dq) at the training shape (BH 64, S 2048,
              D 64, causal) in bf16 (2e-2) and fp32 (1e-4 forward, 1e-3
              gradients), plus ragged 100x180 non-causal, 257 causal and
-             head dim 128, on both compiled tiles.
+             head dim 128, on both compiled tiles; layer_norm_residual (K6)
+             at the nd path's shape (16384 rows x F 512) in fp32 (1e-5),
+             bf16 and f16 (2e-2) on every rows-per-block config, mixed
+             x/residual dtypes, F 100 (scalar loads), F 4096 (a block per
+             row) and 37 rows (a part-filled block).
 3. serve   — the decode-serving path at the full width of the repo's
              transformer LM (vocab 32000, dim 512, 8 heads, 8 layers,
              2048-position slots): DecodeModel → DecodeEngine →
@@ -43,12 +49,31 @@ exits non-zero and prints no result:
              kernels at the training shape with
              scaled_dot_product_attention's forward / backward as the
              library yardstick.
-8. profile — torch.profiler over one decode step and one prefill chunk
+8. nd_path — the imperative NDArray path at the transformer row's
+             activation width: x and residual (8, 2048, 512) with gamma
+             and beta (512,) from numpy via mx.nd.array on gpu(0), all
+             attach_grad'd; under autograd.record() y =
+             mx.nd.layer_norm_residual(x, r, g, b), loss = (y*y).mean(),
+             loss.backward(), 20 times in bf16 and 20 in fp32.  K6 must
+             launch once per forward and its plain version never; y and
+             the four gradients agree with autograd of the plain version.
+             Host ms per step beside the same step on tensors through the
+             kernel's autograd.Function (the funnel's overhead).
+9. rtc     — mx.rtc.CudaModule compiles axpy (CUDA C) and launches it on
+             (8, 2048, 512) fp32 NDArrays: bitwise 2*x + y; a grid-stride
+             copy with an explicit grid smaller than n/256 gives the same
+             bits, and a kernel that writes gridDim shows the grid is
+             honoured; a source that does not compile raises MXNetError at
+             its first launch, and CPU NDArrays raise.
+10. times_nd — K6 (bf16 and fp32) and rtc axpy against their bounds,
+             plain versions and library calls (F.layer_norm(x + r), two
+             calls; torch.add(y, x, alpha=2)).
+11. profile — torch.profiler over one decode step and one prefill chunk
              at the serve shapes, and over one training step: host ms,
              device busy ms, idle share and the kernels by device
              time.
 
-The line before the last is ``{"kernels": [...]}``; the last is
+The line before the last is ``{"kernels": [...]}`` (K1-K7); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -75,9 +100,48 @@ SPEC_K = 4
 BATCH, SEQ, LR = 8, 2048, 3e-4
 TRAIN_BH = BATCH * HEADS
 DEV = "cuda"
+LNR_ROWS, EPS = BATCH * SEQ, 1e-5   # K6 on the (8, 2048, 512) activations
+ND_STEPS = 20
 NO_LIBRARY = ("no single PyTorch call computes it: scaled_dot_product_"
               "attention needs the pages gathered into a dense tensor "
               "first, and torch has no rotary-embedding operator")
+
+
+# runtime kernels of the rtc phase: the reference's docstring axpy in CUDA
+# C, a grid-stride copy of it for an explicit grid, and one that records
+# the grid it was launched with
+RTC_SOURCE = r'''
+extern "C" __global__ void axpy(const float* x, const float* y,
+                                float* out, long long n) {
+    long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+    if (i < n) out[i] = 2.0f * x[i] + y[i];
+}
+extern "C" __global__ void axpy_strided(const float* x, const float* y,
+                                        float* out, long long n) {
+    long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+         i < n; i += step)
+        out[i] = 2.0f * x[i] + y[i];
+}
+'''
+GRID_SOURCE = r'''
+extern "C" __global__ void grid_dims(float* out, long long n) {
+    if (blockIdx.x + blockIdx.y + blockIdx.z + threadIdx.x == 0 && n >= 3) {
+        out[0] = gridDim.x; out[1] = gridDim.y; out[2] = gridDim.z;
+    }
+}
+'''
+BROKEN_SOURCE = r'''
+extern "C" __global__ void broken(const float* x, float* out, long long n) {
+    out[0] = x[0] + not_declared_anywhere;
+}
+'''
+
+
+def axpy_oracle(x, y):
+    """What the rtc axpy must give, bit for bit: 2*x is exact, so both
+    round once."""
+    return 2 * x + y
 
 
 def emit(obj):
@@ -86,7 +150,7 @@ def emit(obj):
 
 def max_err(got, ref, atol, rtol):
     import torch
-    got, ref = got.float(), ref.float()
+    got, ref = got.detach().float(), ref.detach().float()
     err = (got - ref).abs()
     bad = err > atol + rtol * ref.abs()
     if bool(bad.any()):
@@ -95,7 +159,21 @@ def max_err(got, ref, atol, rtol):
     return float(err.max())
 
 
-def phase_build(torch, rope_mod, pa_mod, fa_mod):
+def rtc_first_launch(torch):
+    """Compile (or load from the on-disk cubin cache) RTC_SOURCE in a new
+    module and launch its axpy once on 256 floats; returns (seconds,
+    nvcc seconds).  The launch is not on the main path: phase_rtc
+    zeroes the counts before it drives its own."""
+    import mxnet_tpu_torch as mx
+    s = time.perf_counter()
+    mod = mx.rtc.CudaModule(RTC_SOURCE)
+    x = mx.nd.ones((256,), ctx=mx.gpu(0))
+    mod.get_kernel("axpy", num_inputs=2).launch([x, x], out_shape=x.shape)
+    torch.cuda.synchronize()
+    return time.perf_counter() - s, mod.compile_seconds
+
+
+def phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -108,13 +186,21 @@ def phase_build(torch, rope_mod, pa_mod, fa_mod):
         out = fn()
         return out, time.perf_counter() - s
 
-    with ThreadPoolExecutor(3) as ex:     # one nvcc per source, at once
+    with ThreadPoolExecutor(5) as ex:     # one nvcc per source, at once
         pa = ex.submit(timed, pa_mod.build)
         fa = ex.submit(timed, fa_mod.build)
+        ln = ex.submit(timed, lnr_mod.build)
         rp = ex.submit(timed, rope_mod.build)
+        rc = ex.submit(rtc_first_launch, torch)
         (log, nvcc_s), pa_s = pa.result()
         (fa_log, fa_nvcc_s), fa_s = fa.result()
+        (ln_log, ln_nvcc_s), ln_s = ln.result()
         _, rope_s = rp.result()
+        rtc_cold_s, rtc_nvcc_s = rc.result()
+    rtc_cached_s, rtc_cached_nvcc_s = rtc_first_launch(torch)
+    if rtc_cached_nvcc_s != 0.0:
+        raise AssertionError("the second rtc module did not find the "
+                             "cubin on disk")
 
     def ptxas(text):
         return [ln.strip() for ln in text.splitlines()
@@ -126,9 +212,26 @@ def phase_build(torch, rope_mod, pa_mod, fa_mod):
           "paged_attention_s": round(pa_s, 3),
           "flash_attention_nvcc_s": round(fa_nvcc_s, 3),
           "flash_attention_s": round(fa_s, 3),
-          "rope_triton_s": round(rope_s, 3), "ptxas": ptxas(log),
-          "flash_ptxas": ptxas(fa_log)})
+          "layernorm_residual_nvcc_s": round(ln_nvcc_s, 3),
+          "layernorm_residual_s": round(ln_s, 3),
+          "rope_triton_s": round(rope_s, 3),
+          "rtc_cold_s": round(rtc_cold_s, 3),
+          "rtc_cold_nvcc_s": round(rtc_nvcc_s, 3),
+          "rtc_cached_s": round(rtc_cached_s, 3),
+          "ptxas": ptxas(log), "flash_ptxas": ptxas(fa_log),
+          "layernorm_residual_ptxas": ptxas_summary(ln_log)})
     return smi
+
+
+def ptxas_summary(text):
+    """Instantiations compiled, most registers used, and every line that
+    reports a spill, of one -Xptxas -v log (K6 compiles 63 of them)."""
+    import re
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+    spills = [ln.strip() for ln in text.splitlines()
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    return {"kernels": text.count("Compiling entry"),
+            "max_registers": max(regs, default=None), "spills": spills}
 
 
 def rope_case(torch, r, dtype, seed):
@@ -194,6 +297,49 @@ def phase_parity(torch, rope_mod, pa_mod):
             errs["paged_attention"] = e
     emit(out)
     return errs
+
+
+def lnr_case(torch, rows, f, x_dtype, r_dtype, seed):
+    """x, residual (rows, F) in their dtypes and f32 gamma, beta, on the
+    card from a numpy seed."""
+    rng = onp.random.RandomState(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=torch.float32).to(DEV, dtype)
+
+    return (t(rng.randn(rows, f), x_dtype), t(rng.randn(rows, f), r_dtype),
+            t(rng.rand(f) + 0.5), t(rng.randn(f) * 0.1))
+
+
+def phase_lnr_parity(torch, lnr_mod):
+    """K6 against its plain version: the nd path's shape on every
+    rows-per-block config, mixed dtypes, F 100 (scalar loads), F 4096
+    (a block per row), and 37 rows (the last block part-filled)."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    tol = {f32: 1e-5, bf16: 2e-2, f16: 2e-2}
+    cases = [(LNR_ROWS, DIM, x, x, rpb) for x in (f32, bf16, f16)
+             for rpb in lnr_mod._ROWS_PER_BLOCK]
+    cases += [(LNR_ROWS, DIM, f32, bf16, 8), (LNR_ROWS, DIM, bf16, f32, 8),
+              (1000, 100, f32, f32, 8), (1000, 100, bf16, bf16, 4),
+              (256, 4096, f32, f32, 8), (256, 4096, bf16, f16, 8),
+              (37, DIM, f32, f32, 8), (37, DIM, bf16, bf16, 16)]
+    rows, err = [], None
+    for n, f, xd, rd, rpb in cases:
+        x, r, g, b = lnr_case(torch, n, f, xd, rd, seed=n + f)
+        got = lnr_mod._lnr_cuda(x, r, g, b, EPS, rpb)
+        torch.cuda.synchronize()
+        ref = lnr_mod.layer_norm_residual_reference(x, r, g, b, EPS)
+        if got.dtype != xd or got.shape != x.shape:
+            raise AssertionError(f"K6 gave {got.dtype} {tuple(got.shape)}")
+        e = max_err(got, ref, tol[xd], tol[xd])
+        rows.append({"rows": n, "f": f, "x": str(xd), "residual": str(rd),
+                     "rows_per_block": rpb, "max_abs_err": e})
+        if (n, f, xd, rd) == (LNR_ROWS, DIM, bf16, bf16):
+            err = e if err is None else max(err, e)
+    emit({"phase": "parity_layer_norm_residual",
+          "tolerance": {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2},
+          "cases": rows})
+    return {"layer_norm_residual": err}
 
 
 def flash_case(torch, bh, sq, sk, d, dtype, seed):
@@ -376,6 +522,213 @@ def phase_train_check(torch):
           "tolerance": {"loss_rtol": 1e-5, "grad_err_over_max": 1e-3}})
     del dense, grads_f, grads_d
     torch.cuda.empty_cache()
+
+
+def nd_step(mx, arrays):
+    """One recorded forward and backward of the nd path; returns y."""
+    with mx.autograd.record():
+        y = mx.nd.layer_norm_residual(*arrays)
+        loss = (y * y).mean()
+    loss.backward()
+    return y
+
+
+def phase_nd_path(torch, lnr_mod):
+    """The imperative NDArray path at full width: mx.nd.array on gpu(0),
+    attach_grad, record, layer_norm_residual (K6), (y*y).mean(),
+    backward; in bf16 and fp32."""
+    import mxnet_tpu_torch as mx
+    rng = onp.random.RandomState(31)
+    shape = (BATCH, SEQ, DIM)
+    host = [rng.randn(*shape).astype(onp.float32),
+            rng.randn(*shape).astype(onp.float32),
+            (rng.rand(DIM) + 0.5).astype(onp.float32),
+            (rng.randn(DIM) * 0.1).astype(onp.float32)]
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        arrays = [mx.nd.array(h, ctx=mx.gpu(0), dtype=dtype) for h in host]
+        for a in arrays:
+            a.attach_grad()
+        nd_step(mx, arrays)                  # warm: config resolve, caches
+        runs[dtype] = arrays
+    mx.nd.waitall()
+    fn = lnr_mod.layer_norm_residual
+    reset_counts(fn)
+    host_ms, outs = {}, {}
+    for dtype, arrays in runs.items():      # the main path, counted
+        t0 = time.perf_counter()
+        for _ in range(ND_STEPS):
+            outs[dtype] = nd_step(mx, arrays)
+        mx.nd.waitall()
+        host_ms[dtype] = (time.perf_counter() - t0) * 1e3 / ND_STEPS
+    counts = {"launches": fn.launches, "plain_calls": fn.plain_calls}
+    if counts != {"launches": 2 * ND_STEPS, "plain_calls": 0}:
+        raise AssertionError(f"the nd path did not run K6 once per forward "
+                             f"({2 * ND_STEPS} forwards): {counts}")
+    out = {"phase": "nd_path", "shape": list(shape), "steps": ND_STEPS,
+           "counts": counts, "dtypes": {}}
+    for dtype, arrays in runs.items():
+        # the reference: autograd of the plain version, the same loss
+        ts = [a._data.detach().clone().requires_grad_() for a in arrays]
+        ref_y = lnr_mod.layer_norm_residual_reference(*ts, EPS)
+        ref_grads = torch.autograd.grad((ref_y * ref_y).mean(), ts)
+        tol, gtol = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 2e-2)
+        y = outs[dtype]
+        errs = {"y": max_err(y._data, ref_y, tol, tol)}
+        for name, a, rg in zip(("x", "residual", "gamma", "beta"), arrays,
+                               ref_grads):
+            g, rg = a.grad._data.float(), rg.float()
+            scale = float(rg.abs().max())
+            err = float((g - rg).abs().max())
+            if not bool(torch.isfinite(g).all()) or err > gtol * scale:
+                raise AssertionError(f"{dtype} d{name}: max |err| {err} "
+                                     f"beyond {gtol} x {scale}")
+            errs[f"d{name}_over_max"] = err / max(scale, 1e-30)
+        # the same step on tensors, straight through the kernel's
+        # autograd.Function: what the registry funnel and NDArray add
+        rpb = lnr_mod._kernels.resolve(
+            "layer_norm_residual",
+            *lnr_mod._lnr_signature(*ts))["rows_per_block"]
+
+        def direct():
+            yy = lnr_mod._LayerNormResidual.apply(*ts, EPS, rpb)
+            torch.autograd.grad((yy * yy).mean(), ts)
+
+        direct()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ND_STEPS):
+            direct()
+        torch.cuda.synchronize()
+        direct_ms = (time.perf_counter() - t0) * 1e3 / ND_STEPS
+        out["dtypes"][dtype] = {
+            "host_ms_per_step": host_ms[dtype],
+            "direct_autograd_function_ms": direct_ms,
+            "funnel_overhead_ms": host_ms[dtype] - direct_ms,
+            "errors": errs, "tolerance": tol,
+            "grad_tolerance_over_max": gtol}
+    emit(out)
+    del runs, outs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_rtc(torch):
+    """mx.rtc on the card: axpy bitwise, an explicit grid honoured, a
+    compile error at first launch, CPU arrays refused."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import MXNetError
+    rng = onp.random.RandomState(41)
+    shape = (BATCH, SEQ, DIM)
+    x, y = (mx.nd.array(rng.randn(*shape).astype(onp.float32),
+                        ctx=mx.gpu(0)) for _ in range(2))
+    mod = mx.rtc.CudaModule(RTC_SOURCE)
+    axpy = mod.get_kernel("axpy", num_inputs=2)
+    strided = mod.get_kernel("axpy_strided", num_inputs=2)
+    grid_k = mx.rtc.CudaModule(GRID_SOURCE).get_kernel("grid_dims",
+                                                       num_inputs=0)
+    small_grid = 4 * 132                      # < n / 256 = 32768 blocks
+    mx.rtc.launches = 0
+    out = axpy.launch([x, y], out_shape=x.shape, out_dtype=x.dtype)
+    out2 = strided.launch([x, y], out_shape=x.shape, out_dtype="float32",
+                          grid=small_grid)
+    dims = grid_k.launch([], out_shape=(3,), grid=(5, 3, 2))
+    mx.nd.waitall()
+    counts = {"launches": mx.rtc.launches, "axpy": axpy.launches,
+              "axpy_strided": strided.launches, "grid_dims": grid_k.launches}
+    if counts != {"launches": 3, "axpy": 1, "axpy_strided": 1,
+                  "grid_dims": 1}:
+        raise AssertionError(f"rtc launch counts {counts}")
+    oracle = axpy_oracle(x._data, y._data)
+    if not (torch.equal(out._data, oracle) and torch.equal(out2._data,
+                                                           oracle)):
+        raise AssertionError("rtc axpy differs from 2*x + y")
+    if dims.asnumpy().tolist() != [5.0, 3.0, 2.0]:
+        raise AssertionError(f"grid (5, 3, 2) launched as {dims.asnumpy()}")
+    broken = mx.rtc.CudaModule(BROKEN_SOURCE).get_kernel("broken")
+    try:
+        broken.launch([x], out_shape=(1,))
+    except MXNetError as e:
+        compile_error = [ln for ln in str(e).splitlines() if "error" in ln]
+    else:
+        raise AssertionError("a source that does not compile launched")
+    cpu = mx.nd.ones((4,), ctx=mx.cpu())
+    try:
+        axpy.launch([cpu, cpu], out_shape=(4,))
+    except MXNetError as e:
+        cpu_error = str(e)
+    else:
+        raise AssertionError("rtc launched on CPU NDArrays")
+    emit({"phase": "rtc", "shape": list(shape), "counts": counts,
+          "axpy_bitwise": True, "strided_grid": small_grid,
+          "grid_dims": dims.asnumpy().tolist(),
+          "compile_error": compile_error, "cpu_error": cpu_error})
+    return mod, counts
+
+
+def nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs, smi):
+    """K6 and rtc axpy at the nd path's shape: cold-L2 ms, plain ms,
+    bound and one library call."""
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mx
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x, r, g, b = lnr_case(torch, LNR_ROWS, DIM, dtype, dtype, seed=51)
+        gl, bl = g.to(dtype), b.to(dtype)
+        size = torch.finfo(dtype).bits // 8
+        rows.append({
+            "dtype": str(dtype),
+            "ms": device_ms(torch, lambda: lnr_mod.layer_norm_residual(
+                x, r, g, b)),
+            "plain_ms": device_ms(torch, lambda: lnr_mod.
+                                  layer_norm_residual_reference(x, r, g, b)),
+            "library_ms": device_ms(torch, lambda: F.layer_norm(
+                x + r, (DIM,), gl, bl, EPS)),
+            "bytes": 3 * LNR_ROWS * DIM * size + 2 * DIM * 4,
+            "ops": 10 * LNR_ROWS * DIM})
+    xs, ys = (mx.nd.array(a, ctx=mx.gpu(0)) for a in onp.random.RandomState(
+        61).randn(2, BATCH, SEQ, DIM).astype(onp.float32))
+    axpy = rtc_mod.get_kernel("axpy", num_inputs=2)
+    n = xs.size
+    rtc_row = {
+        "ms": device_ms(torch, lambda: axpy.launch([xs, ys],
+                                                    out_shape=xs.shape)),
+        "plain_ms": device_ms(torch, lambda: axpy_oracle(xs._data,
+                                                         ys._data)),
+        "library_ms": device_ms(torch, lambda: torch.add(
+            ys._data, xs._data, alpha=2)),
+        "bytes": 3 * n * 4, "ops": 2 * n}
+    kernels = []
+    for name, route, src, repl, row, launches in (
+            ("layer_norm_residual", "cuda",
+             "mxnet_tpu_torch/csrc/layernorm_residual.cu",
+             "mxnet_tpu/ops/layernorm_residual.py:43", rows[0],
+             nd_counts["launches"]),
+            ("rtc_axpy", "cuda", "mxnet_tpu_torch/rtc.py",
+             "mxnet_tpu/rtc.py:40", rtc_row, rtc_counts["axpy"])):
+        t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = row["ops"] / FP32_FLOPS * 1e3
+        kernels.append({
+            "name": name, "route": route, "source": src, "replaces": repl,
+            "launches": launches, "max_abs_err": errs[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": row["library_ms"]})
+    for row in rows:
+        row["bound_ms"] = max(row["bytes"] / HBM_BYTES_PER_S,
+                              row["ops"] / FP32_FLOPS) * 1e3
+    emit({"phase": "times_nd", "gpu": smi,
+          "layer_norm_residual": {"rows": LNR_ROWS, "f": DIM,
+                                  "by_dtype": rows},
+          "rtc_axpy": dict(rtc_row, n=n),
+          "library": "F.layer_norm(x + r, (F,), gamma, beta): two calls "
+                     "for layer_norm_residual; torch.add(y, x, alpha=2) "
+                     "for rtc_axpy",
+          "kernels": [{k: r[k] for k in ("name", "ms", "plain_ms",
+                                         "bound_ms", "library_ms")}
+                      for r in kernels]})
+    return kernels
 
 
 class StepRecords:
@@ -743,20 +1096,27 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mxnet_tpu_torch.ops import attention as fa_mod
+    from mxnet_tpu_torch.ops import layernorm_residual as lnr_mod
     from mxnet_tpu_torch.ops import paged_attention as pa_mod
     from mxnet_tpu_torch.ops import rope as rope_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_build(torch, rope_mod, pa_mod, fa_mod)
+    smi = phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod)
     errs = phase_parity(torch, rope_mod, pa_mod)
+    errs.update(phase_lnr_parity(torch, lnr_mod))
     errs.update(phase_flash_parity(torch, fa_mod))
     model, eng, prompts, outs, counts = phase_serve(torch, rope_mod, pa_mod)
     phase_spec(torch, pa_mod, model, prompts, outs)
     trainer, data, label, train_counts = phase_train(torch, fa_mod)
     phase_train_check(torch)
+    nd_counts = phase_nd_path(torch, lnr_mod)
+    rtc_mod, rtc_counts = phase_rtc(torch)
+    errs["rtc_axpy"] = 0.0                     # bitwise, checked in phase_rtc
     kernels = phase_times(torch, rope_mod, pa_mod, eng, prompts, counts,
                           errs, smi)
     kernels += flash_times(torch, fa_mod, train_counts, errs, smi)
+    kernels += nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs,
+                        smi)
     phase_profile(torch, eng, prompts)
     phase_profile_train(torch, trainer, data, label)
     emit({"kernels": kernels})

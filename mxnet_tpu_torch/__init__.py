@@ -11,8 +11,23 @@ and is the oracle the kernel is held against.
 Ported so far: decode serving (``serving.decode``) with its two kernels,
 ``ops.paged_attention`` and ``ops.rope``; transformer-LM training
 (``gluon``, ``initializer``, ``optimizer``, ``parallel.SPMDTrainer``)
-with the three flash-attention kernels of ``ops.attention``.
+with the three flash-attention kernels of ``ops.attention``; and the
+imperative NDArray path — ``nd`` (``NDArray`` over a ``torch.Tensor``,
+generated from the op registry ``ops.registry``), ``autograd``
+(``record``/``backward``/``grad``/``Function``), ``Context`` — with the
+fused ``ops.layernorm_residual`` kernel (``mx.nd.layer_norm_residual``)
+and ``rtc``, which compiles and launches users' CUDA C kernels::
+
+    import mxnet_tpu_torch as mx
+    x = mx.nd.array(data, ctx=mx.gpu(0))
 """
 from .base import MXNetError  # noqa: F401
+from .context import (Context, cpu, gpu, current_context,  # noqa: F401
+                      num_gpus)
+from . import autograd, ops, rtc  # noqa: F401
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from .ndarray import NDArray  # noqa: F401
 
-__all__ = ["MXNetError"]
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray"]

@@ -7,6 +7,12 @@ version of the same function.  The plain version is the oracle the
 kernel is held against and the path CPU tensors take; it is never taken
 for a CUDA tensor — a CUDA call launches the kernel or raises.
 
+Registered kernels (each by importing its module under ``ops/``):
+``flash_attention`` (K1–K3, ``ops/attention.py``), ``paged_attention``
+(K4), ``rope`` (K5) and ``layer_norm_residual`` (K6,
+``ops/layernorm_residual.py``).  The runtime kernels of ``rtc.py`` (K7)
+are users' own and are not registered, as in the reference.
+
 Config lookup order: in-process memo → on-disk cache
 (``MXNET_KERNEL_CACHE_DIR``, ticks ``kernel.cache_hits``) → the
 autotuner when ``MXNET_KERNEL_TUNE=1`` and measurement inputs are at
