@@ -10,14 +10,18 @@ exits non-zero and prints no result:
              layernorm_residual libraries from mxnet_tpu_torch/csrc/,
              compile the Triton rope kernel and the rtc module's cubin
              (all at once) into build/torch_kernels/, and time the rtc
-             compile cold and from its on-disk cache.
+             compile cold and from its on-disk cache.  Every bf16 K2 / K3
+             instantiation must hold bf16 mma (HMMA in cuobjdump's SASS)
+             and spill nothing (ptxas); their registers are printed.
 2. parity  — each kernel against its plain PyTorch version on the card:
              rope and paged attention at the decode-serving shapes (fp32
              atol/rtol 1e-4, bf16 2e-2); flash attention K1 (out, LSE)
              and K2/K3 (dk, dv / dq) at the training shape (BH 64, S 2048,
              D 64, causal) in bf16 (2e-2) and fp32 (1e-4 forward, 1e-3
              gradients), plus ragged 100x180 non-causal, 257 causal and
-             head dim 128, on both compiled tiles; layer_norm_residual (K6)
+             head dim 128, on both compiled tiles; in bf16, K2 / K3 also
+             within one rounding of the plain f32 values (2**-8 |ref| +
+             1e-6 max|ref|) on every case; layer_norm_residual (K6)
              at the nd path's shape (16384 rows x F 512) in fp32 (1e-5),
              bf16 and f16 (2e-2) on every rows-per-block config, mixed
              x/residual dtypes, F 100 (scalar loads), F 4096 (a block per
@@ -39,7 +43,7 @@ exits non-zero and prints no result:
              SPMDTrainer, one warm step, 5 timed ``step`` calls and one
              ``run_steps(..., 4)`` on a fixed batch.  Losses must be
              finite and fall; the flash kernels must launch 8 times per
-             step each and no plain version may run.
+             step each and no plain version may run; prints the tile.
 6. train_check — fp32, TF32 off, one forward and backward of the same
              weights with use_flash=True and use_flash=False (the dense
              attention_reference): the loss and every gradient agree.
@@ -48,7 +52,8 @@ exits non-zero and prints no result:
              rope and paged attention at the serve shapes, the flash
              kernels at the training shape with
              scaled_dot_product_attention's forward / backward as the
-             library yardstick.
+             library yardstick; flash bounds count bf16 tensor-core
+             passes (K2 8, K3 5), the old f32-FMA bound printed beside.
 8. nd_path — the imperative NDArray path at the transformer row's
              activation width: x and residual (8, 2048, 512) with gamma
              and beta (512,) from numpy via mx.nd.array on gpu(0), all
@@ -206,6 +211,21 @@ def phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod):
         return [ln.strip() for ln in text.splitlines()
                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
 
+    # the bf16 K2 / K3: registers and spills (ptxas), bf16 mma in the SASS
+    so = fa_mod._library()._name
+    bwd = {}
+    for marker in ("fa_bwd_dkdv_mma_kernel", "fa_bwd_dq_mma_kernel"):
+        found = sass_mma_counts(so, marker)
+        for key, regs in kernel_ptxas(fa_log, marker).items():
+            found.setdefault(key, {}).update(regs)
+        bwd.update(found)
+    bad = {key: r for key, r in bwd.items()
+           if r.get("spill_bytes") or not r.get("hmma_bf16")}
+    if len(bwd) != 8 or bad:
+        raise AssertionError(f"bf16 K2 / K3 instantiations (tiles 32, 64 x "
+                             f"head dims 64, 128) must hold bf16 mma and "
+                             f"spill nothing: {bwd}")
+
     emit({"phase": "build", "gpu": smi,
           "seconds": round(time.perf_counter() - t0, 3),
           "paged_attention_nvcc_s": round(nvcc_s, 3),
@@ -219,8 +239,60 @@ def phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod):
           "rtc_cold_nvcc_s": round(rtc_nvcc_s, 3),
           "rtc_cached_s": round(rtc_cached_s, 3),
           "ptxas": ptxas(log), "flash_ptxas": ptxas(fa_log),
+          "flash_bwd_bf16_kernels": bwd,
           "layernorm_residual_ptxas": ptxas_summary(ln_log)})
     return smi
+
+
+def _instantiation(marker, mangled):
+    """``marker_<TILE>x<D>`` from a mangled ``marker<TILE, D>`` name."""
+    import re
+    return marker + "_" + "x".join(re.findall(r"Li(\d+)E", mangled)[:2])
+
+
+def kernel_ptxas(text, marker):
+    """Registers and spill bytes of each instantiation of the kernel
+    ``marker`` in one -Xptxas -v log (empty when the build was found on
+    disk and nvcc did not run)."""
+    import re
+    out, key = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            key = (_instantiation(marker, m.group(1))
+                   if marker in m.group(1) else None)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if key and m:
+            out.setdefault(key, {})["spill_bytes"] = (int(m.group(1))
+                                                      + int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if key and m:
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
+def sass_mma_counts(so_path, marker):
+    """HMMA instructions (all, and bf16 ones) in each instantiation of
+    the kernel ``marker``, from cuobjdump -sass of the built library."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, check=True).stdout
+    out, key = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            key = (_instantiation(marker, m.group(1))
+                   if marker in m.group(1) else None)
+            if key:
+                out[key] = {"hmma": 0, "hmma_bf16": 0}
+        elif key and "HMMA" in ln:
+            out[key]["hmma"] += 1
+            out[key]["hmma_bf16"] += "BF16" in ln
+    return out
 
 
 def ptxas_summary(text):
@@ -353,9 +425,26 @@ def flash_case(torch, bh, sq, sk, d, dtype, seed):
     return t(bh, sq, d), t(bh, sk, d), t(bh, sk, d), t(bh, sq, d)
 
 
+def bf16_rounding_check(name, got, ref32):
+    """|got - ref32| <= 2**-8 |ref32| + 1e-6 max|ref32|: a bf16 result
+    must be the plain version's f32 value rounded once (half an ulp, at
+    most 2**-8 of the value), give or take f32 sums taken in another
+    order.  Returns the worst |err| / bound."""
+    got = got.float()
+    bound = 2.0 ** -8 * ref32.abs() + 1e-6 * float(ref32.abs().max())
+    worst = float(((got - ref32).abs() / bound).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: bf16 result beyond one rounding of "
+                             f"the plain f32 value, worst |err| / bound "
+                             f"{worst}")
+    return worst
+
+
 def flash_check(torch, fa_mod, case, causal, tile, tol_fwd, tol_grad):
     """K1 against the plain forward, and K2 / K3 against the plain
-    backward on the plain forward's residuals; max |err| of each."""
+    backward on the plain forward's residuals; max |err| of each.  In
+    bf16, K2 / K3 also against the plain f32 values before rounding
+    (``bf16_rounding_check``)."""
     q, k, v, do = case
     scale = 1.0 / q.shape[-1] ** 0.5
     out, lse = fa_mod.flash_fwd(q, k, v, causal=causal, tile=tile)
@@ -374,6 +463,12 @@ def flash_check(torch, fa_mod, case, causal, tile, tol_fwd, tol_grad):
     rdq = fa_mod._dq_reference(q, k, v, do, ref_lse, delta, causal, scale)
     for name, got, ref in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
         errs[name] = max_err(got, ref, tol_grad, tol_grad)
+    if q.dtype == torch.bfloat16:
+        f32 = fa_mod._dkdv_f32(q, k, v, do, ref_lse, delta, causal, scale)
+        f32 += (fa_mod._dq_f32(q, k, v, do, ref_lse, delta, causal, scale),)
+        errs["rounding_err_over_bound"] = {
+            name: bf16_rounding_check(name, got, ref) for name, got, ref in
+            zip(("dk", "dv", "dq"), (dk, dv, dq), f32)}
     return errs
 
 
@@ -381,7 +476,7 @@ def phase_flash_parity(torch, fa_mod):
     """Flash attention K1 / K2 / K3 against their plain versions."""
     rows, errs = [], {}
     tols = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-3)}
-    cases = [((TRAIN_BH, SEQ, SEQ, HEAD_DIM), True, (64,)),
+    cases = [((TRAIN_BH, SEQ, SEQ, HEAD_DIM), True, (32, 64)),
              ((6, 100, 180, 64), False, (32, 64)),
              ((6, 257, 257, 64), True, (32, 64)),
              ((4, 300, 300, 128), True, (32, 64))]
@@ -393,15 +488,18 @@ def phase_flash_parity(torch, fa_mod):
                 rows.append({"bh_sq_sk_d": shape, "causal": causal,
                              "dtype": str(dtype), "tile": tile,
                              "max_abs_err": e})
-                if shape[1] == SEQ and dtype == torch.bfloat16:
+                if shape[1] == SEQ and dtype == torch.bfloat16 \
+                        and tile == 64:
                     errs = {"flash_fwd": max(e["out"], e["lse"]),
                             "flash_bwd_dkdv": max(e["dk"], e["dv"]),
                             "flash_bwd_dq": e["dq"]}
             del case
     torch.cuda.empty_cache()
-    emit({"phase": "parity_flash", "tolerance": {"bf16": 2e-2,
-                                                 "fp32_forward": 1e-4,
-                                                 "fp32_grads": 1e-3},
+    emit({"phase": "parity_flash",
+          "tolerance": {"bf16": 2e-2, "fp32_forward": 1e-4,
+                        "fp32_grads": 1e-3,
+                        "bf16_grads_vs_plain_f32":
+                            "2**-8 |ref| + 1e-6 max|ref|"},
           "cases": rows})
     return errs
 
@@ -466,6 +564,11 @@ def phase_train(torch, fa_mod):
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
     med = sorted(step_ms)[len(step_ms) // 2]
+    flat = torch.empty((TRAIN_BH, SEQ, HEAD_DIM), dtype=torch.bfloat16,
+                       device="meta")
+    tile = fa_mod._kernels.resolve(                  # the step's own lookup
+        "flash_attention", *fa_mod._flash_signature(flat, flat, flat,
+                                                    causal=True))["tile"]
     emit({"phase": "train",
           "model": {"vocab": VOCAB, "units": DIM, "layers": LAYERS,
                     "heads": HEADS, "max_len": SEQ, "tied": True,
@@ -477,7 +580,8 @@ def phase_train(torch, fa_mod):
           "tokens_per_s": BATCH * SEQ / (med / 1e3),
           "tokens_per_s_run_steps": 4 * BATCH * SEQ / (window_ms / 1e3),
           "max_memory_allocated_bytes": peak,
-          "counts": counts, "launches_per_step": LAYERS})
+          "counts": counts, "launches_per_step": LAYERS,
+          "flash_tile": tile})
     return trainer, data, label, counts
 
 
@@ -972,47 +1076,59 @@ def flash_times(torch, fa_mod, train_counts, errs, smi):
         *as4, is_causal=True))
     lib_bwd = device_ms(torch, lambda: torch.autograd.grad(
         lib_out, as4, do4, retain_graph=True))
+    # products counted in bf16 tensor-core passes (an f32 operand takes
+    # three: hi + mid + lo), and as the f32-FMA kernels counted them (s in
+    # bf16, the rest in f32), kept beside for the history
     specs = [
         ("flash_fwd", "mxnet_tpu/ops/attention.py:84",
          lambda: fa_mod.flash_fwd(q, k, v, causal=True),
          lambda: fa_mod.flash_forward_reference(q, k, v, True, scale),
-         4 * mat + vec, 2 * prod, 0, lib_fwd),
+         4 * mat + vec, 2, None, lib_fwd),
         ("flash_bwd_dkdv", "mxnet_tpu/ops/attention.py:255",
          lambda: fa_mod.flash_bwd_dkdv(q, k, v, do, lse, delta,
                                        causal=True),
          lambda: fa_mod._dkdv_reference(q, k, v, do, lse, delta, True,
                                         scale),
-         6 * mat + 2 * vec, prod, 3 * prod, lib_bwd),
+         6 * mat + 2 * vec, 8, 3, lib_bwd),
         ("flash_bwd_dq", "mxnet_tpu/ops/attention.py:307",
          lambda: fa_mod.flash_bwd_dq(q, k, v, do, lse, delta, causal=True),
          lambda: fa_mod._dq_reference(q, k, v, do, lse, delta, True, scale),
-         5 * mat + 2 * vec, prod, 2 * prod, lib_bwd)]
+         5 * mat + 2 * vec, 5, 2, lib_bwd)]
     kernels = []
-    for name, repl, kern, plain, nbytes, ops16, ops32, lib in specs:
+    for name, repl, kern, plain, nbytes, passes16, fma32, lib in specs:
         ms = device_ms(torch, kern)
         plain_ms = device_ms(torch, plain, runs=10)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = (ops16 / BF16_FLOPS + ops32 / FP32_FLOPS) * 1e3
-        kernels.append({
+        t_ops = passes16 * prod / BF16_FLOPS * 1e3
+        row = {
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
             "replaces": repl, "launches": train_counts[name]["launches"],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib})
+            "library_ms": lib}
+        if fma32 is not None:
+            row["bound_ms_f32_fma"] = max(t_bytes, (
+                prod / BF16_FLOPS + fma32 * prod / FP32_FLOPS) * 1e3)
+        kernels.append(row)
     emit({"phase": "times_flash", "gpu": smi,
           "shape": {"bh": TRAIN_BH, "seq": SEQ, "head_dim": HEAD_DIM,
-                    "causal": True, "dtype": "bfloat16"},
+                    "causal": True, "dtype": "bfloat16", "tile": 64},
+          "bf16_passes": {"flash_fwd": 2, "flash_bwd_dkdv": 8,
+                          "flash_bwd_dq": 5},
           "launches_per_step": {k["name"]: LAYERS for k in kernels},
           "bound_rates": {"bf16_products_tflops": BF16_FLOPS / 1e12,
                           "f32_products_tflops": FP32_FLOPS / 1e12,
                           "bytes_tb_s": HBM_BYTES_PER_S / 1e12},
           "library": "scaled_dot_product_attention(is_causal=True): "
                      "forward for flash_fwd, its backward (dq, dk, dv "
-                     "together) for flash_bwd_dkdv and flash_bwd_dq",
+                     "together) for flash_bwd_dkdv and flash_bwd_dq; that "
+                     "backward rounds P and dS to bf16 (one pass), not "
+                     "the reference's f32 products",
           "kernels": [{key: r[key] for key in ("name", "ms", "plain_ms",
-                                               "bound_ms", "library_ms")}
+                                               "bound_ms", "bound_ms_f32_fma",
+                                               "library_ms") if key in r}
                       for r in kernels]})
     del as4, lib_out
     torch.cuda.empty_cache()

@@ -20,42 +20,66 @@
 //   delta = rowsum(dO∘O) comes in from the caller.
 //
 // What bounds them on an H100: operations.  At the training shape (BH 64,
-// S 2048, D 64, causal) K1 does ~3.4e10 flops against ~67 MB of operands
-// and K2 + K3 about 3.5x that, so every kernel sits far above the card's
-// bytes-to-flops balance point; the operands are re-read from L2 by
-// every tile that needs them.
+// S 2048, D 64, causal) one (S x S x D) product is F = 17.2 GFLOP; the
+// operands are O(S·D) bytes per head, re-read from L2 by every tile.
+// In bf16 every product runs on the tensor cores, counted in bf16
+// passes: K1 2F, K2 8F (s 1, dP 1, dV 3, dK 3), K3 5F (s 1, dP 1, dQ 3),
+// all far above the card's bytes-to-flops balance point.
+//
+// Why three passes.  In bf16, s = q·kᵀ and dP = dO·Vᵀ multiply bf16
+// values, whose products are exact in f32: one bf16 mma with f32
+// accumulation forms the reference's products.  dV, dK and dQ multiply
+// an f32 operand (P or dS) by a bf16 one.  Any f32 x is exactly
+// hi + mid + lo with hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// mid) (24 significant bits; each rounding to nearest leaves a remainder
+// of at most 8 bits plus its sign), so three bf16 passes accumulated in
+// f32 form the reference's f32 products.  Two passes keep 16 bits and
+// one 8, which is what a bf16 backward that rounds P and dS does: not
+// the reference's numerics.  f32 inputs are not bf16-exact, so f32 runs
+// every product on the FMA units.
 //
 // Design (simple kernels that are right; TMA, wgmma and warp
 // specialisation are later work):
-//   * K1 in bf16 runs its two products on the tensor cores with
-//     mma.sync.m16n8k16 (bf16 operands, f32 accumulators: the
-//     reference's "input type, f32 accumulation"): one warp per 16 q rows
-//     keeps its Q fragments, scores, m / l and O in registers; the score
-//     accumulators are re-packed in place as the A operand of P·V (p
-//     rounded to bf16 there, summed into l in f32), and V's B fragments
-//     come from its row-major tile through ldmatrix.trans.  Tiles arrive
-//     in 16-byte loads into rows padded by 16 bytes, which keeps the
-//     fragment reads free of bank conflicts.  K1 in
-//     fp32, and K2 / K3 (whose dP, dS and gradient products the
-//     reference forms in f32), run on the f32 FMA units as below.
+//   * bf16: warp-level mma.sync.m16n8k16 (bf16 operands, f32
+//     accumulators), one warp per 16 rows of the block's own tile, which
+//     keeps those rows' A fragments and its f32 accumulators in
+//     registers.  Tiles sit in shared-memory rows padded by 16 bytes,
+//     which keeps fragment reads free of bank conflicts; a row-major
+//     tile on the k side of a product is read through ldmatrix.trans.
+//     - K1: Q fragments; s = Q·Kᵀ, an online softmax, and the score
+//       accumulators re-packed in place as the A operand of P·V (p
+//       rounded to bf16 there, summed into l in f32).
+//     - K2: one block per (bh, k tile); K and V fragments (from shared
+//       memory at D 128, where registers would spill).  16 queries at a
+//       time: sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ in one pass each, Pᵀ and dSᵀ in
+//       f32 in the accumulators, re-packed as A fragments split into
+//       hi / mid / lo, then dV += Pᵀ·dO and dK += dSᵀ·Q in three passes.
+//     - K3: one block per (bh, q tile); Q and dO fragments.  16 keys at
+//       a time: s = Q·Kᵀ and dP = dO·Vᵀ in one pass, P and dS in f32,
+//       dQ += dS·K in three passes.
+//     - K2 and K3 double-buffer the streamed tiles (Q, dO, lse and delta
+//       in K2; K and V in K3) with cp.async 16-byte copies: the next
+//       tile is in flight while the current one's products run.
+//   * f32: the FMA units.  256 threads as a 16 x 16 grid, each computing
+//     a (TILE/16) x (TILE/16) sub-tile of the score tile (rows ty + 16i,
+//     columns tx + 16j) from shared memory and owning the same rows of
+//     the output tile (columns tx + 16c); a row's reductions run over
+//     the 16 lanes of a half-warp with shuffles.  Tiles are staged as
+//     f32 with rows padded to D + 1 floats, so neither the broadcast row
+//     reads nor the strided column reads conflict on a bank.
 //   * The TPU carried acc / m / l (or the dK, dV, dQ sums) in scratch
 //     across its sequential innermost grid axis.  Blocks on a GPU run in
 //     no order, so each block owns one output tile and loops inside
 //     itself: K1 and K3 one block per (bh, q tile) over the k tiles up to
-//     the diagonal when causal, K2 one block per (bh, k tile) over the q
-//     tiles from the diagonal down.  The split into K2 and K3 keeps the
-//     backward free of atomics and deterministic.
-//   * Square TILE x TILE tiles (TILE 32 or 64).  The f32-FMA kernels run
-//     256 threads as a 16 x 16 grid, each computing a (TILE/16) x (TILE/16) sub-tile of the score
-//     tile (rows ty + 16i, columns tx + 16j) with f32 FMAs from shared
-//     memory, and owning the same rows of the output tile (columns
-//     tx + 16c).  A row's reductions run over the 16 lanes of a
-//     half-warp with shuffles.  Tiles are staged in shared memory as f32
-//     with rows padded to D + 1 floats, so neither the broadcast row reads
-//     nor the strided column reads conflict on a bank.
-//   * Ragged edges are masked here, not padded by the caller: rows past
-//     seq_q / seq_k load as zeros, their scores are masked and their
-//     outputs are not stored.
+//     the diagonal when causal (the longest rows launched first), K2 one
+//     block per (bh, k tile) over the q tiles from the diagonal down.
+//     The split into K2 and K3 keeps the backward free of atomics and
+//     deterministic.
+//   * Square TILE x TILE tiles (TILE 32 or 64).  Ragged edges are masked
+//     here, not padded by the caller: rows past seq_q / seq_k load as
+//     zeros, their scores are masked and their outputs are not stored.
+//     The bf16 backward applies the causal mask on the diagonal tile
+//     and the bounds on the last tile only.
 //   * -1e30, not -inf, seeds m, as in the reference: exp(-inf - -inf) is
 //     NaN.
 //   * Head dims 64 and 128 are instantiated; anything else is refused.
@@ -70,26 +94,16 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float v, float* p) { *p = v; }
-__device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
-  *p = __float2bfloat16(v);
-}
-
-// TILE rows of a (rows_total, D) matrix from row0 into shared memory as
-// f32 with row stride D + 1; rows past rows_total read as zeros.
-template <int TILE, int D, typename T>
+// TILE rows of a (rows_total, D) f32 matrix from row0 into shared memory
+// with row stride D + 1; rows past rows_total read as zeros.
+template <int TILE, int D>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int row0, int rows_total) {
   for (int idx = threadIdx.x; idx < TILE * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int g = row0 + r;
-    dst[r * (D + 1) + c] =
-        g < rows_total ? to_f32(src[(size_t)g * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = g < rows_total ? src[(size_t)g * D + c] : 0.f;
   }
 }
 
@@ -115,7 +129,7 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// Shared-memory footprint (bytes) of each kernel.
+// Shared-memory footprint (bytes) of each f32 kernel.
 template <int TILE, int D> constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * TILE * (D + 1) + TILE * (TILE + 16));
 }
@@ -227,18 +241,18 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float li = l[i] == 0.f ? 1.f : l[i];
     float* orow = out + qoff + (size_t)qpos * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store(acc[i][c] / li, orow + tx + 16 * c);
+    for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = acc[i][c] / li;
     if (tx == 0) lse[(size_t)bh * seq_q + qpos] = m[i] + logf(li);
   }
 }
 
-// ---------------------------------------------------------------- K3 ----
-template <int TILE, int D, typename T>
+// ----------------------------------------------------------- K3, f32 ----
+template <int TILE, int D>
 __global__ void __launch_bounds__(kThreads)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+fa_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq,
+                 const float* __restrict__ delta, float* __restrict__ dq,
                  int seq_q, int seq_k, int causal, float scale) {
   constexpr int LD = D + 1, PLD = TILE + 16, R = TILE / 16, DC = D / 16;
   extern __shared__ float smem[];
@@ -329,22 +343,23 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < R; ++i) {
     const int qpos = q0 + ty + 16 * i;
     if (qpos >= seq_q) continue;
-    T* row = dq + qoff + (size_t)qpos * D;
+    float* row = dq + qoff + (size_t)qpos * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) store(acc[i][c], row + tx + 16 * c);
+    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = acc[i][c];
   }
 }
 
-// ---------------------------------------------------------------- K2 ----
+// ----------------------------------------------------------- K2, f32 ----
 // Scores are formed transposed (rows = keys, columns = queries) so that a
 // thread's score rows are the dK / dV rows it owns.
-template <int TILE, int D, typename T>
+template <int TILE, int D>
 __global__ void __launch_bounds__(kThreads)
-fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
+fa_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int seq_q, int seq_k, int causal,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int seq_q, int seq_k, int causal,
                    float scale) {
   constexpr int LD = D + 1, PLD = TILE + 16, R = TILE / 16, DC = D / 16;
   extern __shared__ float smem[];
@@ -446,12 +461,12 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < R; ++i) {
     const int kpos = k0 + ty + 16 * i;
     if (kpos >= seq_k) continue;
-    T* krow = dk + koff + (size_t)kpos * D;
-    T* vrow = dv + koff + (size_t)kpos * D;
+    float* krow = dk + koff + (size_t)kpos * D;
+    float* vrow = dv + koff + (size_t)kpos * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      store(gk[i][c], krow + tx + 16 * c);
-      store(gv[i][c], vrow + tx + 16 * c);
+      krow[tx + 16 * c] = gk[i][c];
+      vrow[tx + 16 * c] = gv[i][c];
     }
   }
 }
@@ -618,6 +633,437 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ------------------------------------------------- K2 / K3, bf16 ----
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// Four 8x8 b16 matrices: lanes 8i .. 8i + 7 give the row addresses of the
+// i-th, and register i receives it (row g, columns 2t, 2t + 1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(ptr)));
+}
+
+// The same, each matrix transposed (rows 2t, 2t + 1 of column g).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(ptr)));
+}
+
+// Asynchronous global -> shared copies of 16 (cp.async.cg) or 4 bytes;
+// zeros land in shared memory when !ok (src-size 0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one committed group (the newest) is in flight.
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two f32 values (columns 2t, 2t + 1 of an A fragment register) as three
+// bf16 pairs with x == hi + mid + lo exactly (see the head comment).
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;        // exact
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bits(h);
+  mid = bits(m);
+  lo = bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
+}
+
+// c += (hi + mid + lo)·b, the small terms first.
+__device__ __forceinline__ void mma_bf16x3(float* c, const uint32_t* hi,
+                                           const uint32_t* mid,
+                                           const uint32_t* lo, uint32_t b0,
+                                           uint32_t b1) {
+  mma_bf16(c, lo, b0, b1);
+  mma_bf16(c, mid, b0, b1);
+  mma_bf16(c, hi, b0, b1);
+}
+
+// ROWS rows of a (rows_total, D) bf16 matrix from row0 into shared-memory
+// rows of D + 8 elements, in 16-byte cp.async copies by THREADS threads;
+// rows past rows_total land as zeros.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void copy_tile_async(bf16* dst,
+                                                const bf16* __restrict__ src,
+                                                int row0, int rows_total) {
+  constexpr int CH = D / 8, LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < ROWS * CH / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int r = i / CH, c = i % CH;
+    const bool ok = row0 + r < rows_total;
+    cp_async16(&dst[r * LD + c * 8],
+               src + (size_t)(ok ? row0 + r : 0) * D + c * 8, ok);
+  }
+}
+
+// The A fragment (16 rows from row0, k columns col0 .. col0 + 15) of a
+// row-major tile with row stride LD.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t* a, const bf16* tile,
+                                       int row0, int col0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(a, &tile[(row0 + (lane & 15)) * LD + col0 + (lane >> 4) * 8]);
+}
+
+// B fragments of two k steps (registers 0, 1: k columns col0 .. col0 + 15;
+// 2, 3: the next 16) for the 8 n rows from row0 of a row-major (n, k)
+// tile: Q for sᵀ = K·Qᵀ, K for s = Q·Kᵀ.
+template <int LD>
+__device__ __forceinline__ void load_b_nk(uint32_t* b, const bf16* tile,
+                                          int row0, int col0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(b, &tile[(row0 + (lane & 7)) * LD + col0 + (lane >> 3) * 8]);
+}
+
+// B fragments of two n tiles (registers 0, 1: n columns col0 .. col0 + 7;
+// 2, 3: the next 8) for the 16 k rows from row0 of a row-major (k, n)
+// tile: dO and Q for dV and dK, K for dQ.
+template <int LD>
+__device__ __forceinline__ void load_b_kn(uint32_t* b, const bf16* tile,
+                                          int row0, int col0) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4_trans(
+      b, &tile[(row0 + (lane & 15)) * LD + col0 + (lane >> 4) * 8]);
+}
+
+template <int TILE, int D> constexpr size_t dkdv_mma_smem() {
+  return sizeof(bf16) * 6 * TILE * (D + 8) + sizeof(float) * 4 * TILE;
+}
+template <int TILE, int D> constexpr size_t dq_mma_smem() {
+  return sizeof(bf16) * 6 * TILE * (D + 8);
+}
+
+// K2 in bf16.  Warp w owns keys k0 + 16w .. + 15 (A rows g, g + 8 of its
+// fragments) and their dK / dV rows in f32 accumulators.
+template <int TILE, int D>
+__global__ void __launch_bounds__(TILE * 2)
+fa_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int seq_q, int seq_k,
+                       int causal, float scale) {
+  constexpr int LD = D + 8, THREADS = TILE * 2;
+  constexpr int KS = D / 16, DT = D / 8, QC = TILE / 16;
+  constexpr bool KV_REGS = D <= 64;   // at D 128 they come from smem
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(bwd_smem);
+  bf16* Vs = Ks + TILE * LD;
+  bf16* Qs = Vs + TILE * LD;                    // two stages each
+  bf16* dOs = Qs + 2 * TILE * LD;
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * TILE * LD);
+  float* Ds = Ls + 2 * TILE;
+
+  const int k0 = blockIdx.x * TILE;     // low k tiles see the most queries
+  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kw = warp * 16;                     // the warp's rows in Ks
+  const size_t qoff = (size_t)bh * seq_q * D, koff = (size_t)bh * seq_k * D;
+  const float* lse_bh = lse + (size_t)bh * seq_q;
+  const float* delta_bh = delta + (size_t)bh * seq_q;
+
+  auto fetch = [&](int q0, int stage) {         // one q tile, one group
+    copy_tile_async<TILE, D, THREADS>(Qs + stage * TILE * LD, q + qoff, q0,
+                                      seq_q);
+    copy_tile_async<TILE, D, THREADS>(dOs + stage * TILE * LD, dout + qoff,
+                                      q0, seq_q);
+    const int i = threadIdx.x % TILE;     // lse by the first TILE threads,
+    const bool ok = q0 + i < seq_q;       // delta by the others
+    const bool first = threadIdx.x < TILE;
+    cp_async4((first ? Ls : Ds) + stage * TILE + i,
+              (first ? lse_bh : delta_bh) + (ok ? q0 + i : 0), ok);
+    cp_async_commit();
+  };
+
+  float gk[DT][4], gv[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[dt][e] = gv[dt][e] = 0.f;
+  uint32_t ka[KV_REGS ? KS : 1][4], va[KV_REGS ? KS : 1][4];
+
+  // causal: q tiles wholly above this k tile's first key see none of it
+  const int q_begin = causal ? k0 : 0;
+  if (q_begin < seq_q) {                // K and V ride in the first group
+    copy_tile_async<TILE, D, THREADS>(Ks, k + koff, k0, seq_k);
+    copy_tile_async<TILE, D, THREADS>(Vs, v + koff, k0, seq_k);
+    fetch(q_begin, 0);
+  }
+  int stage = 0;
+  for (int q0 = q_begin; q0 < seq_q; q0 += TILE, stage ^= 1) {
+    if (q0 + TILE < seq_q) fetch(q0 + TILE, stage ^ 1);
+    else cp_async_commit();                     // an empty group
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    if constexpr (KV_REGS) {
+      if (q0 == q_begin) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          load_a<LD>(ka[ks], Ks, kw, ks * 16);
+          load_a<LD>(va[ks], Vs, kw, ks * 16);
+        }
+      }
+    }
+    const bf16* Qt = Qs + stage * TILE * LD;
+    const bf16* dOt = dOs + stage * TILE * LD;
+    const float* Lt = Ls + stage * TILE;
+    const float* Dt = Ds + stage * TILE;
+    const bool masked = (causal && q0 == k0) || q0 + TILE > seq_q ||
+                        k0 + TILE > seq_k;
+#pragma unroll 1          // unrolled, ptxas spills at D 128
+    for (int c = 0; c < QC; ++c) {             // queries c*16 .. c*16 + 15
+      float st[2][4], dpt[2][4];                // sᵀ, dPᵀ: keys x queries
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ks += 2) {
+        uint32_t kf[2][4], vf[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if constexpr (KV_REGS) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              kf[u][r] = ka[ks + u][r];
+              vf[u][r] = va[ks + u][r];
+            }
+          } else {
+            load_a<LD>(kf[u], Ks, kw, (ks + u) * 16);
+            load_a<LD>(vf[u], Vs, kw, (ks + u) * 16);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          uint32_t bq[4], bo[4];
+          load_b_nk<LD>(bq, Qt, c * 16 + nt * 8, ks * 16);
+          load_b_nk<LD>(bo, dOt, c * 16 + nt * 8, ks * 16);
+          mma_bf16(st[nt], kf[0], bq[0], bq[1]);
+          mma_bf16(st[nt], kf[1], bq[2], bq[3]);
+          mma_bf16(dpt[nt], vf[0], bo[0], bo[1]);
+          mma_bf16(dpt[nt], vf[1], bo[2], bo[3]);
+        }
+      }
+      // Pᵀ and dSᵀ in f32, re-packed in place as A fragments (rows: keys
+      // g, g + 8; k: queries 2t, 2t + 1 of register h + 2nt), split in 3
+      uint32_t ph[4], pm[4], pl[4], sh[4], sm[4], sl[4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kpos = k0 + kw + g + 8 * h;
+          float p2[2], ds2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qi = c * 16 + nt * 8 + 2 * t + e;
+            const int qpos = q0 + qi;
+            const bool ok = !masked || (qpos < seq_q && kpos < seq_k &&
+                                        (!causal || qpos >= kpos));
+            const float p =
+                ok ? expf(__fmul_rn(st[nt][2 * h + e], scale) - Lt[qi]) : 0.f;
+            p2[e] = p;
+            ds2[e] = p * (dpt[nt][2 * h + e] - Dt[qi]) * scale;
+          }
+          const int r = h + 2 * nt;
+          split3(p2[0], p2[1], ph[r], pm[r], pl[r]);
+          split3(ds2[0], ds2[1], sh[r], sm[r], sl[r]);
+        }
+#pragma unroll
+      for (int dt = 0; dt < DT; dt += 2) {
+        uint32_t bo[4], bq[4];
+        load_b_kn<LD>(bo, dOt, c * 16, dt * 8);
+        load_b_kn<LD>(bq, Qt, c * 16, dt * 8);
+        mma_bf16x3(gv[dt], ph, pm, pl, bo[0], bo[1]);
+        mma_bf16x3(gv[dt + 1], ph, pm, pl, bo[2], bo[3]);
+        mma_bf16x3(gk[dt], sh, sm, sl, bq[0], bq[1]);
+        mma_bf16x3(gk[dt + 1], sh, sm, sl, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();               // this stage is read before it refills
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kpos = k0 + kw + g + 8 * h;
+    if (kpos >= seq_k) continue;
+    uint32_t* krow =
+        reinterpret_cast<uint32_t*>(dk + koff + (size_t)kpos * D);
+    uint32_t* vrow =
+        reinterpret_cast<uint32_t*>(dv + koff + (size_t)kpos * D);
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      krow[(dt * 8 + 2 * t) / 2] =
+          pack_bf16(gk[dt][2 * h], gk[dt][2 * h + 1]);
+      vrow[(dt * 8 + 2 * t) / 2] =
+          pack_bf16(gv[dt][2 * h], gv[dt][2 * h + 1]);
+    }
+  }
+}
+
+// K3 in bf16.  Warp w owns queries q0 + 16w .. + 15, their Q and dO
+// fragments, lse and delta, and their dQ rows in f32 accumulators.
+template <int TILE, int D>
+__global__ void __launch_bounds__(TILE * 2)
+fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int seq_q, int seq_k, int causal, float scale) {
+  constexpr int LD = D + 8, THREADS = TILE * 2;
+  constexpr int KS = D / 16, DT = D / 8, KC = TILE / 16;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(bwd_smem);
+  bf16* dOs = Qs + TILE * LD;
+  bf16* Ks = dOs + TILE * LD;                   // two stages each
+  bf16* Vs = Ks + 2 * TILE * LD;
+
+  const int nq = (seq_q + TILE - 1) / TILE;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * TILE;   // longest rows first
+  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const size_t qoff = (size_t)bh * seq_q * D, koff = (size_t)bh * seq_k * D;
+
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = rows[h] < seq_q;
+    lr[h] = ok ? lse[(size_t)bh * seq_q + rows[h]] : 0.f;
+    dr[h] = ok ? delta[(size_t)bh * seq_q + rows[h]] : 0.f;
+  }
+
+  auto fetch = [&](int k0, int stage) {         // one k tile, one group
+    copy_tile_async<TILE, D, THREADS>(Ks + stage * TILE * LD, k + koff, k0,
+                                      seq_k);
+    copy_tile_async<TILE, D, THREADS>(Vs + stage * TILE * LD, v + koff, k0,
+                                      seq_k);
+    cp_async_commit();
+  };
+
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  uint32_t qa[KS][4], oa[KS][4];
+
+  // causal: k tiles wholly right of the tile's last row contribute nothing
+  const int k_end = causal ? min(seq_k, q0 + TILE) : seq_k;
+  copy_tile_async<TILE, D, THREADS>(Qs, q + qoff, q0, seq_q);
+  copy_tile_async<TILE, D, THREADS>(dOs, dout + qoff, q0, seq_q);
+  fetch(0, 0);                          // Q and dO ride in the first group
+  int stage = 0;
+  for (int k0 = 0; k0 < k_end; k0 += TILE, stage ^= 1) {
+    if (k0 + TILE < k_end) fetch(k0 + TILE, stage ^ 1);
+    else cp_async_commit();                     // an empty group
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    if (k0 == 0) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        load_a<LD>(qa[ks], Qs, warp * 16, ks * 16);
+        load_a<LD>(oa[ks], dOs, warp * 16, ks * 16);
+      }
+    }
+    const bf16* Kt = Ks + stage * TILE * LD;
+    const bf16* Vt = Vs + stage * TILE * LD;
+    const bool masked = (causal && k0 == q0) || k0 + TILE > seq_k ||
+                        q0 + TILE > seq_q;
+#pragma unroll 1          // unrolled, ptxas spills at D 128
+    for (int j = 0; j < KC; ++j) {             // keys j*16 .. j*16 + 15
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ks += 2)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          uint32_t bk[4], bv[4];
+          load_b_nk<LD>(bk, Kt, j * 16 + nt * 8, ks * 16);
+          load_b_nk<LD>(bv, Vt, j * 16 + nt * 8, ks * 16);
+          mma_bf16(s[nt], qa[ks], bk[0], bk[1]);
+          mma_bf16(s[nt], qa[ks + 1], bk[2], bk[3]);
+          mma_bf16(dp[nt], oa[ks], bv[0], bv[1]);
+          mma_bf16(dp[nt], oa[ks + 1], bv[2], bv[3]);
+        }
+      // dS in f32, re-packed in place as an A fragment (rows: queries g,
+      // g + 8; k: keys 2t, 2t + 1 of register h + 2nt), split in three
+      uint32_t sh[4], sm[4], sl[4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float ds2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = k0 + j * 16 + nt * 8 + 2 * t + e;
+            const bool ok = !masked || (rows[h] < seq_q && kpos < seq_k &&
+                                        (!causal || rows[h] >= kpos));
+            const float p =
+                ok ? expf(__fmul_rn(s[nt][2 * h + e], scale) - lr[h]) : 0.f;
+            ds2[e] = p * (dp[nt][2 * h + e] - dr[h]) * scale;
+          }
+          const int r = h + 2 * nt;
+          split3(ds2[0], ds2[1], sh[r], sm[r], sl[r]);
+        }
+#pragma unroll
+      for (int dt = 0; dt < DT; dt += 2) {
+        uint32_t bk[4];
+        load_b_kn<LD>(bk, Kt, j * 16, dt * 8);
+        mma_bf16x3(acc[dt], sh, sm, sl, bk[0], bk[1]);
+        mma_bf16x3(acc[dt + 1], sh, sm, sl, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();               // this stage is read before it refills
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= seq_q) continue;
+    uint32_t* row =
+        reinterpret_cast<uint32_t*>(dq + qoff + (size_t)rows[h] * D);
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      row[(dt * 8 + 2 * t) / 2] =
+          pack_bf16(acc[dt][2 * h], acc[dt][2 * h + 1]);
+  }
+}
+
 // ------------------------------------------------------------ launch ----
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
@@ -657,34 +1103,60 @@ cudaError_t launch_fwd(const Args& a) {
   return cudaGetLastError();
 }
 
+// The bf16 backward runs on the tensor cores, the f32 one on the FMA units.
 template <int TILE, int D, typename T>
 cudaError_t launch_dq(const Args& a) {
-  constexpr size_t smem = dq_smem<TILE, D>();
-  auto kernel = fa_bwd_dq_kernel<TILE, D, T>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_q + TILE - 1) / TILE, a.bh);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dq), a.seq_q, a.seq_k, a.causal, a.scale);
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr size_t smem = dq_mma_smem<TILE, D>();
+    auto kernel = fa_bwd_dq_mma_kernel<TILE, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, TILE * 2, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<T*>(a.dq), a.seq_q, a.seq_k, a.causal, a.scale);
+  } else {
+    constexpr size_t smem = dq_smem<TILE, D>();
+    auto kernel = fa_bwd_dq_kernel<TILE, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<T*>(a.dq), a.seq_q, a.seq_k, a.causal, a.scale);
+  }
   return cudaGetLastError();
 }
 
 template <int TILE, int D, typename T>
 cudaError_t launch_dkdv(const Args& a) {
-  constexpr size_t smem = dkdv_smem<TILE, D>();
-  auto kernel = fa_bwd_dkdv_kernel<TILE, D, T>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_k + TILE - 1) / TILE, a.bh);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.seq_q, a.seq_k,
-      a.causal, a.scale);
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr size_t smem = dkdv_mma_smem<TILE, D>();
+    auto kernel = fa_bwd_dkdv_mma_kernel<TILE, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, TILE * 2, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.seq_q, a.seq_k,
+        a.causal, a.scale);
+  } else {
+    constexpr size_t smem = dkdv_smem<TILE, D>();
+    auto kernel = fa_bwd_dkdv_kernel<TILE, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.seq_q, a.seq_k,
+        a.causal, a.scale);
+  }
   return cudaGetLastError();
 }
 

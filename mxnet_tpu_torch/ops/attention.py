@@ -12,9 +12,11 @@ through ``ctypes``.  The source's head comment gives the design; in
 short: one block per (bh, q tile) for K1 and K3, one per (bh, k tile)
 for K2, each looping inside itself over the other axis (up to or from
 the diagonal when causal) with f32 accumulators, masking ragged edges
-itself instead of padding.  K1's bf16 products run on the tensor cores
-(``mma.sync``); the f32 forward and the backward's f32 products on the
-FMA units.
+itself instead of padding.  In bf16 all three run their products on the
+tensor cores (``mma.sync``); K2 and K3 form their products with an f32
+operand (P or dS) as three bf16 passes, hi + mid + lo
+(:func:`split_bf16x3`), which keeps the reference's f32 products exact.
+In f32 they run on the FMA units.
 
 What bounds them on an H100: operations.  The score and probability
 tiles never leave the chip, so each kernel moves O(S·D) bytes per head
@@ -37,8 +39,8 @@ from ..base import MXNetError
 
 __all__ = ["flash_attention", "attention_reference", "flash_fwd",
            "flash_bwd_dkdv", "flash_bwd_dq", "flash_forward_reference",
-           "flash_backward_reference", "split_heads", "merge_heads",
-           "multi_head_attention", "build"]
+           "flash_backward_reference", "split_bf16x3", "split_heads",
+           "merge_heads", "multi_head_attention", "build"]
 
 _NEG_INF = -1e30            # finite -inf stand-in: keeps masked rows NaN-free
 _HEAD_DIMS = (64, 128)      # instantiated in csrc/flash_attention.cu
@@ -103,18 +105,43 @@ def _bwd_probs(q, k, v, do, lse, delta, causal, scale):
     return p, p * (dp - delta[..., None]) * scale
 
 
+def _dkdv_f32(q, k, v, do, lse, delta, causal, scale):
+    """K2's plain products in f32, before rounding: ``(dk, dv)``."""
+    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    return (torch.matmul(ds.transpose(-1, -2), q.float()),
+            torch.matmul(p.transpose(-1, -2), do.float()))
+
+
 def _dkdv_reference(q, k, v, do, lse, delta, causal, scale):
     """K2's plain version: ``(dk, dv)`` in k's / v's types."""
-    p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
-    dv = torch.matmul(p.transpose(-1, -2), do.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dk, dv = _dkdv_f32(q, k, v, do, lse, delta, causal, scale)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _dq_f32(q, k, v, do, lse, delta, causal, scale):
+    """K3's plain product in f32, before rounding."""
+    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    return torch.matmul(ds, k.float())
 
 
 def _dq_reference(q, k, v, do, lse, delta, causal, scale):
     """K3's plain version: ``dq`` in q's type."""
-    _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
-    return torch.matmul(ds, k.float()).to(q.dtype)
+    return _dq_f32(q, k, v, do, lse, delta, causal, scale).to(q.dtype)
+
+
+def split_bf16x3(t):
+    """An f32 tensor as three bf16 tensors with ``hi + mid + lo == t``
+    exactly: the operand split of the bf16 K2 / K3, which multiply P and
+    dS by a bf16 operand in three bf16 tensor-core passes accumulated in
+    f32.  An f32 has 24 significant bits and each rounding to nearest
+    leaves a remainder of at most 8 more (plus its sign), so three terms
+    hold them all and the three products sum to the f32 product.  Not on
+    any path: it documents the kernels' arithmetic for the tests."""
+    t = t.float()
+    hi = t.to(torch.bfloat16)
+    rest = t - hi.float()                 # exact: hi is t rounded
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
 
 
 def _delta(do, out):
@@ -330,11 +357,12 @@ def build(device="cuda"):
     Returns ``(nvcc output, build seconds)``."""
     from ..kernels.build import build_library
     _, log, seconds = build_library("flash_attention")
-    q = torch.zeros((1, 8, 64), device=device)
     lse = torch.zeros((1, 8), device=device)
-    _launch_fwd(q, q, q, True, 1.0, 64)
-    _launch_dkdv(q, q, q, q, lse, lse, True, 1.0, 64)
-    _launch_dq(q, q, q, q, lse, lse, True, 1.0, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 8, 64), dtype=dtype, device=device)
+        _launch_fwd(q, q, q, True, 1.0, 64)
+        _launch_dkdv(q, q, q, q, lse, lse, True, 1.0, 64)
+        _launch_dq(q, q, q, q, lse, lse, True, 1.0, 64)
     torch.cuda.synchronize(device)
     return log, seconds
 
