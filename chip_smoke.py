@@ -10,18 +10,23 @@ exits non-zero and prints no result:
              layernorm_residual libraries from mxnet_tpu_torch/csrc/,
              compile the Triton rope kernel and the rtc module's cubin
              (all at once) into build/torch_kernels/, and time the rtc
-             compile cold and from its on-disk cache.  Every bf16 K2 / K3
-             instantiation must hold bf16 mma (HMMA in cuobjdump's SASS)
-             and spill nothing (ptxas); their registers are printed.
+             compile cold and from its on-disk cache.  Both bf16 K1
+             instantiations (D 64, 128) must hold wgmma and TMA loads
+             (HGMMA, UTMALDG in cuobjdump's SASS), every bf16 K2 / K3
+             instantiation bf16 mma (HMMA); none may spill (ptxas); their
+             registers are printed.
 2. parity  — each kernel against its plain PyTorch version on the card:
              rope and paged attention at the decode-serving shapes (fp32
-             atol/rtol 1e-4, bf16 2e-2); flash attention K1 (out, LSE)
-             and K2/K3 (dk, dv / dq) at the training shape (BH 64, S 2048,
-             D 64, causal) in bf16 (2e-2) and fp32 (1e-4 forward, 1e-3
-             gradients), plus ragged 100x180 non-causal, 257 causal and
-             head dim 128, on both compiled tiles; in bf16, K2 / K3 also
-             within one rounding of the plain f32 values (2**-8 |ref| +
-             1e-6 max|ref|) on every case; layer_norm_residual (K6)
+             atol/rtol 1e-4, bf16 2e-2), paged attention also with
+             lengths 0, 1, P-1, P, P+1, 2048 for each partition P, each
+             case launched twice and bitwise equal; flash attention K1
+             (out, LSE) and K2/K3 (dk, dv / dq) at the training shape (BH
+             64, S 2048, D 64, causal) in bf16 (2e-2; LSE 1e-4, K1's out
+             also in bf16 ulps) and fp32 (1e-4 forward, 1e-3 gradients),
+             plus ragged 100x180 non-causal, 257 causal and head dim 128,
+             on both compiled tiles; in bf16, K2 / K3 also within one
+             rounding of the plain f32 values (2**-8 |ref| + 1e-6
+             max|ref|) on every case; layer_norm_residual (K6)
              at the nd path's shape (16384 rows x F 512) in fp32 (1e-5),
              bf16 and f16 (2e-2) on every rows-per-block config, mixed
              x/residual dtypes, F 100 (scalar loads), F 4096 (a block per
@@ -43,17 +48,22 @@ exits non-zero and prints no result:
              SPMDTrainer, one warm step, 5 timed ``step`` calls and one
              ``run_steps(..., 4)`` on a fixed batch.  Losses must be
              finite and fall; the flash kernels must launch 8 times per
-             step each and no plain version may run; prints the tile.
+             step each and no plain version may run; the first loss
+             within 0.01 of 10.375; prints the tile.
 6. train_check — fp32, TF32 off, one forward and backward of the same
              weights with use_flash=True and use_flash=False (the dense
              attention_reference): the loss and every gradient agree.
 7. times   — each kernel's median time (CUDA events, cold L2) beside its
              bound, its plain version's time and its launches per step;
-             rope and paged attention at the serve shapes, the flash
+             rope and paged attention at the serve shapes (with their
+             torch.profiler device times, the event time of an empty
+             kernel as the timer's floor, and paged attention under each
+             (partition, warps) config), the flash
              kernels at the training shape with
              scaled_dot_product_attention's forward / backward as the
              library yardstick; flash bounds count bf16 tensor-core
-             passes (K2 8, K3 5), the old f32-FMA bound printed beside.
+             passes (K2 8, K3 5), the old f32-FMA bound printed beside,
+             and K1's exponentials' bound (16 a clock an SM).
 8. nd_path — the imperative NDArray path at the transformer row's
              activation width: x and residual (8, 2048, 512) with gamma
              and beta (512,) from numpy via mx.nd.array on gpu(0), all
@@ -76,7 +86,8 @@ exits non-zero and prints no result:
 11. profile — torch.profiler over one decode step and one prefill chunk
              at the serve shapes, and over one training step: host ms,
              device busy ms, idle share and the kernels by device
-             time.
+             time; a decode step must launch one paged-attention kernel
+             per layer (one per call).
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
@@ -96,6 +107,9 @@ import numpy as onp
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
+# exponentials: 16 MUFU ops a clock on each of 132 SMs at the 1.98 GHz
+# boost clock (H100 SXM; Hopper's 4 SFUs in each of an SM's 4 quadrants)
+MUFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 VOCAB, DIM, HEADS, LAYERS, MLP = 32000, 512, 8, 8, 4
 SLOTS, PAGE, PAGES_PER_SLOT, NUM_PAGES = 8, 16, 128, 1024
@@ -103,6 +117,10 @@ HEAD_DIM = DIM // HEADS
 SPEC_K = 4
 # the training row: bench.py's _transformer_bench
 BATCH, SEQ, LR = 8, 2048, 3e-4
+# the first (warm) step's loss of this row from these weights, as the
+# mma.sync K1 gave it; p rounded against another running max moves it
+# only in the last digits
+FIRST_LOSS = 10.375
 TRAIN_BH = BATCH * HEADS
 DEV = "cuda"
 LNR_ROWS, EPS = BATCH * SEQ, 1e-5   # K6 on the (8, 2048, 512) activations
@@ -211,14 +229,26 @@ def phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod):
         return [ln.strip() for ln in text.splitlines()
                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
 
-    # the bf16 K2 / K3: registers and spills (ptxas), bf16 mma in the SASS
+    # the bf16 K1 / K2 / K3: registers and spills (ptxas); K1's wgmma
+    # (HGMMA) and TMA loads (UTMALDG), K2 / K3's bf16 mma, in the SASS
     so = fa_mod._library()._name
-    bwd = {}
-    for marker in ("fa_bwd_dkdv_mma_kernel", "fa_bwd_dq_mma_kernel"):
+
+    def kernel_table(marker):
         found = sass_mma_counts(so, marker)
         for key, regs in kernel_ptxas(fa_log, marker).items():
             found.setdefault(key, {}).update(regs)
-        bwd.update(found)
+        return found
+
+    fwd = kernel_table("fa_fwd_wgmma_kernel")
+    bad = {key: r for key, r in fwd.items() if r.get("spill_bytes")
+           or not r.get("hgmma") or not r.get("utmaldg")}
+    if len(fwd) != 2 or bad:
+        raise AssertionError(f"bf16 K1 instantiations (head dims 64, 128) "
+                             f"must hold wgmma and TMA loads and spill "
+                             f"nothing: {fwd}")
+    bwd = {}
+    for marker in ("fa_bwd_dkdv_mma_kernel", "fa_bwd_dq_mma_kernel"):
+        bwd.update(kernel_table(marker))
     bad = {key: r for key, r in bwd.items()
            if r.get("spill_bytes") or not r.get("hmma_bf16")}
     if len(bwd) != 8 or bad:
@@ -238,7 +268,10 @@ def phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod):
           "rtc_cold_s": round(rtc_cold_s, 3),
           "rtc_cold_nvcc_s": round(rtc_nvcc_s, 3),
           "rtc_cached_s": round(rtc_cached_s, 3),
-          "ptxas": ptxas(log), "flash_ptxas": ptxas(fa_log),
+          "ptxas": ptxas(log),
+          "flash_fwd_bf16_kernels": fwd,
+          "flash_fwd_ptxas_notes": [ln.strip() for ln in fa_log.splitlines()
+                                    if "wgmma" in ln or "setmaxnreg" in ln],
           "flash_bwd_bf16_kernels": bwd,
           "layernorm_residual_ptxas": ptxas_summary(ln_log)})
     return smi
@@ -274,8 +307,9 @@ def kernel_ptxas(text, marker):
 
 
 def sass_mma_counts(so_path, marker):
-    """HMMA instructions (all, and bf16 ones) in each instantiation of
-    the kernel ``marker``, from cuobjdump -sass of the built library."""
+    """HMMA instructions (all, and bf16 ones), HGMMA (wgmma) and UTMALDG
+    (TMA loads) in each instantiation of the kernel ``marker``, from
+    cuobjdump -sass of the built library."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -288,10 +322,15 @@ def sass_mma_counts(so_path, marker):
             key = (_instantiation(marker, m.group(1))
                    if marker in m.group(1) else None)
             if key:
-                out[key] = {"hmma": 0, "hmma_bf16": 0}
+                out[key] = {"hmma": 0, "hmma_bf16": 0, "hgmma": 0,
+                            "utmaldg": 0}
+        elif key and "HGMMA" in ln:
+            out[key]["hgmma"] += 1
         elif key and "HMMA" in ln:
             out[key]["hmma"] += 1
             out[key]["hmma_bf16"] += "BF16" in ln
+        elif key and "UTMALDG" in ln:
+            out[key]["utmaldg"] += 1
     return out
 
 
@@ -367,6 +406,27 @@ def phase_parity(torch, rope_mod, pa_mod):
             {"lengths": lengths, "dtype": str(dtype), "max_abs_err": e})
         if dtype == torch.float32:
             errs["paged_attention"] = e
+    # lengths on either side of each partition's boundaries, and a full
+    # slot; every case launched twice, the outputs bitwise equal
+    for part in pa_mod._PARTITIONS:
+        lengths = [0, 1, part - 1, part, part + 1, PAGES_PER_SLOT * PAGE,
+                   2 * part + 17, 999]
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = pa_case(torch, lengths, dtype, seed=part + 7)
+            first = pa_mod.paged_attention(*args, partition=part)
+            again = pa_mod.paged_attention(*args, partition=part)
+            torch.cuda.synchronize()
+            e = max_err(first, pa_mod.paged_attention_reference(*args), tol,
+                        tol)
+            if bool(first[0].any()):
+                raise AssertionError("length-0 slot did not give exact "
+                                     "zeros")
+            if not torch.equal(first, again):
+                raise AssertionError(f"two launches differ (partition "
+                                     f"{part}, {dtype})")
+            out["paged_attention"].append(
+                {"lengths": lengths, "dtype": str(dtype), "partition": part,
+                 "max_abs_err": e, "bitwise_repeatable": True})
     emit(out)
     return errs
 
@@ -440,10 +500,22 @@ def bf16_rounding_check(name, got, ref32):
     return worst
 
 
-def flash_check(torch, fa_mod, case, causal, tile, tol_fwd, tol_grad):
+def bf16_ulps(torch, got, ref):
+    """Worst |got - ref| in bf16 ulps of ref: the ulp of |ref|, floored
+    at the ulp of 1e-2 max|ref| (the error of p's rounding is absolute,
+    so values near zero would report it in ulps of nothing)."""
+    ref = ref.float()
+    mag = ref.abs().clamp_min(1e-2 * float(ref.abs().max()))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - ref).abs() / ulp).max())
+
+
+def flash_check(torch, fa_mod, case, causal, tile, tol_fwd, tol_lse,
+                tol_grad):
     """K1 against the plain forward, and K2 / K3 against the plain
     backward on the plain forward's residuals; max |err| of each.  In
-    bf16, K2 / K3 also against the plain f32 values before rounding
+    bf16, K1's out also in bf16 ulps of the plain value, and K2 / K3
+    against the plain f32 values before rounding
     (``bf16_rounding_check``)."""
     q, k, v, do = case
     scale = 1.0 / q.shape[-1] ** 0.5
@@ -451,7 +523,9 @@ def flash_check(torch, fa_mod, case, causal, tile, tol_fwd, tol_grad):
     torch.cuda.synchronize()
     ref_out, ref_lse = fa_mod.flash_forward_reference(q, k, v, causal, scale)
     errs = {"out": max_err(out, ref_out, tol_fwd, tol_fwd),
-            "lse": max_err(lse, ref_lse, tol_fwd, tol_fwd)}
+            "lse": max_err(lse, ref_lse, tol_lse, tol_lse)}
+    if q.dtype == torch.bfloat16:
+        errs["out_bf16_ulps"] = bf16_ulps(torch, out, ref_out)
     delta = fa_mod._delta(do, ref_out)
     dk, dv = fa_mod.flash_bwd_dkdv(q, k, v, do, ref_lse, delta,
                                    causal=causal, tile=tile)
@@ -475,16 +549,20 @@ def flash_check(torch, fa_mod, case, causal, tile, tol_fwd, tol_grad):
 def phase_flash_parity(torch, fa_mod):
     """Flash attention K1 / K2 / K3 against their plain versions."""
     rows, errs = [], {}
-    tols = {torch.bfloat16: (2e-2, 2e-2), torch.float32: (1e-4, 1e-3)}
+    # (out, lse, gradients): a bf16 LSE is an f32 value, the same sums
+    # taken in another order
+    tols = {torch.bfloat16: (2e-2, 1e-4, 2e-2),
+            torch.float32: (1e-4, 1e-4, 1e-3)}
     cases = [((TRAIN_BH, SEQ, SEQ, HEAD_DIM), True, (32, 64)),
              ((6, 100, 180, 64), False, (32, 64)),
              ((6, 257, 257, 64), True, (32, 64)),
              ((4, 300, 300, 128), True, (32, 64))]
     for shape, causal, tiles in cases:
-        for dtype, (tf, tg) in tols.items():
+        for dtype, (tf, tl, tg) in tols.items():
             case = flash_case(torch, *shape, dtype, seed=sum(shape))
             for tile in tiles:
-                e = flash_check(torch, fa_mod, case, causal, tile, tf, tg)
+                e = flash_check(torch, fa_mod, case, causal, tile, tf, tl,
+                                tg)
                 rows.append({"bh_sq_sk_d": shape, "causal": causal,
                              "dtype": str(dtype), "tile": tile,
                              "max_abs_err": e})
@@ -496,8 +574,8 @@ def phase_flash_parity(torch, fa_mod):
             del case
     torch.cuda.empty_cache()
     emit({"phase": "parity_flash",
-          "tolerance": {"bf16": 2e-2, "fp32_forward": 1e-4,
-                        "fp32_grads": 1e-3,
+          "tolerance": {"bf16": 2e-2, "bf16_lse": 1e-4,
+                        "fp32_forward": 1e-4, "fp32_grads": 1e-3,
                         "bf16_grads_vs_plain_f32":
                             "2**-8 |ref| + 1e-6 max|ref|"},
           "cases": rows})
@@ -563,6 +641,9 @@ def phase_train(torch, fa_mod):
     if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
+    if abs(losses[0] - FIRST_LOSS) > 0.01:
+        raise AssertionError(f"first loss {losses[0]} not within 0.01 of "
+                             f"{FIRST_LOSS}")
     med = sorted(step_ms)[len(step_ms) // 2]
     flat = torch.empty((TRAIN_BH, SEQ, HEAD_DIM), dtype=torch.bfloat16,
                        device="meta")
@@ -982,12 +1063,14 @@ def phase_spec(torch, pa_mod, model, prompts, outs):
           - before})
 
 
-def device_ms(torch, fn, runs=50):
+def device_ms(torch, fn, runs=50, clean=False):
     """Median device ms of one ``fn()`` with a cold L2: a 256 MiB write
     before each timed call evicts the 50 MB L2 (as the other layers'
     pages do between two calls in a decode step) and keeps the device
     busy while the host enqueues the call, so the event pair brackets
-    device time, not host overhead."""
+    device time, not host overhead.  The write leaves the L2 full of
+    dirty lines, which the call's misses write back; ``clean`` reads the
+    256 MiB instead, leaving clean lines."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(5):
         fn()
@@ -995,7 +1078,10 @@ def device_ms(torch, fn, runs=50):
               torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
     torch.cuda.synchronize()
     for a, b in pairs:
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
         a.record()
         fn()
         b.record()
@@ -1003,11 +1089,39 @@ def device_ms(torch, fn, runs=50):
     return sorted(a.elapsed_time(b) for a, b in pairs)[runs // 2]
 
 
+def profiler_ms(torch, fn, name, runs=50):
+    """Device ms of one launch of the kernel whose name holds ``name``,
+    from torch.profiler over ``runs`` calls of ``fn``, each after the
+    same L2 flush as ``device_ms`` (the flush is not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    if not hits:
+        raise AssertionError(f"no device kernel named *{name}* in the "
+                             f"profile")
+    return (sum(e.self_device_time_total for e in hits)
+            / sum(e.count for e in hits) / 1e3)
+
+
 def phase_times(torch, rope_mod, pa_mod, eng, prompts, counts, errs, smi):
     rows = []
+    # the timer's floor: an empty kernel (a spin of 0 cycles) through the
+    # same cold-L2 event pair
+    floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
     # rope at the decode shape (q or k of 8 slots: R=8, H=8, D=64)
     x, pos = rope_case(torch, SLOTS, torch.float32, seed=11)
     ms = device_ms(torch, lambda: rope_mod.rope(x, pos))
+    prof_ms = {"rope": profiler_ms(torch, lambda: rope_mod.rope(x, pos),
+                                   "_rope_kernel")}
     plain = device_ms(torch, lambda: rope_mod.rope_reference(x, pos))
     nbytes = 2 * x.numel() * 4 + pos.numel() * 4
     ops = 6 * x.numel() // 2 + 3 * SLOTS * HEAD_DIM // 2
@@ -1022,6 +1136,16 @@ def phase_times(torch, rope_mod, pa_mod, eng, prompts, counts, errs, smi):
     kp, vp = eng.cache.pool[0, 0], eng.cache.pool[0, 1]
     ms = device_ms(torch, lambda: pa_mod.paged_attention(q, kp, vp, tables,
                                                          lens))
+    prof_ms["paged_attention"] = profiler_ms(
+        torch, lambda: pa_mod.paged_attention(q, kp, vp, tables, lens),
+        "paged_attention_kernel")
+    pa_clean_ms = device_ms(torch, lambda: pa_mod.paged_attention(
+        q, kp, vp, tables, lens), clean=True)
+    # every (partition, warps) config of the kernel at the same inputs
+    configs = {f"partition{p}_warps{w}": device_ms(
+        torch, lambda p=p, w=w: pa_mod.paged_attention(
+            q, kp, vp, tables, lens, partition=p, warps=w))
+        for p in pa_mod._PARTITIONS for w in pa_mod._WARPS}
     plain = device_ms(torch, lambda: pa_mod.paged_attention_reference(
         q, kp, vp, tables, lens))
     live = sum(lengths)
@@ -1048,10 +1172,19 @@ def phase_times(torch, rope_mod, pa_mod, eng, prompts, counts, errs, smi):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None})
+    for row in kernels:
+        row["profiler_ms"] = prof_ms[row["name"]]
+    cfg = pa_mod._kernels.resolve("paged_attention", *pa_mod._paged_signature(
+        q, kp, vp, tables, lens))
     emit({"phase": "times", "gpu": smi, "paged_attention_lengths": lengths,
           "launches_per_step": per_step, "library_ms_null_reason": NO_LIBRARY,
-          "kernels": [{k: r[k] for k in ("name", "ms", "plain_ms",
-                                         "bound_ms")} for r in kernels]})
+          "timer_floor_ms": floor_ms,
+          "paged_attention_config": cfg,
+          "paged_attention_ms_clean_l2": pa_clean_ms,
+          "paged_attention_ms_by_config": configs,
+          "kernels": [{k: r[k] for k in ("name", "ms", "profiler_ms",
+                                         "plain_ms", "bound_ms")}
+                      for r in kernels]})
     return kernels
 
 
@@ -1111,6 +1244,8 @@ def flash_times(torch, fa_mod, train_counts, errs, smi):
         if fma32 is not None:
             row["bound_ms_f32_fma"] = max(t_bytes, (
                 prod / BF16_FLOPS + fma32 * prod / FP32_FLOPS) * 1e3)
+        else:       # K1: one exponential a score on the SMs' MUFU units
+            row["bound_ms_exp"] = pairs / MUFU_EXP_PER_S * 1e3
         kernels.append(row)
     emit({"phase": "times_flash", "gpu": smi,
           "shape": {"bh": TRAIN_BH, "seq": SEQ, "head_dim": HEAD_DIM,
@@ -1127,7 +1262,8 @@ def flash_times(torch, fa_mod, train_counts, errs, smi):
                      "backward rounds P and dS to bf16 (one pass), not "
                      "the reference's f32 products",
           "kernels": [{key: r[key] for key in ("name", "ms", "plain_ms",
-                                               "bound_ms", "bound_ms_f32_fma",
+                                               "bound_ms", "bound_ms_exp",
+                                               "bound_ms_f32_fma",
                                                "library_ms") if key in r}
                       for r in kernels]})
     del as4, lib_out
@@ -1135,10 +1271,11 @@ def flash_times(torch, fa_mod, train_counts, errs, smi):
     return kernels
 
 
-def profiled(torch, fn, n):
+def profiled(torch, fn, n, count=None):
     """Host wall ms per call of ``fn`` (which ends in a device sync),
     device busy ms per call and the kernels by device time, from
-    torch.profiler over ``n`` calls."""
+    torch.profiler over ``n`` calls; with ``count``, also the launches
+    per call of the kernels whose names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1151,8 +1288,11 @@ def profiled(torch, fn, n):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(k[0] for k in kern)
-    return wall, busy, [{"kernel": k[:90], "ms_per_call": ms,
-                         "launches_per_call": c} for ms, c, k in kern[:8]]
+    top = [{"kernel": k[:90], "ms_per_call": ms, "launches_per_call": c}
+           for ms, c, k in kern[:8]]
+    if count is None:
+        return wall, busy, top
+    return wall, busy, top, sum(c for _, c, k in kern if count in k)
 
 
 def phase_profile(torch, eng, prompts):
@@ -1182,11 +1322,16 @@ def phase_profile(torch, eng, prompts):
         for _ in range(20):
             fn()
         plain_ms = (time.perf_counter() - t0) * 1e3 / 20
-        wall, busy, top = profiled(torch, fn, 20)
+        wall, busy, top, paged = profiled(torch, fn, 20,
+                                          "paged_attention_kernel")
         out[name] = {"host_ms": plain_ms, "profiled_host_ms": wall,
                      "device_busy_ms": busy,
                      "device_idle_share": 1 - busy / wall,
+                     "paged_attention_kernels_per_step": paged,
                      "top_kernels": top}
+    if out["decode_step"]["paged_attention_kernels_per_step"] != LAYERS:
+        raise AssertionError(f"a decode step should launch one paged "
+                             f"attention kernel per layer: {out}")
     for s in range(SLOTS):
         eng.release_slot(s)
     emit(out)

@@ -10,26 +10,43 @@
 // flops/byte fp32 balance point, so the only aim is to stream the live
 // pages at memory rate and touch nothing else.
 //
-// Design (simple first; a split-K pass over long contexts is later work):
-//   * one block per (head, slot); NW warps; the block loads its own page
-//     table row into shared memory (no scalar prefetch on a GPU);
-//   * the TPU kernel carried acc/m/l across its sequential (page, block_k)
-//     grid axes; here that carry is a loop inside the block.  Keys are
-//     dealt to the warps round-robin, KPW keys per warp per step and U
-//     steps per iteration, so each thread has U*2 K and U*2 V 16-byte
-//     loads in flight before it computes;
-//   * a key's dot product is split over D/8 lanes (8 floats each,
-//     two float4 loads) and reduced with warp shuffles; each warp keeps
-//     an online softmax with f32 m / l / acc;
+// Design (flash-decoding: each slot's keys split across the SMs):
+//   * a block per (head, slot, partition): a partition is PART keys, a
+//     multiple of the page size, so it starts on a page boundary.  One
+//     block per (head, slot) left the kernel as long as the longest slot
+//     (~1000 keys) while the short slots' blocks sat idle, on 64 of the
+//     card's 132 SMs; split, the live keys spread over every SM.
+//   * the grid comes from pages_per_slot, never from the lengths (they
+//     live on the device and are not read back): a block whose
+//     partition starts at or past its slot's length exits at once;
+//   * the block loads its partition's page-table entries into shared
+//     memory (no scalar prefetch on a GPU).  The TPU kernel carried
+//     acc/m/l across its sequential (page, block_k) grid axes; here that
+//     carry is a loop inside the block.  Keys are dealt to the warps
+//     round-robin, KPW keys per warp per step and U steps per iteration,
+//     so each thread has U*2 K and U*2 V 16-byte loads in flight before
+//     it computes;
+//   * a key's dot product is split over D/8 lanes (8 floats each, two
+//     float4 loads) and reduced with warp shuffles; each warp keeps an
+//     online softmax with f32 m / l / acc, and the warps merge (m, l,
+//     acc) through shared memory at the end;
+//   * a slot that fits in one partition writes its output directly.
+//     Otherwise each block writes its partial (acc[D], m, l) to a scratch
+//     buffer, fences, and counts itself on the (head, slot)'s counter;
+//     the block that counts last merges the partials in partition order
+//     (the same sums in the same order on every run: bitwise-repeatable)
+//     and sets the counter back to 0 for the next launch.  One launch,
+//     no second pass; the wrapper zeroes the counters once, when it makes
+//     the scratch buffer;
 //   * the loop stops at the slot's length: keys and pages past it are
 //     never read (table entries past a slot's pages are 0, a valid page
 //     id, and must not be read as context);
-//   * warps merge (m, l, acc) through shared memory at the end;
 //   * -1e30, not -inf, seeds m: exp(-inf - -inf) is NaN, and the
 //     l == 0 -> 1 guard is what makes a length-0 slot exact zeros.
 // q may be fp32 or bf16 (the engine's pool is fp32); the output has q's
 // type.  Pools must be contiguous (num_pages, page_size, H, D); the
-// wrapper passes the pointer of the layer's view, offset included.
+// wrapper passes the pointer of the layer's view, offset included.  Two
+// launches that share a scratch buffer must run in stream order.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -63,36 +80,47 @@ paged_attention_kernel(const QT* __restrict__ q,
                        const float* __restrict__ v_pool,
                        const int* __restrict__ tables,
                        const int* __restrict__ lengths,
-                       QT* __restrict__ out,
+                       QT* __restrict__ out, float* __restrict__ partials,
+                       int* __restrict__ counters,
                        int heads, int page_size, int pages_per_slot,
-                       float sm_scale) {
+                       int part_keys, float sm_scale) {
   constexpr int LPK = D / kVec;          // lanes per key
   constexpr int KPW = kWarp / LPK;       // keys per warp per step
   constexpr int STEP = NW * KPW;         // keys per block per step
   __shared__ float s_acc[NW][D];
   __shared__ float s_m[NW];
   __shared__ float s_l[NW];
+  __shared__ int s_last;
   extern __shared__ int s_table[];
 
   const int h = blockIdx.x;
   const int s = blockIdx.y;
+  const int part = blockIdx.z;
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int g = lane / LPK;              // which key of the warp's step
   const int j = lane % LPK;              // which 8-float chunk of D
 
+  // the slot's length, the partition's table entries and q are read
+  // together: one memory latency before the keys, not three (entries past
+  // the length are valid page ids, read but never used)
+  const int k_begin = part * part_keys;
+  const int page0 = k_begin / page_size;
+  const int n_pages = min(part_keys / page_size, pages_per_slot - page0);
   int length = lengths[s];
-  const int cap = pages_per_slot * page_size;
-  length = length < 0 ? 0 : (length > cap ? cap : length);
-  const int n_pages = (length + page_size - 1) / page_size;
   for (int i = threadIdx.x; i < n_pages; i += blockDim.x)
-    s_table[i] = tables[(size_t)s * pages_per_slot + i];
-  __syncthreads();
-
+    s_table[i] = tables[(size_t)s * pages_per_slot + page0 + i];
   float qv[kVec];
   const QT* qrow = q + ((size_t)s * heads + h) * D + j * kVec;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) qv[i] = to_f32(qrow[i]) * sm_scale;
+  const int cap = pages_per_slot * page_size;
+  length = length < 0 ? 0 : (length > cap ? cap : length);
+  const int n_live = length > part_keys ? (length + part_keys - 1) / part_keys
+                                        : 1;
+  if (part >= n_live) return;            // (uniform: before any barrier)
+  const int k_end = min(length, k_begin + part_keys);
+  __syncthreads();
 
   const size_t row_stride = (size_t)heads * D;   // one key of a page
   const size_t head_off = (size_t)h * D + j * kVec;
@@ -100,16 +128,18 @@ paged_attention_kernel(const QT* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < kVec; ++i) acc[i] = 0.f;
 
-  for (int base = warp * KPW; base < length; base += STEP * kUnroll) {
+  for (int base = k_begin + warp * KPW; base < k_end;
+       base += STEP * kUnroll) {
     float kr[kUnroll][kVec], vr[kUnroll][kVec];
     bool valid[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + u * STEP + g;
-      valid[u] = t < length;
+      valid[u] = t < k_end;
       if (valid[u]) {
         const size_t row =
-            (size_t)s_table[t / page_size] * page_size + t % page_size;
+            (size_t)s_table[t / page_size - page0] * page_size +
+            t % page_size;
         load8(k_pool + row * row_stride + head_off, kr[u]);
         load8(v_pool + row * row_stride + head_off, vr[u]);
       } else {
@@ -170,62 +200,103 @@ paged_attention_kernel(const QT* __restrict__ q,
   }
   __syncthreads();
 
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float mx = kNegInf;
+  // the block's (m, l, acc[d]) over its warps
+  float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, s_m[w]);
-    float lsum = 0.f, o = 0.f;
+  for (int w = 0; w < NW; ++w) mx = fmaxf(mx, s_m[w]);
+  float lsum = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(s_m[w] - mx);
-      lsum += c * s_l[w];
-      o += c * s_acc[w][d];
+  for (int w = 0; w < NW; ++w) lsum += expf(s_m[w] - mx) * s_l[w];
+  QT* orow = out + ((size_t)s * heads + h) * D;
+  if (n_live == 1) {                     // the whole slot: write it out
+    const float li = lsum == 0.f ? 1.f : lsum;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) o += expf(s_m[w] - mx) * s_acc[w][d];
+      from_f32(o / li, orow + d);
     }
-    if (lsum == 0.f) lsum = 1.f;
-    from_f32(o / lsum, out + ((size_t)s * heads + h) * D + d);
+    return;
   }
+  const int n_parts = gridDim.z;
+  float* mine = partials +
+                (((size_t)s * heads + h) * n_parts + part) * (D + 2);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) o += expf(s_m[w] - mx) * s_acc[w][d];
+    mine[d] = o;
+  }
+  if (threadIdx.x == 0) {
+    mine[D] = mx;
+    mine[D + 1] = lsum;
+  }
+  __threadfence();                       // partials visible before counting
+  __syncthreads();
+  int* counter = counters + (size_t)s * heads + h;
+  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == n_live - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last block of (head, slot): merge the partials in partition order
+  const float* all = partials + ((size_t)s * heads + h) * n_parts * (D + 2);
+  float big = kNegInf;
+  for (int p = 0; p < n_live; ++p)
+    big = fmaxf(big, __ldcg(all + (size_t)p * (D + 2) + D));
+  float lt = 0.f;
+  for (int p = 0; p < n_live; ++p) {
+    const float* pp = all + (size_t)p * (D + 2);
+    lt += expf(__ldcg(pp + D) - big) * __ldcg(pp + D + 1);
+  }
+  const float li = lt == 0.f ? 1.f : lt;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float o = 0.f;
+    for (int p = 0; p < n_live; ++p) {
+      const float* pp = all + (size_t)p * (D + 2);
+      o += expf(__ldcg(pp + D) - big) * __ldcg(pp + d);
+    }
+    from_f32(o / li, orow + d);
+  }
+  if (threadIdx.x == 0) *counter = 0;    // ready for the next launch
 }
 
+struct Call {
+  const void *q, *k, *v, *tables, *lengths;
+  void *out, *partials, *counters;
+  int slots, heads, page_size, pages_per_slot, part_keys;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <int D, int NW, typename QT>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* tables, const void* lengths, void* out,
-                   int slots, int heads, int page_size, int pages_per_slot,
-                   float sm_scale, cudaStream_t stream) {
-  const dim3 grid(heads, slots);
-  const size_t smem = (size_t)pages_per_slot * sizeof(int);
-  paged_attention_kernel<D, NW, QT><<<grid, NW * kWarp, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const float*>(k_pool),
-      static_cast<const float*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(lengths), static_cast<QT*>(out), heads,
-      page_size, pages_per_slot, sm_scale);
+cudaError_t launch(const Call& c) {
+  const int n_parts =
+      (c.pages_per_slot * c.page_size + c.part_keys - 1) / c.part_keys;
+  const dim3 grid(c.heads, c.slots, n_parts);
+  const size_t smem = (size_t)(c.part_keys / c.page_size) * sizeof(int);
+  paged_attention_kernel<D, NW, QT><<<grid, NW * kWarp, smem, c.stream>>>(
+      static_cast<const QT*>(c.q), static_cast<const float*>(c.k),
+      static_cast<const float*>(c.v), static_cast<const int*>(c.tables),
+      static_cast<const int*>(c.lengths), static_cast<QT*>(c.out),
+      static_cast<float*>(c.partials), static_cast<int*>(c.counters),
+      c.heads, c.page_size, c.pages_per_slot, c.part_keys, c.scale);
   return cudaGetLastError();
 }
 
 template <int D, typename QT>
-cudaError_t dispatch_warps(int warps, const void* q, const void* k,
-                           const void* v, const void* t, const void* len,
-                           void* o, int slots, int heads, int ps, int pps,
-                           float scale, cudaStream_t st) {
+cudaError_t dispatch_warps(int warps, const Call& c) {
   switch (warps) {
-    case 4: return launch<D, 4, QT>(q, k, v, t, len, o, slots, heads, ps,
-                                    pps, scale, st);
-    case 8: return launch<D, 8, QT>(q, k, v, t, len, o, slots, heads, ps,
-                                    pps, scale, st);
+    case 4: return launch<D, 4, QT>(c);
+    case 8: return launch<D, 8, QT>(c);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename QT>
-cudaError_t dispatch_dim(int head_dim, int warps, const void* q,
-                         const void* k, const void* v, const void* t,
-                         const void* len, void* o, int slots, int heads,
-                         int ps, int pps, float scale, cudaStream_t st) {
+cudaError_t dispatch_dim(int head_dim, int warps, const Call& c) {
   switch (head_dim) {
-    case 64: return dispatch_warps<64, QT>(warps, q, k, v, t, len, o, slots,
-                                           heads, ps, pps, scale, st);
-    case 128: return dispatch_warps<128, QT>(warps, q, k, v, t, len, o,
-                                             slots, heads, ps, pps, scale,
-                                             st);
+    case 64: return dispatch_warps<64, QT>(warps, c);
+    case 128: return dispatch_warps<128, QT>(warps, c);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -235,21 +306,24 @@ cudaError_t dispatch_dim(int head_dim, int warps, const void* q,
 extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a head_dim / warp count not compiled here.
+// cudaErrorInvalidValue for a head_dim / warp count not compiled here or
+// a partition that is not a positive multiple of the page size.
+// ``partials`` holds slots * heads * ceil(pages_per_slot * page_size /
+// part_keys) * (head_dim + 2) floats; ``counters`` slots * heads ints,
+// zero before the first launch (each launch leaves them zero).
 int mx_paged_attention(const void* q, int q_is_bf16, const void* k_pool,
                        const void* v_pool, const void* tables,
-                       const void* lengths, void* out, int slots, int heads,
-                       int head_dim, int page_size, int pages_per_slot,
+                       const void* lengths, void* out, void* partials,
+                       void* counters, int slots, int heads, int head_dim,
+                       int page_size, int pages_per_slot, int part_keys,
                        float sm_scale, int warps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_is_bf16)
-    return dispatch_dim<__nv_bfloat16>(head_dim, warps, q, k_pool, v_pool,
-                                       tables, lengths, out, slots, heads,
-                                       page_size, pages_per_slot, sm_scale,
-                                       st);
-  return dispatch_dim<float>(head_dim, warps, q, k_pool, v_pool, tables,
-                             lengths, out, slots, heads, page_size,
-                             pages_per_slot, sm_scale, st);
+  if (page_size <= 0 || part_keys <= 0 || part_keys % page_size)
+    return (int)cudaErrorInvalidValue;
+  const Call c{q, k_pool, v_pool, tables, lengths, out, partials, counters,
+               slots, heads, page_size, pages_per_slot, part_keys,
+               sm_scale, static_cast<cudaStream_t>(stream)};
+  if (q_is_bf16) return dispatch_dim<__nv_bfloat16>(head_dim, warps, c);
+  return dispatch_dim<float>(head_dim, warps, c);
 }
 
 const char* mx_cuda_error_string(int err) {

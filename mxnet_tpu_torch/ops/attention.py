@@ -13,10 +13,15 @@ short: one block per (bh, q tile) for K1 and K3, one per (bh, k tile)
 for K2, each looping inside itself over the other axis (up to or from
 the diagonal when causal) with f32 accumulators, masking ragged edges
 itself instead of padding.  In bf16 all three run their products on the
-tensor cores (``mma.sync``); K2 and K3 form their products with an f32
-operand (P or dS) as three bf16 passes, hi + mid + lo
+tensor cores: K1 on ``wgmma`` with TMA loads and warp specialisation
+(a producer warpgroup, two consumer warpgroups of 64 query rows, 128
+keys a stage), K2 and K3 on ``mma.sync``, forming their products with
+an f32 operand (P or dS) as three bf16 passes, hi + mid + lo
 (:func:`split_bf16x3`), which keeps the reference's f32 products exact.
-In f32 they run on the FMA units.
+In f32 they run on the FMA units.  The registry's ``tile`` config
+selects K2's and K3's tile (and the f32 K1's); the bf16 K1 has its own
+tiling.  :func:`flash_forward_blocked` is the reference kernel's blocked
+recurrence in plain PyTorch, for the tests.
 
 What bounds them on an H100: operations.  The score and probability
 tiles never leave the chip, so each kernel moves O(S·D) bytes per head
@@ -39,8 +44,9 @@ from ..base import MXNetError
 
 __all__ = ["flash_attention", "attention_reference", "flash_fwd",
            "flash_bwd_dkdv", "flash_bwd_dq", "flash_forward_reference",
-           "flash_backward_reference", "split_bf16x3", "split_heads",
-           "merge_heads", "multi_head_attention", "build"]
+           "flash_forward_blocked", "flash_backward_reference",
+           "split_bf16x3", "split_heads", "merge_heads",
+           "multi_head_attention", "build"]
 
 _NEG_INF = -1e30            # finite -inf stand-in: keeps masked rows NaN-free
 _HEAD_DIMS = (64, 128)      # instantiated in csrc/flash_attention.cu
@@ -90,6 +96,34 @@ def flash_forward_reference(q, k, v, causal=False, sm_scale=None):
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0.0, 1.0, l)
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_forward_blocked(q, k, v, causal=False, scale=None, block_k=128):
+    """The reference kernel's recurrence on (BH, S, D), key block by key
+    block: s in f32, an online softmax with f32 m / l (m seeded with
+    -1e30), p rounded to v's type against the running max before p·v, l
+    summed from the f32 p.  ``(out in q's type, lse (BH, Sq) f32)``.
+    Not on any path: it models what K1 computes, for the tests."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    bh, sq, d = q.shape
+    m = torch.full((bh, sq, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((bh, sq, 1), device=q.device)
+    acc = torch.zeros((bh, sq, d), device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    for k0 in range(0, k.shape[1], block_k):
+        kb, vb = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        s = _scores(q, kb, scale)
+        if causal:
+            kpos = k0 + torch.arange(kb.shape[1], device=q.device)[None, :]
+            s = torch.where(qpos >= kpos, s, _NEG_INF)
+        m_cur = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vb.float())
+        m = m_cur
+    l = torch.where(l == 0.0, 1.0, l)
     return (acc / l).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
@@ -288,7 +322,9 @@ def _scale_of(q, sm_scale):
 
 def flash_fwd(q, k, v, *, causal=False, sm_scale=None, tile=64):
     """K1 on (BH, S, D): ``(out, lse)``.  CPU tensors take
-    :func:`flash_forward_reference`; CUDA tensors launch the kernel."""
+    :func:`flash_forward_reference`; CUDA tensors launch the kernel.
+    ``tile`` selects the f32 kernel's square tile; the bf16 kernel has
+    its own tiling (128 query rows, 128 keys a stage) and ignores it."""
     scale = _scale_of(q, sm_scale)
     if q.device.type == "cpu":
         flash_fwd.plain_calls += 1
@@ -385,10 +421,17 @@ def _flash_signature(q, k, v, causal=False, sm_scale=None):
 
 
 def _flash_kernel_run(config, q, k, v, causal=False, sm_scale=None):
-    """The forward under ``config`` (what the tuner times; the tile it
-    picks serves K1, K2 and K3 alike)."""
-    return flash_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                     tile=config["tile"])[0]
+    """The forward and the backward (on a fixed dO of ones) under
+    ``config``: what the tuner times.  The ``tile`` it picks serves K2
+    and K3 (and the f32 K1); the bf16 K1 has its own tiling, so timing
+    the forward alone would pick the backward's tile by noise."""
+    scale = _scale_of(q, sm_scale)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        out = _FlashAttention.apply(q, k, v, bool(causal), scale,
+                                    config["tile"])
+        torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    return out.detach()
 
 
 def _flash_kernel_fallback(q, k, v, causal=False, sm_scale=None):
@@ -407,7 +450,7 @@ def _flash_make_args(case):
 
 
 _kernels.register_kernel(_kernels.KernelSpec(
-    "flash_attention", version=1,
+    "flash_attention", version=2,
     run=_flash_kernel_run, fallback=_flash_kernel_fallback,
     config_space={"tile": _TILES},
     default_config={"tile": 64},
@@ -440,10 +483,11 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None,
     ``q`` when ``H % Hkv == 0``; KV heads are repeated across the group
     before the kernel.
 
-    ``block_q``/``block_k``: on CUDA the kernels run square tiles, so
-    the two must be equal and name a compiled tile (32 or 64 rows);
-    left out, the kernel registry's config for the shape is used.  CPU
-    tensors take the plain versions and ignore them."""
+    ``block_q``/``block_k``: on CUDA, K2 and K3 (and the f32 K1) run
+    square tiles, so the two must be equal and name a compiled tile (32
+    or 64 rows); left out, the kernel registry's config for the shape is
+    used.  The bf16 K1 has its own tiling and ignores them.  CPU tensors
+    take the plain versions and ignore them."""
     squeeze = q.dim() == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]

@@ -10,9 +10,12 @@ Replaces the TPU kernel ``mxnet_tpu/ops/paged_attention.py``
 ``_pa_kernel`` (reached through ``_paged_attention_pallas``) with
 ``csrc/paged_attention.cu``, built by nvcc into a shared library with a
 C interface and called through ``ctypes``.  The source's head comment
-gives the design; in short: one block per (head, slot), the block loads
-its own table row, loops over the pages up to the slot's length with an
-online softmax in f32, and merges its warps through shared memory.
+gives the design; in short (flash-decoding): each slot's keys are split
+into page-aligned partitions of ``partition`` keys, one block per (head,
+slot, partition) with an online softmax in f32; the last block of a
+(head, slot) merges the partials in partition order, in the same launch.
+:func:`paged_attention_split_reference` is that split in plain PyTorch,
+for the tests.
 
 What bounds it on an H100: bytes — the K and V rows of the live
 positions (``2 * sum(lengths) * H * D * 4`` for the fp32 pool) plus q
@@ -27,11 +30,14 @@ import torch
 from .. import kernels as _kernels
 from ..base import MXNetError
 
-__all__ = ["paged_attention", "paged_attention_reference", "build"]
+__all__ = ["paged_attention", "paged_attention_reference",
+           "paged_attention_split_reference", "build"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (64, 128)          # instantiated in csrc/paged_attention.cu
 _WARPS = (4, 8)
+_PARTITIONS = (128, 256, 512)   # keys a block takes; multiples of a page
+_PARTITION = 256                # the fastest of them on the served pool
 
 
 def paged_attention_reference(q, k_pool, v_pool, tables, lengths,
@@ -58,13 +64,54 @@ def paged_attention_reference(q, k_pool, v_pool, tables, lengths,
     return out.to(q.dtype)
 
 
+def paged_attention_split_reference(q, k_pool, v_pool, tables, lengths,
+                                    sm_scale=None, partition=_PARTITION):
+    """The kernel's split in plain PyTorch: each slot's keys in
+    page-aligned partitions of ``partition`` keys, a (m, l, acc) per
+    partition in f32, merged in partition order.  Reads the lengths on
+    the host; only the tests use it."""
+    s_, h, d = q.shape
+    ps = k_pool.shape[1]
+    if partition <= 0 or partition % ps:
+        raise MXNetError(f"paged_attention: partition {partition} is not a "
+                         f"positive multiple of the page size {ps}")
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    cap = tables.shape[1] * ps
+    k_rows = k_pool.reshape(-1, h, d).float()
+    v_rows = v_pool.reshape(-1, h, d).float()
+    out = torch.zeros((s_, h, d), dtype=torch.float32, device=q.device)
+    for slot in range(s_):
+        n = min(max(int(lengths[slot]), 0), cap)
+        parts = []
+        for start in range(0, max(n, 1), partition):
+            pos = torch.arange(start, min(n, start + partition),
+                               device=q.device)
+            rows = tables[slot, pos // ps].long() * ps + pos % ps
+            s = torch.einsum("hd,khd->hk", q[slot].float() * scale,
+                             k_rows[rows])
+            m = (s.amax(dim=-1) if len(pos)
+                 else torch.full((h,), _NEG_INF, device=q.device))
+            p = torch.exp(s - m[:, None])
+            parts.append((m, p.sum(dim=-1),
+                          torch.einsum("hk,khd->hd", p, v_rows[rows])))
+        big = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        l_sum = torch.zeros(h, device=q.device)
+        acc = torch.zeros((h, d), device=q.device)
+        for m, l, a in parts:                    # in partition order
+            c = torch.exp(m - big)
+            l_sum = l_sum + c * l
+            acc = acc + c[:, None] * a
+        out[slot] = acc / torch.where(l_sum == 0.0, 1.0, l_sum)[:, None]
+    return out.to(q.dtype)
+
+
 def _library():
     from ..kernels.build import build_library
     lib = build_library("paged_attention")[0]
     fn = lib.mx_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
@@ -72,7 +119,27 @@ def _library():
     return lib
 
 
-def _check(q, k_pool, v_pool, tables, lengths, warps):
+# (device, slots, heads, partitions, head dim) -> (partials, counters)
+_SCRATCH = {}
+
+
+def _scratch(q, n_parts):
+    """The partials buffer and the per-(slot, head) counters of one
+    launch shape, made once per device and shape; the counters are
+    zeroed here and every launch leaves them zero.  Launches that share
+    them run in stream order (one stream per engine)."""
+    s_, h, d = q.shape
+    key = (q.device, s_, h, n_parts, d)
+    hit = _SCRATCH.get(key)
+    if hit is None:
+        hit = _SCRATCH[key] = (
+            torch.empty((s_, h, n_parts, d + 2), dtype=torch.float32,
+                        device=q.device),
+            torch.zeros((s_, h), dtype=torch.int32, device=q.device))
+    return hit
+
+
+def _check(q, k_pool, v_pool, tables, lengths, warps, partition):
     dev = q.device
     if dev.type != "cuda":
         raise MXNetError(f"paged_attention kernel needs CUDA tensors, got "
@@ -110,25 +177,32 @@ def _check(q, k_pool, v_pool, tables, lengths, warps):
         raise MXNetError(f"paged_attention kernel is built for head_dim in "
                          f"{_HEAD_DIMS} and warps in {_WARPS}, got {d}, "
                          f"{warps}")
+    if int(partition) <= 0 or int(partition) % k_pool.shape[1]:
+        raise MXNetError(f"paged_attention: partition {partition} is not a "
+                         f"positive multiple of the page size "
+                         f"{k_pool.shape[1]}")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.data_ptr() % 16:
             raise MXNetError(f"paged_attention: {name} is not 16-byte "
                              f"aligned")
 
 
-def _launch(q, k_pool, v_pool, tables, lengths, sm_scale, warps):
+def _launch(q, k_pool, v_pool, tables, lengths, sm_scale, warps,
+            partition=_PARTITION):
     """Launch the kernel on the caller's current stream; no counting
     (the wrapper counts)."""
-    _check(q, k_pool, v_pool, tables, lengths, warps)
+    _check(q, k_pool, v_pool, tables, lengths, warps, partition)
     s_, h, d = q.shape
+    ps, pps = k_pool.shape[1], tables.shape[1]
+    partials, counters = _scratch(q, -(-pps * ps // int(partition)))
     out = torch.empty_like(q)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.mx_paged_attention(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pool.data_ptr(),
             v_pool.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), s_, h, d, k_pool.shape[1], tables.shape[1],
-            float(sm_scale), int(warps),
+            out.data_ptr(), partials.data_ptr(), counters.data_ptr(), s_, h,
+            d, ps, pps, int(partition), float(sm_scale), int(warps),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise MXNetError(f"paged_attention launch failed: "
@@ -137,8 +211,9 @@ def _launch(q, k_pool, v_pool, tables, lengths, sm_scale, warps):
 
 
 def _paged_attention_cuda(q, k_pool, v_pool, tables, lengths, sm_scale,
-                          warps):
-    out = _launch(q, k_pool, v_pool, tables, lengths, sm_scale, warps)
+                          warps, partition=_PARTITION):
+    out = _launch(q, k_pool, v_pool, tables, lengths, sm_scale, warps,
+                  partition)
     paged_attention.launches += 1
     return out
 
@@ -173,7 +248,7 @@ def _paged_kernel_run(config, q, k_pool, v_pool, tables, lengths,
     scale = (sm_scale if sm_scale is not None
              else 1.0 / math.sqrt(q.shape[-1]))
     return _paged_attention_cuda(q, k_pool, v_pool, tables, lengths,
-                                 scale, config["warps"])
+                                 scale, config["warps"], config["partition"])
 
 
 def _paged_make_args(case):
@@ -199,10 +274,10 @@ def _paged_make_args(case):
 
 
 _kernels.register_kernel(_kernels.KernelSpec(
-    "paged_attention", version=1,
+    "paged_attention", version=2,
     run=_paged_kernel_run, fallback=paged_attention_reference,
-    config_space={"warps": _WARPS},
-    default_config={"warps": 8},
+    config_space={"warps": _WARPS, "partition": _PARTITIONS},
+    default_config={"warps": 8, "partition": _PARTITION},
     signature=_paged_signature, make_args=_paged_make_args,
     tune_grid=({"slots": 8, "pages_per_slot": 128, "page_size": 16,
                 "h": 8, "d": 64},),
@@ -210,13 +285,15 @@ _kernels.register_kernel(_kernels.KernelSpec(
 
 
 def paged_attention(q, k_pool, v_pool, tables, lengths, *,
-                    sm_scale=None, warps=None):
+                    sm_scale=None, warps=None, partition=None):
     """One attention step per slot against its paged KV history.
 
     ``q (slots, H, D)`` — one query token per slot; ``k_pool/v_pool
     (num_pages, page_size, H, D)``; ``tables (slots, pages_per_slot)``
     int32 page ids; ``lengths (slots,)`` int32 valid context lengths
-    (0 = inactive slot → zero output).
+    (0 = inactive slot → zero output).  ``warps`` and ``partition`` (keys
+    a block takes, a multiple of the page size) default to the kernel
+    registry's config for the shape.
 
     CPU tensors take :func:`paged_attention_reference`
     (``paged_attention.plain_calls``); CUDA tensors launch the kernel on
@@ -227,14 +304,16 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
         paged_attention.plain_calls += 1
         return paged_attention_reference(q, k_pool, v_pool, tables,
                                          lengths, sm_scale=scale)
-    if warps is None:
+    if warps is None or partition is None:
         sig, dt = _paged_signature(q, k_pool, v_pool, tables, lengths)
-        warps = _kernels.resolve(
+        cfg = _kernels.resolve(
             "paged_attention", sig, dt,
             tune_args=((q, k_pool, v_pool, tables, lengths),
-                       {"sm_scale": scale}))["warps"]
+                       {"sm_scale": scale}))
+        warps = cfg["warps"] if warps is None else warps
+        partition = cfg["partition"] if partition is None else partition
     return _paged_attention_cuda(q, k_pool, v_pool, tables, lengths,
-                                 scale, warps)
+                                 scale, warps, partition)
 
 
 paged_attention.launches = 0
