@@ -6,18 +6,23 @@
 Phases, each printing one JSON line; any failure raises, so the script
 exits non-zero and prints no result:
 
-1. build   — nvcc-build the paged_attention, flash_attention and
-             layernorm_residual libraries from mxnet_tpu_torch/csrc/,
-             compile the Triton rope kernel and the rtc module's cubin
-             (all at once) into build/torch_kernels/, and time the rtc
-             compile cold and from its on-disk cache.  Both bf16 K1
+1. build   — nvcc-build the paged_attention, flash_attention,
+             layernorm_residual and rope libraries from
+             mxnet_tpu_torch/csrc/ and the rtc module's cubin (all at
+             once) into build/torch_kernels/, and time the rtc compile
+             cold and from its on-disk cache; rope's nvcc seconds,
+             registers and spills (ptxas) are printed.  Both bf16 K1
              instantiations (D 64, 128) must hold wgmma and TMA loads
              (HGMMA, UTMALDG in cuobjdump's SASS), every bf16 K2 / K3
              instantiation bf16 mma (HMMA); none may spill (ptxas); their
              registers are printed.
 2. parity  — each kernel against its plain PyTorch version on the card:
-             rope and paged attention at the decode-serving shapes (fp32
-             atol/rtol 1e-4, bf16 2e-2), paged attention also with
+             rope and rope_qk (q and k in one launch) at R = 8, 40 and
+             128 rows of (8, 64), int32 and int64 positions holding 0
+             and 4095, and a scalar position (fp32 atol/rtol 1e-5, bf16
+             2e-2; two rope_qk launches bitwise equal); paged attention
+             at the decode-serving shapes (fp32 atol/rtol 1e-4, bf16
+             2e-2), paged attention also with
              lengths 0, 1, P-1, P, P+1, 2048 for each partition P, each
              case launched twice and bitwise equal; flash attention K1
              (out, LSE) and K2/K3 (dk, dv / dq) at the training shape (BH
@@ -38,9 +43,13 @@ exits non-zero and prints no result:
              overlapping requests, then 2 short ones that must equal the
              dense greedy reference.  Kernel launch counts are zeroed
              just before and read just after; both kernels must have
-             launched and no plain version may have run.
+             launched and no plain version may have run.  Then one
+             prefill chunk and one decode step, counted apart, must each
+             launch rope once per layer (q and k together).
 4. spec    — 4 of those requests again with a draft model and spec_k=4;
-             the output must be token-identical.
+             the output must be token-identical; one speculative step,
+             counted apart, must launch rope once per layer of verify
+             (beside the draft's once per layer of each of its steps).
 5. train   — the training path at the full width of bench.py's
              transformer row (vocab 32000, units 512, 8 layers, 8 heads,
              max_len 2048, tied weights, batch 8 x 2048, Adam lr 3e-4,
@@ -58,7 +67,9 @@ exits non-zero and prints no result:
              rope and paged attention at the serve shapes (with their
              torch.profiler device times, the event time of an empty
              kernel as the timer's floor, and paged attention under each
-             (partition, warps) config), the flash
+             (partition, warps) config; rope also as rope_qk, and the
+             host µs of a call of rope and rope_qk over 1000 back-to-back
+             calls with one synchronise), the flash
              kernels at the training shape with
              scaled_dot_product_attention's forward / backward as the
              library yardstick; flash bounds count bf16 tensor-core
@@ -82,12 +93,16 @@ exits non-zero and prints no result:
              its first launch, and CPU NDArrays raise.
 10. times_nd — K6 (bf16 and fp32) and rtc axpy against their bounds,
              plain versions and library calls (F.layer_norm(x + r), two
-             calls; torch.add(y, x, alpha=2)).
+             calls; torch.add(y, x, alpha=2)); for axpy also the
+             torch.profiler device time of the kernel and of torch.add,
+             and the same cubin launched on the raw tensors without the
+             NDArray funnel (event ms and host µs per call).
 11. profile — torch.profiler over one decode step and one prefill chunk
              at the serve shapes, and over one training step: host ms,
              device busy ms, idle share and the kernels by device
              time; a decode step must launch one paged-attention kernel
-             per layer (one per call).
+             per layer (one per call), and a decode step and a prefill
+             chunk one rope kernel per layer.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
@@ -218,7 +233,7 @@ def phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod):
         (log, nvcc_s), pa_s = pa.result()
         (fa_log, fa_nvcc_s), fa_s = fa.result()
         (ln_log, ln_nvcc_s), ln_s = ln.result()
-        _, rope_s = rp.result()
+        (rope_log, rope_nvcc_s), rope_s = rp.result()
         rtc_cold_s, rtc_nvcc_s = rc.result()
     rtc_cached_s, rtc_cached_nvcc_s = rtc_first_launch(torch)
     if rtc_cached_nvcc_s != 0.0:
@@ -264,7 +279,9 @@ def phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod):
           "flash_attention_s": round(fa_s, 3),
           "layernorm_residual_nvcc_s": round(ln_nvcc_s, 3),
           "layernorm_residual_s": round(ln_s, 3),
-          "rope_triton_s": round(rope_s, 3),
+          "rope_nvcc_s": round(rope_nvcc_s, 3),
+          "rope_s": round(rope_s, 3),
+          "rope_ptxas": ptxas_summary(rope_log),
           "rtc_cold_s": round(rtc_cold_s, 3),
           "rtc_cold_nvcc_s": round(rtc_nvcc_s, 3),
           "rtc_cached_s": round(rtc_cached_s, 3),
@@ -345,13 +362,66 @@ def ptxas_summary(text):
             "max_registers": max(regs, default=None), "spills": spills}
 
 
-def rope_case(torch, r, dtype, seed):
+def rope_case(torch, r, dtype, seed, pos_dtype=None):
+    """x (r, HEADS, HEAD_DIM) and positions (r,) in [0, 4096), the first
+    4095 and the last 0 (the tuner's largest position and the first)."""
     rng = onp.random.RandomState(seed)
     x = torch.as_tensor(rng.randn(r, HEADS, HEAD_DIM) * 0.5).to(
         "cuda", dtype)
-    pos = rng.randint(0, PAGES_PER_SLOT * PAGE, size=(r,))
-    pos[0] = PAGES_PER_SLOT * PAGE - 1
-    return x, torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    pos = rng.randint(0, 4096, size=(r,))
+    pos[0], pos[-1] = 4095, 0
+    return x, torch.as_tensor(pos, dtype=pos_dtype or torch.int32,
+                              device="cuda")
+
+
+ROPE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def phase_rope_parity(torch, rope_mod):
+    """K5 against its plain version: rope and rope_qk at the decode (8),
+    verify (8 x 5) and prefill (128) rows, in fp32 and bf16, on int32
+    and int64 positions, and at a scalar position; two rope_qk launches
+    must give the same bits."""
+    cases, err = [], 0.0
+    for r in (SLOTS, SLOTS * (SPEC_K + 1), 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = ROPE_TOL[str(dtype).replace("torch.", "")]
+            for pos_dtype in (torch.int32, torch.int64):
+                q, pos = rope_case(torch, r, dtype, r, pos_dtype)
+                k, _ = rope_case(torch, r, dtype, r + 1, pos_dtype)
+                got = rope_mod.rope(q, pos)
+                gq, gk = rope_mod.rope_qk(q, k, pos)
+                aq, ak = rope_mod.rope_qk(q, k, pos)
+                torch.cuda.synchronize()
+                if not (torch.equal(gq, aq) and torch.equal(gk, ak)):
+                    raise AssertionError(f"two rope_qk launches differ "
+                                         f"(r {r}, {dtype}, {pos_dtype})")
+                rq = rope_mod.rope_reference(q, pos)
+                rk = rope_mod.rope_reference(k, pos)
+                e = max(max_err(got, rq, tol, tol), max_err(gq, rq, tol, tol),
+                        max_err(gk, rk, tol, tol))
+                cases.append({
+                    "r": r, "dtype": str(dtype), "positions": str(pos_dtype),
+                    "max_abs_err": e,
+                    "bitwise_equal_to_plain": bool(
+                        torch.equal(got, rq) and torch.equal(gq, rq)
+                        and torch.equal(gk, rk)),
+                    "bitwise_repeatable": True})
+                if dtype == torch.float32:
+                    err = max(err, e)
+    for last in (0, 4095):                        # a scalar position
+        x, _ = rope_case(torch, SLOTS, torch.float32, seed=3)
+        y, _ = rope_case(torch, SLOTS, torch.float32, seed=4)
+        ref = rope_mod.rope_reference(x, last)
+        e = max_err(rope_mod.rope(x, last), ref, 1e-5, 1e-5)
+        gx, gy = rope_mod.rope_qk(x, y, last)
+        e = max(e, max_err(gx, ref, 1e-5, 1e-5),
+                max_err(gy, rope_mod.rope_reference(y, last), 1e-5, 1e-5))
+        cases.append({"r": SLOTS, "dtype": str(torch.float32),
+                      "position": last, "max_abs_err": e})
+        err = max(err, e)
+    emit({"phase": "parity_rope", "tolerance": ROPE_TOL, "cases": cases})
+    return {"rope": err}
 
 
 def pa_case(torch, lengths, dtype, seed, pool_k=None, pool_v=None):
@@ -377,23 +447,8 @@ def pa_case(torch, lengths, dtype, seed, pool_k=None, pool_v=None):
 
 
 def phase_parity(torch, rope_mod, pa_mod):
-    out = {"phase": "parity", "rope": [], "paged_attention": []}
-    errs = {}
-    for r in (SLOTS, SLOTS * (SPEC_K + 1), 128):
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            x, pos = rope_case(torch, r, dtype, seed=r)
-            got = rope_mod.rope(x, pos)
-            torch.cuda.synchronize()
-            e = max_err(got, rope_mod.rope_reference(x, pos), tol, tol)
-            out["rope"].append({"r": r, "dtype": str(dtype), "max_abs_err": e})
-            if r == SLOTS and dtype == torch.float32:
-                errs["rope"] = e
-    x, _ = rope_case(torch, SLOTS, torch.float32, seed=3)   # scalar position
-    last = PAGES_PER_SLOT * PAGE - 1
-    e = max_err(rope_mod.rope(x, last), rope_mod.rope_reference(x, last),
-                1e-4, 1e-4)
-    out["rope"].append({"r": SLOTS, "dtype": str(torch.float32),
-                        "position": last, "max_abs_err": e})
+    out = {"phase": "parity", "paged_attention": []}
+    errs = phase_rope_parity(torch, rope_mod)
     lengths = [0, 1, 17, PAGES_PER_SLOT * PAGE, 300, 999, 64, 1032]
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         args = pa_case(torch, lengths, dtype, seed=5)
@@ -875,14 +930,33 @@ def nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs, smi):
         61).randn(2, BATCH, SEQ, DIM).astype(onp.float32))
     axpy = rtc_mod.get_kernel("axpy", num_inputs=2)
     n = xs.size
+    xt, yt = xs._data, ys._data
+
+    def funnel():
+        return axpy.launch([xs, ys], out_shape=xs.shape)
+
+    def raw():      # the same cubin on the tensors, past the NDArray funnel
+        return axpy._run((xt, yt), xt.shape, torch.float32, xt.device, None)
+
+    def library():
+        return torch.add(yt, xt, alpha=2)
+
     rtc_row = {
-        "ms": device_ms(torch, lambda: axpy.launch([xs, ys],
-                                                    out_shape=xs.shape)),
-        "plain_ms": device_ms(torch, lambda: axpy_oracle(xs._data,
-                                                         ys._data)),
-        "library_ms": device_ms(torch, lambda: torch.add(
-            ys._data, xs._data, alpha=2)),
+        "ms": device_ms(torch, funnel),
+        "plain_ms": device_ms(torch, lambda: axpy_oracle(xt, yt)),
+        "library_ms": device_ms(torch, library),
         "bytes": 3 * n * 4, "ops": 2 * n}
+    # where the event gap to torch.add lies: the kernels' device times,
+    # the same cubin without the funnel, and the host's cost of a call
+    rtc_split = {
+        "profiler_ms": profiler_ms(torch, funnel, "axpy"),
+        "library_profiler_ms": profiler_ms(torch, library, "add",
+                                           required=False),
+        "raw_launch_ms": device_ms(torch, raw),
+        "host_us_per_call": {
+            "funnel": host_us_per_call(torch, funnel, 200),
+            "raw_launch": host_us_per_call(torch, raw, 200),
+            "library": host_us_per_call(torch, library, 200)}}
     kernels = []
     for name, route, src, repl, row, launches in (
             ("layer_norm_residual", "cuda",
@@ -890,7 +964,8 @@ def nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs, smi):
              "mxnet_tpu/ops/layernorm_residual.py:43", rows[0],
              nd_counts["launches"]),
             ("rtc_axpy", "cuda", "mxnet_tpu_torch/rtc.py",
-             "mxnet_tpu/rtc.py:40", rtc_row, rtc_counts["axpy"])):
+             "mxnet_tpu/rtc.py:40", dict(rtc_row, **rtc_split),
+             rtc_counts["axpy"])):
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = row["ops"] / FP32_FLOPS * 1e3
         kernels.append({
@@ -900,13 +975,14 @@ def nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs, smi):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": row["library_ms"]})
+    kernels[1]["profiler_ms"] = rtc_split["profiler_ms"]
     for row in rows:
         row["bound_ms"] = max(row["bytes"] / HBM_BYTES_PER_S,
                               row["ops"] / FP32_FLOPS) * 1e3
     emit({"phase": "times_nd", "gpu": smi,
           "layer_norm_residual": {"rows": LNR_ROWS, "f": DIM,
                                   "by_dtype": rows},
-          "rtc_axpy": dict(rtc_row, n=n),
+          "rtc_axpy": dict(rtc_row, n=n, **rtc_split),
           "library": "F.layer_norm(x + r, (F,), gamma, beta): two calls "
                      "for layer_norm_residual; torch.add(y, x, alpha=2) "
                      "for rtc_axpy",
@@ -941,6 +1017,15 @@ def reset_counts(*fns):
     for f in fns:
         f.launches = 0
         f.plain_calls = 0
+
+
+def counted_call(torch, fn, call):
+    """Launches and plain calls of ``fn`` in one ``call()``, counted
+    apart from the main path (its counts must have been read)."""
+    reset_counts(fn)
+    call()
+    torch.cuda.synchronize()
+    return {"launches": fn.launches, "plain_calls": fn.plain_calls}
 
 
 def serve_requests(srv, prompts, max_new, stagger_s):
@@ -1021,6 +1106,23 @@ def phase_serve(torch, rope_mod, pa_mod):
         ref = model.greedy_reference(p, 16)
         if o != ref:
             raise AssertionError(f"paged path {o} != dense reference {ref}")
+    # one prefill chunk and one decode step: K5 once per layer each (q and
+    # k in one launch), no plain call
+    eng.acquire_slot(0, 2 * eng.prefill_chunk)
+    chunk = list(range(1, eng.prefill_chunk + 1))
+    toks, pos = onp.ones(SLOTS, onp.int32), onp.zeros(SLOTS, onp.int32)
+    act = onp.zeros(SLOTS, bool)
+    pos[0], act[0] = eng.prefill_chunk, True
+    per_call = {
+        "prefill_chunk": counted_call(
+            torch, rope_mod.rope, lambda: eng.prefill_chunk_step(0, chunk, 0)),
+        "decode_step": counted_call(
+            torch, rope_mod.rope, lambda: eng.decode_step(toks, pos, act))}
+    eng.release_slot(0)
+    if any(c != {"launches": LAYERS, "plain_calls": 0}
+           for c in per_call.values()):
+        raise AssertionError(f"rope should launch once per layer of a "
+                             f"decode step and a prefill chunk: {per_call}")
     ttft = [e["ttft_ms"] for e in entries[:len(prompts)] if "ttft_ms" in e]
     emit({"phase": "serve", "requests": len(prompts), "max_new_tokens": 32,
           "prompt_tokens": sum(map(len, prompts)),
@@ -1034,11 +1136,12 @@ def phase_serve(torch, rope_mod, pa_mod):
           "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p95": pct(ttft, 95),
           "short_requests_match_dense_reference": len(short),
           "scheduler_steps": steps.summary(),
-          "engine": eng.stats(), "counts": counts})
+          "engine": eng.stats(), "counts": counts,
+          "rope_per_call": per_call})
     return model, eng, prompts, outs, counts
 
 
-def phase_spec(torch, pa_mod, model, prompts, outs):
+def phase_spec(torch, rope_mod, pa_mod, model, prompts, outs):
     from mxnet_tpu_torch.serving import (DecodeEngine, DecodeModel,
                                          DecodeScheduler, ServingServer)
     draft = DecodeModel(VOCAB, dim=256, n_heads=4, n_layers=2, seed=7)
@@ -1055,7 +1158,24 @@ def phase_spec(torch, pa_mod, model, prompts, outs):
         raise AssertionError("speculative output differs from plain path")
     if pa_mod.paged_attention.launches <= before:
         raise AssertionError("verify did not launch paged_attention")
+    # one speculative step: the draft's k+1 chained steps launch K5 once
+    # per draft layer each, verify once per target layer
+    eng.acquire_slot(0, 2 * eng.prefill_chunk)
+    eng.prefill_chunk_step(0, list(range(1, 9)), 0)
+    toks, pos = onp.ones(SLOTS, onp.int32), onp.zeros(SLOTS, onp.int32)
+    act = onp.zeros(SLOTS, bool)
+    pos[0], act[0] = 8, True
+    step = counted_call(torch, rope_mod.rope,
+                        lambda: eng.spec_step(toks, pos, act))
+    eng.release_slot(0)
+    draft_launches = (SPEC_K + 1) * draft.n_layers
+    verify = dict(step, launches=step["launches"] - draft_launches)
+    if verify != {"launches": LAYERS, "plain_calls": 0}:
+        raise AssertionError(f"rope should launch once per layer of "
+                             f"verify: spec step {step}, draft "
+                             f"{draft_launches}")
     emit({"phase": "spec", "requests": 4, "spec_k": SPEC_K,
+          "rope_spec_step": step, "rope_verify": verify,
           "identical_to_plain": True, "wall_s": round(wall, 4),
           "spec_proposed": st["spec_proposed"],
           "spec_accepted": st["spec_accepted"],
@@ -1089,10 +1209,27 @@ def device_ms(torch, fn, runs=50, clean=False):
     return sorted(a.elapsed_time(b) for a, b in pairs)[runs // 2]
 
 
-def profiler_ms(torch, fn, name, runs=50):
+def host_us_per_call(torch, fn, calls=1000):
+    """Host µs of one call of ``fn``: a perf_counter over ``calls``
+    back-to-back calls and one synchronise at the end.  The card runs
+    behind the host for kernels this small, so this is what the host
+    spends on a call: the wrapper's work and the launch."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
+def profiler_ms(torch, fn, name, runs=50, required=True):
     """Device ms of one launch of the kernel whose name holds ``name``,
     from torch.profiler over ``runs`` calls of ``fn``, each after the
-    same L2 flush as ``device_ms`` (the flush is not counted)."""
+    same L2 flush as ``device_ms`` (the flush is not counted).  Without
+    ``required`` a name the profile lacks gives None instead of
+    failing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -1106,6 +1243,8 @@ def profiler_ms(torch, fn, name, runs=50):
     hits = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and name in e.key]
     if not hits:
+        if not required:
+            return None
         raise AssertionError(f"no device kernel named *{name}* in the "
                              f"profile")
     return (sum(e.self_device_time_total for e in hits)
@@ -1117,15 +1256,34 @@ def phase_times(torch, rope_mod, pa_mod, eng, prompts, counts, errs, smi):
     # the timer's floor: an empty kernel (a spin of 0 cycles) through the
     # same cold-L2 event pair
     floor_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
-    # rope at the decode shape (q or k of 8 slots: R=8, H=8, D=64)
+    # rope at the decode shape (q or k of 8 slots: R=8, H=8, D=64), and
+    # rope_qk rotating q and k of that shape in one launch
     x, pos = rope_case(torch, SLOTS, torch.float32, seed=11)
+    x2, _ = rope_case(torch, SLOTS, torch.float32, seed=13)
     ms = device_ms(torch, lambda: rope_mod.rope(x, pos))
     prof_ms = {"rope": profiler_ms(torch, lambda: rope_mod.rope(x, pos),
-                                   "_rope_kernel")}
+                                   "rope_kernel")}
     plain = device_ms(torch, lambda: rope_mod.rope_reference(x, pos))
+    rope_qk = {
+        "ms": device_ms(torch, lambda: rope_mod.rope_qk(x, x2, pos)),
+        "profiler_ms": profiler_ms(
+            torch, lambda: rope_mod.rope_qk(x, x2, pos), "rope_kernel"),
+        "plain_ms": device_ms(torch, lambda: (
+            rope_mod.rope_reference(x, pos),
+            rope_mod.rope_reference(x2, pos)))}
+    host_us = {
+        "rope": host_us_per_call(torch, lambda: rope_mod.rope(x, pos)),
+        "rope_qk": host_us_per_call(
+            torch, lambda: rope_mod.rope_qk(x, x2, pos)),
+        # the same loop around one empty torch kernel: a launch through
+        # PyTorch's own C++ path, for scale
+        "empty_torch_kernel": host_us_per_call(
+            torch, lambda: torch.cuda._sleep(0))}
     nbytes = 2 * x.numel() * 4 + pos.numel() * 4
     ops = 6 * x.numel() // 2 + 3 * SLOTS * HEAD_DIM // 2
-    rows.append(("rope", "triton", "mxnet_tpu_torch/ops/rope.py",
+    rope_qk["bound_ms"] = max((2 * nbytes - pos.numel() * 4)
+                              / HBM_BYTES_PER_S, 2 * ops / FP32_FLOPS) * 1e3
+    rows.append(("rope", "cuda", "mxnet_tpu_torch/csrc/rope.cu",
                  "mxnet_tpu/ops/rope.py:63", ms, plain, nbytes, ops))
     # paged attention: layer 0 of the served pool, lengths of 8 served
     # requests at their last decode step (prompt + 31 generated)
@@ -1156,8 +1314,8 @@ def phase_times(torch, rope_mod, pa_mod, eng, prompts, counts, errs, smi):
                  "mxnet_tpu_torch/csrc/paged_attention.cu",
                  "mxnet_tpu/ops/paged_attention.py:71", ms, plain, nbytes,
                  ops))
-    per_step = {"rope": {"decode_step": 2 * LAYERS,
-                         "verify": 2 * LAYERS, "prefill_chunk": 2 * LAYERS},
+    per_step = {"rope": {"decode_step": LAYERS,
+                         "verify": LAYERS, "prefill_chunk": LAYERS},
                 "paged_attention": {"decode_step": LAYERS,
                                     "verify": LAYERS * (SPEC_K + 1),
                                     "prefill_chunk": 0}}
@@ -1174,11 +1332,14 @@ def phase_times(torch, rope_mod, pa_mod, eng, prompts, counts, errs, smi):
             "library_ms": None})
     for row in kernels:
         row["profiler_ms"] = prof_ms[row["name"]]
+    kernels[0]["host_us_per_call"] = host_us["rope"]
     cfg = pa_mod._kernels.resolve("paged_attention", *pa_mod._paged_signature(
         q, kp, vp, tables, lens))
     emit({"phase": "times", "gpu": smi, "paged_attention_lengths": lengths,
           "launches_per_step": per_step, "library_ms_null_reason": NO_LIBRARY,
           "timer_floor_ms": floor_ms,
+          "rope_config": rope_mod._config(x, pos, 10000.0),
+          "rope_qk": rope_qk, "rope_host_us_per_call": host_us,
           "paged_attention_config": cfg,
           "paged_attention_ms_clean_l2": pa_clean_ms,
           "paged_attention_ms_by_config": configs,
@@ -1274,8 +1435,8 @@ def flash_times(torch, fa_mod, train_counts, errs, smi):
 def profiled(torch, fn, n, count=None):
     """Host wall ms per call of ``fn`` (which ends in a device sync),
     device busy ms per call and the kernels by device time, from
-    torch.profiler over ``n`` calls; with ``count``, also the launches
-    per call of the kernels whose names hold it."""
+    torch.profiler over ``n`` calls; with ``count`` (names), also the
+    launches per call of the kernels whose names hold each name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1292,7 +1453,8 @@ def profiled(torch, fn, n, count=None):
            for ms, c, k in kern[:8]]
     if count is None:
         return wall, busy, top
-    return wall, busy, top, sum(c for _, c, k in kern if count in k)
+    return wall, busy, top, {name: sum(c for _, c, k in kern if name in k)
+                             for name in count}
 
 
 def phase_profile(torch, eng, prompts):
@@ -1322,16 +1484,22 @@ def phase_profile(torch, eng, prompts):
         for _ in range(20):
             fn()
         plain_ms = (time.perf_counter() - t0) * 1e3 / 20
-        wall, busy, top, paged = profiled(torch, fn, 20,
-                                          "paged_attention_kernel")
+        wall, busy, top, per = profiled(
+            torch, fn, 20, ("paged_attention_kernel", "rope_kernel"))
         out[name] = {"host_ms": plain_ms, "profiled_host_ms": wall,
                      "device_busy_ms": busy,
                      "device_idle_share": 1 - busy / wall,
-                     "paged_attention_kernels_per_step": paged,
+                     "paged_attention_kernels_per_step":
+                         per["paged_attention_kernel"],
+                     "rope_kernels_per_step": per["rope_kernel"],
                      "top_kernels": top}
     if out["decode_step"]["paged_attention_kernels_per_step"] != LAYERS:
         raise AssertionError(f"a decode step should launch one paged "
                              f"attention kernel per layer: {out}")
+    if any(out[k]["rope_kernels_per_step"] != LAYERS
+           for k in ("decode_step", "prefill_chunk_128")):
+        raise AssertionError(f"a decode step and a prefill chunk should "
+                             f"launch one rope kernel per layer: {out}")
     for s in range(SLOTS):
         eng.release_slot(s)
     emit(out)
@@ -1367,7 +1535,7 @@ def main():
     errs.update(phase_lnr_parity(torch, lnr_mod))
     errs.update(phase_flash_parity(torch, fa_mod))
     model, eng, prompts, outs, counts = phase_serve(torch, rope_mod, pa_mod)
-    phase_spec(torch, pa_mod, model, prompts, outs)
+    phase_spec(torch, rope_mod, pa_mod, model, prompts, outs)
     trainer, data, label, train_counts = phase_train(torch, fa_mod)
     phase_train_check(torch)
     nd_counts = phase_nd_path(torch, lnr_mod)

@@ -4,9 +4,10 @@ The JAX package beside this one is the reference; this package mirrors
 its module paths (``mxnet_tpu_torch/serving/decode/engine.py`` is the port
 of ``mxnet_tpu/serving/decode/engine.py``) and never imports it or JAX.
 Every Pallas kernel on a ported path becomes a kernel written by hand
-for Hopper (``csrc/`` for CUDA C++, ``@triton.jit`` where a module says
-why), with a plain PyTorch version beside it that serves CPU tensors
-and is the oracle the kernel is held against.
+for Hopper in CUDA C++ (``csrc/``, built by nvcc at first use into a
+library with a C interface), with a plain PyTorch version beside it
+that serves CPU tensors and is the oracle the kernel is held against.
+Importing the package builds nothing.
 
 Ported so far: decode serving (``serving.decode``) with its two kernels,
 ``ops.paged_attention`` and ``ops.rope``; transformer-LM training
@@ -28,6 +29,10 @@ from . import autograd, ops, rtc  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
+from . import log, telemetry, tracing  # noqa: F401
+from . import gluon, initializer, optimizer, parallel, serving  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray"]
+           "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray",
+           "gluon", "initializer", "optimizer", "parallel", "serving",
+           "tracing", "telemetry", "log"]

@@ -44,15 +44,17 @@ class HybridSequential(HybridBlock):
 
 class Dense(HybridBlock):
     """Fully-connected layer: weight ``(units, in_units)``, ``in_units``
-    deferred to the first forward when 0.  A fused activation is not
-    ported yet."""
+    deferred to the first forward when 0; ``activation`` (an
+    ``Activation`` act_type) is applied after the bias, as in the
+    reference."""
 
-    def __init__(self, units, use_bias=True, flatten=True, dtype="float32",
-                 weight_initializer=None, bias_initializer="zeros",
-                 in_units=0, **kwargs):
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, **kwargs):
         super().__init__(**kwargs)
         self._units = units
         self._flatten = flatten
+        self._activation = activation
         self.weight = Parameter(shape=(units, in_units), dtype=dtype,
                                 init=weight_initializer,
                                 allow_deferred_init=True)
@@ -70,13 +72,16 @@ class Dense(HybridBlock):
 
     def forward(self, x):
         self._finish_deferred(x)
-        return nn_ops.fully_connected(
+        out = nn_ops.fully_connected(
             x, self.weight.data(),
             self.bias.data() if self.bias is not None else None,
             flatten=self._flatten)
+        if self._activation:
+            out = nn_ops.activation(out, act_type=self._activation)
+        return out
 
     def __repr__(self):
-        return f"Dense({self._units}, linear)"
+        return f"Dense({self._units}, {self._activation or 'linear'})"
 
 
 class Dropout(HybridBlock):

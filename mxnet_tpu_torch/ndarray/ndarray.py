@@ -24,6 +24,7 @@ import torch
 from .. import autograd as ag
 from ..base import MXNetError, check_shape, dtype_name, np_dtype, torch_dtype
 from ..context import Context, current_context
+from ..ops import tensor as tensor_ops
 from ..ops.registry import apply_torch, invoke
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
@@ -224,6 +225,9 @@ class NDArray:
 
     # -- indexing ----------------------------------------------------------
     def __getitem__(self, key):
+        if isinstance(key, NDArray):
+            idx = _take_rows_index(key, self.shape)
+            return apply_torch(lambda d: d[idx], [self])
         key = _norm_index(key)
         return apply_torch(lambda d: d[key], [self])
 
@@ -325,6 +329,26 @@ def _norm_index(key):
     if isinstance(key, list):
         return torch.as_tensor(key)
     return key
+
+
+def _take_rows_index(key, shape):
+    """An NDArray key as the rows it takes along axis 0, as the reference
+    does (``mxnet_tpu/ndarray/ndarray.py:293-295``): any key, bool ones
+    too, is cast to int32, so ``[True, False]`` takes rows 1 and 0, and
+    negative rows wrap.  A row outside ``[-n, n)`` raises IndexError
+    where the reference fills it with NaN; the check reads the key's
+    range back to the host."""
+    if not shape:
+        raise IndexError("an NDArray key needs an array of at least one "
+                         "dimension")
+    idx = tensor_ops.cast(key._data.detach(), dtype=torch.int32).long()
+    n = shape[0]
+    if idx.numel():
+        lo, hi = (int(v) for v in torch.aminmax(idx))
+        if lo < -n or hi >= n:
+            raise IndexError(f"index rows [{lo}, {hi}] out of range for "
+                             f"axis 0 of size {n}")
+    return idx
 
 
 def _set(data, key, value):

@@ -1,7 +1,8 @@
 """Neural-network ops on the training path (counterpart of the part of
 ``mxnet_tpu/ops/nn.py`` the transformer LM calls): ``FullyConnected``,
-the GELU cases of ``LeakyReLU``, ``log_softmax`` and ``LayerNorm``.
-Plain PyTorch: the reference left these to XLA, not to Pallas."""
+``Activation`` (registered, so ``mx.nd.Activation`` reaches it), the
+GELU cases of ``LeakyReLU``, ``log_softmax`` and ``LayerNorm``.  Plain
+PyTorch: the reference left these to XLA, not to Pallas."""
 from __future__ import annotations
 
 import os
@@ -9,8 +10,11 @@ import os
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fully_connected", "leaky_relu", "log_softmax", "layer_norm",
-           "safe_accumulation_enabled"]
+from .registry import register
+from .tensor import float_only
+
+__all__ = ["fully_connected", "activation", "leaky_relu", "log_softmax",
+           "layer_norm", "safe_accumulation_enabled"]
 
 
 def safe_accumulation_enabled() -> bool:
@@ -36,6 +40,33 @@ def fully_connected(x, weight, bias=None, *, flatten=True):
     if bias is not None:
         out = out + bias
     return out
+
+
+def _promoting(fn):
+    """``fn`` on integer input promoted to float32, as jnp promotes it."""
+    return lambda x: fn(x if x.is_floating_point() else x.float())
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": float_only("sigmoid", torch.sigmoid),
+    "tanh": torch.tanh,
+    "softrelu": _promoting(F.softplus),
+    "softsign": _promoting(F.softsign),
+    "log_sigmoid": _promoting(F.logsigmoid),
+    "mish": _promoting(lambda x: x * torch.tanh(F.softplus(x))),
+}
+
+
+@register("Activation", aliases=("activation",))
+def activation(x, *, act_type):
+    """``act_type`` applied elementwise (``mxnet_tpu/ops/nn.py:278``);
+    sigmoid refuses integer input, as the reference's does."""
+    try:
+        fn = _ACTIVATIONS[act_type]
+    except KeyError:
+        raise ValueError(f"unknown act_type {act_type}") from None
+    return fn(x)
 
 
 def leaky_relu(x, *, act_type):

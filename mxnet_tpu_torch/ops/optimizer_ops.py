@@ -4,12 +4,62 @@ pure function returning the new ``(weight, *state)``; the caller writes
 them back.  ``<op>_multi`` applies the same arithmetic to lists of
 tensors with PyTorch's multi-tensor (``_foreach``) ops: one launch per
 step of the formula for all parameters, instead of one per parameter,
-which is what keeps a trainer's update from being bound by the host."""
+which is what keeps a trainer's update from being bound by the host.
+
+Both run under the reference's low-precision guard
+(``mxnet_tpu/optimizer/optimizer.py:45-70``): a parameter whose weight,
+gradient or state is a float narrower than f32 is updated in f32 and its
+weight and states are cast back to their own dtypes; an all-f32 one
+(the transformer's f32 masters) computes exactly as before."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
 __all__ = ["adam_update", "adam_update_multi"]
+
+
+def _lowp(arrays) -> bool:
+    return any(a.is_floating_point() and a.element_size() < 4
+               for a in arrays)
+
+
+def _f32(a):
+    return a.float() if a.is_floating_point() else a
+
+
+def _back(out, like):
+    return out.to(like.dtype) if like.is_floating_point() else out
+
+
+def _lowp_guard(fn):
+    """``fn(weight, grad, *states)`` in f32 when any input is bf16/fp16;
+    the outputs ``(weight, *states)`` cast back to the inputs' dtypes."""
+    @functools.wraps(fn)
+    def guarded(weight, grad, *states, **kw):
+        arrays = (weight, grad, *states)
+        if not _lowp(arrays):
+            return fn(*arrays, **kw)
+        out = fn(*map(_f32, arrays), **kw)
+        return tuple(_back(o, a) for o, a in zip(out, (weight, *states)))
+    return guarded
+
+
+def _lowp_guard_multi(fn):
+    """The same guard for ``fn(weights, grads, *state_lists)``, taken
+    parameter by parameter."""
+    @functools.wraps(fn)
+    def guarded(weights, grads, *states, **kw):
+        lists = (weights, grads, *states)
+        low = [_lowp(group) for group in zip(*lists)]
+        if not any(low):
+            return fn(*lists, **kw)
+        out = fn(*([_f32(a) if lo else a for a, lo in zip(col, low)]
+                   for col in lists), **kw)
+        return tuple([_back(o, a) for o, a in zip(outs, ins)]
+                     for outs, ins in zip(out, (weights, *states)))
+    return guarded
 
 
 def _apply_wd_rescale(grad, weight, rescale_grad, clip_gradient, wd):
@@ -19,6 +69,7 @@ def _apply_wd_rescale(grad, weight, rescale_grad, clip_gradient, wd):
     return g + wd * weight
 
 
+@_lowp_guard
 def adam_update(weight, grad, mean, var, *, lr, beta1=0.9, beta2=0.999,
                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
     """One Adam step exactly as the reference op writes it: no bias
@@ -29,6 +80,7 @@ def adam_update(weight, grad, mean, var, *, lr, beta1=0.9, beta2=0.999,
     return weight - lr * m / (torch.sqrt(v) + epsilon), m, v
 
 
+@_lowp_guard_multi
 def adam_update_multi(weights, grads, means, variances, *, lrs, wds,
                       beta1=0.9, beta2=0.999, epsilon=1e-8,
                       rescale_grad=1.0, clip_gradient=-1.0):

@@ -1,33 +1,45 @@
-"""Rotary position embedding (RoPE): plain PyTorch version, Triton kernel,
-and the wrapper that picks between them by the tensor's device.
+"""Rotary position embedding (RoPE): plain PyTorch version, CUDA C++
+kernel (K5), and the wrappers that pick between them by the tensor's
+device.
 
 Replaces the TPU kernel ``mxnet_tpu/ops/rope.py`` ``_rope_kernel``
-(reached through ``_rope_pallas``).  NeoX half-split rotation: for
-head-dim pairs ``(i, i + D/2)`` the angle at position ``p`` is
-``p * base**(-2i/D)``, so
+(reached through ``_rope_pallas``) with ``csrc/rope.cu``, built by nvcc
+into a shared library with a C interface and called through ``ctypes``.
+NeoX half-split rotation: for head-dim pairs ``(i, i + D/2)`` the angle
+at position ``p`` is ``p * base**(-2i/D)``, so
 
     out[..., :D/2] = x1 * cos - x2 * sin
     out[..., D/2:] = x2 * cos + x1 * sin
 
-**Why Triton.**  The kernel is one fused elementwise pass (load a block
-of head vectors, compute the angles, rotate, store) with no data reuse,
-no shared-memory tiling and no matrix product, so CUDA C++ written by
-hand would gain nothing over Triton's masked block loads.
-
 **What bounds it on an H100.**  Bytes: each element is read once and
 written once (``2 * R*H*D * itemsize`` plus the positions) against a
-handful of flops and two transcendentals per pair.  At decode shapes
-(R = 8 slots × 8 heads × 64) that is 32 KB, far under a microsecond at
-3.35 TB/s, so a launch is dominated by its fixed launch cost; the
-design keeps it to one launch per call with no host-side tables.
+handful of flops and one sincos per pair.  At decode shapes (R = 8
+slots × 8 heads × 64) that is 32 KB, far under a microsecond at
+3.35 TB/s, so what a caller pays is the launch: the host's work before
+it and the card's fixed cost.  Hence the design of the host path:
 
-**Numerics.**  The angles use libdevice's accurate ``exp``/``cos``/
-``sin`` in f32, never fast-math approximations: positions run into the
-thousands, where an approximate ``cos`` loses all precision.  The
-inverse frequencies are computed as the reference does,
-``exp(k * (-ln(base) / half))`` in f32.  The TPU kernel's lane broadcast
-of positions (``_POS_LANES``) was tiling for the TPU and is gone.
+- one C call per launch, its ``argtypes`` set once, on the stream's raw
+  handle (``torch.cuda.current_stream`` builds a Python object each
+  call); no allocation but the outputs, no synchronisation, no lengths
+  read back;
+- no reshape of an ``(R, H, D)`` input or its output;
+- the config resolved once per (R bucket, H, D, dtype) and kept in a
+  dict;
+- ``positions`` used as they are when already a contiguous tensor of
+  the rows' shape on the device (no ``as_tensor``/``broadcast_to``);
+- only the checks that guard memory (device, dtype, shape,
+  contiguity);
+- :func:`rope_qk` rotates q and k in one launch.
+
+The source's head comment gives the kernel's design and numerics: the
+inverse frequencies ``exp(k * (-ln(base) / half))`` and the angles in
+rounded f32 steps, accurate ``expf``/``sincosf`` (positions run into
+the thousands, where the fast-math forms lose all precision), products
+and sums rounded one by one as the plain version rounds them.  The TPU
+kernel's lane broadcast of positions (``_POS_LANES``) was tiling for
+the TPU and is gone.
 """
+import ctypes
 import math
 
 import torch
@@ -35,14 +47,14 @@ import torch
 from .. import kernels as _kernels
 from ..base import MXNetError
 
-__all__ = ["rope", "rope_reference", "build"]
+__all__ = ["rope", "rope_qk", "rope_reference", "build"]
 
-# Bound to triton.language / libdevice at the first launch, so that the
-# jitted kernel body resolves them as module globals while importing
-# this module never imports triton (the CPU path has none).
-tl = None
-libdevice = None
-_KERNEL = {}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_POS_IS_INT64 = {torch.int32: 0, torch.int64: 1}
+_PAIRS = (2, 4, 8)              # pairs a thread rotates
+_THREADS = (64, 128, 256)       # threads a block
+_LIB = []                       # [(mx_rope, mx_cuda_error_string)]
+_CONFIGS = {}                   # (R bucket, H, D, dtype) → (pairs, threads)
 
 
 def rope_reference(x, positions, base=10000.0):
@@ -63,95 +75,132 @@ def rope_reference(x, positions, base=10000.0):
                       x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _triton_kernel():
-    """The jitted kernel, defined at first use (imports triton)."""
-    global tl, libdevice
-    if "rope" in _KERNEL:
-        return _KERNEL["rope"]
-    import triton
-    import triton.language
-    try:
-        from triton.language.extra import libdevice as _libdevice
-    except ImportError:                      # triton < 3.2 layout
-        from triton.language.extra.cuda import libdevice as _libdevice
-    tl = triton.language
-    libdevice = _libdevice
-
-    @triton.jit
-    def _rope_kernel(x_ptr, pos_ptr, o_ptr, n_vec, heads, neg_log_base_half,
-                     HALF: tl.constexpr, HALF_P: tl.constexpr,
-                     BLOCK_V: tl.constexpr):
-        # one program rotates BLOCK_V head vectors (row r, head h) of D
-        vec = tl.program_id(0) * BLOCK_V + tl.arange(0, BLOCK_V)
-        vmask = vec < n_vec
-        pos = tl.load(pos_ptr + vec // heads, mask=vmask, other=0)
-        k = tl.arange(0, HALF_P)
-        kmask = k < HALF
-        inv = libdevice.exp(k.to(tl.float32) * neg_log_base_half)
-        ang = pos.to(tl.float32)[:, None] * inv[None, :]
-        cos = libdevice.cos(ang)
-        sin = libdevice.sin(ang)
-        offs = vec[:, None] * (2 * HALF) + k[None, :]
-        mask = vmask[:, None] & kmask[None, :]
-        x1 = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        x2 = tl.load(x_ptr + offs + HALF, mask=mask,
-                     other=0.0).to(tl.float32)
-        ty = o_ptr.dtype.element_ty
-        tl.store(o_ptr + offs, (x1 * cos - x2 * sin).to(ty), mask=mask)
-        tl.store(o_ptr + offs + HALF, (x2 * cos + x1 * sin).to(ty),
-                 mask=mask)
-
-    _KERNEL["rope"] = _rope_kernel
-    return _rope_kernel
+def _library():
+    """``(mx_rope, mx_cuda_error_string)``, built, loaded and typed on
+    first use."""
+    if not _LIB:
+        from ..kernels.build import build_library
+        lib = build_library("rope")[0]
+        fn = lib.mx_rope
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.mx_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.mx_cuda_error_string.restype = ctypes.c_char_p
+        _LIB.append((fn, lib.mx_cuda_error_string))
+    return _LIB[0]
 
 
-_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-
-
-def _launch(x, positions, base, block_v):
-    """Launch the Triton kernel on x (R, H, D) and positions (R,); no
-    counting (the wrapper counts)."""
-    if x.device.type != "cuda":
-        raise MXNetError(f"rope kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype not in _DTYPES:
-        raise MXNetError(f"rope kernel takes {_DTYPES}, got {x.dtype}")
-    if x.dim() != 3 or x.shape[-1] % 2:
+def _launch(xs, positions, neg_log_base_half, pairs, threads):
+    """K5 on one or two ``(R, H, D)`` CUDA tensors of one shape and dtype
+    sharing ``positions (R,)``, on the caller's current stream; returns
+    the outputs.  No counting (the wrappers count)."""
+    x0 = xs[0]
+    dev = x0.device
+    if dev.type != "cuda":
+        raise MXNetError(f"rope kernel needs CUDA tensors, got {dev}")
+    code = _DTYPE_CODE.get(x0.dtype)
+    if code is None:
+        raise MXNetError(f"rope kernel takes {tuple(_DTYPE_CODE)}, got "
+                         f"{x0.dtype}")
+    if x0.dim() != 3 or x0.shape[-1] % 2:
         raise MXNetError(f"rope kernel takes (R, H, D) with an even D, "
-                         f"got {tuple(x.shape)}")
-    if not x.is_contiguous() or not positions.is_contiguous():
-        raise MXNetError("rope kernel needs contiguous x and positions")
-    if positions.device != x.device or positions.dtype not in (
-            torch.int32, torch.int64) or positions.shape != x.shape[:1]:
+                         f"got {tuple(x0.shape)}")
+    for x in xs:
+        if x.device != dev or x.dtype != x0.dtype or x.shape != x0.shape \
+                or not x.is_contiguous():
+            raise MXNetError("rope kernel needs contiguous tensors of one "
+                             "shape, dtype and device")
+    pos64 = _POS_IS_INT64.get(positions.dtype)
+    if pos64 is None or positions.device != dev \
+            or positions.shape != x0.shape[:1] \
+            or not positions.is_contiguous():
         raise MXNetError(
-            f"rope positions must be int32/int64 of shape {x.shape[:1]} "
-            f"on {x.device}, got {positions.dtype} {tuple(positions.shape)}"
-            f" on {positions.device}")
-    r, h, d = x.shape
-    half = d // 2
-    out = torch.empty_like(x)
-    n_vec = r * h
-    block_v = int(block_v)
-    grid = ((n_vec + block_v - 1) // block_v,)
-    with torch.cuda.device(x.device):
-        _triton_kernel()[grid](
-            x, positions, out, n_vec, h, -math.log(base) / half,
-            HALF=half, HALF_P=1 << (half - 1).bit_length(), BLOCK_V=block_v)
-    return out
+            f"rope positions must be contiguous int32/int64 of shape "
+            f"{tuple(x0.shape[:1])} on {dev}, got {positions.dtype} "
+            f"{tuple(positions.shape)} on {positions.device}")
+    fn, error_string = _library()
+    outs = [torch.empty_like(x) for x in xs]
+    r, h, d = x0.shape
+    args = (x0.data_ptr(), outs[0].data_ptr(), xs[-1].data_ptr(),
+            outs[-1].data_ptr(), len(xs), code, positions.data_ptr(), pos64,
+            r, h, d, neg_log_base_half, pairs, threads,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    if err:
+        raise MXNetError(f"rope launch failed: "
+                         f"{error_string(err).decode()}")
+    return outs
 
 
-def _rope_cuda(x, positions, base, block_v):
-    out = _launch(x, positions, base, block_v)
+def _rows_positions(positions, lead, r, device):
+    """``positions`` as a contiguous ``(R,)`` tensor on ``device``: as it
+    is when it already is one (or a contiguous tensor of shape ``lead``,
+    viewed flat), else broadcast (a scalar) and copied."""
+    if isinstance(positions, torch.Tensor) and positions.shape == lead \
+            and positions.device == device and positions.is_contiguous():
+        return positions if positions.dim() == 1 else positions.reshape(r)
+    # a broadcast scalar reshapes to a stride-0 view: the kernel needs one
+    # position per row in memory
+    return torch.broadcast_to(torch.as_tensor(positions, device=device),
+                              lead).reshape(r).contiguous()
+
+
+def _config(xf, pos, base):
+    """``(pairs, threads)`` for a call: the registry's resolution (memo,
+    disk, tuner, default), taken once per (R bucket, H, D, dtype)."""
+    key = (_pow2(xf.shape[0], 64), xf.shape[1], xf.shape[2], xf.dtype)
+    cfg = _CONFIGS.get(key)
+    if cfg is None:
+        sig, dt = _rope_signature(xf, pos, base)
+        c = _kernels.resolve("rope", sig, dt,
+                             tune_args=((xf, pos), {"base": float(base)}))
+        cfg = _CONFIGS[key] = (int(c["pairs"]), int(c["threads"]))
+    return cfg
+
+
+def _rope_cuda(xs, positions, base, config=None):
+    """One K5 launch over the tensors ``xs`` (one shape ``(..., H, D)``),
+    counted once in ``rope.launches``; returns their rotations."""
+    x0 = xs[0]
+    shape = x0.shape
+    if len(shape) == 3:
+        lead, r, flat = shape[:1], shape[0], xs
+    else:
+        lead = shape[:-2]
+        r = math.prod(lead)
+        flat = [x.reshape(r, shape[-2], shape[-1]) for x in xs]
+    pos = _rows_positions(positions, lead, r, x0.device)
+    if config is None:
+        pairs, threads = _config(flat[0], pos, base)
+    else:
+        pairs, threads = int(config["pairs"]), int(config["threads"])
+    outs = _launch(flat, pos, -math.log(base) / (shape[-1] // 2), pairs,
+                   threads)
     rope.launches += 1
-    return out
+    if flat is xs:
+        return outs
+    return [o.reshape(x.shape) for o, x in zip(outs, xs)]
 
 
-def build(device="cuda") -> None:
-    """Compile the kernel ahead of traffic with one launch on a dummy
-    input (not counted in ``rope.launches``)."""
+def build(device="cuda"):
+    """Compile and load the library ahead of traffic and launch it once
+    on a small input (not counted in ``rope.launches``).  Returns
+    ``(nvcc output, build seconds)``."""
+    from ..kernels.build import build_library
+    _, log, seconds = build_library("rope")
     x = torch.zeros((1, 1, 64), device=device)
-    _launch(x, torch.zeros((1,), dtype=torch.int32, device=device),
-            10000.0, 16)
+    _launch([x], torch.zeros((1,), dtype=torch.int32, device=device),
+            -math.log(10000.0) / 32, _PAIRS[0], _THREADS[0])
     torch.cuda.synchronize(device)
+    return log, seconds
 
 
 # -- kernel-registry integration -------------------------------------------
@@ -169,7 +218,7 @@ def _rope_signature(x, positions, base=10000.0):
 
 
 def _rope_kernel_run(config, x, positions, base=10000.0):
-    return _rope_cuda(x, positions, base, config["block_v"])
+    return _rope_cuda((x,), positions, base, config)[0]
 
 
 def _rope_make_args(case):
@@ -185,41 +234,43 @@ def _rope_make_args(case):
 
 
 _kernels.register_kernel(_kernels.KernelSpec(
-    "rope", version=1,
+    "rope", version=2,
     run=_rope_kernel_run, fallback=rope_reference,
-    config_space={"block_v": (16, 32, 64, 128)},
-    default_config={"block_v": 32},
+    config_space={"pairs": _PAIRS, "threads": _THREADS},
+    default_config={"pairs": 4, "threads": 128},
     signature=_rope_signature, make_args=_rope_make_args,
     tune_grid=({"r": 8, "h": 8, "d": 64},
                {"r": 128, "h": 8, "d": 64}),
 ))
 
 
-def rope(x, positions, *, base=10000.0, block_v=None):
+def rope(x, positions, *, base=10000.0, config=None):
     """Rotary embedding on ``x (..., H, D)`` at integer ``positions``
     shaped like ``x.shape[:-2]`` (scalars broadcast).
 
     A CPU tensor takes :func:`rope_reference` (``rope.plain_calls``
-    counts those); a CUDA tensor launches the Triton kernel
-    (``rope.launches``) or raises — it never falls back."""
-    lead = x.shape[:-2]
-    r = math.prod(lead)
-    if r == 0:
+    counts those); a CUDA tensor launches K5 (``rope.launches``) or
+    raises — it never falls back.  ``config`` (``{"pairs", "threads"}``)
+    overrides the registry's choice."""
+    if math.prod(x.shape[:-2]) == 0:
         return x
     if x.device.type == "cpu":
         rope.plain_calls += 1
         return rope_reference(x, positions, base=base)
-    xf = x.reshape((r,) + tuple(x.shape[-2:]))
-    # a broadcast scalar reshapes to a stride-0 view: the kernel needs
-    # one position per row in memory
-    pos = torch.broadcast_to(torch.as_tensor(positions, device=x.device),
-                             lead).reshape(r).contiguous()
-    if block_v is None:
-        sig, dt = _rope_signature(xf, pos, base)
-        block_v = _kernels.resolve(
-            "rope", sig, dt,
-            tune_args=((xf, pos), {"base": float(base)}))["block_v"]
-    return _rope_cuda(xf, pos, float(base), block_v).reshape(x.shape)
+    return _rope_cuda((x,), positions, float(base), config)[0]
+
+
+def rope_qk(q, k, positions, *, base=10000.0):
+    """Exactly ``(rope(q, positions), rope(k, positions))``.  On the
+    card q and k of one shape and dtype rotate in one launch, counted
+    once in ``rope.launches`` (two launches where they differ); on the
+    CPU they are two plain calls."""
+    if q.device.type == "cpu" or math.prod(q.shape[:-2]) == 0 \
+            or q.shape != k.shape or q.dtype != k.dtype:
+        return (rope(q, positions, base=base),
+                rope(k, positions, base=base))
+    oq, ok = _rope_cuda((q, k), positions, float(base))
+    return oq, ok
 
 
 rope.launches = 0

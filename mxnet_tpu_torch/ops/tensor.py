@@ -12,10 +12,10 @@ from __future__ import annotations
 
 import torch
 
-from ..base import MXNetError, torch_dtype
+from ..base import MXNetError, dtype_name, torch_dtype
 from .registry import register
 
-__all__ = ["dot", "pick", "embedding"]
+__all__ = ["dot", "pick", "embedding", "cast", "float_only"]
 
 
 def dot(a, b, *, transpose_b=False):
@@ -123,11 +123,27 @@ for _name, _fn, _rev, _cmp in (
     register(_name)(_scalar_op)
 
 
+def float_only(name, fn):
+    """``fn`` refusing integer and bool input, as the reference's
+    ``logistic`` does ("logistic does not accept dtype int32"); the
+    other float ops of the table promote integers to float32 in both
+    packages."""
+    def op(a):
+        if not (a.is_floating_point() or a.is_complex()):
+            raise TypeError(f"{name} does not accept dtype "
+                            f"{dtype_name(a.dtype)}; accepted dtypes are "
+                            f"floating and complex")
+        return fn(a)
+    op.__name__ = name
+    return op
+
+
 for _name, _fn in (("negative", torch.neg), ("abs", torch.abs),
                    ("square", torch.square), ("sqrt", torch.sqrt),
                    ("exp", torch.exp),
                    ("log", torch.log), ("relu", torch.relu),
-                   ("sigmoid", torch.sigmoid), ("tanh", torch.tanh)):
+                   ("sigmoid", float_only("sigmoid", torch.sigmoid)),
+                   ("tanh", torch.tanh)):
     def _unary(a, _f=_fn):
         return _f(a)
     _unary.__name__ = _name
@@ -178,8 +194,21 @@ for _name, _fn, _aliases in (
 
 
 @register("cast", aliases=("Cast",))
-def _cast(a, *, dtype):
-    return a.to(torch_dtype(dtype))
+def cast(a, *, dtype):
+    """``a`` as ``dtype``.  Float to integer truncates toward zero and
+    saturates at the target's range, NaN giving 0, as the reference's
+    conversion does (``Tensor.to`` wraps: -2.25 would become 254 as
+    uint8)."""
+    dt = torch_dtype(dtype)
+    if not a.is_floating_point() or dt.is_floating_point or dt == torch.bool:
+        return a.to(dt)
+    info = torch.iinfo(dt)
+    # compared in a's own type: int32's max rounds up to 2**31 in f32, so
+    # every value that reaches it is out of range
+    hi, lo = a >= info.max, a <= info.min
+    inside = torch.where(hi | lo | torch.isnan(a), 0, a).to(dt)
+    return torch.where(hi, info.max, torch.where(lo, info.min, inside)
+                       ).to(dt)
 
 
 @register("reshape", aliases=("Reshape",))

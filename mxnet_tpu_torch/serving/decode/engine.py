@@ -17,9 +17,9 @@ Device paths, each over fixed shapes:
   path.
 
 Attention inside ``decode_step``/``verify`` runs through
-``ops.paged_attention`` and every rotary embedding through ``ops.rope``:
-on a CUDA device those launch the hand-written kernels, on the CPU their
-plain versions.
+``ops.paged_attention`` and the rotary embedding of q and k through
+``ops.rope.rope_qk`` (one launch for both): on a CUDA device those
+launch the hand-written kernels, on the CPU their plain versions.
 
 The port runs eagerly (no ``jit``).  ``compiles`` keeps the reference's
 meaning of *executables materialised*: it ticks on the first use of each
@@ -42,7 +42,7 @@ from ... import telemetry
 from ...base import MXNetError
 from ...context import resolve_device
 from ...ops.paged_attention import paged_attention
-from ...ops.rope import rope, rope_reference
+from ...ops.rope import rope_qk, rope_reference
 from .paged_kv import PagedKVCache
 
 __all__ = ["DecodeModel", "DecodeEngine"]
@@ -209,10 +209,9 @@ def _decode_core(mdl: DecodeModel, params, pool, tokens, positions,
     idx = tables[rows, pos_r // ps].long() * ps + pos_r % ps
     for li, lp in enumerate(params["layers"]):
         h1 = _rms(x, lp["ln1"])
-        q = rope((h1 @ lp["wq"]).reshape(s_, h_, hd), positions,
-                 base=mdl.rope_base)
-        k = rope((h1 @ lp["wk"]).reshape(s_, h_, hd), positions,
-                 base=mdl.rope_base)
+        q, k = rope_qk((h1 @ lp["wq"]).reshape(s_, h_, hd),
+                       (h1 @ lp["wk"]).reshape(s_, h_, hd), positions,
+                       base=mdl.rope_base)
         v = (h1 @ lp["wv"]).reshape(s_, h_, hd)
         _write_kv(pool, li, idx, k[rows], v[rows])
         attn = paged_attention(q, pool[li, 0], pool[li, 1], tables,
@@ -242,10 +241,9 @@ def _verify_core(mdl: DecodeModel, params, pool, tokens, base_pos,
            + pos_r % ps).reshape(-1)
     for li, lp in enumerate(params["layers"]):
         h1 = _rms(x, lp["ln1"])
-        q = rope((h1 @ lp["wq"]).reshape(s_, w_, h_, hd), pos,
-                 base=mdl.rope_base)
-        k = rope((h1 @ lp["wk"]).reshape(s_, w_, h_, hd), pos,
-                 base=mdl.rope_base)
+        q, k = rope_qk((h1 @ lp["wq"]).reshape(s_, w_, h_, hd),
+                       (h1 @ lp["wk"]).reshape(s_, w_, h_, hd), pos,
+                       base=mdl.rope_base)
         v = (h1 @ lp["wv"]).reshape(s_, w_, h_, hd)
         _write_kv(pool, li, idx, k[rows].reshape(-1, h_, hd),
                   v[rows].reshape(-1, h_, hd))
@@ -302,10 +300,9 @@ def _prefill_core(mdl: DecodeModel, params, pool, tokens, start: int,
     mask = (kpos <= pos.long()[:, None, None]) & (kpos < total)
     for li, lp in enumerate(params["layers"]):
         h1 = _rms(x, lp["ln1"])
-        q = rope((h1 @ lp["wq"]).reshape(b_, h_, hd), pos,
-                 base=mdl.rope_base)
-        k = rope((h1 @ lp["wk"]).reshape(b_, h_, hd), pos,
-                 base=mdl.rope_base)
+        q, k = rope_qk((h1 @ lp["wq"]).reshape(b_, h_, hd),
+                       (h1 @ lp["wk"]).reshape(b_, h_, hd), pos,
+                       base=mdl.rope_base)
         v = (h1 @ lp["wv"]).reshape(b_, h_, hd)
         _write_kv(pool, li, idx, k[:chunk_len], v[:chunk_len])
         # the chunk attends its causal prefix (earlier chunks included)

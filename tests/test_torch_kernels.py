@@ -51,13 +51,15 @@ def test_resolve_default_then_disk_then_warm(cache_dir):
     assert doc["entries"][key]["config"] == {"warps": 4}
 
 
-def test_on_disk_format_is_the_reference_packages(cache_dir):
+@pytest.mark.parametrize("config", [{"pairs": 8, "threads": 64},
+                                    {"pairs": 2, "threads": 256}])
+def test_on_disk_format_is_the_reference_packages(cache_dir, config):
     """One cache file can serve both packages: the reference's loader
     reads what the port wrote, and the backend field keeps the entries
     apart."""
     spec = kernels.get_kernel("rope")
-    key = kernels.commit(spec, "r64_h8_d64", "float32", {"block_v": 64})
-    assert jax_cache.load()[key]["config"] == {"block_v": 64}
+    key = kernels.commit(spec, "r64_h8_d64", "float32", config)
+    assert jax_cache.load()[key]["config"] == config
 
 
 def test_corrupt_cache_file_reads_as_empty(cache_dir):

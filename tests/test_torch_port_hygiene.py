@@ -53,6 +53,55 @@ def test_importing_the_whole_port_loads_no_jax_or_reference():
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
 
 
+def test_importing_the_whole_port_loads_no_triton():
+    """Every kernel of the port is CUDA C++ behind ctypes: no module
+    imports Triton, at import time or otherwise."""
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import mxnet_tpu_torch
+        for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
+                                       "mxnet_tpu_torch."):
+            importlib.import_module(m.name)
+        print(sorted(n for n in sys.modules
+                     if n == "triton" or n.startswith("triton.")))
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    for path in SOURCES:
+        assert not re.search(r"\bimport triton\b|\bfrom triton\b",
+                             path.read_text()), path
+
+
+def test_bare_import_builds_nothing():
+    """``import mxnet_tpu_torch`` alone starts no process (no nvcc),
+    loads no built kernel library, builds nothing, and imports no
+    Triton, JAX or reference module."""
+    script = textwrap.dedent("""
+        import sys
+        events = []
+
+        def hook(event, args):
+            if event == "subprocess.Popen":
+                events.append(("popen", str(args[0])))
+            elif event == "ctypes.dlopen" and "torch_kernels" in str(
+                    args[0]):
+                events.append(("dlopen", str(args[0])))
+
+        sys.addaudithook(hook)
+        import mxnet_tpu_torch
+        from mxnet_tpu_torch.kernels import build
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in ("triton", "jax", "mxnet_tpu"))
+        print(events, bad, sorted(build._LIBS))
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] [] []", out.stdout
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from mxnet_tpu_torch.serving import DecodeModel
     from mxnet_tpu_torch.serving.decode.paged_kv import PagedKVCache
