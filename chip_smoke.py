@@ -39,17 +39,36 @@ exits non-zero and prints no result:
 3. serve   — the decode-serving path at the full width of the repo's
              transformer LM (vocab 32000, dim 512, 8 heads, 8 layers,
              2048-position slots): DecodeModel → DecodeEngine →
-             DecodeScheduler → ServingServer.generate answers 16
-             overlapping requests, then 2 short ones that must equal the
-             dense greedy reference.  Kernel launch counts are zeroed
-             just before and read just after; both kernels must have
-             launched and no plain version may have run.  Then one
-             prefill chunk and one decode step, counted apart, must each
-             launch rope once per layer (q and k together).
-4. spec    — 4 of those requests again with a draft model and spec_k=4;
-             the output must be token-identical; one speculative step,
+             DecodeScheduler → ServingServer; ``ServingServer.warmup``
+             captures one CUDA graph per exec key (decode, prefill_b16 ..
+             prefill_b128), then ``generate`` answers 16 overlapping
+             requests and 2 short ones that must equal the dense greedy
+             reference, all on graph replays: ``compiles`` may not move
+             while serving.  Kernel launch counts are zeroed just before
+             and read just after; both kernels must have launched and no
+             plain version may have run.  Then one prefill chunk and one
+             decode step, counted apart, must each launch rope once per
+             layer (q and k together), the decode step paged attention
+             once per layer.
+   replay_check — a 128-token prefill chunk and a decode step (two live
+             slots, six masked ones at a position past their tables)
+             replayed, then their cores run eagerly on the same static
+             inputs: tokens and the live pages bitwise equal, K4's scratch
+             counters back at 0.
+4. spec    — 4 of those requests again with a draft model and spec_k=4,
+             warmed up the same way (11 exec keys); the output must be
+             token-identical and capture nothing; one speculative step,
              counted apart, must launch rope once per layer of verify
-             (beside the draft's once per layer of each of its steps).
+             (beside the draft's once per layer of each of its steps);
+             replay_check again, for verify and a prefill chunk.
+   profile — torch.profiler over one decode step, one 128-token prefill
+             chunk and one speculative step at the serve shapes (8 slots
+             at the served lengths), each replayed and, in the same
+             process, eager (the same cores on the executables' static
+             inputs): host ms per step in blocks taken in turns, device
+             busy ms, idle share, kernels per step and the kernels by
+             device time; K4 and K5 must launch the expected number of
+             times per step by the device trace in both modes.
 5. train   — the training path at the full width of bench.py's
              transformer row (vocab 32000, units 512, 8 layers, 8 heads,
              max_len 2048, tied weights, batch 8 x 2048, Adam lr 3e-4,
@@ -93,22 +112,21 @@ exits non-zero and prints no result:
              its first launch, and CPU NDArrays raise.
 10. times_nd — K6 (bf16 and fp32) and rtc axpy against their bounds,
              plain versions and library calls (F.layer_norm(x + r), two
-             calls; torch.add(y, x, alpha=2)); for axpy also the
-             torch.profiler device time of the kernel and of torch.add,
-             and the same cubin launched on the raw tensors without the
-             NDArray funnel (event ms and host µs per call).
-11. profile — torch.profiler over one decode step and one prefill chunk
-             at the serve shapes, and over one training step: host ms,
-             device busy ms, idle share and the kernels by device
-             time; a decode step must launch one paged-attention kernel
-             per layer (one per call), and a decode step and a prefill
-             chunk one rope kernel per layer.
+             calls; torch.add(y, x, alpha=2)); for K6 also the
+             torch.profiler device time of the kernel and of the two
+             library kernels, and the host µs of a call of each; for axpy
+             also the torch.profiler device time of the kernel and of
+             torch.add, and the same cubin launched on the raw tensors
+             without the NDArray funnel (event ms and host µs per call).
+11. profile_train — torch.profiler over one training step: host ms,
+             device busy ms, idle share and the kernels by device time.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
 """
+import gc
 import json
 import os
 import subprocess
@@ -130,6 +148,12 @@ VOCAB, DIM, HEADS, LAYERS, MLP = 32000, 512, 8, 8, 4
 SLOTS, PAGE, PAGES_PER_SLOT, NUM_PAGES = 8, 16, 128, 1024
 HEAD_DIM = DIM // HEADS
 SPEC_K = 4
+# prompt lengths whose prefill buckets (16, 32, 64, 128) cover every chunk
+# the served prompts feed, so served traffic captures no graph
+PREFILL_LENGTHS = (16, 32, 64, 128)
+# a masked slot's position past its page table (the cores clamp it before
+# the gather: torch on CUDA would fault)
+FAR_POSITION = 10_000
 # the training row: bench.py's _transformer_bench
 BATCH, SEQ, LR = 8, 2048, 3e-4
 # the first (warm) step's loss of this row from these weights, as the
@@ -916,14 +940,28 @@ def nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs, smi):
         x, r, g, b = lnr_case(torch, LNR_ROWS, DIM, dtype, dtype, seed=51)
         gl, bl = g.to(dtype), b.to(dtype)
         size = torch.finfo(dtype).bits // 8
+
+        def kernel():
+            return lnr_mod.layer_norm_residual(x, r, g, b)
+
+        def library():
+            return F.layer_norm(x + r, (DIM,), gl, bl, EPS)
+
         rows.append({
             "dtype": str(dtype),
-            "ms": device_ms(torch, lambda: lnr_mod.layer_norm_residual(
-                x, r, g, b)),
+            "ms": device_ms(torch, kernel),
             "plain_ms": device_ms(torch, lambda: lnr_mod.
                                   layer_norm_residual_reference(x, r, g, b)),
-            "library_ms": device_ms(torch, lambda: F.layer_norm(
-                x + r, (DIM,), gl, bl, EPS)),
+            "library_ms": device_ms(torch, library),
+            # device time alone, and the host's cost of a call: the event
+            # pair can take in a host call longer than the flush
+            "profiler_ms": profiler_ms(torch, kernel, "lnr_"),
+            "library_profiler_ms": profiler_ms(
+                torch, library, ("add", "layer_norm", "LayerNorm",
+                                 "RowwiseMoments"), required=False,
+                per_call=True),
+            "host_us_per_call": host_us_per_call(torch, kernel, 200),
+            "library_host_us_per_call": host_us_per_call(torch, library, 200),
             "bytes": 3 * LNR_ROWS * DIM * size + 2 * DIM * 4,
             "ops": 10 * LNR_ROWS * DIM})
     xs, ys = (mx.nd.array(a, ctx=mx.gpu(0)) for a in onp.random.RandomState(
@@ -975,6 +1013,7 @@ def nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs, smi):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": row["library_ms"]})
+    kernels[0]["profiler_ms"] = rows[0]["profiler_ms"]
     kernels[1]["profiler_ms"] = rtc_split["profiler_ms"]
     for row in rows:
         row["bound_ms"] = max(row["bytes"] / HBM_BYTES_PER_S,
@@ -986,8 +1025,9 @@ def nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs, smi):
           "library": "F.layer_norm(x + r, (F,), gamma, beta): two calls "
                      "for layer_norm_residual; torch.add(y, x, alpha=2) "
                      "for rtc_axpy",
-          "kernels": [{k: r[k] for k in ("name", "ms", "plain_ms",
-                                         "bound_ms", "library_ms")}
+          "kernels": [{k: r[k] for k in ("name", "ms", "profiler_ms",
+                                         "plain_ms", "bound_ms",
+                                         "library_ms")}
                       for r in kernels]})
     return kernels
 
@@ -1019,13 +1059,105 @@ def reset_counts(*fns):
         f.plain_calls = 0
 
 
-def counted_call(torch, fn, call):
-    """Launches and plain calls of ``fn`` in one ``call()``, counted
-    apart from the main path (its counts must have been read)."""
-    reset_counts(fn)
+def counted_call(torch, fns, call):
+    """Launches and plain calls of each of ``fns`` in one ``call()``,
+    counted apart from the main path (its counts must have been read)."""
+    reset_counts(*fns)
     call()
     torch.cuda.synchronize()
-    return {"launches": fn.launches, "plain_calls": fn.plain_calls}
+    return {f.__name__: {"launches": f.launches,
+                         "plain_calls": f.plain_calls} for f in fns}
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def replay_vs_eager(torch, pa_mod, eng, key, step):
+    """``step()`` makes one public engine call whose last replay is exec
+    key ``key``; then ``key``'s core runs eagerly on the same static
+    inputs.  Its outputs and the live pages must equal the replay's bit
+    for bit (the eager run rewrites the same rows), and every K4 scratch
+    counter must be back at 0."""
+    step()
+    ex = eng._exec[key]
+    if ex.graph is None:
+        raise AssertionError(f"{key} holds no CUDA graph")
+    torch.cuda.synchronize()
+    replayed = [t.clone() for t in as_tuple(ex.outputs)]
+    pages = eng.cache.pool.clone()
+    eager = as_tuple(ex.eager())
+    torch.cuda.synchronize()
+    same_out = all(torch.equal(a, b) for a, b in zip(replayed, eager))
+    same_pages = torch.equal(pages, eng.cache.pool)
+    counters = sum(int(c.count_nonzero()) for _, c in
+                   pa_mod._SCRATCH.values())
+    if not (same_out and same_pages) or counters:
+        raise AssertionError(f"{key}: replay and eager core differ (outputs "
+                             f"equal {same_out}, live pages equal "
+                             f"{same_pages}) or K4 counters left non-zero "
+                             f"({counters})")
+    return {"outputs": [t.tolist() for t in replayed],
+            "outputs_bitwise_equal": True, "live_pages_bitwise_equal": True,
+            "k4_counters_nonzero": counters}
+
+
+def masked_grid(live):
+    """The slot grid for a step over slots ``live`` (slot -> position):
+    every other slot masked, at FAR_POSITION."""
+    toks = onp.ones(SLOTS, onp.int32)
+    pos = onp.full(SLOTS, FAR_POSITION, onp.int32)
+    act = onp.zeros(SLOTS, bool)
+    for s, p in live.items():
+        pos[s], act[s] = p, True
+    return toks, pos, act
+
+
+def replay_checks(torch, pa_mod, eng):
+    """Replays bitwise equal to the eager cores: a 128-token prefill
+    chunk and a decode step on a plain engine, a verify on a speculative
+    one, over two live slots and six masked ones."""
+    rng = onp.random.RandomState(17)
+    chunk = [int(t) for t in rng.randint(0, VOCAB, size=eng.prefill_chunk)]
+    budget = 2 * eng.prefill_chunk
+    eng.acquire_slot(0, budget)
+    eng.acquire_slot(1, budget)
+    eng.prefill_chunk_step(1, chunk[:40], 0)
+    out = {"prefill_b128": replay_vs_eager(
+        torch, pa_mod, eng, "prefill_b128",
+        lambda: eng.prefill_chunk_step(0, chunk, 0))}
+    toks, pos, act = masked_grid({0: len(chunk), 1: 40})
+    if eng.spec_enabled:
+        out["verify"] = replay_vs_eager(
+            torch, pa_mod, eng, "verify",
+            lambda: eng.spec_step(toks, pos, act))
+    else:
+        out["decode"] = replay_vs_eager(
+            torch, pa_mod, eng, "decode",
+            lambda: eng.decode_step(toks, pos, act))
+    eng.release_slot(0)
+    eng.release_slot(1)
+    return out
+
+
+def warm_engine(torch, srv, eng):
+    """``srv.warmup(PREFILL_LENGTHS)``: every exec key captured ahead of
+    traffic.  Returns what it took."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    keys = srv.warmup(PREFILL_LENGTHS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    missing = [k for k, ex in eng._exec.items() if ex.graph is None]
+    if missing or sorted(keys) != eng.stats()["executables"]:
+        raise AssertionError(f"warmup left keys without a graph: {missing}, "
+                             f"{keys}")
+    return {"keys": keys, "seconds": round(seconds, 3),
+            "compiles": eng.compiles,
+            "memory_allocated_bytes": torch.cuda.memory_allocated() - before,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
 
 
 def serve_requests(srv, prompts, max_new, stagger_s):
@@ -1075,6 +1207,8 @@ def phase_serve(torch, rope_mod, pa_mod):
                        pages_per_slot=PAGES_PER_SLOT, num_pages=NUM_PAGES)
     srv = ServingServer(decoder=DecodeScheduler(eng))
     setup_s = time.perf_counter() - t0
+    warm = warm_engine(torch, srv, eng)
+    stats_before = eng.stats()
     rng = onp.random.RandomState(1)
     prompts = [[int(t) for t in rng.randint(0, VOCAB,
                                              size=rng.randint(32, 1001))]
@@ -1095,6 +1229,10 @@ def phase_serve(torch, rope_mod, pa_mod):
               for f in (rope_mod.rope, pa_mod.paged_attention)}
     entries = slo.recent_requests()[n_seen:]
     srv.stop()
+    stats_after = eng.stats()
+    if stats_after["compiles"] != stats_before["compiles"]:
+        raise AssertionError(f"served traffic captured a graph: {stats_before}"
+                             f" -> {stats_after}")
     for name, c in counts.items():
         if c["launches"] <= 0 or c["plain_calls"] != 0:
             raise AssertionError(f"{name} did not serve through its kernel:"
@@ -1106,23 +1244,29 @@ def phase_serve(torch, rope_mod, pa_mod):
         ref = model.greedy_reference(p, 16)
         if o != ref:
             raise AssertionError(f"paged path {o} != dense reference {ref}")
-    # one prefill chunk and one decode step: K5 once per layer each (q and
-    # k in one launch), no plain call
+    # one prefill chunk and one decode step (replays): K5 once per layer
+    # each (q and k in one launch), K4 once per layer of the decode step,
+    # no plain call
     eng.acquire_slot(0, 2 * eng.prefill_chunk)
     chunk = list(range(1, eng.prefill_chunk + 1))
-    toks, pos = onp.ones(SLOTS, onp.int32), onp.zeros(SLOTS, onp.int32)
-    act = onp.zeros(SLOTS, bool)
-    pos[0], act[0] = eng.prefill_chunk, True
+    toks, pos, act = masked_grid({0: eng.prefill_chunk})
+    fns = (rope_mod.rope, pa_mod.paged_attention)
     per_call = {
         "prefill_chunk": counted_call(
-            torch, rope_mod.rope, lambda: eng.prefill_chunk_step(0, chunk, 0)),
+            torch, fns, lambda: eng.prefill_chunk_step(0, chunk, 0)),
         "decode_step": counted_call(
-            torch, rope_mod.rope, lambda: eng.decode_step(toks, pos, act))}
+            torch, fns, lambda: eng.decode_step(toks, pos, act))}
     eng.release_slot(0)
-    if any(c != {"launches": LAYERS, "plain_calls": 0}
-           for c in per_call.values()):
+    want = {"prefill_chunk": (LAYERS, 0), "decode_step": (LAYERS, LAYERS)}
+    if any(c != {"rope": {"launches": want[k][0], "plain_calls": 0},
+                 "paged_attention": {"launches": want[k][1],
+                                     "plain_calls": 0}}
+           for k, c in per_call.items()):
         raise AssertionError(f"rope should launch once per layer of a "
-                             f"decode step and a prefill chunk: {per_call}")
+                             f"decode step and a prefill chunk, paged "
+                             f"attention once per layer of a decode step: "
+                             f"{per_call}")
+    replay = replay_checks(torch, pa_mod, eng)
     ttft = [e["ttft_ms"] for e in entries[:len(prompts)] if "ttft_ms" in e]
     emit({"phase": "serve", "requests": len(prompts), "max_new_tokens": 32,
           "prompt_tokens": sum(map(len, prompts)),
@@ -1136,8 +1280,10 @@ def phase_serve(torch, rope_mod, pa_mod):
           "ttft_ms_p50": pct(ttft, 50), "ttft_ms_p95": pct(ttft, 95),
           "short_requests_match_dense_reference": len(short),
           "scheduler_steps": steps.summary(),
-          "engine": eng.stats(), "counts": counts,
-          "rope_per_call": per_call})
+          "warmup": warm, "engine_before_serving": stats_before,
+          "engine_after_serving": stats_after, "counts": counts,
+          "launches_per_call": per_call})
+    emit({"phase": "replay_check", "engine": "plain", "checks": replay})
     return model, eng, prompts, outs, counts
 
 
@@ -1150,23 +1296,25 @@ def phase_spec(torch, rope_mod, pa_mod, model, prompts, outs):
                        pages_per_slot=PAGES_PER_SLOT, num_pages=NUM_PAGES)
     sch = DecodeScheduler(eng)
     srv = ServingServer(decoder=sch)
+    warm = warm_engine(torch, srv, eng)
     before = pa_mod.paged_attention.launches
     got, _lat, wall = serve_requests(srv, prompts[:4], 32, stagger_s=0.0)
     st = sch.stats()
     srv.stop()
     if got != outs[:4]:
         raise AssertionError("speculative output differs from plain path")
+    if eng.compiles != warm["compiles"]:
+        raise AssertionError(f"served speculative traffic captured a graph: "
+                             f"{warm['compiles']} -> {eng.stats()}")
     if pa_mod.paged_attention.launches <= before:
         raise AssertionError("verify did not launch paged_attention")
     # one speculative step: the draft's k+1 chained steps launch K5 once
     # per draft layer each, verify once per target layer
     eng.acquire_slot(0, 2 * eng.prefill_chunk)
     eng.prefill_chunk_step(0, list(range(1, 9)), 0)
-    toks, pos = onp.ones(SLOTS, onp.int32), onp.zeros(SLOTS, onp.int32)
-    act = onp.zeros(SLOTS, bool)
-    pos[0], act[0] = 8, True
-    step = counted_call(torch, rope_mod.rope,
-                        lambda: eng.spec_step(toks, pos, act))
+    toks, pos, act = masked_grid({0: 8})
+    step = counted_call(torch, (rope_mod.rope,),
+                        lambda: eng.spec_step(toks, pos, act))["rope"]
     eng.release_slot(0)
     draft_launches = (SPEC_K + 1) * draft.n_layers
     verify = dict(step, launches=step["launches"] - draft_launches)
@@ -1174,13 +1322,17 @@ def phase_spec(torch, rope_mod, pa_mod, model, prompts, outs):
         raise AssertionError(f"rope should launch once per layer of "
                              f"verify: spec step {step}, draft "
                              f"{draft_launches}")
+    replay = replay_checks(torch, pa_mod, eng)
     emit({"phase": "spec", "requests": 4, "spec_k": SPEC_K,
           "rope_spec_step": step, "rope_verify": verify,
           "identical_to_plain": True, "wall_s": round(wall, 4),
           "spec_proposed": st["spec_proposed"],
           "spec_accepted": st["spec_accepted"],
           "paged_attention_launches": pa_mod.paged_attention.launches
-          - before})
+          - before, "warmup": warm, "engine_after_serving": eng.stats()})
+    emit({"phase": "replay_check", "engine": "speculative",
+          "checks": replay})
+    return eng
 
 
 def device_ms(torch, fn, runs=50, clean=False):
@@ -1224,12 +1376,13 @@ def host_us_per_call(torch, fn, calls=1000):
     return (time.perf_counter() - t0) * 1e6 / calls
 
 
-def profiler_ms(torch, fn, name, runs=50, required=True):
-    """Device ms of one launch of the kernel whose name holds ``name``,
-    from torch.profiler over ``runs`` calls of ``fn``, each after the
-    same L2 flush as ``device_ms`` (the flush is not counted).  Without
-    ``required`` a name the profile lacks gives None instead of
-    failing."""
+def profiler_ms(torch, fn, name, runs=50, required=True, per_call=False):
+    """Device ms of one launch of the kernel whose name holds ``name`` (a
+    string, or a tuple of them), from torch.profiler over ``runs`` calls
+    of ``fn``, each after the same L2 flush as ``device_ms`` (the flush is
+    not counted); with ``per_call``, the device ms of one call of ``fn``
+    in such kernels, however many it launches.  Without ``required`` a
+    name the profile lacks gives None instead of failing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -1240,15 +1393,17 @@ def profiler_ms(torch, fn, name, runs=50, required=True):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
+    names = (name,) if isinstance(name, str) else name
     hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key]
+            if e.device_type == DeviceType.CUDA
+            and any(n in e.key for n in names)]
     if not hits:
         if not required:
             return None
         raise AssertionError(f"no device kernel named *{name}* in the "
                              f"profile")
-    return (sum(e.self_device_time_total for e in hits)
-            / sum(e.count for e in hits) / 1e3)
+    count = runs if per_call else sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
 def phase_times(torch, rope_mod, pa_mod, eng, prompts, counts, errs, smi):
@@ -1436,7 +1591,8 @@ def profiled(torch, fn, n, count=None):
     """Host wall ms per call of ``fn`` (which ends in a device sync),
     device busy ms per call and the kernels by device time, from
     torch.profiler over ``n`` calls; with ``count`` (names), also the
-    launches per call of the kernels whose names hold each name."""
+    kernels per call in all (copies and memsets apart) and the launches
+    per call of the kernels whose names hold each name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1453,55 +1609,105 @@ def profiled(torch, fn, n, count=None):
            for ms, c, k in kern[:8]]
     if count is None:
         return wall, busy, top
-    return wall, busy, top, {name: sum(c for _, c, k in kern if name in k)
-                             for name in count}
+    per = {name: sum(c for _, c, k in kern if name in k) for name in count}
+    per["kernels"] = sum(c for _, c, k in kern
+                         if not k.startswith(("Memcpy", "Memset")))
+    return wall, busy, top, per
 
 
-def phase_profile(torch, eng, prompts):
-    """Where one decode step and one prefill chunk spend their time, at
-    the serve shapes (8 active slots at the served lengths)."""
+def host_ms_blocks(fns, calls=20, rounds=2):
+    """Host ms per call of each of ``fns`` (name -> fn, each ending in a
+    device sync), in blocks of ``calls`` taken in turns, ``rounds``
+    times: every block, and the median of the blocks."""
+    blocks = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            blocks[name].append((time.perf_counter() - t0) * 1e3 / calls)
+    return {name: {"blocks": b, "median": sorted(b)[len(b) // 2]}
+            for name, b in blocks.items()}
+
+
+def phase_profile(torch, eng, spec_eng, prompts, smi):
+    """Where one decode step, one 128-token prefill chunk and one
+    speculative step spend their time at the serve shapes (8 active slots
+    at the served lengths), replayed from their CUDA graphs and, in the
+    same process, eager: the same cores run on the executables' static
+    inputs."""
     lengths = [len(p) + 31 for p in prompts[:SLOTS]]
     for s, n in enumerate(lengths):
         eng.acquire_slot(s, max(n + 1, eng.prefill_chunk))
+        spec_eng.acquire_slot(s, max(n + 1 + SPEC_K, eng.prefill_chunk))
     toks = onp.ones(SLOTS, onp.int32)
     pos = onp.asarray(lengths, onp.int32)
     act = onp.ones(SLOTS, bool)
-
-    def step():
-        eng.decode_step(toks, pos, act)       # returns host numpy: synced
-
     chunk = list(range(1, eng.prefill_chunk + 1))
-
-    def prefill():
-        eng.prefill_chunk_step(0, chunk, 0)
+    padded = onp.asarray(chunk, onp.int32)
+    dec, pre = eng._exec["decode"], eng._exec["prefill_b128"]
+    draft, verify = spec_eng._exec["draft"], spec_eng._exec["verify"]
+    # each ends in its output's read-back, as the engine's calls do
+    modes = {
+        "decode_step": {
+            "replayed": lambda: eng.decode_step(toks, pos, act),
+            "eager": lambda: dec.eager(*eng._slot_args(
+                toks, pos, act, eng.cache)).cpu()},
+        "prefill_chunk_128": {
+            "replayed": lambda: eng.prefill_chunk_step(0, chunk, 0),
+            "eager": lambda: int(pre.eager(*eng._prefill_args(
+                padded, 0, len(chunk), eng.cache, 0)))},
+        "spec_step": {
+            "replayed": lambda: spec_eng.spec_step(toks, pos, act),
+            "eager": lambda: (
+                draft.eager(*spec_eng._slot_args(toks, pos, act,
+                                                 spec_eng.draft_cache)),
+                [t.cpu() for t in verify.eager(
+                    onp.asarray(pos, onp.int32), spec_eng.cache.tables,
+                    act)])}}
+    out = {"phase": "profile", "gpu": smi}
+    for name, fns in modes.items():
+        for fn in fns.values():
+            for _ in range(3):
+                fn()
         torch.cuda.synchronize()
-
-    out = {"phase": "profile"}
-    for name, fn in (("decode_step", step), ("prefill_chunk_128", prefill)):
-        for _ in range(3):
-            fn()
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fn()
-        plain_ms = (time.perf_counter() - t0) * 1e3 / 20
-        wall, busy, top, per = profiled(
-            torch, fn, 20, ("paged_attention_kernel", "rope_kernel"))
-        out[name] = {"host_ms": plain_ms, "profiled_host_ms": wall,
-                     "device_busy_ms": busy,
-                     "device_idle_share": 1 - busy / wall,
-                     "paged_attention_kernels_per_step":
-                         per["paged_attention_kernel"],
-                     "rope_kernels_per_step": per["rope_kernel"],
-                     "top_kernels": top}
-    if out["decode_step"]["paged_attention_kernels_per_step"] != LAYERS:
-        raise AssertionError(f"a decode step should launch one paged "
-                             f"attention kernel per layer: {out}")
-    if any(out[k]["rope_kernels_per_step"] != LAYERS
-           for k in ("decode_step", "prefill_chunk_128")):
-        raise AssertionError(f"a decode step and a prefill chunk should "
-                             f"launch one rope kernel per layer: {out}")
+        row = {"host_ms": host_ms_blocks(fns)}
+        for mode, fn in fns.items():
+            wall, busy, top, per = profiled(
+                torch, fn, 20, ("paged_attention_kernel", "rope_kernel"))
+            host = row["host_ms"][mode]["median"]
+            row[mode] = {"host_ms": host, "profiled_host_ms": wall,
+                         "device_busy_ms": busy,
+                         "device_idle_share": 1 - busy / wall,
+                         # the profiler lengthens the host's calls: the
+                         # busy time over the unprofiled host ms beside
+                         "device_idle_share_of_host_ms": 1 - busy / host,
+                         "kernels_per_step": per["kernels"],
+                         "paged_attention_kernels_per_step":
+                             per["paged_attention_kernel"],
+                         "rope_kernels_per_step": per["rope_kernel"],
+                         "top_kernels": top}
+        out[name] = row
+    # launches a step, by the device trace, in both modes: K4 once per
+    # layer of a decode step (one per call) and of each of the draft's k+1
+    # steps and verify's k+1 window columns; K5 once per layer of each pass
+    draft_layers = spec_eng.draft.n_layers
+    want = {"decode_step": (LAYERS, LAYERS),
+            "prefill_chunk_128": (0, LAYERS),
+            "spec_step": ((SPEC_K + 1) * (draft_layers + LAYERS),
+                          (SPEC_K + 1) * draft_layers + LAYERS)}
+    for name, (pa, rp) in want.items():
+        for mode in ("replayed", "eager"):
+            got = out[name][mode]
+            if (got["paged_attention_kernels_per_step"],
+                    got["rope_kernels_per_step"]) != (pa, rp):
+                raise AssertionError(
+                    f"{name} ({mode}) should launch {pa} paged attention and "
+                    f"{rp} rope kernels a step by the device trace: {got}")
     for s in range(SLOTS):
         eng.release_slot(s)
+        spec_eng.release_slot(s)
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
     emit(out)
 
 
@@ -1535,7 +1741,11 @@ def main():
     errs.update(phase_lnr_parity(torch, lnr_mod))
     errs.update(phase_flash_parity(torch, fa_mod))
     model, eng, prompts, outs, counts = phase_serve(torch, rope_mod, pa_mod)
-    phase_spec(torch, rope_mod, pa_mod, model, prompts, outs)
+    spec_eng = phase_spec(torch, rope_mod, pa_mod, model, prompts, outs)
+    phase_profile(torch, eng, spec_eng, prompts, smi)
+    del spec_eng                              # out of the training peak
+    gc.collect()
+    torch.cuda.empty_cache()
     trainer, data, label, train_counts = phase_train(torch, fa_mod)
     phase_train_check(torch)
     nd_counts = phase_nd_path(torch, lnr_mod)
@@ -1546,7 +1756,6 @@ def main():
     kernels += flash_times(torch, fa_mod, train_counts, errs, smi)
     kernels += nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs,
                         smi)
-    phase_profile(torch, eng, prompts)
     phase_profile_train(torch, trainer, data, label)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -136,6 +136,14 @@ def _topology() -> Tuple[str, int]:
     return _TOPO
 
 
+def _capturing() -> bool:
+    """Whether this thread's current CUDA stream is capturing a graph
+    (a tune's timing launches and synchronisation cannot run there)."""
+    import torch
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def cache_key(spec: KernelSpec, sig: str, dtype: str) -> str:
     backend, ndev = _topology()
     return f"{spec.name}|v{spec.version}|{backend}|ndev{ndev}|{dtype}|{sig}"
@@ -155,7 +163,8 @@ def resolve(name: str, sig: str, dtype: str, *,
             allow_tune: Optional[bool] = None) -> Dict[str, Any]:
     """The config for one (kernel, shape-sig, dtype) on this topology.
     Steady state is one memo lookup; the hit/miss counters tick only on
-    the first resolution of a key in this process."""
+    the first resolution of a key in this process.  Raises MXNetError
+    when it would tune while a CUDA graph is being captured."""
     spec = get_kernel(name)
     key = cache_key(spec, sig, dtype)
     can_tune = ((tune_enabled() if allow_tune is None else allow_tune)
@@ -171,6 +180,11 @@ def resolve(name: str, sig: str, dtype: str, *,
             _C_HITS.inc()
             return cfg
     if can_tune:
+        if _capturing():
+            raise MXNetError(
+                f"kernel {name!r} ({sig}, {dtype}) would be tuned inside a "
+                f"CUDA graph capture: resolve it in a warm-up run before "
+                f"capturing (e.g. DecodeEngine.warmup)")
         from . import autotune
         arrays, params = tune_args
         cfg, ms, _rows = autotune.tune(spec, arrays, params=params)

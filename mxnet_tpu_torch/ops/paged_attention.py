@@ -127,11 +127,16 @@ def _scratch(q, n_parts):
     """The partials buffer and the per-(slot, head) counters of one
     launch shape, made once per device and shape; the counters are
     zeroed here and every launch leaves them zero.  Launches that share
-    them run in stream order (one stream per engine)."""
+    them run in stream order (one stream per engine).  A CUDA graph holds
+    the addresses, so they are made by a launch before its capture."""
     s_, h, d = q.shape
     key = (q.device, s_, h, n_parts, d)
     hit = _SCRATCH.get(key)
     if hit is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise MXNetError(
+                "paged_attention: its scratch for this shape is made in a "
+                "warm-up launch, never inside a CUDA graph capture")
         hit = _SCRATCH[key] = (
             torch.empty((s_, h, n_parts, d + 2), dtype=torch.float32,
                         device=q.device),

@@ -21,28 +21,34 @@ Attention inside ``decode_step``/``verify`` runs through
 ``ops.rope.rope_qk`` (one launch for both): on a CUDA device those
 launch the hand-written kernels, on the CPU their plain versions.
 
-The port runs eagerly (no ``jit``).  ``compiles`` keeps the reference's
-meaning of *executables materialised*: it ticks on the first use of each
-exec key (``decode``, ``prefill_b{bucket}``, ``draft``, ``verify``,
-``draft_prefill_b{bucket}``), so the fixed-shape contract stays
-observable.  Unlike the reference, which returned a new pool from each
-executable, the steps write K/V into the pool in place.
+Every device path is ONE executable per exec key (``decode``,
+``prefill_b{bucket}``, ``draft``, ``verify``, ``draft_prefill_b{bucket}``;
+``serving/decode/exec.py``): on a CUDA device a CUDA graph captured once,
+on first use or by :meth:`DecodeEngine.warmup`, and replayed for every
+later step, as the reference compiles one jit executable per key; on the
+CPU the same cores run on the executable's static inputs.  ``compiles``
+counts the executables materialised.  Unlike the reference, which
+returned a new pool from each executable, the steps write K/V into the
+pool in place.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional, Set
+from functools import partial
+from typing import Dict, List, Optional, Sequence
 
 import numpy as onp
 import torch
 import torch.nn.functional as F
 
-from ... import telemetry
+from ... import kernels, telemetry
 from ...base import MXNetError
 from ...context import resolve_device
+from ...log import get_logger
 from ...ops.paged_attention import paged_attention
 from ...ops.rope import rope_qk, rope_reference
+from .exec import Executable
 from .paged_kv import PagedKVCache
 
 __all__ = ["DecodeModel", "DecodeEngine"]
@@ -179,15 +185,26 @@ class DecodeModel:
 
 
 # -- cores -------------------------------------------------------------------
+#
+# ``pool`` is the cache's buffer, ``(layers, 2, num_pages + 1, ps, H, D)``:
+# its last page is the drop page, where the rows of masked slots and padded
+# prefill rows go (the reference's out-of-range sentinel with
+# mode="drop").  Every core writes and reads a fixed number of rows whatever
+# the mask, so one CUDA graph per exec key replays it.
+
+def _drop_row(pool) -> int:
+    """The drop page's first flat row (page * page_size + offset)."""
+    return (pool.shape[2] - 1) * pool.shape[3]
+
 
 def _write_kv(pool, li, idx, k, v):
-    """Copy K/V rows into layer ``li``'s pages at flat positions ``idx``
-    (page * page_size + offset), IN PLACE.  Callers pass only the valid
-    rows: torch has no drop mode for masked ones."""
-    _, _, num_pages, ps, h_, hd = pool.shape
-    pool[li, 0].view(num_pages * ps, h_, hd).index_copy_(
+    """Copy K/V rows into layer ``li``'s pages at flat positions ``idx``,
+    IN PLACE.  Several masked rows may land on one drop row: nothing
+    reads it."""
+    _, _, pages, ps, h_, hd = pool.shape
+    pool[li, 0].view(pages * ps, h_, hd).index_copy_(
         0, idx, k.to(pool.dtype))
-    pool[li, 1].view(num_pages * ps, h_, hd).index_copy_(
+    pool[li, 1].view(pages * ps, h_, hd).index_copy_(
         0, idx, v.to(pool.dtype))
 
 
@@ -195,27 +212,36 @@ def _mlp_residual(x, lp):
     return x + _gelu(_rms(x, lp["ln2"]) @ lp["w1"]) @ lp["w2"]
 
 
+def _flat_rows(pool, tables, pos, valid):
+    """Flat pool rows of ``pos`` through ``tables`` (page ids, gathered
+    along the last axis), the drop page's where ``valid`` is False.  An
+    invalid position may lie past its table, so it is clamped to 0 before
+    the gather: JAX clamps such a gather, torch on CUDA faults."""
+    ps = pool.shape[3]
+    pos = torch.where(valid, pos, 0).long()
+    page = torch.gather(tables, -1, pos // ps).long()
+    return torch.where(valid, page * ps + pos % ps, _drop_row(pool))
+
+
 def _decode_core(mdl: DecodeModel, params, pool, tokens, positions,
-                 tables, active, rows):
-    """Consume one token per slot at ``positions`` (writing its KV for
-    the ``rows`` = active slot indices), return the argmax next token per
+                 tables, active):
+    """Consume one token per slot at ``positions`` (writing its KV; a
+    masked slot's goes to the drop page), return the argmax next token per
     slot (int32)."""
     s_ = tokens.shape[0]
     h_, hd = mdl.n_heads, mdl.head_dim
-    ps = pool.shape[3]
     x = params["embed"][tokens.long()]
     lengths = torch.where(active, positions + 1, 0).to(torch.int32)
-    pos_r = positions[rows].long()
-    idx = tables[rows, pos_r // ps].long() * ps + pos_r % ps
+    idx = _flat_rows(pool, tables, positions[:, None], active[:, None])[:, 0]
     for li, lp in enumerate(params["layers"]):
         h1 = _rms(x, lp["ln1"])
         q, k = rope_qk((h1 @ lp["wq"]).reshape(s_, h_, hd),
                        (h1 @ lp["wk"]).reshape(s_, h_, hd), positions,
                        base=mdl.rope_base)
         v = (h1 @ lp["wv"]).reshape(s_, h_, hd)
-        _write_kv(pool, li, idx, k[rows], v[rows])
-        attn = paged_attention(q, pool[li, 0], pool[li, 1], tables,
-                               lengths)
+        _write_kv(pool, li, idx, k, v)
+        attn = paged_attention(q, pool[li, 0, :-1], pool[li, 1, :-1],
+                               tables, lengths)
         x = x + attn.reshape(s_, mdl.dim).to(x.dtype) @ lp["wo"]
         x = _mlp_residual(x, lp)
     x = _rms(x, params["lnf"])
@@ -224,37 +250,34 @@ def _decode_core(mdl: DecodeModel, params, pool, tokens, positions,
 
 
 def _verify_core(mdl: DecodeModel, params, pool, tokens, base_pos,
-                 tables, active, rows):
+                 tables, active):
     """Target-model scoring of a ``(slots, k+1)`` speculative window:
-    writes KV for every window position of the active rows, computes
-    greedy targets at each, and the accepted prefix length.  Attention
-    per window offset goes through the SAME paged_attention kernel as
-    decode_step, so accepted tokens are those the plain path emits."""
+    writes KV for every window position (masked slots' to the drop page),
+    computes greedy targets at each, and the accepted prefix length.
+    Attention per window offset goes through the SAME paged_attention
+    kernel as decode_step, so accepted tokens are those the plain path
+    emits."""
     s_, w_ = tokens.shape
     h_, hd = mdl.n_heads, mdl.head_dim
-    ps = pool.shape[3]
     pos = base_pos[:, None] + torch.arange(
         w_, dtype=torch.int32, device=tokens.device)[None, :]
     x = params["embed"][tokens.long()]                # (S, W, dim)
-    pos_r = pos[rows].long()                          # (A, W)
-    idx = (torch.gather(tables[rows].long(), 1, pos_r // ps) * ps
-           + pos_r % ps).reshape(-1)
+    idx = _flat_rows(pool, tables, pos, active[:, None]).reshape(-1)
+    lens = [torch.where(active, base_pos + j + 1, 0).to(torch.int32)
+            for j in range(w_)]
     for li, lp in enumerate(params["layers"]):
         h1 = _rms(x, lp["ln1"])
         q, k = rope_qk((h1 @ lp["wq"]).reshape(s_, w_, h_, hd),
                        (h1 @ lp["wk"]).reshape(s_, w_, h_, hd), pos,
                        base=mdl.rope_base)
         v = (h1 @ lp["wv"]).reshape(s_, w_, h_, hd)
-        _write_kv(pool, li, idx, k[rows].reshape(-1, h_, hd),
-                  v[rows].reshape(-1, h_, hd))
+        _write_kv(pool, li, idx, k.reshape(-1, h_, hd),
+                  v.reshape(-1, h_, hd))
         q_cols = q.transpose(0, 1).contiguous()       # (W, S, H, hd)
-        cols = []
-        for j in range(w_):
-            lens_j = torch.where(active, base_pos + j + 1,
-                                 0).to(torch.int32)
-            cols.append(paged_attention(q_cols[j], pool[li, 0],
-                                        pool[li, 1], tables, lens_j))
-        attn = torch.stack(cols, dim=1)               # (S, W, H, hd)
+        attn = torch.stack([
+            paged_attention(q_cols[j], pool[li, 0, :-1], pool[li, 1, :-1],
+                            tables, lens[j])
+            for j in range(w_)], dim=1)               # (S, W, H, hd)
         x = x + attn.reshape(s_, w_, mdl.dim).to(x.dtype) @ lp["wo"]
         x = _mlp_residual(x, lp)
     x = _rms(x, params["lnf"])
@@ -266,7 +289,7 @@ def _verify_core(mdl: DecodeModel, params, pool, tokens, base_pos,
 
 
 def _draft_core(mdl: DecodeModel, params, pool, tokens, base_pos,
-                tables, active, rows, k: int):
+                tables, active, k: int):
     """k+1 chained draft decode steps: proposes k tokens and leaves the
     draft pool position-aligned with the target's write window
     (positions base..base+k)."""
@@ -274,42 +297,54 @@ def _draft_core(mdl: DecodeModel, params, pool, tokens, base_pos,
     outs = []
     for j in range(k + 1):
         tok = _decode_core(mdl, params, pool, tok, base_pos + j, tables,
-                           active, rows)
+                           active)
         outs.append(tok)
     return torch.stack(outs[:k], dim=1)               # (S, k)
 
 
-def _prefill_core(mdl: DecodeModel, params, pool, tokens, start: int,
-                  chunk_len: int, table):
+def _draft_window(window, k: int, mdl: DecodeModel, params, pool, tokens,
+                  base_pos, tables, active):
+    """``_draft_core`` writing verify's window ``(slots, k+1)`` in place:
+    each slot's pending token, then its k proposals.  The window never
+    leaves the card between the draft and verify executables."""
+    window[:, 0] = tokens
+    window[:, 1:] = _draft_core(mdl, params, pool, tokens, base_pos, tables,
+                                active, k)
+
+
+def _prefill_core(mdl: DecodeModel, params, pool, tokens, start,
+                  chunk_len, table):
     """One prompt chunk for ONE slot: ``tokens (bucket,)`` padded,
-    ``table (pages_per_slot,)`` the slot's page row.  Writes the valid
-    rows' KV and returns the greedy next token after the chunk's last
-    valid position (meaningful only on the final chunk)."""
+    ``start``/``chunk_len`` 0-d int32 tensors (one executable per bucket
+    serves every chunk), ``table (pages_per_slot,)`` the slot's page row.
+    Writes the chunk's KV (the padded rows' to the drop page) and returns
+    the greedy next token after the chunk's last valid position
+    (meaningful only on the final chunk)."""
     b_ = tokens.shape[0]
     h_, hd = mdl.n_heads, mdl.head_dim
     ps = pool.shape[3]
     dev = tokens.device
     scale = 1.0 / (hd ** 0.5)
-    pos = start + torch.arange(b_, dtype=torch.int32, device=dev)
-    total = start + chunk_len
+    offs = torch.arange(b_, dtype=torch.int32, device=dev)
+    pos = start + offs
     x = params["embed"][tokens.long()]
-    pos_v = pos[:chunk_len].long()
-    idx = table.long()[pos_v // ps] * ps + pos_v % ps
+    idx = _flat_rows(pool, table, pos, offs < chunk_len)
+    tab = table.long()
     p_ = table.shape[0]
     kpos = torch.arange(p_ * ps, device=dev)[None, None, :]
-    mask = (kpos <= pos.long()[:, None, None]) & (kpos < total)
+    mask = (kpos <= pos.long()[:, None, None]) & (kpos < start + chunk_len)
     for li, lp in enumerate(params["layers"]):
         h1 = _rms(x, lp["ln1"])
         q, k = rope_qk((h1 @ lp["wq"]).reshape(b_, h_, hd),
                        (h1 @ lp["wk"]).reshape(b_, h_, hd), pos,
                        base=mdl.rope_base)
         v = (h1 @ lp["wv"]).reshape(b_, h_, hd)
-        _write_kv(pool, li, idx, k[:chunk_len], v[:chunk_len])
+        _write_kv(pool, li, idx, k, v)
         # the chunk attends its causal prefix (earlier chunks included)
         # over the slot's gathered pages — the chunk itself was just
         # written, so one mask covers intra- and cross-chunk keys
-        kctx = pool[li, 0][table.long()].reshape(p_ * ps, h_, hd)
-        vctx = pool[li, 1][table.long()].reshape(p_ * ps, h_, hd)
+        kctx = pool[li, 0][tab].reshape(p_ * ps, h_, hd)
+        vctx = pool[li, 1][tab].reshape(p_ * ps, h_, hd)
         s = torch.einsum("bhd,khd->bhk", q.float(), kctx.float()) * scale
         s = torch.where(mask, s, _NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
@@ -320,18 +355,19 @@ def _prefill_core(mdl: DecodeModel, params, pool, tokens, start: int,
         x = x + attn.reshape(b_, mdl.dim).to(x.dtype) @ lp["wo"]
         x = _mlp_residual(x, lp)
     x = _rms(x, params["lnf"])
-    logits = x[max(chunk_len - 1, 0)] @ params["embed"].T
+    last = torch.clamp(chunk_len - 1, min=0).long().reshape(1)
+    logits = x.index_select(0, last)[0] @ params["embed"].T
     return torch.argmax(logits).to(torch.int32)
 
 
 # -- the engine --------------------------------------------------------------
 
 class DecodeEngine:
-    """Owns the model(s), the paged KV pools and the exec-key ledger.
-    All knobs default from the environment: ``MXNET_DECODE_SLOTS`` /
-    ``MXNET_DECODE_PAGES`` / ``MXNET_DECODE_PAGE_SIZE`` /
-    ``MXNET_DECODE_SPEC_K`` / ``MXNET_DECODE_PREFILL_CHUNK``.  Runs on
-    the model's device."""
+    """Owns the model(s), the paged KV pools and the executables, one per
+    exec key.  All knobs default from the environment:
+    ``MXNET_DECODE_SLOTS`` / ``MXNET_DECODE_PAGES`` /
+    ``MXNET_DECODE_PAGE_SIZE`` / ``MXNET_DECODE_SPEC_K`` /
+    ``MXNET_DECODE_PREFILL_CHUNK``.  Runs on the model's device."""
 
     def __init__(self, model: DecodeModel, *,
                  draft_model: Optional[DecodeModel] = None,
@@ -377,7 +413,17 @@ class DecodeEngine:
                 head_dim=draft_model.head_dim, max_slots=self.max_slots,
                 pages_per_slot=self.cache.pages_per_slot,
                 device=self.device)
-        self._exec: Set[str] = set()
+        # verify's window, written by the draft executable on the card
+        self._window = (torch.zeros((self.max_slots, self.spec_k + 1),
+                                    dtype=torch.int32, device=self.device)
+                        if self.spec_enabled else None)
+        self._exec: Dict[str, Executable] = {}
+        # what the engine's graphs share: a memory pool and a capture stream
+        self._capture_with = (None, None)
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                self._capture_with = (torch.cuda.graph_pool_handle(),
+                                      torch.cuda.Stream(self.device))
         self.compiles = 0
 
     # -- properties ----------------------------------------------------------
@@ -393,33 +439,94 @@ class DecodeEngine:
     def prefill_bucket(self, n: int) -> int:
         return min(_pow2(n, self.prefill_floor), self.prefill_chunk)
 
-    # -- exec-key plumbing ---------------------------------------------------
+    # -- executable plumbing -------------------------------------------------
 
-    def _call(self, key: str, fn, *args):
-        """Run one device path; the first use of ``key`` counts as one
-        materialised executable (``compiles``, ``compile.decode.*``)."""
-        if key in self._exec:
-            return fn(*args)
+    def _get_exec(self, key: str, fn, args) -> Executable:
+        """Fetch-or-capture one executable WITHOUT running it (the warm
+        run before a capture takes zeroed inputs: every slot masked).
+        A capture ticks ``compiles`` and ``compile.decode.*``."""
+        ex = self._exec.get(key)
+        if ex is not None:
+            return ex
         t0 = time.perf_counter()
-        out = fn(*args)
+        ex = Executable(fn, args, self.device, *self._capture_with)
         telemetry.record_compile(time.perf_counter() - t0, "decode")
-        self._exec.add(key)
+        self._exec[key] = ex
         self.compiles += 1
-        return out
+        return ex
 
-    def _host(self, a, dtype):
-        return torch.from_numpy(onp.ascontiguousarray(a, dtype)).to(
-            self.device)
+    def _call(self, key: str, fn, args):
+        """Stage ``args`` into ``key``'s executable and replay it; its
+        outputs hold until the next call of any executable."""
+        return self._get_exec(key, fn, args)(*args)
 
-    def _tables(self, cache):
-        return self._host(cache.tables, onp.int32)
+    def _decode_fn(self):
+        mdl = self.model
+        return partial(_decode_core, mdl, mdl.params, self.cache.buffer)
 
-    def _slot_args(self, tokens, positions, active):
-        act = onp.asarray(active, bool)
-        return (self._host(tokens, onp.int32),
-                self._host(positions, onp.int32),
-                self._host(act, bool),
-                self._host(onp.flatnonzero(act), onp.int64))
+    def _draft_fn(self):
+        dm = self.draft
+        return partial(_draft_window, self._window, self.spec_k, dm,
+                       dm.params, self.draft_cache.buffer)
+
+    def _verify_fn(self):
+        mdl = self.model
+        return partial(_verify_core, mdl, mdl.params, self.cache.buffer,
+                       self._window)
+
+    @staticmethod
+    def _prefill_fn(mdl, cache):
+        return partial(_prefill_core, mdl, mdl.params, cache.buffer)
+
+    @staticmethod
+    def _slot_args(tokens, positions, active, cache):
+        """The static inputs of the slot-grid keys (decode, draft)."""
+        return (onp.asarray(tokens, onp.int32),
+                onp.asarray(positions, onp.int32), cache.tables,
+                onp.asarray(active, bool))
+
+    @staticmethod
+    def _prefill_args(padded, start, chunk_len, cache, slot):
+        return (padded, onp.int32(start), onp.int32(chunk_len),
+                cache.tables[slot])
+
+    @torch.no_grad()
+    def warmup(self, prefill_lengths: Sequence[int] = (1,)) -> List[str]:
+        """Materialise every executable this engine will run — decode
+        (+ draft/verify under speculation) and one prefill (+ draft
+        prefill) per bucket covering ``prefill_lengths`` — without running
+        a step, and preload the kernel-autotune cache.  On CUDA each is a
+        captured graph, so served traffic captures nothing.  Returns the
+        exec keys in the reference's order."""
+        n_kern = kernels.warm_cache()
+        if n_kern:
+            get_logger("mxnet_tpu_torch.serving.decode").info(
+                "warmup: %d tuned kernel config(s) preloaded", n_kern)
+        zeros = onp.zeros((self.max_slots,), onp.int32)
+        mask = onp.zeros((self.max_slots,), bool)
+        self._get_exec("decode", self._decode_fn(),
+                       self._slot_args(zeros, zeros, mask, self.cache))
+        keys = ["decode"]
+        if self.spec_enabled:
+            self._get_exec("draft", self._draft_fn(), self._slot_args(
+                zeros, zeros, mask, self.draft_cache))
+            self._get_exec("verify", self._verify_fn(),
+                           (zeros, self.cache.tables, mask))
+            keys += ["draft", "verify"]
+        for bucket in sorted({self.prefill_bucket(int(n))
+                              for n in prefill_lengths}):
+            padded = onp.zeros((bucket,), onp.int32)
+            self._get_exec(f"prefill_b{bucket}",
+                           self._prefill_fn(self.model, self.cache),
+                           self._prefill_args(padded, 0, 0, self.cache, 0))
+            keys.append(f"prefill_b{bucket}")
+            if self.draft_cache is not None:
+                self._get_exec(
+                    f"draft_prefill_b{bucket}",
+                    self._prefill_fn(self.draft, self.draft_cache),
+                    self._prefill_args(padded, 0, 0, self.draft_cache, 0))
+                keys.append(f"draft_prefill_b{bucket}")
+        return keys
 
     # -- device steps --------------------------------------------------------
 
@@ -427,47 +534,38 @@ class DecodeEngine:
     def decode_step(self, tokens, positions, active):
         """One non-speculative engine step over the full slot grid.
         Returns the next token per slot (host numpy int32)."""
-        mdl = self.model
-        tok, pos, act, rows = self._slot_args(tokens, positions, active)
-        nxt = self._call("decode", _decode_core, mdl, mdl.params,
-                         self.cache.pool, tok, pos,
-                         self._tables(self.cache), act, rows)
+        nxt = self._call("decode", self._decode_fn(), self._slot_args(
+            tokens, positions, active, self.cache))
         return nxt.cpu().numpy()
 
     @torch.no_grad()
     def spec_step(self, tokens, base_pos, active):
-        """Draft k proposals then verify in one target pass.
-        Returns (greedy (S, k+1), accepted (S,)) host numpy."""
-        mdl, dm, k = self.model, self.draft, self.spec_k
-        tok, pos, act, rows = self._slot_args(tokens, base_pos, active)
-        props = self._call("draft", _draft_core, dm, dm.params,
-                           self.draft_cache.pool, tok, pos,
-                           self._tables(self.draft_cache), act, rows, k)
-        window = torch.cat([tok[:, None], props], dim=1)
-        greedy, accepted = self._call(
-            "verify", _verify_core, mdl, mdl.params, self.cache.pool,
-            window, pos, self._tables(self.cache), act, rows)
+        """Draft k proposals into verify's window, then verify in one
+        target pass.  Returns (greedy (S, k+1), accepted (S,)) host
+        numpy."""
+        tok, pos, _, act = args = self._slot_args(tokens, base_pos, active,
+                                                  self.draft_cache)
+        self._call("draft", self._draft_fn(), args)
+        greedy, accepted = self._call("verify", self._verify_fn(),
+                                      (pos, self.cache.tables, act))
         return greedy.cpu().numpy(), accepted.cpu().numpy()
 
     @torch.no_grad()
     def prefill_chunk_step(self, slot: int, chunk, start: int) -> int:
         """Feed one prompt chunk for ``slot`` (padded into its pow2
         bucket); returns the greedy next token after the chunk."""
-        mdl = self.model
         bucket = self.prefill_bucket(len(chunk))
         padded = onp.zeros((bucket,), onp.int32)
         padded[:len(chunk)] = chunk
-        tok = self._host(padded, onp.int32)
-        nxt = self._call(f"prefill_b{bucket}", _prefill_core, mdl,
-                         mdl.params, self.cache.pool, tok, int(start),
-                         len(chunk),
-                         self._host(self.cache.tables[slot], onp.int32))
-        if self.draft_cache is not None:
-            dm = self.draft
-            self._call(f"draft_prefill_b{bucket}", _prefill_core, dm,
-                       dm.params, self.draft_cache.pool, tok, int(start),
-                       len(chunk),
-                       self._host(self.draft_cache.tables[slot], onp.int32))
+        if self.draft_cache is not None:  # first: the target's output is read
+            self._call(f"draft_prefill_b{bucket}",
+                       self._prefill_fn(self.draft, self.draft_cache),
+                       self._prefill_args(padded, start, len(chunk),
+                                          self.draft_cache, slot))
+        nxt = self._call(f"prefill_b{bucket}",
+                         self._prefill_fn(self.model, self.cache),
+                         self._prefill_args(padded, start, len(chunk),
+                                            self.cache, slot))
         return int(nxt)
 
     # -- slot page lifecycle -------------------------------------------------

@@ -1,17 +1,23 @@
 """Paged KV cache: pre-allocated device pool + host page allocator
 (counterpart of ``mxnet_tpu/serving/decode/paged_kv.py``).
 
-The device side is ONE tensor per engine, ``(layers, 2, num_pages,
+The device side is ONE tensor per engine, ``(layers, 2, num_pages + 1,
 page_size, heads, head_dim)`` (k and v stacked on axis 1), allocated
 once on the engine's device; the decode steps write into it in place.
+The last page is the *drop page*: no table ever names it, and the steps
+send the K/V rows of masked slots and padded prefill rows there, so
+every step writes a fixed number of rows whatever the mask (a CUDA
+graph replays fixed shapes).
 The host side is a free-list page allocator with per-slot page tables:
 slots acquire pages at admission, the tables go to the device with each
 step as ``(max_slots, pages_per_slot)`` int32, and eviction returns
 pages to the free list for the next request.
 
 The reference scattered masked rows to a sentinel row one past the pool
-and let XLA drop them; torch has no drop mode, so the engine passes
-only the valid rows to the scatter (the host knows them).
+and let XLA drop them; torch's ``index_copy_`` has no drop mode, so the
+sentinel row here is real memory: the drop page.  ``pool`` is the view
+of the live pages, ``(layers, 2, num_pages, ...)``, which the kernels
+and the tests read.
 """
 from __future__ import annotations
 
@@ -82,9 +88,11 @@ class PagedKVCache:
             pages_per_slot if pages_per_slot is not None
             else max(1, num_pages // max(1, max_slots)))
         self.device = resolve_device(device)
-        self.pool = torch.zeros(
-            (self.layers, 2, self.num_pages, self.page_size,
+        # the live pages and, past them, the drop page
+        self.buffer = torch.zeros(
+            (self.layers, 2, self.num_pages + 1, self.page_size,
              self.heads, self.head_dim), dtype=dtype, device=self.device)
+        self.pool = self.buffer[:, :, :self.num_pages]
         self.allocator = PageAllocator(self.num_pages)
         # host page-table rows; a freed slot's row is zeros (page 0 is a
         # valid id, never read: its length is 0)

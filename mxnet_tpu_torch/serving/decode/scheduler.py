@@ -437,6 +437,12 @@ class DecodeScheduler:
         r.pending = tok
         return False
 
+    def warmup(self, prefill_lengths=(1,)) -> List[str]:
+        """``engine.warmup(prefill_lengths)`` between two steps (captures
+        never overlap a step); returns the exec keys materialised."""
+        with self._step_lock:
+            return self.engine.warmup(prefill_lengths)
+
     # -- background loop -----------------------------------------------------
 
     def _loop(self):

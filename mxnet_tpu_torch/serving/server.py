@@ -6,6 +6,8 @@
   "timeout_ms"?: ms}`` → ``{"tokens": [ids...]}``, served by the
   attached ``DecodeScheduler`` (constructor ``decoder=`` or
   ``attach_decoder()``); 503 until one is attached.
+- ``warmup(prefill_lengths)`` materialises the decoder's executables
+  ahead of traffic (on a GPU, one CUDA graph per exec key).
 - ``GET /healthz`` → drain state, queue depth and slot occupancy.
 - ``POST /predict`` → 503: the batch ``InferenceEngine`` is ported with
   a later slice.
@@ -57,6 +59,15 @@ class ServingServer:
                                   eos=eos, timeout_ms=timeout_ms)
         wait = timeout_ms / 1e3 + 30.0 if timeout_ms is not None else None
         return fut.result(wait)
+
+    def warmup(self, prefill_lengths=(1,)):
+        """Materialise the attached decoder's executables ahead of
+        traffic (``DecodeEngine.warmup``: on a GPU, one CUDA graph per
+        exec key); returns the exec keys."""
+        if self.decoder is None:
+            raise ServingClosedError(
+                "no decode scheduler attached to this server")
+        return self.decoder.warmup(prefill_lengths)
 
     def healthz(self) -> dict:
         d = self.decoder
