@@ -73,11 +73,29 @@ exits non-zero and prints no result:
              transformer row (vocab 32000, units 512, 8 layers, 8 heads,
              max_len 2048, tied weights, batch 8 x 2048, Adam lr 3e-4,
              bf16 compute): TransformerLM + SoftmaxCrossEntropyLoss +
-             SPMDTrainer, one warm step, 5 timed ``step`` calls and one
-             ``run_steps(..., 4)`` on a fixed batch.  Losses must be
-             finite and fall; the flash kernels must launch 8 times per
-             step each and no plain version may run; the first loss
-             within 0.01 of 10.375; prints the tile.
+             SPMDTrainer, whose first ``step`` is the warm run and the
+             capture of the step's CUDA graph, then 5 timed ``step``
+             calls and one ``run_steps(..., 4)`` on a fixed batch, all
+             replays.  Losses must be finite and fall; the flash kernels
+             must launch 8 times per replayed step each and no plain
+             version may run; one capture; the first loss within 0.01 of
+             10.375.  Host ms a step replayed against the same step run
+             eagerly (``_step_eager``), in blocks of 10 taken in turns;
+             tokens/s; warm-up s and memory before and after it; the tile.
+   train_replay_check — from the same weights and ids, a captured
+             trainer against one stepping eagerly through the function
+             the graph holds: a warm step each, then 5 replays against 5
+             eager steps (and 5 more each): losses, every master and
+             Adam's m and v bitwise equal; K1-K3 8 launches a replayed
+             step, no plain call; captures unchanged.  ``predict``'s
+             replay bitwise equal to the eager forward in eval mode.  An
+             id out of range in a replayed step raises MXNetError at the
+             next call, after which the card still runs a step.
+   train_variants — ``remat=True`` and ``micro_batches=2`` at full width,
+             3 captured steps each from the plain trainer's weights: remat
+             bitwise equal to plain (losses, masters), micro-batches' first
+             loss within rtol 1e-5 and the later ones within 2e-2; peak
+             memory of each.
 6. train_check — fp32, TF32 off, one forward and backward of the same
              weights with use_flash=True and use_flash=False (the dense
              attention_reference): the loss and every gradient agree.
@@ -118,13 +136,34 @@ exits non-zero and prints no result:
              also the torch.profiler device time of the kernel and of
              torch.add, and the same cubin launched on the raw tensors
              without the NDArray funnel (event ms and host µs per call).
-11. profile_train — torch.profiler over one training step: host ms,
-             device busy ms, idle share and the kernels by device time.
+11. profile_train — torch.profiler over a training step replayed and
+             eager, in one process: host ms (blocks taken in turns),
+             device busy ms, idle share, kernels a step, the flash kernels
+             a step by the device trace (8 each) and the kernels by device
+             time.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
+
+    python3 chip_smoke.py --train-ab TREE [TREE ...]
+
+compares a full-width bf16 training step across checkouts of the
+repository instead: each TREE (the root of a checkout) in the order
+given, each in a process of its own that imports that tree's
+``chip_smoke.py`` and ``mxnet_tpu_torch``, so list them as parent,
+change, change, parent to bracket any drift of the host.  Each process
+builds the tree's flash-attention kernels, makes the training row and
+prints one JSON line with, for ``SPMDTrainer.step`` and, where the tree
+has it, the eager ``_step_eager``: the host ms of a step that ends in
+``float(loss)`` in 5 blocks of 5 steps (each block's mean, and their
+median), the modes' blocks in turns and before any profile; under
+torch.profiler over 3 more steps the host ms, device busy
+ms, idle share (of the profiled and of the unprofiled host ms) and the
+kernels a step (copies and memsets apart); and each kernel's launches a
+step by name from a CUDA-only trace; then the host blocks once more,
+after the profiles.  The last line is ``{"trees": [...]}``.
 """
 import gc
 import json
@@ -235,11 +274,16 @@ def rtc_first_launch(torch):
     return time.perf_counter() - s, mod.compile_seconds
 
 
-def phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod):
-    smi = subprocess.run(
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def phase_build(torch, rope_mod, pa_mod, fa_mod, lnr_mod):
+    smi = nvidia_smi()
     print(smi, flush=True)
     t0 = time.perf_counter()
 
@@ -684,19 +728,45 @@ def train_batch(torch, seed=2):
                  for _ in range(2))
 
 
-def phase_train(torch, fa_mod):
+def train_trainer(torch, net, **kw):
+    """The training row's trainer (Adam lr 3e-4, bf16 compute) on ``net``."""
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.parallel import SPMDTrainer
+    return SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam",
+                       optimizer_params={"learning_rate": LR},
+                       dtype="bfloat16", device=DEV, **kw)
+
+
+def step_graph(trainer):
+    """The one captured step executable of a trainer that has taken
+    steps of one signature."""
+    exes = [ex for sig, (ex, _) in trainer._exec.items()
+            if sig[0] == "step"]
+    if len(exes) != 1 or exes[0].graph is None:
+        raise AssertionError(f"expected one captured step executable, got "
+                             f"{len(exes)} (graphs: "
+                             f"{[ex.graph is not None for ex in exes]})")
+    return exes[0]
+
+
+def phase_train(torch, fa_mod, smi):
     t0 = time.perf_counter()
     net = train_model(torch)
-    trainer = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam",
-                          optimizer_params={"learning_rate": LR},
-                          dtype="bfloat16", device=DEV)
+    trainer = train_trainer(torch, net)
     data, label = train_batch(torch)
     setup_s = time.perf_counter() - t0
     fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
-    losses = [float(trainer.step(data, label))]          # warm
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem = {"allocated_before_warmup": torch.cuda.memory_allocated(),
+           "reserved_before_warmup": torch.cuda.memory_reserved()}
+    w0 = time.perf_counter()
+    losses = [float(trainer.step(data, label))]   # the warm step + capture
+    warm_s = time.perf_counter() - w0
+    step_graph(trainer)
+    mem.update(max_allocated_warmup=torch.cuda.max_memory_allocated(),
+               allocated_after_warmup=torch.cuda.memory_allocated(),
+               reserved_after_warmup=torch.cuda.memory_reserved())
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*fns)
     step_ms = []
@@ -710,39 +780,208 @@ def phase_train(torch, fa_mod):
     window_ms = (time.perf_counter() - s0) * 1e3
     counts = {f.__name__: {"launches": f.launches,
                            "plain_calls": f.plain_calls} for f in fns}
-    peak = torch.cuda.max_memory_allocated()
+    mem["max_allocated_replays"] = torch.cuda.max_memory_allocated()
     steps = 5 + 4
     for name, c in counts.items():
         if c["launches"] != LAYERS * steps or c["plain_calls"]:
             raise AssertionError(f"{name} did not train through its kernel"
                                  f" ({LAYERS} launches a step for {steps} "
-                                 f"steps): {c}")
+                                 f"replayed steps): {c}")
+    if trainer.compiles != 1:
+        raise AssertionError(f"{trainer.compiles} captures for one "
+                             f"signature")
     if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
     if abs(losses[0] - FIRST_LOSS) > 0.01:
         raise AssertionError(f"first loss {losses[0]} not within 0.01 of "
                              f"{FIRST_LOSS}")
-    med = sorted(step_ms)[len(step_ms) // 2]
+    # host ms a step replayed against the same step eagerly (the function
+    # the graph holds), in one process, in blocks of 10 taken in turns
+    modes = {"replayed": lambda: float(trainer.step(data, label)),
+             "eager": lambda: float(trainer._step_eager(data, label))}
+    for fn in modes.values():
+        fn()
+    host = host_ms_blocks(modes, calls=10, rounds=2)
+    med = host["replayed"]["median"]
     flat = torch.empty((TRAIN_BH, SEQ, HEAD_DIM), dtype=torch.bfloat16,
                        device="meta")
     tile = fa_mod._kernels.resolve(                  # the step's own lookup
         "flash_attention", *fa_mod._flash_signature(flat, flat, flat,
                                                     causal=True))["tile"]
-    emit({"phase": "train",
+    emit({"phase": "train", "gpu": smi,
           "model": {"vocab": VOCAB, "units": DIM, "layers": LAYERS,
                     "heads": HEADS, "max_len": SEQ, "tied": True,
                     "batch": BATCH, "seq": SEQ, "dtype": "bfloat16",
                     "optimizer": "adam", "lr": LR},
-          "setup_s": round(setup_s, 3), "losses": losses,
-          "step_ms": step_ms, "step_ms_median": med,
-          "run_steps_4_ms": window_ms,
+          "setup_s": round(setup_s, 3), "warmup_s": warm_s,
+          "losses": losses, "step_ms": step_ms,
+          "step_ms_median": sorted(step_ms)[len(step_ms) // 2],
+          "host_ms": host, "run_steps_4_ms": window_ms,
           "tokens_per_s": BATCH * SEQ / (med / 1e3),
+          "tokens_per_s_eager": BATCH * SEQ / (
+              host["eager"]["median"] / 1e3),
           "tokens_per_s_run_steps": 4 * BATCH * SEQ / (window_ms / 1e3),
-          "max_memory_allocated_bytes": peak,
+          "captures": trainer.compiles, "memory_bytes": mem,
           "counts": counts, "launches_per_step": LAYERS,
           "flash_tile": tile})
     return trainer, data, label, counts
+
+
+def state_of(trainer):
+    """Every master, then Adam's m and v, of a trainer, in order."""
+    out = []
+    for k in trainer._pkeys:
+        out.append((k, trainer._params[k].data()))
+        out += [(f"{k}:{s}", t) for s, t in zip("mv", trainer._opt_state[k])]
+    return out
+
+
+def differing(torch, a, b):
+    """Names whose tensors differ bit for bit between two state_of lists."""
+    return [ka for (ka, ta), (_, tb) in zip(a, b) if not torch.equal(ta, tb)]
+
+
+def phase_train_replay_check(torch, fa_mod):
+    """From the same weights and ids, a captured trainer against one
+    stepping eagerly through the same function: one warm step each, then
+    5 replays against 5 eager steps; losses, every master and Adam's m
+    and v must be bitwise equal.  Then ``predict``'s replay against the
+    eager forward, and an id out of range in a replayed step."""
+    from mxnet_tpu_torch.base import MXNetError
+    data, label = train_batch(torch)
+    captured = train_trainer(torch, train_model(torch))
+    eager = train_trainer(torch, train_model(torch))
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    start = differing(torch, state_of(captured), state_of(eager))
+    if start:
+        raise AssertionError(f"the two trainers start apart: {start[:4]}")
+    losses_c = [float(captured.step(data, label))]          # warm
+    losses_e = [float(eager._step_eager(data, label))]
+    compiles = captured.compiles
+    reset_counts(*fns)
+    for _ in range(5):
+        losses_c.append(float(captured.step(data, label)))
+        losses_e.append(float(eager._step_eager(data, label)))
+    torch.cuda.synchronize()
+    eager_counts = {f.__name__: {"launches": f.launches,
+                                 "plain_calls": f.plain_calls} for f in fns}
+    reset_counts(*fns)
+    for _ in range(5):
+        captured.step(data, label)        # launch counts of replays alone
+    torch.cuda.synchronize()
+    replay_counts = {f.__name__: {"launches": f.launches,
+                                  "plain_calls": f.plain_calls}
+                     for f in fns}
+    for _ in range(5):
+        eager._step_eager(data, label)
+    diff = differing(torch, state_of(captured), state_of(eager))
+    if losses_c != losses_e or diff:
+        raise AssertionError(f"captured and eager steps differ: losses "
+                             f"{losses_c} vs {losses_e}; state "
+                             f"{diff[:6]} ({len(diff)} tensors)")
+    for name in eager_counts:
+        for got, n in ((eager_counts[name], 2 * 5 * LAYERS),
+                       (replay_counts[name], 5 * LAYERS)):
+            if got != {"launches": n, "plain_calls": 0}:
+                raise AssertionError(f"{name}: {got}, expected {n} launches"
+                                     f" and no plain call")
+    if captured.compiles != compiles or compiles != 1:
+        raise AssertionError(f"captures moved: {compiles} -> "
+                             f"{captured.compiles}")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = captured.predict(data)                   # warm + capture
+    replayed = captured.predict(data)
+    plain = captured._predict_eager(data)
+    if not (torch.equal(replayed, plain) and torch.equal(first, plain)):
+        raise AssertionError("predict's replay differs from the eager "
+                             "forward")
+    if captured.compiles != 2:
+        raise AssertionError(f"predict: {captured.compiles} captures")
+    shape = list(replayed.shape)
+    del first, replayed, plain
+    bad = data.clone()
+    bad[1, 5] = VOCAB
+    captured.step(bad, label)                # replayed: clamped, recorded
+    try:
+        captured.step(data, label)
+    except MXNetError as e:
+        message = str(e)
+    else:
+        raise AssertionError("an id out of range did not raise")
+    after = float(captured.step(data, label))
+    torch.cuda.synchronize()
+    if "must lie in" not in message or not onp.isfinite(after):
+        raise AssertionError(f"bad-id raise {message!r}, then loss {after}")
+    emit({"phase": "train_replay_check", "steps": "1 warm + 5",
+          "losses_captured": losses_c, "losses_eager": losses_e,
+          "losses_bitwise_equal": True,
+          "state_tensors_bitwise_equal": len(state_of(captured)),
+          "counts_eager_and_replayed": eager_counts,
+          "counts_replayed": replay_counts, "captures": compiles,
+          "predict": {"shape": shape, "dtype": "float32",
+                      "bitwise_equal_to_eager": True},
+          "bad_id": {"raised": message, "next_step_loss": after}})
+    del captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_variants(torch):
+    """``remat=True`` and ``micro_batches=2`` at full width, 3 captured
+    steps each (a warm step and 2 replays) from the plain trainer's
+    weights: remat bitwise equal to plain (losses and every master);
+    micro-batches' first loss within rtol 1e-5 of plain (the loss is the
+    mean of two means) and the later ones within 2e-2.  Peak memory
+    (``max_memory_allocated`` over the 3 steps, and the memory reserved
+    after them, which holds the graph's pool; both above what was
+    allocated and reserved before the trainer) for each."""
+    data, label = train_batch(torch)
+    rows, ref = {}, None
+    for name, kw in (("plain", {}), ("remat", {"remat": True}),
+                     ("micro_batches_2", {"micro_batches": 2})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        trainer = train_trainer(torch, train_model(torch), **kw)
+        losses = [float(trainer.step(data, label)) for _ in range(3)]
+        step_graph(trainer)
+        rows[name] = {
+            "losses": losses,
+            "max_allocated_bytes": torch.cuda.max_memory_allocated()
+            - base[0],
+            "reserved_bytes": torch.cuda.memory_reserved() - base[1]}
+        masters = [p.data().cpu() for p in trainer._plist]
+        del trainer
+        if ref is None:
+            ref = (losses, masters)
+            continue
+        if name == "remat":
+            same = all(torch.equal(a, b) for a, b in zip(masters, ref[1]))
+            if losses != ref[0] or not same:
+                raise AssertionError(f"remat differs from plain: {losses} vs"
+                                     f" {ref[0]}, masters equal {same}")
+            rows[name]["bitwise_equal_to_plain"] = True
+        else:
+            first = abs(losses[0] - ref[0][0]) / abs(ref[0][0])
+            later = max(abs(a - b) / abs(b)
+                        for a, b in zip(losses[1:], ref[0][1:]))
+            if first > 1e-5 or later > 2e-2:
+                raise AssertionError(f"micro_batches=2 losses {losses} vs "
+                                     f"plain {ref[0]}")
+            rows[name].update(first_loss_rel_err=first,
+                              later_losses_max_rel_err=later)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_variants", "steps": 3,
+          "tolerance": {"remat": "bitwise", "micro_first_rtol": 1e-5,
+                        "micro_later_rtol": 2e-2},
+          "variants": rows})
 
 
 def phase_train_check(torch):
@@ -1591,8 +1830,11 @@ def profiled(torch, fn, n, count=None):
     """Host wall ms per call of ``fn`` (which ends in a device sync),
     device busy ms per call and the kernels by device time, from
     torch.profiler over ``n`` calls; with ``count`` (names), also the
-    kernels per call in all (copies and memsets apart) and the launches
-    per call of the kernels whose names hold each name."""
+    kernels per call in all (copies and memsets apart), the launches
+    per call of the kernels whose names hold each name, and
+    ``counts_whole``: whether those counted launches are each a
+    multiple of ``n``, as they are for calls that each launch the same
+    kernels unless the trace lost some of their events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1612,7 +1854,24 @@ def profiled(torch, fn, n, count=None):
     per = {name: sum(c for _, c, k in kern if name in k) for name in count}
     per["kernels"] = sum(c for _, c, k in kern
                          if not k.startswith(("Memcpy", "Memset")))
+    per["counts_whole"] = all(round(per[name] * n) % n == 0
+                              for name in count)
     return wall, busy, top, per
+
+
+def profiled_whole(torch, fn, n, count, tries=3):
+    """``profiled`` with ``count``, taken again while the trace lost
+    events of a counted kernel (the profiler drops a few now and then:
+    its launches over ``n`` identical calls are then no multiple of
+    ``n``), at most ``tries`` times; counts a step are read from a trace
+    that kept every counted launch.  Returns its result and the number
+    of traces taken."""
+    for attempt in range(1, tries + 1):
+        out = profiled(torch, fn, n, count)
+        if out[3]["counts_whole"]:
+            return out + (attempt,)
+    raise AssertionError(f"torch.profiler lost launches of {count} in each "
+                         f"of {tries} traces of {n} calls: {out[3]}")
 
 
 def host_ms_blocks(fns, calls=20, rounds=2):
@@ -1673,7 +1932,7 @@ def phase_profile(torch, eng, spec_eng, prompts, smi):
         torch.cuda.synchronize()
         row = {"host_ms": host_ms_blocks(fns)}
         for mode, fn in fns.items():
-            wall, busy, top, per = profiled(
+            wall, busy, top, per, traces = profiled_whole(
                 torch, fn, 20, ("paged_attention_kernel", "rope_kernel"))
             host = row["host_ms"][mode]["median"]
             row[mode] = {"host_ms": host, "profiled_host_ms": wall,
@@ -1686,7 +1945,7 @@ def phase_profile(torch, eng, spec_eng, prompts, smi):
                          "paged_attention_kernels_per_step":
                              per["paged_attention_kernel"],
                          "rope_kernels_per_step": per["rope_kernel"],
-                         "top_kernels": top}
+                         "traces": traces, "top_kernels": top}
         out[name] = row
     # launches a step, by the device trace, in both modes: K4 once per
     # layer of a decode step (one per call) and of each of the draft's k+1
@@ -1711,16 +1970,121 @@ def phase_profile(torch, eng, spec_eng, prompts, smi):
     emit(out)
 
 
-def phase_profile_train(torch, trainer, data, label):
-    """Where one full-width bf16 training step spends its time."""
-    def step():
-        float(trainer.step(data, label))          # float() syncs
+def phase_profile_train(torch, trainer, data, label, smi):
+    """Where one full-width bf16 training step spends its time, replayed
+    from its CUDA graph and eager (the function the graph holds): host ms
+    in blocks taken in turns, then torch.profiler's device busy ms, idle
+    share, kernels a step and the flash kernels a step by the device
+    trace (8 each in both modes)."""
+    modes = {"replayed": lambda: float(trainer.step(data, label)),
+             "eager": lambda: float(trainer._step_eager(data, label))}
+    for fn in modes.values():
+        fn()
+    torch.cuda.synchronize()
+    out = {"phase": "profile_train", "gpu": smi,
+           "host_ms": host_ms_blocks(modes, calls=5, rounds=2)}
+    names = ("fa_fwd", "fa_bwd_dkdv", "fa_bwd_dq")
+    for mode, fn in modes.items():
+        wall, busy, top, per, traces = profiled_whole(torch, fn, 3, names)
+        host = out["host_ms"][mode]["median"]
+        out[mode] = {"host_ms": host, "profiled_host_ms": wall,
+                     "device_busy_ms": busy,
+                     "device_idle_share": 1 - busy / wall,
+                     "device_idle_share_of_host_ms": 1 - busy / host,
+                     "kernels_per_step": per["kernels"],
+                     "flash_kernels_per_step": {n: per[n] for n in names},
+                     "traces": traces, "top_kernels": top}
+        if any(per[n] != LAYERS for n in names):
+            raise AssertionError(f"profile_train ({mode}): flash kernels a "
+                                 f"step by the device trace {per}")
+    emit(out)
 
-    step()
-    wall, busy, top = profiled(torch, step, 2)
-    emit({"phase": "profile_train", "host_ms": wall,
-          "device_busy_ms": busy, "device_idle_share": 1 - busy / wall,
-          "top_kernels": top})
+
+def kernels_by_name(torch, fn, n=3):
+    """Each device kernel's launches a call of ``fn``, by name, from a
+    CUDA-only torch.profiler trace over ``n`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key[:120]] = out.get(e.key[:120], 0) + e.count / n
+    return out
+
+
+def train_ab_child(torch, tree):
+    """One tree of ``--train-ab``, in a process of its own: that tree's
+    ``chip_smoke`` and ``mxnet_tpu_torch`` (so an older checkout's
+    trainer runs as it was), its training row, ``step`` and, where the
+    tree has it, ``_step_eager``; prints one JSON line."""
+    sys.path.insert(0, tree)
+    import chip_smoke as cs
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import attention as fa_mod
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    if not os.path.abspath(fa_mod.__file__).startswith(tree):
+        raise AssertionError(f"imported {fa_mod.__file__}, not {tree}")
+    fa_mod.build()
+    out = {"tree": tree, "gpu": nvidia_smi()}
+    trainer = SPMDTrainer(cs.train_model(torch), SoftmaxCrossEntropyLoss(),
+                          optimizer="adam",
+                          optimizer_params={"learning_rate": cs.LR},
+                          dtype="bfloat16")
+    data, label = cs.train_batch(torch)
+    modes = {"step": lambda: float(trainer.step(data, label))}
+    if hasattr(trainer, "_step_eager"):
+        modes["eager"] = lambda: float(trainer._step_eager(data, label))
+    for fn in modes.values():
+        for _ in range(2):
+            fn()
+
+    def host_blocks():
+        """5 blocks of 5 steps of each mode, the modes in turns."""
+        blocks = {name: [] for name in modes}
+        for _ in range(5):
+            for name, fn in modes.items():
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn()
+                blocks[name].append((time.perf_counter() - t0) * 1e3 / 5)
+        return blocks
+
+    blocks = host_blocks()                   # before the first profile
+    for name, fn in modes.items():
+        host = sorted(blocks[name])[2]
+        wall, busy, _, per = cs.profiled(torch, fn, 3, ())
+        out[name] = {"host_ms": host, "host_ms_blocks": blocks[name],
+                     "profiled_host_ms": wall, "device_busy_ms": busy,
+                     "device_idle_share": 1 - busy / wall,
+                     "device_idle_share_of_host_ms": 1 - busy / host,
+                     "kernels_per_step": per["kernels"],
+                     "kernels_by_name": kernels_by_name(torch, fn)}
+    for name, after in host_blocks().items():    # after the profiles
+        out[name]["host_ms_after_profiles"] = sorted(after)[2]
+        out[name]["host_ms_blocks_after_profiles"] = after
+    print(json.dumps(out), flush=True)
+
+
+def train_ab(trees):
+    """``--train-ab``: each tree in turn, in a process of its own; the
+    last line holds every tree's line."""
+    results = []
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--train-ab-child",
+             tree], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        results.append(json.loads(line))
+    print(json.dumps({"trees": results}), flush=True)
+    return 0
 
 
 def main():
@@ -1729,6 +2093,11 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script measures the port on a GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--train-ab-child"]:
+        train_ab_child(torch, os.path.abspath(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--train-ab"]:
+        return train_ab([os.path.abspath(t) for t in sys.argv[2:]])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mxnet_tpu_torch.ops import attention as fa_mod
     from mxnet_tpu_torch.ops import layernorm_residual as lnr_mod
@@ -1746,7 +2115,9 @@ def main():
     del spec_eng                              # out of the training peak
     gc.collect()
     torch.cuda.empty_cache()
-    trainer, data, label, train_counts = phase_train(torch, fa_mod)
+    trainer, data, label, train_counts = phase_train(torch, fa_mod, smi)
+    phase_train_replay_check(torch, fa_mod)
+    phase_train_variants(torch)
     phase_train_check(torch)
     nd_counts = phase_nd_path(torch, lnr_mod)
     rtc_mod, rtc_counts = phase_rtc(torch)
@@ -1756,7 +2127,7 @@ def main():
     kernels += flash_times(torch, fa_mod, train_counts, errs, smi)
     kernels += nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs,
                         smi)
-    phase_profile_train(torch, trainer, data, label)
+    phase_profile_train(torch, trainer, data, label, smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -84,9 +84,12 @@ def adam_update(weight, grad, mean, var, *, lr, beta1=0.9, beta2=0.999,
 def adam_update_multi(weights, grads, means, variances, *, lrs, wds,
                       beta1=0.9, beta2=0.999, epsilon=1e-8,
                       rescale_grad=1.0, clip_gradient=-1.0):
-    """:func:`adam_update` over lists of tensors (``lrs`` and ``wds`` one
-    per tensor), element by element the same operations in the same
-    order; returns the lists ``(weights, means, variances)``."""
+    """:func:`adam_update` over lists of tensors, element by element the
+    same operations in the same order; returns the lists ``(weights,
+    means, variances)``.  ``lrs`` and ``wds`` are each a list (one float
+    or 0-d tensor per tensor) or one float or 0-d tensor for all; a 0-d
+    tensor on the device (the trainer's, which a CUDA graph reads at
+    each replay) keeps each of its products one multi-tensor launch."""
     g = torch._foreach_mul(grads, rescale_grad)
     if clip_gradient is not None and clip_gradient >= 0:
         g = torch._foreach_clamp_max(

@@ -10,12 +10,14 @@ sugar, the unary ops, the reductions, ``cast``, ``reshape`` and
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ..base import MXNetError, dtype_name, torch_dtype
 from .registry import register
 
-__all__ = ["dot", "pick", "embedding", "cast", "float_only"]
+__all__ = ["dot", "pick", "embedding", "IdCheck", "cast", "float_only"]
 
 
 def dot(a, b, *, transpose_b=False):
@@ -36,21 +38,91 @@ def pick(a, index, *, axis=-1):
     return torch.gather(a, axis, idx).squeeze(axis)
 
 
+def _raise_out_of_range(lo, hi, vocab):
+    raise MXNetError(f"Embedding ids must lie in [0, {vocab}), got "
+                     f"[{lo}, {hi}]")
+
+
+class IdCheck:
+    """:func:`embedding`'s id range check, deferred for code that may not
+    read the device back (a CUDA graph capture).
+
+    Inside ``with check:`` on this thread, ``embedding`` clamps its ids
+    into ``[0, vocab)`` before the gather, so an id out of range can
+    never reach the card as an out-of-bounds read, and records each
+    call's (min, max) id in a device tensor.  :meth:`bounds` stacks them
+    ((calls, 2) int64); :meth:`raise_if_bad` reads them on the host
+    afterwards and raises the eager check's :class:`MXNetError`.  The
+    check is entered inside the function that calls the model, so that
+    a recomputation on autograd's thread (remat) sees it too."""
+
+    def __init__(self):
+        self.vocabs = []
+        self._rows = []
+
+    def reset(self):
+        self.vocabs, self._rows = [], []
+
+    def __enter__(self):
+        _IDS.__dict__.setdefault("stack", []).append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _IDS.stack.pop()
+        return False
+
+    def record(self, idx, vocab):
+        self.vocabs.append(int(vocab))
+        self._rows.append(torch.stack(torch.aminmax(idx)))
+
+    def bounds(self):
+        """The recorded (min, max) ids, (calls, 2) int64; None when no
+        embedding ran."""
+        return torch.stack(self._rows) if self._rows else None
+
+    @staticmethod
+    def raise_if_bad(bounds, vocabs):
+        """Raise the eager check's error for the first vocabulary size in
+        ``vocabs`` whose rows of ``bounds`` (on the host) leave ``[0,
+        vocab)``: its lowest and highest id over all those rows."""
+        rows = bounds.tolist()
+        for vocab in dict.fromkeys(vocabs):
+            mine = [r for r, v in zip(rows, vocabs) if v == vocab]
+            lo, hi = min(r[0] for r in mine), max(r[1] for r in mine)
+            if lo < 0 or hi >= vocab:
+                _raise_out_of_range(lo, hi, vocab)
+
+
+_IDS = threading.local()
+
+
 def embedding(data, weight):
     """Rows of ``weight`` at integer ``data``.  An id outside
     ``[0, vocab)`` raises: the reference fills such a row with NaN
     (``jnp.take``'s fill mode), which the port does not copy.  The check
     reads the ids' range back to the host: one synchronisation per call
-    on a CUDA tensor."""
+    on a CUDA tensor.  Inside an :class:`IdCheck` it is deferred instead
+    (the ids are clamped and their range recorded on the device); inside
+    a CUDA graph capture without one it raises."""
     if data.is_floating_point():
         raise MXNetError("Embedding takes integer ids; float ids round "
                          "in low precision — pass int32 or int64")
     idx = data.long()
+    vocab = weight.shape[0]
     if idx.numel():
-        lo, hi = (int(x) for x in torch.aminmax(idx))
-        if lo < 0 or hi >= weight.shape[0]:
-            raise MXNetError(f"Embedding ids must lie in [0, "
-                             f"{weight.shape[0]}), got [{lo}, {hi}]")
+        stack = getattr(_IDS, "stack", None)
+        if stack:
+            check = stack[-1]
+            check.record(idx, vocab)
+            idx = idx.clamp(0, vocab - 1)
+        elif idx.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise MXNetError("embedding inside a CUDA graph capture cannot "
+                             "read its ids back: run it inside an "
+                             "ops.tensor.IdCheck")
+        else:
+            lo, hi = (int(x) for x in torch.aminmax(idx))
+            if lo < 0 or hi >= vocab:
+                _raise_out_of_range(lo, hi, vocab)
     return weight[idx]
 
 

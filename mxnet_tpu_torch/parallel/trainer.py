@@ -1,43 +1,80 @@
 """SPMDTrainer on one device (counterpart of
 ``mxnet_tpu/parallel/trainer.py``).
 
-One training step: forward, loss, gradients through
-``torch.autograd``, and the optimizer's update op for every parameter.
-The reference compiles that into one XLA executable; here it runs
-eagerly on one card, with the same arithmetic:
+One training step is forward, loss, gradients through
+``torch.autograd`` and the optimizer's update op for every parameter:
+the reference's ``_make_step_fn``.  The reference compiles it into one
+donated jit executable per (data shape, dtype, label shape, dtype)
+signature.  Here, on a CUDA device, it is captured as one CUDA graph per
+signature (:class:`~mxnet_tpu_torch.executable.Executable`, warmed by
+the signature's first call, which is a real step), and every later call
+of the signature replays it.  ``run_steps`` replays the step's graph n
+times; ``predict`` replays a forward captured per input signature.  On
+the CPU (``device="cpu"``, which only the tests ask for) the same
+functions run uncaptured.
+
+The arithmetic is the reference's:
 
 * ``dtype="bfloat16"`` computes in bf16 while the master weights stay
   f32: each floating parameter is cast *inside* the differentiated
   graph, so gradients arrive in f32 on the masters; floating input data
   is cast too (integer token ids are not);
 * the loss mean is taken in f32;
+* ``remat``: ``torch.utils.checkpoint`` (non-reentrant) around the loss
+  function, as ``jax.checkpoint(loss_of)``: the forward is recomputed
+  in the backward instead of keeping its activations;
+* ``micro_batches`` k: the batch is cut into k along ``batch_axis``
+  (arrays of lower rank along axis 0); the gradients are summed and
+  divided by k, and the loss is the mean of the k losses;
+* ``data_transform`` is applied to the data inside the step (and in
+  ``predict``);
 * each parameter's update is the optimizer's op with ``lr·lr_mult`` and
-  ``wd·wd_mult``, ``rescale_grad`` 1 and the optimizer's clip, exactly
-  as the reference's step does — for Adam that means no bias
-  correction — applied to all parameters at once through the op's
-  multi-tensor form;
+  ``wd·wd_mult``, ``rescale_grad`` 1 and the optimizer's clip — for
+  Adam that means no bias correction — applied through the op's
+  multi-tensor form, one call per group of equal multipliers.  lr and
+  wd are 0-d f32 tensors on the device, written with the inputs before
+  each call, so an lr schedule needs no new capture; the products with
+  the multipliers are taken in f32 on the device;
 * ``run_steps`` reads lr and wd once for the whole window and advances
   ``num_update`` by n, as the reference's fused window does.
 
 Masters and optimizer state are updated in place (``copy_``), which the
-reference expresses as buffer donation.  A mesh, ZeRO, micro-batches,
-remat and the AMP policy's loss scaler are not ported yet and raise.
+reference expresses as buffer donation (``donate`` is accepted; updates
+are always in place).  A graph holds their addresses: before each call
+the trainer compares them with those its graphs were captured on, and
+when a master or a state has been replaced by another tensor
+(``Parameter._set``, re-initialisation) it drops every graph and
+captures again.
+
+The embedding's id range check is deferred (``ops.tensor.IdCheck``):
+the ids are clamped on the device and their range recorded there.  On
+CUDA the trainer raises the eager check's :class:`MXNetError` at the
+entry of its next call (waiting for the previous call's work); on the
+CPU at once.
+
+A mesh, ZeRO, ``seq_axis`` and the AMP policy's loss scaler are not
+ported yet and raise.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import time
+from functools import partial
 from typing import Callable, Optional
 
 import numpy as onp
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import autograd as ag
 from .. import optimizer as opt_mod
 from .. import telemetry, tracing
 from ..base import MXNetError
 from ..context import resolve_device
+from ..executable import Executable, input_spec
 from ..ops import optimizer_ops
+from ..ops.tensor import IdCheck
 
 __all__ = ["SPMDTrainer"]
 
@@ -57,24 +94,41 @@ def _params_as(params, tensors):
             p._override = None
 
 
+def _batch(x):
+    return x if isinstance(x, torch.Tensor) else onp.asarray(x)
+
+
+def _times(t, mult):
+    """A 0-d f32 device tensor times a Python multiplier, in f32."""
+    return t if mult == 1.0 else t * mult
+
+
 class SPMDTrainer:
     def __init__(self, net, loss_fn: Callable, optimizer="sgd",
                  optimizer_params: Optional[dict] = None, mesh=None,
+                 batch_axis: int = 0, donate: bool = True,
                  dtype: Optional[str] = None, remat: bool = False,
-                 micro_batches: int = 1, zero_stage: Optional[int] = None,
+                 seq_axis: Optional[int] = None, micro_batches: int = 1,
+                 zero_stage: Optional[int] = None,
+                 data_transform: Optional[Callable] = None,
                  zero: Optional[int] = None, device=None):
         unported = [name for name, on in (
-            ("mesh", mesh is not None), ("remat", remat),
-            ("micro_batches", micro_batches != 1),
+            ("mesh", mesh is not None), ("seq_axis", seq_axis is not None),
             ("zero_stage", bool(zero_stage) or bool(zero)),
             ("the AMP policy (MXNET_AMP=1)",
              os.environ.get("MXNET_AMP") == "1")) if on]
         if unported:
             raise MXNetError(f"SPMDTrainer: {', '.join(unported)} not "
                              f"ported yet; the port trains on one device")
+        if micro_batches < 1:
+            raise MXNetError("micro_batches must be >= 1")
         self.device = resolve_device(device)
         self.net = net
         self.loss_fn = loss_fn
+        self.batch_axis = int(batch_axis)
+        self.remat = bool(remat)
+        self.micro_batches = int(micro_batches)
+        self._data_transform = data_transform
         self.amp_dtype = torch.bfloat16 if dtype in _LOW_PRECISION else None
         self.optimizer = opt_mod.create(optimizer,
                                         **(optimizer_params or {}))
@@ -82,8 +136,8 @@ class SPMDTrainer:
                                f"{self.optimizer.op_name}_multi")
         self._params = net.collect_params()
         self._pkeys = list(self._params.keys())
-        for k in self._pkeys:
-            p = self._params[k]
+        self._plist = [self._params[k] for k in self._pkeys]
+        for k, p in zip(self._pkeys, self._plist):
             p._check_initialized()
             if p.data().device != self.device:
                 raise MXNetError(f"parameter {k} is on {p.data().device}, "
@@ -92,93 +146,310 @@ class SPMDTrainer:
             k: tuple(self.optimizer.create_state(i, self._params[k].data()))
             for i, k in enumerate(self._pkeys)}
         self.num_update = 0
+        # signature -> (Executable, its IdCheck); the addresses of the
+        # masters and states they were captured on
+        self._exec = {}
+        self._ptrs = None
+        self.compiles = 0
+        # the last call's deferred id check: (host bounds, vocabs, event)
+        self._pending_ids = None
+        # what the trainer's graphs share: a memory pool and a capture
+        # stream
+        self._capture_with = (None, None)
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                self._capture_with = (torch.cuda.graph_pool_handle(),
+                                      torch.cuda.Stream(self.device))
 
-    # -- one step ----------------------------------------------------------
-    def _stage(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return torch.as_tensor(onp.asarray(x), device=self.device)
-
-    def _step(self, lr, wd, data, label) -> torch.Tensor:
-        params = [self._params[k] for k in self._pkeys]
-        masters = [p.data() for p in params]
+    # -- the functions a graph holds -----------------------------------------
+    def _loss(self, masters, ids, data, label):
+        """The f32 loss mean of one batch.  The masters are cast to the
+        compute dtype here, inside the differentiated graph, and the
+        thread-local state the forward reads (training mode, the id
+        check) is set here too, so that remat's recomputation sees it
+        wherever autograd runs it."""
         amp = self.amp_dtype
         compute = [w.to(amp) if amp is not None and w.is_floating_point()
                    else w for w in masters]
         if amp is not None and data.is_floating_point():
             data = data.to(amp)
-        with _params_as(params, compute), ag.train_mode(), \
-                torch.enable_grad():
+        with _params_as(self._plist, compute), ag.train_mode(), ids:
             out = self.net(data)
-            loss = self.loss_fn(out, label).float().mean()
-        live = [i for i, p in enumerate(params) if p.grad_req != "null"]
-        grads = torch.autograd.grad(loss, [masters[i] for i in live])
-        self._apply_updates(lr, wd, params, masters, live, grads)
-        return loss.detach()
+            return self.loss_fn(out, label).float().mean()
+
+    def _loss_and_grads(self, masters, live, ids, data, label):
+        loss_of = partial(self._loss, masters, ids)
+        if self.remat:
+            loss = checkpoint(loss_of, data, label, use_reentrant=False)
+        else:
+            loss = loss_of(data, label)
+        return loss, torch.autograd.grad(loss, [masters[i] for i in live])
+
+    def _split(self, x):
+        """``x`` cut into the micro-batches along the batch axis (axis 0
+        for arrays of lower rank)."""
+        ax = self.batch_axis if self.batch_axis < x.dim() else 0
+        return x.split(x.shape[ax] // self.micro_batches, dim=ax)
+
+    def _check_split(self, *arrays):
+        k = self.micro_batches
+        for x in arrays if k > 1 else ():
+            ax = self.batch_axis if self.batch_axis < x.ndim else 0
+            if x.shape[ax] % k:
+                raise MXNetError(f"batch {x.shape[ax]} (axis {ax}) not "
+                                 f"divisible by micro_batches={k}")
+
+    def _train_body(self, ids, lr, wd, data, label):
+        """One step on the (static) inputs: ``(loss, id bounds)``."""
+        ids.reset()
+        masters = [p.data() for p in self._plist]
+        live = [i for i, p in enumerate(self._plist)
+                if p.grad_req != "null"]
+        if self._data_transform is not None:
+            data = self._data_transform(data)
+        k = self.micro_batches
+        with torch.enable_grad():
+            if k == 1:
+                loss, grads = self._loss_and_grads(masters, live, ids, data,
+                                                   label)
+            else:
+                losses, grads = [], None
+                for d, l in zip(self._split(data), self._split(label)):
+                    li, g = self._loss_and_grads(masters, live, ids, d, l)
+                    losses.append(li)
+                    grads = list(g) if grads is None else \
+                        torch._foreach_add(grads, g)
+                grads = torch._foreach_div(grads, float(k))
+                loss = torch.stack(losses).mean()
+        self._apply_updates(lr, wd, masters, live, grads)
+        return loss.detach(), ids.bounds()
 
     @torch.no_grad()
-    def _apply_updates(self, lr, wd, params, masters, live, grads):
-        """Every live parameter's update in one multi-tensor call of the
-        optimizer's op; masters and state are overwritten in place."""
+    def _apply_updates(self, lr, wd, masters, live, grads):
+        """Every live parameter's update, one multi-tensor call of the
+        optimizer's op for each group of equal (lr_mult, wd_mult); masters
+        and state are overwritten in place."""
         opt = self.optimizer
         statics = dict(opt.static_params(0))
         statics.setdefault("rescale_grad", 1.0)
         statics.setdefault("clip_gradient",
                            float(opt.clip_gradient)
                            if opt.clip_gradient is not None else -1.0)
-        weights = [masters[i] for i in live]
-        states = [self._opt_state[self._pkeys[i]] for i in live]
-        new_w, *new_states = self._update(
-            weights, list(grads), *map(list, zip(*states)),
-            lrs=[lr * params[i].lr_mult for i in live],
-            wds=[wd * params[i].wd_mult for i in live], **statics)
-        torch._foreach_copy_(weights, new_w)
-        for j, new in enumerate(new_states):
-            torch._foreach_copy_([st[j] for st in states], new)
+        groups = {}
+        for j, i in enumerate(live):
+            p = self._plist[i]
+            groups.setdefault((p.lr_mult, p.wd_mult), []).append((i, j))
+        for (lr_mult, wd_mult), members in groups.items():
+            weights = [masters[i] for i, _ in members]
+            states = [self._opt_state[self._pkeys[i]] for i, _ in members]
+            new_w, *new_states = self._update(
+                weights, [grads[j] for _, j in members],
+                *map(list, zip(*states)), lrs=_times(lr, lr_mult),
+                wds=_times(wd, wd_mult), **statics)
+            torch._foreach_copy_(weights, new_w)
+            for n, new in enumerate(new_states):
+                torch._foreach_copy_([st[n] for st in states], new)
+
+    def _predict_body(self, ids, x):
+        """The forward in eval mode: ``(f32 output, id bounds)``."""
+        ids.reset()
+        if self._data_transform is not None:
+            x = self._data_transform(x)
+        amp = self.amp_dtype
+        with ag.pause():
+            compute = [w.to(amp) if amp is not None and w.is_floating_point()
+                       else w for w in (p.data() for p in self._plist)]
+            if amp is not None and x.is_floating_point():
+                x = x.to(amp)
+            with _params_as(self._plist, compute), ids:
+                out = self.net(x)
+        return out.float(), ids.bounds()
+
+    # -- executables -----------------------------------------------------------
+    def _state_ptrs(self):
+        return tuple(t.data_ptr() for k, p in zip(self._pkeys, self._plist)
+                     for t in (p.data(), *self._opt_state[k]))
+
+    def _executable(self, sig, body, args):
+        """``(entry, fresh)``: the signature's executable and id check,
+        made on its first call.  Graphs captured on masters or states
+        that have since been replaced are dropped first."""
+        ptrs = self._state_ptrs()
+        if ptrs != self._ptrs:
+            self._exec.clear()
+            self._ptrs = ptrs
+        entry = self._exec.get(sig)
+        if entry is not None:
+            return entry, False
+        ids = IdCheck()
+        ex = Executable(partial(body, ids), args, self.device,
+                        *self._capture_with, warm="first_call")
+        entry = self._exec[sig] = (ex, ids)
+        self.compiles += 1
+        return entry, True
+
+    def _call(self, sig, entry, fresh, args):
+        """Run the executable; a signature's first call (on CUDA the warm
+        run and the capture) counts as its compile."""
+        if not fresh:
+            return entry[0](*args)
+        t0 = time.perf_counter()
+        try:
+            out = entry[0](*args)
+        except BaseException:
+            self._exec.pop(sig, None)
+            raise
+        telemetry.record_compile(time.perf_counter() - t0, "spmd_step")
+        return out
+
+    def _defer_ids(self, bounds, vocabs):
+        """On the CPU, raise now if an id was out of range; on CUDA, copy
+        the bounds to the host behind the call's work, for the next
+        call's :meth:`_check_ids`."""
+        if bounds is None:
+            return
+        if self.device.type == "cpu":
+            IdCheck.raise_if_bad(bounds, vocabs)
+            return
+        host = torch.empty(bounds.shape, dtype=bounds.dtype,
+                           pin_memory=True)
+        host.copy_(bounds, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._pending_ids = (host, list(vocabs), done)
+
+    def _check_ids(self):
+        """Raise the previous call's embedding error, if it had one."""
+        pending, self._pending_ids = self._pending_ids, None
+        if pending is not None:
+            host, vocabs, done = pending
+            done.synchronize()
+            IdCheck.raise_if_bad(host, vocabs)
 
     def _schedule(self, n_steps):
-        """lr and wd at the window's entry point, then advance
+        """lr and wd (as f32) at the window's entry point, then advance
         ``num_update`` by ``n_steps``."""
-        lr = float(self.optimizer.learning_rate)
-        wd = float(self.optimizer.wd)
+        lr = onp.float32(self.optimizer.learning_rate)
+        wd = onp.float32(self.optimizer.wd)
         self.num_update += n_steps
         self.optimizer.num_update = self.num_update
         return lr, wd
 
+    def _step_sig(self, d, l):
+        return ("step",) + input_spec(d) + input_spec(l)
+
+    # -- entry points ------------------------------------------------------------
     def step(self, data, label, batch_size: Optional[int] = None):
         """One training step; returns the f32 loss mean (a 0-d tensor on
-        the device)."""
-        d, l = self._stage(data), self._stage(label)
+        the device, a copy: the next call does not overwrite it)."""
+        self._check_ids()
+        d, l = _batch(data), _batch(label)
+        self._check_split(d, l)
+        sig = self._step_sig(d, l)
         tok = telemetry.begin_step()
         try:
             with tracing.span("step.spmd") as sp:
                 lr, wd = self._schedule(1)
                 sp.annotate(step=self.num_update)
-                loss = self._step(lr, wd, d, l)
+                entry, fresh = self._executable(sig, self._train_body,
+                                                (lr, wd, d, l))
+                with tracing.span("compile.spmd_step" if fresh
+                                  else "step.dispatch"):
+                    loss, bounds = self._call(sig, entry, fresh,
+                                              (lr, wd, d, l))
+                sp.annotate(fresh_compile=fresh)
+                loss = loss.clone()
+                self._defer_ids(bounds, entry[1].vocabs)
         finally:
             telemetry.end_step(tok, "SPMDTrainer")
         return loss
 
     def run_steps(self, data, label, n_steps: int,
                   per_step_data: bool = False):
-        """``n_steps`` training steps at one lr/wd; returns their losses
-        as an (n_steps,) tensor.  With ``per_step_data``, data and label
-        carry a leading ``n_steps`` axis and step i trains on batch i."""
-        d, l = self._stage(data), self._stage(label)
+        """``n_steps`` training steps at one lr/wd, replaying the step's
+        graph; returns their losses as an (n_steps,) tensor.  With
+        ``per_step_data``, data and label carry a leading ``n_steps`` axis
+        and step i trains on batch i: the window goes to the device in
+        one copy each, and batch i is copied device to device into the
+        graph's inputs."""
+        self._check_ids()
+        d, l = _batch(data), _batch(label)
         n = int(n_steps)
-        if per_step_data and (d.shape[0] != n or l.shape[0] != n):
-            raise MXNetError(
-                f"run_steps(per_step_data=True): leading axis must be "
-                f"n_steps={n}, got data {tuple(d.shape)} label "
-                f"{tuple(l.shape)}")
+        if per_step_data:
+            if d.shape[0] != n or l.shape[0] != n:
+                raise MXNetError(
+                    f"run_steps(per_step_data=True): leading axis must be "
+                    f"n_steps={n}, got data {tuple(d.shape)} label "
+                    f"{tuple(l.shape)}")
+            d, l = self._on_device(d), self._on_device(l)
+            batches = [(d[i], l[i]) for i in range(n)]
+        else:
+            batches = [(d, l)] * n
+        self._check_split(*batches[0])
+        sig = self._step_sig(*batches[0])
         tok = telemetry.begin_step()
         try:
             with tracing.span("step.spmd_window", n_steps=n,
                               step=self.num_update + 1):
                 lr, wd = self._schedule(n)
-                losses = [self._step(lr, wd, d[i] if per_step_data else d,
-                                     l[i] if per_step_data else l)
-                          for i in range(n)]
+                entry, fresh = self._executable(
+                    sig, self._train_body, (lr, wd) + batches[0])
+                losses = torch.empty((n,), dtype=torch.float32,
+                                     device=self.device)
+                bounds = []
+                for i, (di, li) in enumerate(batches):
+                    with tracing.span("compile.spmd_step" if fresh
+                                      else "step.dispatch"):
+                        loss, b = self._call(sig, entry, fresh,
+                                             (lr, wd, di, li))
+                    fresh = False
+                    losses[i] = loss
+                    if b is not None:
+                        bounds.append(b.clone())
+                if bounds:
+                    self._defer_ids(torch.cat(bounds), entry[1].vocabs * n)
         finally:
             telemetry.end_step(tok, "SPMDTrainer", extra={"n_steps": n})
-        return torch.stack(losses)
+        return losses
+
+    def predict(self, data):
+        """The forward in eval mode with f32 output (a copy), on CUDA
+        replayed from one graph per input signature that shares the
+        trainer's pool and stream."""
+        self._check_ids()
+        x = _batch(data)
+        sig = ("predict",) + input_spec(x)
+        entry, fresh = self._executable(sig, self._predict_body, (x,))
+        out, bounds = self._call(sig, entry, fresh, (x,))
+        out = out.clone()
+        self._defer_ids(bounds, entry[1].vocabs)
+        return out
+
+    # -- eager runs of the same functions, for comparisons -----------------------
+    def _on_device(self, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.as_tensor(onp.asarray(x), device=self.device)
+
+    def _step_eager(self, data, label):
+        """One step run eagerly (never captured) through the function a
+        step's graph holds; an id out of range raises at once."""
+        self._check_ids()
+        d, l = self._on_device(data), self._on_device(label)
+        self._check_split(d, l)
+        lr, wd = (torch.tensor(v, device=self.device)
+                  for v in self._schedule(1))
+        ids = IdCheck()
+        loss, bounds = self._train_body(ids, lr, wd, d, l)
+        if bounds is not None:
+            IdCheck.raise_if_bad(bounds.cpu(), ids.vocabs)
+        return loss
+
+    def _predict_eager(self, data):
+        """``predict`` run eagerly through the function its graph holds."""
+        self._check_ids()
+        ids = IdCheck()
+        out, bounds = self._predict_body(ids, self._on_device(data))
+        if bounds is not None:
+            IdCheck.raise_if_bad(bounds.cpu(), ids.vocabs)
+        return out

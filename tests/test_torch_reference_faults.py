@@ -260,16 +260,19 @@ def test_spmd_trainer_bf16_dense_updates_like_the_reference():
         inputs = [[a.detach().float().numpy().copy() for a in col]
                   for col in (weights, grads, *states)]
         out = update(weights, grads, *states, lrs=lrs, wds=wds, **kw)
-        seen.append((inputs, lrs, wds, [[a.float().numpy().copy()
-                                         for a in col] for col in out]))
+        # lrs, wds: one 0-d f32 tensor each for the whole group (every
+        # multiplier is 1)
+        seen.append((inputs, float(lrs), float(wds),
+                     [[a.float().numpy().copy() for a in col]
+                      for col in out]))
         return out
 
     tr._update = spy
     tx = torch.from_numpy(x).bfloat16()
     losses = [float(tr.step(tx, torch.from_numpy(y))) for _ in range(3)]
     assert len(seen) == 3
-    for inputs, lrs, wds, outs in seen:
-        for i, (lr, wd) in enumerate(zip(lrs, wds)):
+    for inputs, lr, wd, outs in seen:
+        for i in range(len(inputs[0])):
             want = _reference_guarded([col[i] for col in inputs],
                                       jnp.bfloat16, lr, wd)
             for got, ref in zip((o[i] for o in outs), want):

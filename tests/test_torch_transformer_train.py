@@ -184,8 +184,7 @@ def test_run_steps_reads_the_schedule_once(fp32):
     assert seen == [0, 1] and tr.num_update == 4
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"remat": True},
-                                {"micro_batches": 2}, {"zero_stage": 1}])
+@pytest.mark.parametrize("kw", [{"mesh": object()}, {"zero_stage": 1}])
 def test_unported_trainer_options_raise(fp32, kw):
     net = _port_net(fp32["init"])
     with pytest.raises(MXNetError, match="not ported yet"):
