@@ -141,6 +141,35 @@ exits non-zero and prints no result:
              device busy ms, idle share, kernels a step, the flash kernels
              a step by the device trace (8 each) and the kernels by device
              time.
+12. resnet_check — the ResNet path on the card against the port's CPU
+             path (which the CPU tests hold against the reference), TF32
+             off: entry()'s net, ResNet-50 v1 thumbnail (10 classes,
+             Xavier seed 0) on a (8, 3, 32, 32) batch (numpy seed 51);
+             eval logits in fp32, then three SGD steps (lr 0.05, momentum
+             0.9, wd 1e-4; on the card a warm step and two replays) in fp32
+             and fp64, each step from the CPU's fp64 state: losses, every
+             master and momentum and every running mean and variance, each
+             error printed beside its tolerance.
+13. resnet_train — bench.py's headline row at full size: ResNet-50 v1,
+             1000 classes, 224 x 224, batch 256, bf16 compute, SGD lr 0.05
+             momentum 0.9 wd 1e-4, data and float labels made on the card;
+             img/s by bench.py's slope between run_steps windows of 4 and
+             24 (least of 3 each) and TFLOP/s by its 3 x 4.089 GFLOP an
+             image; losses finite and falling; host ms a step replayed
+             against eager; torch.profiler's device busy ms, idle share,
+             kernels a step and device ms by kind (convolutions,
+             BatchNorm, elementwise, layout transposes, ...); peak memory
+             and the graph's pool; warm-up s.  resnet_replay_check: a warm
+             step and 3 replays bitwise equal to 4 eager steps (losses,
+             masters, momenta, running statistics; cuDNN deterministic).
+             resnet_train_fp32: the fp32 row at batch 64, TF32 off.
+14. resnet_infer — bench.py's inference rows at batch 128: the eval
+             forward in fp32 and in bf16 through net.cast("bfloat16"),
+             img/s by the same slope over 4 and 24 forwards, the profile,
+             and the bf16 logits within 2e-2 of fp32's largest.
+             cuDNN's algorithm search (``cudnn.benchmark``) is on for the
+             ResNet phases: it runs in a signature's warm step, before the
+             capture.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
@@ -203,6 +232,16 @@ TRAIN_BH = BATCH * HEADS
 DEV = "cuda"
 LNR_ROWS, EPS = BATCH * SEQ, 1e-5   # K6 on the (8, 2048, 512) activations
 ND_STEPS = 20
+# the ResNet-50 rows: bench.py's _train_bench (:187-268) and _infer_bench
+# (:270-341), and __graft_entry__.entry()'s net
+RESNET_IMAGE = 224
+RESNET_BATCH, RESNET_FP32_BATCH, RESNET_INFER_BATCH = 256, 64, 128
+RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+# bench.py:76's convention: a training step's model FLOPs are 3 x the
+# forward's 4.089 GFLOP an image at 224 x 224
+RESNET_TRAIN_FLOPS = 3 * 4.089e9
+WINDOWS = (4, 24, 3)              # bench.py's N1, N2 and REPS
+CHECK_BATCH, CHECK_IMAGE = 8, 32  # resnet_check: entry()'s thumbnail net
 NO_LIBRARY = ("no single PyTorch call computes it: scaled_dot_product_"
               "attention needs the pages gathered into a dense tensor "
               "first, and torch has no rotary-embedding operator")
@@ -1826,6 +1865,23 @@ def flash_times(torch, fa_mod, train_counts, errs, smi):
     return kernels
 
 
+def kernel_rows(torch, fn, n):
+    """torch.profiler over ``n`` calls of ``fn`` (each ending in a device
+    sync): the host wall ms a call, and each device kernel's (ms a call,
+    launches a call, name), largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    return wall, sorted(((e.self_device_time_total / 1e3 / n, e.count / n,
+                          e.key) for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA), reverse=True)
+
+
 def profiled(torch, fn, n, count=None):
     """Host wall ms per call of ``fn`` (which ends in a device sync),
     device busy ms per call and the kernels by device time, from
@@ -1835,17 +1891,7 @@ def profiled(torch, fn, n, count=None):
     ``counts_whole``: whether those counted launches are each a
     multiple of ``n``, as they are for calls that each launch the same
     kernels unless the trace lost some of their events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    kern = sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    wall, kern = kernel_rows(torch, fn, n)
     busy = sum(k[0] for k in kern)
     top = [{"kernel": k[:90], "ms_per_call": ms, "launches_per_call": c}
            for ms, c, k in kern[:8]]
@@ -2087,6 +2133,484 @@ def train_ab(trees):
     return 0
 
 
+# kernel names by kind, first match wins (convolutions before GEMMs:
+# cuDNN's implicit-GEMM kernels hold "gemm" too)
+KERNEL_KINDS = (
+    ("layout_transpose", ("nchwToNhwc", "nhwcToNchw", "transpose",
+                          "Transpose")),
+    ("batch_norm", ("batch_norm", "batchnorm", "BatchNorm", "bn_fw",
+                    "bn_bw")),
+    ("conv", ("conv", "Conv", "fprop", "dgrad", "wgrad", "implicit",
+              "cudnn")),
+    ("gemm", ("gemm", "Gemm", "cublas", "nvjet")),
+    ("pooling", ("pool", "Pool")),
+    ("optimizer_foreach", ("multi_tensor", "foreach", "Foreach")),
+    ("reduce", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "Elementwise")),
+    ("copy_memset", ("Memcpy", "Memset", "memcpy", "copy")))
+
+
+def kernel_kind(name):
+    for kind, marks in KERNEL_KINDS:
+        if any(m in name for m in marks):
+            return kind
+    return "other"
+
+
+def profiled_kinds(torch, fn, n, tries=3):
+    """torch.profiler over ``n`` calls of ``fn`` (each ending in a device
+    sync): host wall ms a call, device busy ms a call, kernels a call
+    (copies and memsets apart), the device ms and launches a call of
+    each kind of kernel (``KERNEL_KINDS``), and the top 12 kernels.  A
+    trace that lost kernel events (kernels over ``n`` identical calls no
+    multiple of ``n``) is taken again, at most ``tries`` times; the last
+    is kept, ``counts_whole`` false, if none kept every event."""
+    for attempt in range(1, tries + 1):
+        wall, kern = kernel_rows(torch, fn, n)
+        kernels = sum(c for _, c, k in kern
+                      if not k.startswith(("Memcpy", "Memset")))
+        if round(kernels * n) % n == 0:
+            break
+    busy = sum(k[0] for k in kern)
+    kinds = {}
+    for ms, c, name in kern:
+        row = kinds.setdefault(kernel_kind(name), {"ms": 0.0, "launches": 0.0})
+        row["ms"] += ms
+        row["launches"] += c
+    return {"profiled_host_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall if wall else None,
+            "kernels_per_call": kernels, "traces": attempt,
+            "counts_whole": round(kernels * n) % n == 0,
+            "by_kind": dict(sorted(kinds.items(),
+                                   key=lambda kv: -kv[1]["ms"])),
+            "top_kernels": [{"kernel": k[:110], "kind": kernel_kind(k),
+                             "ms_per_call": ms, "launches_per_call": c}
+                            for ms, c, k in kern[:12]]}
+
+
+def resnet_net(torch, device, classes=1000, thumbnail=False,
+               image=None, seed=0):
+    """ResNet-50 v1 as bench.py and ``__graft_entry__.entry()`` build it:
+    Xavier weights from a host generator seeded with ``seed`` (the same
+    weights on any device), deferred dims filled by one (1, 3, image,
+    image) forward in eval mode on ``device``."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    image = image or RESNET_IMAGE
+    net = get_resnet(1, 50, classes=classes, thumbnail=thumbnail)
+    net.initialize(init=initializer.Xavier(), device=device,
+                   generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        net(torch.zeros((1, 3, image, image), device=device))
+    return net
+
+
+def resnet_trainer(torch, net, device=None, **kw):
+    """The headline row's trainer on ``net``: SGD lr 0.05, momentum 0.9,
+    wd 1e-4 (``dtype`` as given)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    return SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                       optimizer_params=dict(RESNET_SGD),
+                       device=device or DEV, **kw)
+
+
+def resnet_state(trainer):
+    """name -> tensor: every master (the running statistics included),
+    and the momentum of each parameter the optimizer updates."""
+    out = {}
+    for k, p in zip(trainer._pkeys, trainer._plist):
+        out[k] = p.data()
+        if p.grad_req != "null":
+            out[k + ":momentum"] = trainer._opt_state[k][0]
+    return out
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in f64 on the host (0 when both are 0)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    nb = float(b.norm())
+    return float((a - b).norm()) / nb if nb else float((a - b).norm())
+
+
+def phase_resnet_check(torch):
+    """The ResNet path on the card against the port's own CPU path (which
+    the CPU tests hold against the reference): entry()'s net, ResNet-50
+    v1 thumbnail with 10 classes, Xavier weights (seed 0), a (8, 3, 32,
+    32) batch and float labels from numpy seed 51, TF32 off.
+
+    Eval logits in fp32.  Then three SGD steps (lr 0.05, momentum 0.9, wd
+    1e-4) through ``SPMDTrainer`` (on the card the first is the warm step
+    and the capture, the others replays) in fp32 and in fp64, on the card
+    and on the CPU.  Each step starts every trainer from the CPU's fp64
+    state (copied in place), so each step's comparison holds one step's
+    error: at this lr a step of 8 images amplifies an fp32 rounding
+    difference chaotically (the port's fp32 on the CPU left its fp64 by
+    17% in the third free-running loss), so free-running trajectories
+    part for reasons no tolerance tells from a fault.  Tolerances:
+
+    * fp32 logits: max |err| <= 1e-4 max |ref|; losses rtol 1e-4; each
+      running mean and variance within 1e-4 of its norm (L2);
+    * fp32 masters and momenta: BatchNorm's backward amplifies rounding
+      in channels whose batch variance is near zero (one fp32 step on
+      the CPU leaves a momentum 1.6% of its norm from fp64), so they are
+      held as a whole: the root mean square over tensors of each
+      tensor's relative L2 error against the CPU's fp64 state, on the
+      card, at most 10x the CPU's fp32 one plus 1e-6 (cuDNN's fp32
+      algorithms round otherwise than the CPU's: 3.05x in one step of
+      the first run; a tensor left unupdated would add ~0.08);
+    * fp64, card against CPU: losses rtol 1e-6 (the loss mean is taken
+      in f32, as the reference takes it), every master, momentum and
+      running statistic within 1e-8 of its norm (L2)."""
+    t0 = time.perf_counter()
+    rng = onp.random.RandomState(51)
+    x = rng.standard_normal((CHECK_BATCH, 3, CHECK_IMAGE, CHECK_IMAGE)
+                            ).astype(onp.float32)
+    y = rng.randint(0, 10, size=(CHECK_BATCH,)).astype(onp.float32)
+    runs = {}
+    for dev in (DEV, "cpu"):
+        for dt in ("float32", "float64"):
+            net = resnet_net(torch, dev, classes=10, thumbnail=True,
+                             image=CHECK_IMAGE)
+            if dt == "float64":
+                net.cast("float64")
+            runs[(dev, dt)] = (
+                net, resnet_trainer(torch, net, device=dev),
+                torch.as_tensor(x, device=dev, dtype=getattr(torch, dt)),
+                torch.as_tensor(y, device=dev))
+    truth_key = ("cpu", "float64")
+    with torch.no_grad():
+        logits = {dev: runs[(dev, "float32")][0](runs[(dev, "float32")][2])
+                  .cpu() for dev in (DEV, "cpu")}
+    scale = float(logits["cpu"].abs().max())
+    logit_err = float((logits[DEV] - logits["cpu"]).abs().max())
+    failures = []
+    if not logit_err <= 1e-4 * scale:
+        failures.append(f"eval logits card vs CPU: max |err| {logit_err} "
+                        f"beyond 1e-4 x {scale}")
+    steps = []
+    for step in range(3):
+        losses = {key: float(tr.step(d, l))
+                  for key, (_, tr, d, l) in runs.items()}
+        states = {key: resnet_state(tr) for key, (_, tr, _, _) in
+                  runs.items()}
+        truth = {k: t.detach().cpu() for k, t in states[truth_key].items()}
+        aux = [k for k in truth if k.endswith(("running_mean",
+                                               "running_var"))]
+        learned = [k for k in truth if k not in aux]
+        row = {"losses": {f"{d}_{t}": v for (d, t), v in losses.items()}}
+        for dt, loss_tol in (("float32", 1e-4), ("float64", 1e-6)):
+            a, b = losses[(DEV, dt)], losses[("cpu", dt)]
+            if not abs(a - b) <= loss_tol * abs(b):
+                failures.append(f"step {step} {dt} loss card {a} vs CPU {b}"
+                                f" beyond rtol {loss_tol}")
+        card32, cpu32 = states[(DEV, "float32")], states[("cpu", "float32")]
+        aux_err = max(rel_l2(card32[k], cpu32[k]) for k in aux)
+        if not aux_err <= 1e-4:
+            failures.append(f"step {step}: fp32 running statistics card vs "
+                            f"CPU {aux_err} beyond 1e-4")
+
+        def rms(state):
+            return float(onp.sqrt(onp.mean(
+                [rel_l2(state[k], truth[k]) ** 2 for k in learned])))
+
+        rms_card, rms_cpu = rms(card32), rms(cpu32)
+        if not rms_card <= 10 * rms_cpu + 1e-6:
+            failures.append(f"step {step}: fp32 masters and momenta "
+                            f"{rms_card} from fp64 on the card, {rms_cpu} "
+                            f"on the CPU")
+        f64_err = max((rel_l2(states[(DEV, "float64")][k], truth[k]), k)
+                      for k in truth)
+        if not f64_err[0] <= 1e-8:
+            failures.append(f"step {step}: fp64 card vs CPU {f64_err[1]} "
+                            f"{f64_err[0]} beyond 1e-8")
+        row.update(fp32_running_stats_rel_l2=aux_err,
+                   fp32_rms_rel_l2_vs_fp64={"card": rms_card,
+                                            "cpu": rms_cpu},
+                   fp64_max_rel_l2=f64_err[0])
+        steps.append(row)
+        with torch.no_grad():                    # the next step's start
+            for key, (_, tr, _, _) in runs.items():
+                if key != truth_key:
+                    for k, t in states[key].items():
+                        t.copy_(truth[k])
+    compiles = {f"{d}_{t}": tr.compiles for (d, t), (_, tr, _, _)
+                in runs.items()}
+    for dt in ("float32", "float64"):
+        tr = runs[(DEV, dt)][1]
+        if DEV == "cuda":
+            step_graph(tr)
+        if tr.compiles != 1:
+            failures.append(f"{dt}: {tr.compiles} captures")
+    emit({"phase": "resnet_check", "net": "resnet50_v1 thumbnail, 10 "
+          "classes", "batch": [CHECK_BATCH, 3, CHECK_IMAGE, CHECK_IMAGE],
+          "tf32": False, "sgd": RESNET_SGD,
+          "eval_logits": {"max_abs_err": logit_err, "max_abs_ref": scale,
+                          "tolerance": "1e-4 x max|ref|"},
+          "steps": steps, "captures": compiles,
+          "tolerance": {"loss_fp32_rtol": 1e-4, "loss_fp64_rtol": 1e-6,
+                        "running_stats_fp32_rel_l2": 1e-4,
+                        "fp32_rms_vs_fp64": "card <= 10 x cpu + 1e-6",
+                        "fp64_rel_l2": 1e-8},
+          "failures": failures, "phase_s": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError(f"resnet_check: {failures}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resnet_batch(torch, batch, seed=0):
+    """bench.py's synthetic batch, made on the card: normal data and float
+    labels in [0, 1000) from an explicit generator."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    data = torch.randn((batch, 3, RESNET_IMAGE, RESNET_IMAGE), generator=g,
+                       device=DEV)
+    label = torch.randint(0, 1000, (batch,), generator=g,
+                          device=DEV).float()
+    return data, label
+
+
+def marginal(run, windows=None):
+    """bench.py's ``_marginal``: seconds a unit from the slope between
+    windows of n1 and n2 units (the least of ``reps`` runs of each, after
+    one warm run of each), so that a constant cost a window cancels.
+    Returns (slope s, least s of n1, least s of n2)."""
+    n1, n2, reps = windows or WINDOWS
+    run(n1)
+    run(n2)
+
+    def timed(n):
+        t0 = time.perf_counter()
+        run(n)
+        return time.perf_counter() - t0
+
+    t1 = min(timed(n1) for _ in range(reps))
+    t2 = min(timed(n2) for _ in range(reps))
+    return max((t2 - t1) / (n2 - n1), 1e-9), t1, t2
+
+
+def resnet_rate(torch, trainer, data, label, losses):
+    """img/s of ``run_steps`` by ``marginal``; every window's losses are
+    appended to ``losses``."""
+    def run(n):
+        losses.extend(float(v) for v in trainer.run_steps(data, label,
+                                                          n).cpu())
+
+    slope, t1, t2 = marginal(run)
+    batch = data.shape[0]
+    return {"img_per_s": batch / slope, "step_ms": slope * 1e3,
+            "tflop_per_s_bench_convention":
+                RESNET_TRAIN_FLOPS * batch / slope / 1e12,
+            "window_s": {str(WINDOWS[0]): t1, str(WINDOWS[1]): t2}}
+
+
+def phase_resnet_train(torch, smi):
+    """bench.py's headline row (``_train_bench``, :187-268) at full size:
+    ResNet-50 v1, 1000 classes, Xavier (seed 0), 224 x 224, batch 256,
+    ``dtype="bfloat16"``, SGD lr 0.05 momentum 0.9 wd 1e-4, data and
+    float labels made on the card (generator seed 0).  The first ``step``
+    is the warm step (cuDNN's algorithm search runs there) and the
+    capture; img/s by ``marginal`` over ``run_steps`` windows of 4 and 24
+    steps; losses finite and falling; host ms a step replayed against
+    eager (``_step_eager``) in blocks of 5 taken in turns; torch.profiler
+    over 3 steps of each; memory.  Then the replay check (two trainers
+    from the same weights, a warm step and 3 replays against 4 eager
+    steps, bitwise; cuDNN deterministic for it), and the fp32 row at
+    batch 64 (TF32 off)."""
+    t0 = time.perf_counter()
+    net = resnet_net(torch, DEV)
+    trainer = resnet_trainer(torch, net, dtype="bfloat16")
+    data, label = resnet_batch(torch, RESNET_BATCH)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem = {"allocated_before_warmup": torch.cuda.memory_allocated(),
+           "reserved_before_warmup": torch.cuda.memory_reserved()}
+    w0 = time.perf_counter()
+    losses = [float(trainer.step(data, label))]     # the warm step + capture
+    warm_s = time.perf_counter() - w0
+    step_graph(trainer)
+    mem.update(max_allocated_warmup=torch.cuda.max_memory_allocated(),
+               allocated_after_warmup=torch.cuda.memory_allocated(),
+               reserved_after_warmup=torch.cuda.memory_reserved())
+    torch.cuda.reset_peak_memory_stats()
+    rate = resnet_rate(torch, trainer, data, label, losses)
+    mem["max_allocated_replays"] = torch.cuda.max_memory_allocated()
+    if trainer.compiles != 1:
+        raise AssertionError(f"{trainer.compiles} captures for one "
+                             f"signature")
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ResNet-50 losses not finite and falling: "
+                             f"{losses}")
+    modes = {"replayed": lambda: float(trainer.step(data, label)),
+             "eager": lambda: float(trainer._step_eager(data, label))}
+    for fn in modes.values():
+        fn()
+    host = host_ms_blocks(modes, calls=5, rounds=2)
+    prof = {}
+    for mode, fn in modes.items():
+        prof[mode] = profiled_kinds(torch, fn, 3)
+        h = host[mode]["median"]
+        prof[mode]["host_ms"] = h
+        prof[mode]["device_idle_share_of_host_ms"] = (
+            1 - prof[mode]["device_busy_ms"] / h)
+    mem["max_allocated_with_eager"] = torch.cuda.max_memory_allocated()
+    emit({"phase": "resnet_train", "gpu": smi,
+          "model": {"net": "resnet50_v1", "classes": 1000,
+                    "image": RESNET_IMAGE, "batch": RESNET_BATCH,
+                    "dtype": "bfloat16", "optimizer": "sgd", **RESNET_SGD,
+                    "cudnn_benchmark": torch.backends.cudnn.benchmark},
+          "setup_s": setup_s, "warmup_s": warm_s, **rate,
+          "tflop_convention": "3 x 4.089 GFLOP an image (bench.py:76)",
+          "losses_first_last": [losses[0], losses[-1]],
+          "losses_steps": len(losses), "host_ms": host,
+          "img_per_s_host_replayed": RESNET_BATCH / (
+              host["replayed"]["median"] / 1e3),
+          "img_per_s_host_eager": RESNET_BATCH / (
+              host["eager"]["median"] / 1e3),
+          "profile": prof, "memory_bytes": mem,
+          "captures": trainer.compiles,
+          "phase_s": time.perf_counter() - t0})
+    del trainer, net, modes
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_replay_check(torch, data, label)
+    del data, label
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet_fp32_row(torch)
+
+
+def resnet_replay_check(torch, data, label):
+    """Two trainers from the same weights at the headline row's size: a
+    warm step and 3 replays against 4 eager steps (``_step_eager``), with
+    cuDNN restricted to deterministic algorithms (an algorithm that adds
+    with atomics would part two eager runs too).  Losses, every master
+    (the running statistics included) and every momentum bitwise equal."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        captured = resnet_trainer(torch, resnet_net(torch, DEV),
+                                  dtype="bfloat16")
+        eager = resnet_trainer(torch, resnet_net(torch, DEV),
+                               dtype="bfloat16")
+        start = [k for k, t in resnet_state(captured).items()
+                 if not torch.equal(t, resnet_state(eager)[k])]
+        if start:
+            raise AssertionError(f"the two trainers start apart: "
+                                 f"{start[:4]}")
+        losses_c = [float(captured.step(data, label)) for _ in range(4)]
+        losses_e = [float(eager._step_eager(data, label)) for _ in range(4)]
+        step_graph(captured)
+        a, b = resnet_state(captured), resnet_state(eager)
+        diff = [k for k in a if not torch.equal(a[k], b[k])]
+        stats = [k for k in a if k.endswith(("running_mean",
+                                             "running_var"))]
+        moved = sum(not torch.equal(a[k], torch.full_like(
+            a[k], 1.0 if k.endswith("running_var") else 0.0))
+            for k in stats)
+        if losses_c != losses_e or diff or captured.compiles != 1:
+            raise AssertionError(f"captured and eager ResNet steps differ: "
+                                 f"losses {losses_c} vs {losses_e}; state "
+                                 f"{diff[:6]} ({len(diff)} tensors); "
+                                 f"captures {captured.compiles}")
+        if moved != len(stats):
+            raise AssertionError(f"{len(stats) - moved} running statistics "
+                                 f"never moved")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    emit({"phase": "resnet_replay_check", "steps": "1 warm + 3 replays vs "
+          "4 eager", "batch": RESNET_BATCH, "dtype": "bfloat16",
+          "cudnn_deterministic": True, "losses_captured": losses_c,
+          "losses_eager": losses_e, "bitwise_equal": True,
+          "state_tensors": len(a), "running_statistics": len(stats),
+          "phase_s": time.perf_counter() - t0})
+    del captured, eager, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resnet_fp32_row(torch):
+    """bench.py's fp32 training row (batch 64, bench.py:46, :622): img/s
+    by the same slope, TF32 off (as every fp32 number of this script)."""
+    t0 = time.perf_counter()
+    trainer = resnet_trainer(torch, resnet_net(torch, DEV))
+    data, label = resnet_batch(torch, RESNET_FP32_BATCH)
+    w0 = time.perf_counter()
+    losses = [float(trainer.step(data, label))]
+    warm_s = time.perf_counter() - w0
+    step_graph(trainer)
+    rate = resnet_rate(torch, trainer, data, label, losses)
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fp32 ResNet-50 losses not finite and "
+                             f"falling: {losses}")
+    emit({"phase": "resnet_train_fp32", "batch": RESNET_FP32_BATCH,
+          "dtype": "float32",
+          "tf32": torch.backends.cudnn.allow_tf32
+          or torch.backends.cuda.matmul.allow_tf32,
+          "warmup_s": warm_s, **rate,
+          "losses_first_last": [losses[0], losses[-1]],
+          "phase_s": time.perf_counter() - t0})
+    del trainer, data, label
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_resnet_infer(torch, smi):
+    """bench.py's ``_infer_bench`` (:270-341) at batch 128: the eval
+    forward of ResNet-50 v1 (Xavier, seed 0) in fp32 (TF32 off) and in
+    bf16 through ``net.cast("bfloat16")``, img/s by ``marginal`` over
+    windows of 4 and 24 forwards (each window ends in one read-back of
+    the summed logits, as bench.py's); torch.profiler over 3 forwards of
+    each; the bf16 logits against the fp32 ones within 2e-2 of the
+    largest."""
+    t0 = time.perf_counter()
+    net = resnet_net(torch, DEV)
+    g = torch.Generator(device=DEV).manual_seed(0)
+    x32 = torch.randn((RESNET_INFER_BATCH, 3, RESNET_IMAGE, RESNET_IMAGE),
+                      generator=g, device=DEV)
+    rows, logits = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            net.cast("bfloat16")
+        x = x32.to(getattr(torch, dtype))
+
+        def forward():
+            with torch.no_grad():
+                return net(x)
+
+        def run(n):
+            acc = torch.zeros((), device=DEV)
+            for _ in range(n):
+                acc += forward().float().sum()
+            float(acc)
+
+        logits[dtype] = forward().float()
+        slope, t1, t2 = marginal(run)
+        prof = profiled_kinds(torch, lambda: float(
+            forward().float().sum()), 3)
+        rows[dtype] = {"img_per_s": RESNET_INFER_BATCH / slope,
+                       "forward_ms": slope * 1e3,
+                       "window_s": {str(WINDOWS[0]): t1,
+                                    str(WINDOWS[1]): t2},
+                       "profile": prof}
+    scale = float(logits["float32"].abs().max())
+    err = float((logits["bfloat16"] - logits["float32"]).abs().max())
+    if not (torch.isfinite(logits["bfloat16"]).all() and
+            err <= 2e-2 * scale):
+        raise AssertionError(f"bf16 logits vs fp32: max |err| {err} beyond "
+                             f"2e-2 x {scale}")
+    emit({"phase": "resnet_infer", "gpu": smi, "batch": RESNET_INFER_BATCH,
+          "image": RESNET_IMAGE, "tf32": False, "rows": rows,
+          "bf16_vs_fp32_logits": {"max_abs_err": err, "max_abs_ref": scale,
+                                  "tolerance": "2e-2 x max|ref|"},
+          "phase_s": time.perf_counter() - t0})
+    del net, x32, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2128,6 +2652,16 @@ def main():
     kernels += nd_times(torch, lnr_mod, rtc_mod, nd_counts, rtc_counts, errs,
                         smi)
     phase_profile_train(torch, trainer, data, label, smi)
+    del trainer, data, label
+    gc.collect()
+    torch.cuda.empty_cache()
+    # cuDNN picks each convolution's algorithm by timing the candidates at
+    # a shape's first call (a signature's warm step, outside any capture);
+    # decided once here for the ResNet path, as bench.py's XLA autotunes
+    torch.backends.cudnn.benchmark = True
+    phase_resnet_check(torch)
+    phase_resnet_train(torch, smi)
+    phase_resnet_infer(torch, smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

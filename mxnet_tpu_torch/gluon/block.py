@@ -8,9 +8,15 @@ returns the reference's hierarchical names
 ``parameters()``) yields the initialized tensors under those names.
 ``hybridize`` keeps the block eager: graph capture (CUDA graphs) is
 later work.
+
+A forward that runs inside a function of the trainer's (one a CUDA graph
+holds) may not write a parameter: BatchNorm's running statistics go to
+the trace context's aux channel instead (:class:`_TraceContext`, read by
+:func:`current_trace`), and the trainer writes them back once a step.
 """
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Optional
 
@@ -20,7 +26,53 @@ from .. import initializer as init_mod
 from ..context import resolve_device
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "current_trace"]
+
+
+class _TraceContext:
+    """The aux channel of one forward (counterpart of the reference's
+    ``_TraceContext.aux_update``, ``mxnet_tpu/gluon/block.py:40-60``): a
+    layer that would update an auxiliary state (BatchNorm's running
+    statistics) hands ``param <- value`` here instead, and the owner of
+    the forward applies the values after it.
+
+    Inside ``with ctx:`` on this thread, :func:`current_trace` returns
+    it.  The owner enters it inside the function that calls the model
+    (as ``ops.tensor.IdCheck``), so that a recomputation on autograd's
+    thread (remat) finds it too, and closes it once the forward has
+    returned: what a recomputation hands in then is dropped,
+    and the values stay those the forward recorded.  The values are
+    detached: they carry no gradient."""
+
+    def __init__(self):
+        self.aux: "OrderedDict[Parameter, torch.Tensor]" = OrderedDict()
+        self.closed = False
+
+    def aux_update(self, param: Parameter, new_value: torch.Tensor):
+        """Register ``param <- new_value`` (the last value for a
+        parameter wins)."""
+        if not self.closed:
+            self.aux[param] = new_value.detach()
+
+    def close(self):
+        self.closed = True
+
+    def __enter__(self):
+        _TRACE.__dict__.setdefault("stack", []).append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _TRACE.stack.pop()
+        return False
+
+
+_TRACE = threading.local()
+
+
+def current_trace() -> Optional[_TraceContext]:
+    """The innermost trace context entered on this thread, or None."""
+    stack = getattr(_TRACE, "stack", None)
+    return stack[-1] if stack else None
 
 
 class Block(torch.nn.Module):
@@ -86,6 +138,15 @@ class Block(torch.nn.Module):
 
     def hybridize(self, active=True, **kwargs):
         """Accepted for the reference's API; the block stays eager."""
+
+    def cast(self, dtype):
+        """Cast every parameter of the block and its children to ``dtype``
+        (``mxnet_tpu/gluon/block.py:176``), auxiliary states included:
+        ``net.cast("bfloat16")`` makes a bf16 net for inference."""
+        for p in self._reg_params.values():
+            p.cast(dtype)
+        for child in self._children.values():
+            child.cast(dtype)
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError

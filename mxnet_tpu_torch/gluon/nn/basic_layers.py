@@ -1,8 +1,10 @@
-"""Basic Gluon layers on the training path (counterpart of part of
+"""Basic Gluon layers on the training paths (counterpart of part of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): ``HybridSequential``,
-``Dense``, ``Dropout``, ``Embedding``, ``LayerNorm`` and ``GELU``."""
+``Dense``, ``Dropout``, ``Embedding``, ``BatchNorm``, ``BatchNormReLU``,
+``LayerNorm``, ``Flatten``, ``Identity``, ``Activation`` and ``GELU``."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from ... import autograd as ag
@@ -10,11 +12,12 @@ from ... import initializer as init_mod
 from ...base import MXNetError
 from ...ops import nn as nn_ops
 from ...ops import tensor as tensor_ops
-from ..block import HybridBlock
+from ..block import HybridBlock, current_trace
 from ..parameter import Parameter
 
 __all__ = ["HybridSequential", "Dense", "Dropout", "Embedding",
-           "LayerNorm", "GELU"]
+           "BatchNorm", "BatchNormReLU", "LayerNorm", "Flatten", "Identity",
+           "Activation", "GELU"]
 
 class HybridSequential(HybridBlock):
     """Children run in order; ``add`` names them ``0``, ``1``, ..."""
@@ -119,6 +122,123 @@ class Embedding(HybridBlock):
 
     def __repr__(self):
         return f"Embedding({self._input_dim} -> {self._output_dim})"
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalisation over every axis but ``axis``
+    (``mxnet_tpu/gluon/nn/basic_layers.py:157-222``).  ``gamma`` and
+    ``running_var`` start at ones, ``beta`` and ``running_mean`` at zeros,
+    whatever the net's initializer; the running statistics are auxiliary
+    states (``grad_req="null"``).
+
+    In training mode (``autograd.is_training()``, as inside
+    ``autograd.record()`` or a trainer's step) the batch's statistics
+    normalise, and each running statistic becomes ``old·momentum +
+    batch·(1 - momentum)`` with the batch's population variance,
+    computed in the type the forward sees the statistics in (the compute
+    type inside a bf16 trainer step).  Inside a trace context the new
+    values go to its aux channel, for the trainer to write back once a
+    step; outside one they are written in place, under no-grad.  In eval
+    mode the running statistics normalise and nothing is written."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        self.gamma = Parameter(shape=(in_channels,),
+                               init=init_mod.create(gamma_initializer),
+                               allow_deferred_init=True,
+                               grad_req="write" if scale else "null")
+        self.beta = Parameter(shape=(in_channels,),
+                              init=init_mod.create(beta_initializer),
+                              allow_deferred_init=True,
+                              grad_req="write" if center else "null")
+        self.running_mean = Parameter(
+            shape=(in_channels,),
+            init=init_mod.create(running_mean_initializer),
+            allow_deferred_init=True, grad_req="null", aux_state=True)
+        self.running_var = Parameter(
+            shape=(in_channels,),
+            init=init_mod.create(running_variance_initializer),
+            allow_deferred_init=True, grad_req="null", aux_state=True)
+
+    def _finish_deferred(self, x):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            if p._deferred_init is not None:
+                p._finish_deferred_init((c,))
+
+    def forward(self, x):
+        self._finish_deferred(x)
+        training = ag.is_training() and not self._use_global_stats
+        out, mean, var = nn_ops.batch_norm(
+            x, self.gamma.data(), self.beta.data(), self.running_mean.data(),
+            self.running_var.data(), eps=self._epsilon,
+            fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis,
+            use_batch_stats=training)
+        if training:
+            m = self._momentum
+            with torch.no_grad():
+                new = {p: p.data() * m + stat * (1 - m)
+                       for p, stat in ((self.running_mean, mean),
+                                       (self.running_var, var))}
+            tc = current_trace()
+            for p, value in new.items():
+                if tc is not None:
+                    tc.aux_update(p, value)
+                else:
+                    with torch.no_grad():
+                        p.data().copy_(value)
+        return out
+
+    def __repr__(self):
+        return f"BatchNorm(axis={self._axis}, momentum={self._momentum}, " \
+               f"eps={self._epsilon})"
+
+
+class BatchNormReLU(BatchNorm):
+    """BatchNorm followed by ReLU (``mxnet_tpu/gluon/nn/basic_layers.py:
+    225``)."""
+
+    def forward(self, x):
+        return torch.relu(super().forward(x))
+
+
+class Flatten(HybridBlock):
+    """Every axis after the first folded into one."""
+
+    def forward(self, x):
+        return tensor_ops.flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
+        return x
+
+
+class Activation(HybridBlock):
+    """``act_type`` applied elementwise, as the ``Activation`` op."""
+
+    def __init__(self, activation, **kwargs):
+        super().__init__(**kwargs)
+        self._act_type = activation
+
+    def forward(self, x):
+        return nn_ops.activation(x, act_type=self._act_type)
+
+    def __repr__(self):
+        return f"Activation({self._act_type})"
 
 
 class LayerNorm(HybridBlock):

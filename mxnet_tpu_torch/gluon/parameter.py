@@ -42,11 +42,14 @@ def _shape_known(shape) -> bool:
 class Parameter:
     """A weight, bias or state tensor of a Block.  ``grad_req`` is
     ``'write'`` or ``'null'``; deferred init completes on the first
-    forward that sees the missing dims."""
+    forward that sees the missing dims.  ``aux_state`` marks an auxiliary
+    state of the graph rather than an argument (BatchNorm's running
+    statistics, written by the forward, never by an optimizer)."""
 
     def __init__(self, name: str = "weight", grad_req: str = "write",
                  shape=None, dtype="float32", lr_mult: float = 1.0,
-                 wd_mult: float = 1.0, init=None, allow_deferred_init=False):
+                 wd_mult: float = 1.0, init=None, allow_deferred_init=False,
+                 aux_state: bool = False):
         if grad_req not in ("write", "null"):
             raise MXNetError(f"grad_req {grad_req!r}: the port takes "
                              f"'write' or 'null'")
@@ -58,6 +61,7 @@ class Parameter:
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         self.grad_req = grad_req
+        self._is_aux = bool(aux_state)
         self._data: Optional[torch.nn.Parameter] = None
         # (initializer, device, generator) kept until the shape is known
         self._deferred_init = None
@@ -172,6 +176,14 @@ class Parameter:
                              f"{tuple(self._data.shape)} of {self.name}")
         with torch.no_grad():
             self._data.copy_(data.to(self._data.device, self._data.dtype))
+
+    def cast(self, dtype):
+        """Change the parameter's type; an initialized value is replaced by
+        a cast copy (a new tensor: a trainer's graphs captured on the old
+        one are dropped at its next call)."""
+        self.dtype = torch_dtype(dtype)
+        if self._data is not None:
+            self._set(self._data.detach().to(self.dtype))
 
 
 class ParameterDict(OrderedDict):

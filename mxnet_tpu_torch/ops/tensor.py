@@ -5,8 +5,8 @@ of the scalar ops of ``mxnet_tpu/ops/legacy.py``).  Plain PyTorch.
 Gluon training path calls.  The registered ops below are what ``mx.nd``
 and the NDArray operators reach through the registry: the binary ops
 with their ``broadcast_*`` aliases, the ``*_scalar`` ops of the operator
-sugar, the unary ops, the reductions, ``cast``, ``reshape`` and
-``zeros_like``/``ones_like``.
+sugar, the unary ops, the reductions, ``cast``, ``flatten``,
+``reshape`` and ``zeros_like``/``ones_like``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import torch
 from ..base import MXNetError, dtype_name, torch_dtype
 from .registry import register
 
-__all__ = ["dot", "pick", "embedding", "IdCheck", "cast", "float_only"]
+__all__ = ["dot", "pick", "embedding", "IdCheck", "cast", "flatten",
+           "float_only"]
 
 
 def dot(a, b, *, transpose_b=False):
@@ -281,6 +282,13 @@ def cast(a, *, dtype):
     inside = torch.where(hi | lo | torch.isnan(a), 0, a).to(dt)
     return torch.where(hi, info.max, torch.where(lo, info.min, inside)
                        ).to(dt)
+
+
+@register("flatten", aliases=("Flatten",))
+def flatten(a):
+    """Every axis after the first folded into one (``mxnet_tpu/ops/
+    tensor.py:270``)."""
+    return a.reshape(a.shape[0], -1)
 
 
 @register("reshape", aliases=("Reshape",))

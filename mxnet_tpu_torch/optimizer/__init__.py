@@ -1,4 +1,4 @@
 """Optimizers (counterpart of ``mxnet_tpu/optimizer``)."""
-from .optimizer import Adam, Optimizer, create, register  # noqa: F401
+from .optimizer import Adam, Optimizer, SGD, create, register  # noqa: F401
 
-__all__ = ["Optimizer", "Adam", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]

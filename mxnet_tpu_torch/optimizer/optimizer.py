@@ -1,4 +1,4 @@
-"""The optimizer base and Adam (counterpart of the part of
+"""The optimizer base, SGD and Adam (counterpart of the part of
 ``mxnet_tpu/optimizer/optimizer.py`` that ``SPMDTrainer`` reads): the
 hyper-parameters, the per-weight state and the name of the update op.
 The update itself is the op in ``ops/optimizer_ops.py``; the eager
@@ -12,7 +12,7 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["Optimizer", "Adam", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]
 
 _OPT_REGISTRY: Dict[str, type] = {}
 
@@ -59,6 +59,30 @@ class Optimizer:
         """The op's fixed attributes (everything but lr, wd and the
         tensors)."""
         return {}
+
+
+@register
+class SGD(Optimizer):
+    """SGD, with momentum unless ``momentum`` is 0 (``mxnet_tpu/optimizer/
+    optimizer.py:425-442``): the op is ``sgd_mom_update`` with one
+    momentum state a weight, else ``sgd_update`` with none.
+    ``lazy_update`` is accepted (it matters only for sparse gradients,
+    which the port does not have)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, lazy_update=True,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.lazy_update = lazy_update
+        self.op_name = "sgd_mom_update" if momentum != 0.0 else "sgd_update"
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return ()
+        return (torch.zeros_like(weight, requires_grad=False),)
+
+    def static_params(self, index):
+        return {"momentum": self.momentum} if self.momentum != 0.0 else {}
 
 
 @register

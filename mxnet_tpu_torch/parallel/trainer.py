@@ -36,7 +36,17 @@ The arithmetic is the reference's:
   each call, so an lr schedule needs no new capture; the products with
   the multipliers are taken in f32 on the device;
 * ``run_steps`` reads lr and wd once for the whole window and advances
-  ``num_update`` by n, as the reference's fused window does.
+  ``num_update`` by n, as the reference's fused window does;
+* auxiliary states (BatchNorm's running statistics) are the reference's
+  aux channel (``parallel/trainer.py:229-274, :407-415``): the forward
+  hands their new values, computed from the compute-dtype copies the
+  step began with, to a trace context (``gluon.block._TraceContext``)
+  instead of writing them; the step copies them into the masters, cast
+  to the masters' dtype, once, after the update.  Under
+  ``micro_batches`` every micro-batch reads the stats the step began
+  with and the last one's values are kept; under ``remat`` the
+  recomputation in the backward writes nothing.  ``predict`` runs in
+  eval mode and writes nothing.
 
 Masters and optimizer state are updated in place (``copy_``), which the
 reference expresses as buffer donation (``donate`` is accepted; updates
@@ -73,6 +83,7 @@ from .. import telemetry, tracing
 from ..base import MXNetError
 from ..context import resolve_device
 from ..executable import Executable, input_spec
+from ..gluon.block import _TraceContext
 from ..ops import optimizer_ops
 from ..ops.tensor import IdCheck
 
@@ -162,28 +173,36 @@ class SPMDTrainer:
                                       torch.cuda.Stream(self.device))
 
     # -- the functions a graph holds -----------------------------------------
-    def _loss(self, masters, ids, data, label):
+    def _loss(self, masters, ids, aux, data, label):
         """The f32 loss mean of one batch.  The masters are cast to the
         compute dtype here, inside the differentiated graph, and the
         thread-local state the forward reads (training mode, the id
-        check) is set here too, so that remat's recomputation sees it
-        wherever autograd runs it."""
+        check, the aux channel) is set here too, so that remat's
+        recomputation sees it wherever autograd runs it."""
         amp = self.amp_dtype
         compute = [w.to(amp) if amp is not None and w.is_floating_point()
                    else w for w in masters]
         if amp is not None and data.is_floating_point():
             data = data.to(amp)
-        with _params_as(self._plist, compute), ag.train_mode(), ids:
+        with _params_as(self._plist, compute), ag.train_mode(), ids, aux:
             out = self.net(data)
             return self.loss_fn(out, label).float().mean()
 
     def _loss_and_grads(self, masters, live, ids, data, label):
-        loss_of = partial(self._loss, masters, ids)
+        """``(loss, grads, aux)``: the gradients of the live masters, and
+        the auxiliary states' new values (BatchNorm's running statistics)
+        as the forward computed them, in the compute dtype.  The aux
+        channel closes when the forward returns, so remat's recomputation
+        in the backward writes nothing."""
+        aux = _TraceContext()
+        loss_of = partial(self._loss, masters, ids, aux)
         if self.remat:
             loss = checkpoint(loss_of, data, label, use_reentrant=False)
         else:
             loss = loss_of(data, label)
-        return loss, torch.autograd.grad(loss, [masters[i] for i in live])
+        aux.close()
+        return (loss, torch.autograd.grad(loss, [masters[i] for i in live]),
+                aux.aux)
 
     def _split(self, x):
         """``x`` cut into the micro-batches along the batch axis (axis 0
@@ -210,19 +229,30 @@ class SPMDTrainer:
         k = self.micro_batches
         with torch.enable_grad():
             if k == 1:
-                loss, grads = self._loss_and_grads(masters, live, ids, data,
-                                                   label)
+                loss, grads, aux = self._loss_and_grads(masters, live, ids,
+                                                        data, label)
             else:
                 losses, grads = [], None
                 for d, l in zip(self._split(data), self._split(label)):
-                    li, g = self._loss_and_grads(masters, live, ids, d, l)
+                    li, g, aux = self._loss_and_grads(masters, live, ids, d,
+                                                      l)
                     losses.append(li)
                     grads = list(g) if grads is None else \
                         torch._foreach_add(grads, g)
                 grads = torch._foreach_div(grads, float(k))
                 loss = torch.stack(losses).mean()
         self._apply_updates(lr, wd, masters, live, grads)
+        self._write_aux(aux)
         return loss.detach(), ids.bounds()
+
+    @torch.no_grad()
+    def _write_aux(self, aux):
+        """The auxiliary states' new values (the last micro-batch's, as
+        the reference keeps them) copied in place into their masters, in
+        the masters' dtype: once a step, after the update, at the
+        masters' fixed addresses."""
+        if aux:
+            torch._foreach_copy_([p._data for p in aux], list(aux.values()))
 
     @torch.no_grad()
     def _apply_updates(self, lr, wd, masters, live, grads):

@@ -128,3 +128,48 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     tr = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam",
                      device="cpu")
     assert tr.device.type == "cpu"
+
+
+RESNET_MODULES = ["ops/nn.py", "ops/optimizer_ops.py",
+                  "optimizer/optimizer.py", "gluon/parameter.py",
+                  "gluon/block.py", "gluon/nn/basic_layers.py",
+                  "gluon/nn/conv_layers.py",
+                  "gluon/model_zoo/vision/__init__.py",
+                  "gluon/model_zoo/vision/resnet.py", "parallel/trainer.py"]
+
+
+@pytest.mark.parametrize("rel", RESNET_MODULES)
+def test_resnet_path_modules_are_held_to_the_rules(rel):
+    """The ResNet path's modules are among the sources checked above, and
+    each imports alone in a fresh process without loading JAX or the
+    reference."""
+    path = PORT / rel
+    assert path in SOURCES
+    mod = "mxnet_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(
+        ".__init__")
+    script = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({mod!r})
+        print(sorted(n for n in sys.modules
+                     if n.split(".")[0] in ("jax", "mxnet_tpu", "triton")))
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_resnet_entry_points_default_to_cuda(monkeypatch):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_resnet
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = get_resnet(1, 18, classes=10, thumbnail=True)
+    with pytest.raises(MXNetError, match="device='cpu'"):
+        net.initialize()
+    net.initialize(device="cpu")
+    net(torch.zeros((1, 3, 8, 8)))
+    with pytest.raises(MXNetError, match="device='cpu'"):
+        SPMDTrainer(net, SoftmaxCrossEntropyLoss())
+    tr = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), device="cpu")
+    assert tr.device.type == "cpu" and tr.optimizer.op_name == "sgd_update"

@@ -12,6 +12,8 @@ against ``mxnet_tpu`` on the same numpy inputs on the CPU:
   reference's ``_lowp_guard`` does (bitwise);
 * ``Dense(units, activation, ...)`` takes the reference's argument order
   and applies the activation after the bias (1e-5 on f32 outputs);
+* ``SPMDTrainer``'s default optimizer, ``"sgd"``, exists (F6; losses
+  and weights at rtol 1e-5);
 * the top level exposes the port's subpackages after a bare import.
 """
 import pathlib
@@ -279,6 +281,40 @@ def test_spmd_trainer_bf16_dense_updates_like_the_reference():
                 assert int((got != ref).sum()) == 0
     assert td.weight.data().dtype == torch.bfloat16
     onp.testing.assert_allclose(losses, ref_losses, rtol=2e-2)
+
+
+def test_spmd_trainer_default_optimizer_is_sgd_like_the_reference():
+    """F6: ``SPMDTrainer(net, loss)`` takes the reference's default,
+    ``optimizer="sgd"`` (lr 0.01, no momentum), where the port once
+    raised "unknown optimizer 'sgd'".  Three steps of a ``Dense(8)`` in
+    both packages from the same weights: losses and weights at rtol
+    1e-5 (f32)."""
+    from mxnet_tpu.gluon import loss as jax_loss
+    from mxnet_tpu.ndarray import NDArray
+    from mxnet_tpu.parallel import SPMDTrainer as JaxTrainer
+    from mxnet_tpu.parallel import make_mesh
+
+    rng = onp.random.RandomState(8)
+    w = (rng.randn(8, 16) * 0.3).astype(onp.float32)
+    x = rng.randn(6, 16).astype(onp.float32)
+    y = rng.randint(0, 8, size=(6,)).astype(onp.float32)
+    jd = jax_nn.Dense(8, in_units=16)
+    jd.initialize()
+    jd.weight.set_data(mx.nd.array(w))
+    jt = JaxTrainer(jd, jax_loss.SoftmaxCrossEntropyLoss(),
+                    mesh=make_mesh({"dp": 1}, devices=jax.devices()[:1]))
+    want = [float(jt.step(NDArray(x), NDArray(y)).asnumpy())
+            for _ in range(3)]
+    td = nn.Dense(8, in_units=16)
+    td.initialize(device="cpu")
+    td.weight.set_data(torch.from_numpy(w))
+    tr = SPMDTrainer(td, gloss.SoftmaxCrossEntropyLoss(), device="cpu")
+    assert tr.optimizer.op_name == "sgd_update"
+    got = [float(tr.step(x, y)) for _ in range(3)]
+    onp.testing.assert_allclose(got, want, rtol=1e-5)
+    onp.testing.assert_allclose(td.weight.data().detach().numpy(),
+                                jd.weight.data().asnumpy(), rtol=1e-5,
+                                atol=1e-7)
 
 
 # -- Dense's arguments ----------------------------------------------------------
