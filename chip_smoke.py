@@ -170,8 +170,42 @@ exits non-zero and prints no result:
              cuDNN's algorithm search (``cudnn.benchmark``) is on for the
              ResNet phases: it runs in a signature's warm step, before the
              capture.
+15. gluon_train — the transformer row at full width (as train) through
+             the eager Gluon loop: amp.init("bfloat16"), gluon.Trainer
+             (Adam lr 3e-4), amp.init_trainer, autograd.record, backward
+             inside amp.scale_loss, trainer.step; a warm step, then 10
+             steps with the counts zeroed just before and read just
+             after: losses finite and falling, K1-K3 8 launches a step
+             each (bf16 q, k, v from FullyConnected under the policy) and
+             no plain version.  Host ms a step (blocks of 5), tokens/s,
+             device busy ms, idle share and kernels by kind (one
+             profile), the optimizer's kernels a step fused and with
+             MXNET_FUSED_STEP=0, peak memory, and train's SPMDTrainer
+             host ms beside them.  An inf written into a gradient inside
+             scale_loss must halve the scale, reset the clean steps and
+             zero every gradient.
+16. gluon_resnet — ResNet-50 v1 at bench width (1000 classes, 224 x 224,
+             batch 256) through the eager loop as
+             examples/gluon/image_classification.py runs it in bf16
+             (amp.convert_model, SGD lr 0.05 momentum 0.9 wd 1e-4): img/s
+             by the slope over windows of 4 and 24 steps, losses falling,
+             device ms by kind.
+17. gluon_check — fp32, TF32 off: (a) one gluon.Trainer SGD-momentum
+             step on the ResNet-50 thumbnail (8, 3, 32, 32) against one
+             SPMDTrainer step from the same weights (weights within 1e-5,
+             running statistics within 1e-4 of their norm in L2, loss rtol
+             1e-5); (b) the fused update bitwise equal to the
+             per-parameter one (MXNET_FUSED_STEP=0) over 3 steps, SGD
+             momentum and Adam; (c) save_states / load_states bitwise;
+             (d) SPMDTrainer under amp.init("bfloat16") on an MLP: a warm
+             step and 4 replays bitwise equal to 5 eager steps (losses,
+             masters, momenta, scale, skipped count), then a replayed step
+             with an inf in the data leaves masters and momenta bitwise
+             unchanged, halves the scale and skips one update, without a
+             new capture; amp.all_finite sees a NaN.
 
-The line before the last is ``{"kernels": [...]}`` (K1-K7); the last is
+The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
+carry ``launches_gluon_train``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -842,6 +876,7 @@ def phase_train(torch, fa_mod, smi):
     for fn in modes.values():
         fn()
     host = host_ms_blocks(modes, calls=10, rounds=2)
+    GLUON_SPMD_HOST.update(host)
     med = host["replayed"]["median"]
     flat = torch.empty((TRAIN_BH, SEQ, HEAD_DIM), dtype=torch.bfloat16,
                        device="meta")
@@ -2611,6 +2646,474 @@ def phase_resnet_infer(torch, smi):
     torch.cuda.empty_cache()
 
 
+# -- the eager Gluon loop (slice 10) ---------------------------------------------
+
+GLUON_STEPS = 10
+GLUON_SPMD_HOST = {}    # phase_train's SPMDTrainer host ms, for gluon_train
+
+
+def gluon_loop_step(mx, amp, net, loss_fn, trainer, x, y, batch,
+                    scaled=True, poison=None):
+    """One step of the eager Gluon loop: the forward and loss recorded,
+    ``backward`` (through ``amp.scale_loss`` when ``scaled``), then
+    ``trainer.step``; ``poison(net)`` runs right after the backward,
+    inside ``scale_loss``.  Returns the per-sample loss (an NDArray)."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+        if scaled:
+            with amp.scale_loss(loss, trainer) as s:
+                s.backward()
+                if poison is not None:
+                    poison(net)
+    if not scaled:
+        loss.backward()
+    trainer.step(batch)
+    return loss
+
+
+def optimizer_launches(torch, mx, amp, net, loss_fn, trainer, x, y,
+                       batch):
+    """``trainer.step`` alone (after a recorded forward and backward),
+    with the fused step on and off (``MXNET_FUSED_STEP=0``): its host ms
+    to the end of its device work (unprofiled, the median of 3 steps),
+    and its kernels and device ms from a CUDA-only trace of one more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def backward():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+            with amp.scale_loss(loss, trainer) as s:
+                s.backward()
+        torch.cuda.synchronize()
+
+    out = {}
+    for mode, env in (("fused", "1"), ("per_parameter", "0")):
+        os.environ["MXNET_FUSED_STEP"] = env
+        try:
+            hosts = []
+            for _ in range(3):
+                backward()
+                t0 = time.perf_counter()
+                trainer.step(batch)
+                torch.cuda.synchronize()
+                hosts.append((time.perf_counter() - t0) * 1e3)
+            host = sorted(hosts)[1]
+            backward()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                trainer.step(batch)
+                torch.cuda.synchronize()
+        finally:
+            os.environ.pop("MXNET_FUSED_STEP", None)
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        out[mode] = {"kernels": sum(e.count for e in kern
+                                    if not e.key.startswith(("Memcpy",
+                                                             "Memset"))),
+                     "device_ms": sum(e.self_device_time_total
+                                      for e in kern) / 1e3,
+                     "host_ms": host}
+    return out
+
+
+def phase_gluon_train(torch, fa_mod, smi):
+    """The transformer row at full width (bench.py's _transformer_bench:
+    vocab 32000, dim 512, 8 heads, 8 layers, batch 8 x 2048, int32 ids
+    seed 2, Xavier weights seed 0) trained through the eager Gluon loop:
+    ``amp.init("bfloat16")``, ``gluon.Trainer(..., "adam", lr 3e-4)``,
+    ``amp.init_trainer`` and ``amp.scale_loss`` around ``backward``.  A
+    warm step, then 10 steps with the launch counts zeroed just before
+    and read just after: losses finite and falling, K1-K3 8 launches a
+    step each and no plain version.  Host ms a step in blocks of 5,
+    tokens/s, torch.profiler's device busy ms, idle share and kernels a
+    step by kind, the optimizer's kernels a step (fused against
+    MXNET_FUSED_STEP=0), peak memory; beside them, this process's
+    SPMDTrainer host ms from ``train``.  Then one step with an inf written
+    into a gradient inside ``scale_loss``: the scale halves, the clean
+    steps reset and every gradient is zeroed."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    t0 = time.perf_counter()
+    amp.init("bfloat16")
+    try:
+        net = train_model(torch)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": LR})
+        amp.init_trainer(trainer)
+        loss_fn = SoftmaxCrossEntropyLoss()
+        ids, labels = train_batch(torch)
+        x, y = mx.nd.array(ids), mx.nd.array(labels)
+
+        def step():
+            return float(gluon_loop_step(mx, amp, net, loss_fn, trainer, x,
+                                         y, BATCH).mean().asscalar())
+
+        fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        w0 = time.perf_counter()
+        losses = [step()]                                   # the warm step
+        warm_s = time.perf_counter() - w0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(*fns)
+        losses += [step() for _ in range(GLUON_STEPS)]
+        torch.cuda.synchronize()
+        counts = {f.__name__: {"launches": f.launches,
+                               "plain_calls": f.plain_calls} for f in fns}
+        peak = torch.cuda.max_memory_allocated()
+        for name, c in counts.items():
+            if c["launches"] != LAYERS * GLUON_STEPS or c["plain_calls"]:
+                raise AssertionError(
+                    f"gluon_train: {name} did not run its kernel {LAYERS} "
+                    f"times a step over {GLUON_STEPS} steps: {c}")
+        if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"gluon_train: losses not finite and "
+                                 f"falling: {losses}")
+        host = host_ms_blocks({"gluon": step}, calls=5, rounds=2)["gluon"]
+        prof = profiled_kinds(torch, step, 3)
+        prof["device_idle_share_of_host_ms"] = (
+            1 - prof["device_busy_ms"] / host["median"])
+        opt = optimizer_launches(torch, mx, amp, net, loss_fn, trainer, x, y,
+                                 BATCH)
+        # an overflow inside scale_loss
+        scaler = trainer._amp_loss_scaler
+        before = (scaler.loss_scale, scaler._unskipped)
+
+        def poison(n):
+            p = n.collect_params()["blocks.0.ffn1.weight"]
+            p.grad()._data.view(-1)[0] = float("inf")
+
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+            with amp.scale_loss(loss, trainer) as s:
+                s.backward()
+                poison(net)
+        grads_zero = all(float(p.grad()._data.abs().sum()) == 0.0
+                         for p in net.collect_params().values()
+                         if p._grad is not None)
+        after = (scaler.loss_scale, scaler._unskipped)
+        trainer.step(BATCH)
+        if not (after[0] == before[0] / 2 and after[1] == 0 and grads_zero
+                and before[1] > 0):
+            raise AssertionError(f"gluon_train: an overflow inside "
+                                 f"scale_loss left scale/clean steps "
+                                 f"{before} -> {after}, gradients zeroed "
+                                 f"{grads_zero}")
+    finally:
+        amp.reset()
+    med = host["median"]
+    emit({"phase": "gluon_train", "gpu": smi,
+          "model": {"vocab": VOCAB, "units": DIM, "layers": LAYERS,
+                    "heads": HEADS, "batch": BATCH, "seq": SEQ,
+                    "tied": True, "amp": "bfloat16", "optimizer": "adam",
+                    "lr": LR, "loop": "autograd.record + scale_loss + "
+                    "gluon.Trainer.step"},
+          "warmup_s": warm_s, "losses": losses, "host_ms": host,
+          "tokens_per_s": BATCH * SEQ / (med / 1e3),
+          "profile": prof, "optimizer_step": opt,
+          "counts": counts, "launches_per_step": LAYERS,
+          "memory_bytes": {"max_allocated_steps": peak},
+          "spmd_trainer_host_ms_same_process": GLUON_SPMD_HOST,
+          "overflow": {"scale_before_after": [before[0], after[0]],
+                       "clean_steps_before_after": [before[1], after[1]],
+                       "gradients_zeroed": grads_zero},
+          "phase_s": time.perf_counter() - t0})
+    del trainer, net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gluon_resnet(torch, smi):
+    """ResNet-50 through the eager Gluon loop as
+    ``examples/gluon/image_classification.py:88-117`` runs it with
+    ``--dtype bfloat16``, at bench.py's _train_bench width: ResNet-50 v1,
+    1000 classes, Xavier (seed 0), 224 x 224, batch 256,
+    ``amp.convert_model(net, "bfloat16")`` (bf16 parameters, no f32
+    masters), bf16 data, ``gluon.Trainer(..., "sgd", lr 0.05, momentum
+    0.9, wd 1e-4)``.  img/s by ``marginal`` over windows of 4 and 24
+    steps (each ending in one read of the last loss), losses finite and
+    falling, and device ms by kind (``profiled_kinds``)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    t0 = time.perf_counter()
+    net = resnet_net(torch, DEV)
+    amp.convert_model(net, "bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(RESNET_SGD))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    data, label = resnet_batch(torch, RESNET_BATCH)
+    x, y = mx.nd.array(data.to(torch.bfloat16)), mx.nd.array(label)
+    losses = []
+
+    def one():
+        return gluon_loop_step(mx, amp, net, loss_fn, trainer, x, y,
+                               RESNET_BATCH, scaled=False)
+
+    def run(n):
+        for _ in range(n):
+            loss = one()
+        losses.append(float(loss.mean().astype("float32").asscalar()))
+
+    w0 = time.perf_counter()
+    run(1)
+    warm_s = time.perf_counter() - w0
+    torch.cuda.reset_peak_memory_stats()
+    slope, t1, t2 = marginal(run)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gluon_resnet: losses not finite and falling: "
+                             f"{losses}")
+    prof = profiled_kinds(torch, lambda: run(1), 3)
+    emit({"phase": "gluon_resnet", "gpu": smi,
+          "model": {"net": "resnet50_v1", "classes": 1000,
+                    "image": RESNET_IMAGE, "batch": RESNET_BATCH,
+                    "params": "bfloat16 (amp.convert_model)",
+                    "optimizer": "sgd", **RESNET_SGD,
+                    "cudnn_benchmark": torch.backends.cudnn.benchmark},
+          "warmup_s": warm_s, "img_per_s": RESNET_BATCH / slope,
+          "step_ms": slope * 1e3,
+          "tflop_per_s_bench_convention":
+              RESNET_TRAIN_FLOPS * RESNET_BATCH / slope / 1e12,
+          "window_s": {str(WINDOWS[0]): t1, str(WINDOWS[1]): t2},
+          "losses_first_last": [losses[0], losses[-1]],
+          "profile": prof, "memory_bytes": {"max_allocated_steps": peak},
+          "phase_s": time.perf_counter() - t0})
+    del trainer, net, x, y, data, label
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+GLUON_CHECK_TOL = {"weights_rel_l2": 1e-5, "running_stats_rel_l2": 1e-4}
+
+
+def on_card(torch, mx, a):
+    """An NDArray on the phases' device from a numpy array."""
+    return mx.nd.array(torch.as_tensor(a, device=DEV))
+
+
+def _named(trainer, net):
+    """index in the gluon.Trainer -> parameter name."""
+    ids = {id(p): k for k, p in net.collect_params().items()}
+    return {i: ids[id(p)] for i, p in enumerate(trainer._params)}
+
+
+def _gluon_vs_spmd(torch, mx, failures):
+    """(a) one gluon.Trainer SGD-momentum step against one fp32
+    SPMDTrainer step on the ResNet-50 thumbnail, from the same weights
+    and batch (TF32 off)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    rng = onp.random.RandomState(51)
+    xs = rng.standard_normal((CHECK_BATCH, 3, CHECK_IMAGE, CHECK_IMAGE)
+                             ).astype(onp.float32)
+    ys = rng.randint(0, 10, size=(CHECK_BATCH,)).astype(onp.float32)
+    gnet = resnet_net(torch, DEV, classes=10, thumbnail=True,
+                      image=CHECK_IMAGE)
+    snet = resnet_net(torch, DEV, classes=10, thumbnail=True,
+                      image=CHECK_IMAGE)
+    trainer = mx.gluon.Trainer(gnet.collect_params(), "sgd",
+                               dict(RESNET_SGD))
+    loss = gluon_loop_step(mx, None, gnet, SoftmaxCrossEntropyLoss(),
+                           trainer, on_card(torch, mx, xs),
+                           on_card(torch, mx, ys), CHECK_BATCH,
+                           scaled=False)
+    spmd = resnet_trainer(torch, snet)
+    spmd_loss = float(spmd.step(torch.as_tensor(xs, device=DEV),
+                                torch.as_tensor(ys, device=DEV)))
+    gloss = float(loss.mean().asscalar())
+    gp, sp = gnet.collect_params(), snet.collect_params()
+    aux = [k for k in gp if k.endswith(("running_mean", "running_var"))]
+    w_err = max(rel_l2(gp[k].data(), sp[k].data()) for k in gp
+                if k not in aux)
+    a_err = max(rel_l2(gp[k].data(), sp[k].data()) for k in aux)
+    names = _named(trainer, gnet)
+    m_err = max(rel_l2(st[0]._data, spmd._opt_state[names[i]][0])
+                for i, st in trainer._updaters[0].states.items())
+    if not w_err <= GLUON_CHECK_TOL["weights_rel_l2"]:
+        failures.append(f"(a) weights gluon vs SPMD {w_err}")
+    if not a_err <= GLUON_CHECK_TOL["running_stats_rel_l2"]:
+        failures.append(f"(a) running statistics gluon vs SPMD {a_err}")
+    if not abs(gloss - spmd_loss) <= 1e-5 * abs(spmd_loss):
+        failures.append(f"(a) loss gluon {gloss} vs SPMD {spmd_loss}")
+    return {"loss_gluon": gloss, "loss_spmd": spmd_loss,
+            "weights_max_rel_l2": w_err, "running_stats_max_rel_l2": a_err,
+            "momenta_max_rel_l2": m_err}
+
+
+def _fused_vs_per_parameter(torch, mx, failures, opt, params):
+    """(b) three steps of the thumbnail: trainer A takes the fused step,
+    trainer B (a second net from the same weights, handed A's gradients
+    each step) the per-parameter one (``MXNET_FUSED_STEP=0``): weights
+    and states bitwise equal.  (c) A's states through ``save_states`` /
+    ``load_states`` into a third trainer: bitwise equal."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.optimizer import fused_step
+    rng = onp.random.RandomState(52)
+    xs = on_card(torch, mx, rng.standard_normal(
+        (CHECK_BATCH, 3, CHECK_IMAGE, CHECK_IMAGE)).astype(onp.float32))
+    ys = on_card(torch, mx, rng.randint(0, 10, size=(CHECK_BATCH,)
+                                        ).astype(onp.float32))
+    nets = [resnet_net(torch, DEV, classes=10, thumbnail=True,
+                       image=CHECK_IMAGE) for _ in range(3)]
+    trainers = [mx.gluon.Trainer(n.collect_params(), opt, dict(params))
+                for n in nets]
+    lf = SoftmaxCrossEntropyLoss()
+    fused0 = fused_step.stats()["steps"]
+    for _ in range(3):
+        with mx.autograd.record():
+            loss = lf(nets[0](xs), ys)
+        loss.backward()
+        with torch.no_grad():
+            for pa, pb in zip(trainers[0]._params, trainers[1]._params):
+                if pa._grad is not None:           # A's gradients
+                    pb._grad._data = pa._grad._data.clone()
+                elif pa.grad_req == "null":        # A's running stats
+                    pb._data.copy_(pa._data)
+        trainers[0].step(CHECK_BATCH)
+        os.environ["MXNET_FUSED_STEP"] = "0"
+        try:
+            trainers[1].step(CHECK_BATCH)
+        finally:
+            os.environ.pop("MXNET_FUSED_STEP", None)
+    fused = fused_step.stats()["steps"] - fused0
+    differ = [k for k, pa, pb in zip(_named(trainers[0], nets[0]).values(),
+                                     trainers[0]._params,
+                                     trainers[1]._params)
+              if not torch.equal(pa._data, pb._data)]
+    sa, sb = trainers[0]._updaters[0].states, trainers[1]._updaters[0].states
+    differ += [f"state {i}.{j}" for i in sa for j in range(len(sa[i]))
+               if not torch.equal(sa[i][j]._data, sb[i][j]._data)]
+    if differ or fused != 3:
+        failures.append(f"(b) {opt}: fused ({fused} fused steps) against "
+                        f"per-parameter differ in {differ[:5]}")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        f"gluon_check_{opt}.states")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    trainers[0].save_states(path)
+    trainers[2].load_states(path)
+    os.remove(path)
+    sc = trainers[2]._updaters[0].states
+    bad = [f"{i}.{j}" for i in sa for j in range(len(sa[i]))
+           if not (sa[i][j]._data.dtype == sc[i][j]._data.dtype
+                   and sa[i][j]._data.device == sc[i][j]._data.device
+                   and torch.equal(sa[i][j]._data, sc[i][j]._data))]
+    if bad or sorted(sa) != sorted(sc):
+        failures.append(f"(c) {opt}: save/load states differ in {bad[:5]}")
+    return {"fused_steps": fused, "tensors_differing": len(differ),
+            "states_round_trip_differing": len(bad),
+            "state_tensors": sum(len(v) for v in sa.values())}
+
+
+def _spmd_amp_replays(torch, mx, failures):
+    """(d) SPMDTrainer under ``amp.init("bfloat16")`` on a 3-layer MLP
+    (1024 -> 2048 -> 2048 -> 1000, batch 256): a captured trainer (a warm
+    step, then 4 replays) against one stepping eagerly (5 steps), the
+    scale set to 2**10 on the host first: losses, masters, SGD momenta,
+    scale, clean steps and skipped count bitwise equal.  Then a replayed
+    step with an inf in the data (no capture: the same graph): masters
+    and momenta bitwise unchanged, the scale halved, one step skipped."""
+    from mxnet_tpu_torch import amp, initializer
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    amp.init("bfloat16")
+    try:
+        g = torch.Generator(device=DEV).manual_seed(3)
+        data = torch.randn((256, 1024), generator=g, device=DEV)
+        label = torch.randint(0, 1000, (256,), generator=g, device=DEV
+                              ).float()
+        pair = []
+        for _ in range(2):
+            net = nn.HybridSequential()
+            net.add(nn.Dense(2048, activation="relu"),
+                    nn.Dense(2048, activation="relu"), nn.Dense(1000))
+            net.initialize(init=initializer.Xavier(), device=DEV,
+                           generator=torch.Generator().manual_seed(4))
+            with torch.no_grad():
+                net(torch.zeros((1, 1024), device=DEV))
+            tr = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                             {"learning_rate": 0.05, "momentum": 0.9},
+                             device=DEV)
+            tr._amp_scaler.loss_scale = 2.0 ** 10
+            pair.append(tr)
+        rep, eag = pair
+        losses = [[float(rep.step(data, label)) for _ in range(5)],
+                  [float(eag._step_eager(data, label)) for _ in range(5)]]
+        step_graph(rep)
+
+        def state(tr):
+            out = {f"{k}": p.data() for k, p in zip(tr._pkeys, tr._plist)}
+            out.update({f"{k}:mom": s[0] for k, s in tr._opt_state.items()
+                        if s})
+            return out
+
+        sr, se = state(rep), state(eag)
+        differ = [k for k in sr if not torch.equal(sr[k], se[k])]
+        amp_r = [float(t) for t in rep._amp_state]
+        amp_e = [float(t) for t in eag._amp_state]
+        if losses[0] != losses[1] or differ or amp_r != amp_e or \
+                rep._amp_scaler.state() != eag._amp_scaler.state():
+            failures.append(f"(d) replays vs eager under AMP: losses "
+                            f"{losses}, differing {differ[:5]}, amp state "
+                            f"{amp_r} vs {amp_e}")
+        before = {k: t.clone() for k, t in sr.items()}
+        scale0 = amp_r[0]
+        bad = data.clone()
+        bad[0, 0] = float("inf")
+        compiles = rep.compiles
+        rep.step(bad, label)
+        changed = [k for k in before if not torch.equal(before[k], sr[k])]
+        scale1, good1, skipped1 = (float(t) for t in rep._amp_state)
+        if changed or scale1 != scale0 / 2 or good1 != 0.0 or \
+                skipped1 != 1.0 or rep.compiles != compiles:
+            failures.append(f"(d) overflowing replay: changed {changed[:5]}"
+                            f", scale {scale0} -> {scale1}, clean steps "
+                            f"{good1}, skipped {skipped1}, captures "
+                            f"{compiles} -> {rep.compiles}")
+    finally:
+        amp.reset()
+    return {"losses": losses[0], "tensors_compared": len(sr),
+            "amp_state": amp_r, "overflow": {"scale": [scale0, scale1],
+                                             "skipped": skipped1,
+                                             "masters_changed":
+                                                 len(changed)}}
+
+
+def phase_gluon_check(torch):
+    """Correctness of the eager Gluon loop on the card, fp32 with TF32
+    off except (d): (a) one gluon.Trainer step against one SPMDTrainer
+    step; (b) the fused update bitwise equal to the per-parameter one
+    over 3 steps, SGD momentum and Adam; (c) save_states / load_states
+    bitwise; (d) SPMDTrainer under the AMP policy, replays bitwise equal
+    to eager steps, and an overflowing replay leaving masters and states
+    unchanged."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+    t0 = time.perf_counter()
+    failures = []
+    out = {"phase": "gluon_check", "tf32": False,
+           "tolerance": GLUON_CHECK_TOL}
+    out["a_gluon_vs_spmd"] = _gluon_vs_spmd(torch, mx, failures)
+    out["b_c_sgd"] = _fused_vs_per_parameter(
+        torch, mx, failures, "sgd", RESNET_SGD)
+    out["b_c_adam"] = _fused_vs_per_parameter(
+        torch, mx, failures, "adam", {"learning_rate": 1e-3, "wd": 1e-4})
+    out["d_spmd_amp"] = _spmd_amp_replays(torch, mx, failures)
+    nan = [torch.ones(4, device=DEV), torch.ones(3, device=DEV)]
+    nan[1][1] = float("nan")
+    out["all_finite_sees_nan"] = not bool(amp.all_finite(nan))
+    if not out["all_finite_sees_nan"]:
+        failures.append("amp.all_finite missed a NaN on the card")
+    out.update(failures=failures, phase_s=time.perf_counter() - t0)
+    emit(out)
+    if failures:
+        raise AssertionError(f"gluon_check: {failures}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2662,6 +3165,13 @@ def main():
     phase_resnet_check(torch)
     phase_resnet_train(torch, smi)
     phase_resnet_infer(torch, smi)
+    gluon_counts = phase_gluon_train(torch, fa_mod, smi)
+    for row in kernels:                  # K1-K3 on the eager Gluon path
+        if row["name"] in gluon_counts:
+            row["launches_gluon_train"] = \
+                gluon_counts[row["name"]]["launches"]
+    phase_gluon_resnet(torch, smi)
+    phase_gluon_check(torch)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,11 @@ imperative NDArray path — ``nd`` (``NDArray`` over a ``torch.Tensor``,
 generated from the op registry ``ops.registry``), ``autograd``
 (``record``/``backward``/``grad``/``Function``), ``Context`` — with the
 fused ``ops.layernorm_residual`` kernel (``mx.nd.layer_norm_residual``)
-and ``rtc``, which compiles and launches users' CUDA C kernels::
+and ``rtc``, which compiles and launches users' CUDA C kernels; the
+ResNet ops and zoo; and the eager Gluon loop — ``gluon.Trainer`` over
+``autograd.record``/``backward`` with the optimizer family
+(``optimizer``, its fused whole-set step), ``lr_scheduler``, the local
+``kvstore`` and ``amp`` (the policy and the loss scaler)::
 
     import mxnet_tpu_torch as mx
     x = mx.nd.array(data, ctx=mx.gpu(0))
@@ -30,9 +34,10 @@ from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
 from . import log, telemetry, tracing  # noqa: F401
+from . import amp, kvstore, lr_scheduler  # noqa: F401
 from . import gluon, initializer, optimizer, parallel, serving  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray",
            "gluon", "initializer", "optimizer", "parallel", "serving",
-           "tracing", "telemetry", "log"]
+           "tracing", "telemetry", "log", "amp", "kvstore", "lr_scheduler"]

@@ -1,11 +1,16 @@
 """Imperative autograd over ``torch.autograd`` (counterpart of
 ``mxnet_tpu/autograd.py``).
 
-Two users share this module.  The Gluon path works on tensors: it reads
-``is_training()`` and scopes it with ``train_mode``/``predict_mode``/
-``pause`` (which also turns PyTorch's gradient recording off), and takes
-gradients from ``torch.autograd`` itself.  The NDArray path keeps
-MXNet's semantics on top of ``torch.autograd``:
+Two users share this module.  The captured trainer (``SPMDTrainer``)
+works on tensors: it reads ``is_training()`` and scopes it with
+``train_mode``/``predict_mode``/``pause`` (which also turns PyTorch's
+gradient recording off), and takes gradients from ``torch.autograd``
+itself.  The NDArray path — ``mx.nd`` and the eager Gluon loop, whose
+Blocks take NDArrays and whose Parameters are variables with gradient
+buffers (``gluon/parameter.py``), so that ``backward`` fills the buffers
+``gluon.Trainer`` reads, and ``record(train_mode=…)`` drives the
+layers' ``is_training()`` — keeps MXNet's semantics on top of
+``torch.autograd``:
 
 - ``record()`` turns recording on; ops dispatched through the registry
   build a graph only then (``ops/registry.py`` runs them under

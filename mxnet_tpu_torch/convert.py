@@ -62,6 +62,7 @@ def load_collected_params(net, arrays: Dict[str, Any], device=None) -> None:
 
 
 def collected_params_to_numpy(net) -> Dict[str, onp.ndarray]:
-    """The port's parameters by hierarchical name, as numpy arrays."""
-    return {name: p.data().detach().float().cpu().numpy()
+    """The port's parameters by hierarchical name, as numpy arrays (copies:
+    the trainers update the tensors in place)."""
+    return {name: p.data().detach().float().cpu().numpy().copy()
             for name, p in net.collect_params().items()}

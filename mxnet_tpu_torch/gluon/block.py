@@ -9,6 +9,14 @@ returns the reference's hierarchical names
 ``hybridize`` keeps the block eager: graph capture (CUDA graphs) is
 later work.
 
+A Block takes tensors or NDArrays.  Called with NDArrays (the eager
+Gluon loop: ``with autograd.record(): loss = loss_fn(net(x), y)``), it
+unwraps them, runs the forward with PyTorch's gradient recording on
+exactly when ``autograd.is_recording()``, and wraps the tensors it
+returns (in nested tuples and lists too) back into NDArrays, so that
+``loss.backward()`` reaches the parameters' gradient buffers.  Called
+with tensors, it is a plain ``torch.nn.Module`` call.
+
 A forward that runs inside a function of the trainer's (one a CUDA graph
 holds) may not write a parameter: BatchNorm's running statistics go to
 the trace context's aux channel instead (:class:`_TraceContext`, read by
@@ -22,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from .. import autograd as ag
 from .. import initializer as init_mod
 from ..context import resolve_device
 from .parameter import Parameter, ParameterDict
@@ -73,6 +82,33 @@ def current_trace() -> Optional[_TraceContext]:
     """The innermost trace context entered on this thread, or None."""
     stack = getattr(_TRACE, "stack", None)
     return stack[-1] if stack else None
+
+
+def _has_nd(values) -> bool:
+    from ..ndarray.ndarray import NDArray
+    for v in values:
+        if isinstance(v, NDArray) or (isinstance(v, (tuple, list))
+                                      and _has_nd(v)):
+            return True
+    return False
+
+
+def _unwrap(v):
+    from ..ndarray.ndarray import NDArray
+    if isinstance(v, NDArray):
+        return v._data
+    if isinstance(v, (tuple, list)):
+        return type(v)(_unwrap(x) for x in v)
+    return v
+
+
+def _wrap(v):
+    from ..ndarray.ndarray import NDArray
+    if isinstance(v, torch.Tensor):
+        return NDArray._wrap(v)
+    if isinstance(v, (tuple, list)):
+        return type(v)(_wrap(x) for x in v)
+    return v
 
 
 class Block(torch.nn.Module):
@@ -147,6 +183,18 @@ class Block(torch.nn.Module):
             p.cast(dtype)
         for child in self._children.values():
             child.cast(dtype)
+
+    def __call__(self, *args, **kwargs):
+        """Tensors in, tensors out; NDArrays in (``mxnet_tpu/gluon/
+        block.py:258-269``), NDArrays out, the forward recorded for
+        ``backward`` exactly when ``autograd.is_recording()``."""
+        if not (_has_nd(args) or _has_nd(kwargs.values())):
+            return super().__call__(*args, **kwargs)
+        args = _unwrap(args)
+        kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
+        with torch.set_grad_enabled(ag.is_recording()):
+            out = super().__call__(*args, **kwargs)
+        return _wrap(out)
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError

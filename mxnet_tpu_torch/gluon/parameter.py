@@ -3,8 +3,18 @@
 A ``Parameter`` describes one weight of a Block — shape (possibly with
 unknown dims, filled in by the first forward: deferred init), type,
 initializer, ``grad_req`` and lr/wd multipliers — and holds its value as
-a ``torch.nn.Parameter`` once initialized.  Gradients come from
-``torch.autograd``.
+a ``torch.nn.Parameter`` once initialized: ``data()`` is that tensor,
+which the layers read.
+
+For the eager Gluon loop (``autograd.record()``, ``backward``,
+``gluon.Trainer``) an initialized parameter with ``grad_req`` ``write``
+or ``add`` is also an autograd variable of the NDArray path
+(``autograd.mark_variables``): ``_data_nd()`` is an NDArray over the
+same tensor, and ``grad()`` its gradient buffer, an NDArray that
+``backward`` overwrites (``write``) or adds to (``add``).  ``cast`` and
+``set_data`` keep the variable and its buffer in step with the value.
+The captured trainer (``SPMDTrainer``) takes its gradients from
+``torch.autograd`` itself and never reads the buffer.
 """
 from __future__ import annotations
 
@@ -13,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from .. import autograd as ag
 from .. import initializer as init_mod
 from ..base import MXNetError
 from ..context import resolve_device
@@ -39,20 +50,24 @@ def _shape_known(shape) -> bool:
     return shape is not None and all(s > 0 for s in shape)
 
 
+_GRAD_REQS = ("write", "add", "null")
+
+
 class Parameter:
     """A weight, bias or state tensor of a Block.  ``grad_req`` is
-    ``'write'`` or ``'null'``; deferred init completes on the first
-    forward that sees the missing dims.  ``aux_state`` marks an auxiliary
-    state of the graph rather than an argument (BatchNorm's running
-    statistics, written by the forward, never by an optimizer)."""
+    ``'write'``, ``'add'`` or ``'null'``; deferred init completes on the
+    first forward that sees the missing dims.  ``aux_state`` marks an
+    auxiliary state of the graph rather than an argument (BatchNorm's
+    running statistics, written by the forward, never by an
+    optimizer)."""
 
     def __init__(self, name: str = "weight", grad_req: str = "write",
                  shape=None, dtype="float32", lr_mult: float = 1.0,
                  wd_mult: float = 1.0, init=None, allow_deferred_init=False,
                  aux_state: bool = False):
-        if grad_req not in ("write", "null"):
-            raise MXNetError(f"grad_req {grad_req!r}: the port takes "
-                             f"'write' or 'null'")
+        if grad_req not in _GRAD_REQS:
+            raise MXNetError(f"grad_req must be one of {_GRAD_REQS}, got "
+                             f"{grad_req!r}")
         self._name = name
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = torch_dtype(dtype)
@@ -63,6 +78,11 @@ class Parameter:
         self.grad_req = grad_req
         self._is_aux = bool(aux_state)
         self._data: Optional[torch.nn.Parameter] = None
+        # the autograd variable over _data and its gradient buffer
+        self._nd = None
+        self._grad = None
+        # the gluon.Trainer this parameter was last handed to
+        self._trainer = None
         # (initializer, device, generator) kept until the shape is known
         self._deferred_init = None
         # a stand-in tensor that data() returns while set (the trainer's
@@ -142,6 +162,18 @@ class Parameter:
     def _set(self, value: torch.Tensor):
         self._data = torch.nn.Parameter(
             value.detach().clone(), requires_grad=self.grad_req != "null")
+        self._init_grad()
+
+    def _init_grad(self):
+        """Make the value an autograd variable of the NDArray path with a
+        zero gradient buffer (``grad_req`` null: neither)."""
+        from ..ndarray.ndarray import NDArray
+        self._nd = NDArray._wrap(self._data)
+        if self.grad_req == "null":
+            self._grad = None
+            return
+        self._grad = NDArray._wrap(torch.zeros_like(self._data.detach()))
+        ag.mark_variables([self._nd], [self._grad], self.grad_req)
 
     # -- access ------------------------------------------------------------
     def _check_initialized(self):
@@ -159,6 +191,32 @@ class Parameter:
             return self._override
         self._check_initialized()
         return self._data
+
+    def _data_nd(self):
+        """The value as an NDArray (the autograd variable), over the
+        tensor :meth:`data` returns."""
+        self._check_initialized()
+        return self._nd
+
+    def list_data(self):
+        return [self.data()]
+
+    def grad(self):
+        """The gradient buffer, an NDArray ``backward`` writes."""
+        self._check_initialized()
+        if self._grad is None:
+            raise MXNetError(f"cannot get gradient for parameter "
+                             f"{self.name}: grad_req is 'null'")
+        return self._grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        """Set the gradient buffer to zeros (a new tensor, as the
+        reference rebinds its buffer)."""
+        if self._grad is not None:
+            self._grad._data = torch.zeros_like(self._grad._data)
 
     def set_data(self, data):
         """Replace the value: the shape must agree with the declared one
@@ -180,7 +238,8 @@ class Parameter:
     def cast(self, dtype):
         """Change the parameter's type; an initialized value is replaced by
         a cast copy (a new tensor: a trainer's graphs captured on the old
-        one are dropped at its next call)."""
+        one are dropped at its next call), which becomes the variable,
+        with a gradient buffer of the new type."""
         self.dtype = torch_dtype(dtype)
         if self._data is not None:
             self._set(self._data.detach().to(self.dtype))
@@ -188,3 +247,11 @@ class Parameter:
 
 class ParameterDict(OrderedDict):
     """Hierarchical name → Parameter, in registration order."""
+
+    def zero_grad(self):
+        for p in self.values():
+            p.zero_grad()
+
+    def setattr(self, name, value):
+        for p in self.values():
+            setattr(p, name, value)

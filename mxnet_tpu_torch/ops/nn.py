@@ -2,11 +2,13 @@
 ``mxnet_tpu/ops/nn.py`` the transformer LM and ResNet call):
 ``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm``,
 ``Activation``, the GELU cases of ``LeakyReLU``, the softmax family and
-``LayerNorm``.  The registered ones (``Convolution``, ``Pooling``,
-``BatchNorm``, ``Activation``, ``softmax``, ``softmax_cross_entropy``,
-``SoftmaxOutput``) are what ``mx.nd`` reaches.  Plain PyTorch (cuDNN and
-cuBLAS behind it on the card): the reference left these to XLA, not to
-Pallas.  The layout is NCHW (channels first); the channels-last layouts
+``LayerNorm``.  The registered ones (``FullyConnected``,
+``Convolution``, ``Pooling``, ``BatchNorm``, ``Activation``, ``softmax``,
+``log_softmax``, ``softmax_cross_entropy``, ``SoftmaxOutput``,
+``LayerNorm``) are what ``mx.nd`` reaches; those on the AMP lists cast
+their inputs under the AMP policy (``ops/registry.register``).  Plain
+PyTorch (cuDNN and cuBLAS behind it on the card): the reference left
+these to XLA, not to Pallas.  The layout is NCHW (channels first); the channels-last layouts
 the reference also takes are not ported yet and raise."""
 from __future__ import annotations
 
@@ -40,9 +42,12 @@ def _safe_acc(x):
     return x, None
 
 
-def fully_connected(x, weight, bias=None, *, flatten=True):
+@register("FullyConnected", aliases=("fully_connected",))
+def fully_connected(x, weight, bias=None, *, num_hidden=None, no_bias=False,
+                    flatten=True):
     """``x·Wᵀ + b`` with ``W (units, in_units)``; ``flatten`` folds every
-    axis after the first into the input features."""
+    axis after the first into the input features (``mxnet_tpu/ops/
+    nn.py:55``).  ``num_hidden`` is read from ``W``."""
     if flatten:
         x = x.reshape(x.shape[0], -1)
     out = torch.matmul(x, weight.t())
@@ -251,6 +256,7 @@ def leaky_relu(x, *, act_type):
     raise ValueError(f"act_type {act_type!r} is not ported yet")
 
 
+@register("log_softmax")
 def log_softmax(x, *, axis=-1):
     """Log-softmax over ``axis``; in f32 under safe accumulation."""
     xa, low = _safe_acc(x)
@@ -302,6 +308,7 @@ def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
     return torch.softmax(data, dim=1 if multi_output else -1)
 
 
+@register("LayerNorm", aliases=("layer_norm",))
 def layer_norm(x, gamma, beta, *, axis=-1, eps=1e-5):
     """Normalise over ``axis`` with the population variance; the whole
     normalisation runs in f32 under safe accumulation, else in x's

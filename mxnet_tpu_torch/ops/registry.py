@@ -12,6 +12,12 @@ under ``torch.no_grad()`` unless ``autograd.record()`` is on, so only
 recorded ops build a graph, as on the reference's tape.  PyTorch runs
 eagerly, so the reference's jit cache, signature budget, capture and
 deferred-compute scopes have no counterpart here.
+
+An op registered under a name on the AMP lists (``amp/lists.py``) reads
+the AMP policy at each call and casts its inputs by its category
+(``amp.policy.apply``); the function ``register`` returns is that one,
+so callers of the module-level function (the Gluon layers) get the same
+casts as ``mx.nd``.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Any, Callable, Dict, List, Sequence
 import torch
 
 from .. import telemetry
+from ..amp import policy as _amp_policy
 from ..base import MXNetError
 
 _DISPATCH_CT = telemetry.counter("dispatch.count")
@@ -46,9 +53,12 @@ class Operator:
 
 
 def register(name: str, aliases: Sequence[str] = ()):
-    """Decorator registering ``fn(*tensors, **params)`` as an op."""
+    """Decorator registering ``fn(*tensors, **params)`` as an op; it
+    returns ``fn`` under the AMP policy of ``name``'s category (``fn``
+    itself for an unlisted name)."""
 
     def deco(fn: Callable):
+        fn = _amp_policy.apply(name, fn)
         op = Operator(name, fn, aliases=aliases)
         for n in (name, *aliases):
             if n in _REGISTRY:

@@ -21,6 +21,7 @@ __all__ = ["dot", "pick", "embedding", "IdCheck", "cast", "flatten",
            "float_only"]
 
 
+@register("dot")
 def dot(a, b, *, transpose_b=False):
     """``a·b`` for a matrix ``b`` (contracting a's last axis, as
     ``jnp.dot`` does); ``transpose_b`` uses ``bᵀ``."""

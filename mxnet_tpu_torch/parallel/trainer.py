@@ -56,19 +56,35 @@ when a master or a state has been replaced by another tensor
 (``Parameter._set``, re-initialisation) it drops every graph and
 captures again.
 
+Under the AMP policy (``amp.init`` or ``MXNET_AMP=1``,
+``mxnet_tpu/parallel/trainer.py:124-137, 244-275, 360-408``) the compute
+dtype comes from the policy when ``dtype`` is not given, and a dynamic
+loss scaler (``amp.LossScaler``, initial scale 1.0 for bf16, 2**16 for
+fp16) runs inside the step: its scale and clean-step count are device
+tensors of the trainer that the captured step reads and writes.  The
+loss is multiplied by the scale, the gradients by its inverse, one
+all-finite reduction covers every gradient, and the gradients take the
+``wire_cast`` round trip through the storage dtype; the update is then
+applied or skipped by ``torch.where`` on that device bool (a graph has
+no ``lax.cond``), and the scale grows after ``scale_window`` clean steps
+or halves (to no less than 1) on an overflow.  Auxiliary states are
+written either way, as in the reference.  The new scale, count and
+skipped steps go to the scaler through ``adopt_traced``, read on the
+host one call later: nothing inside a step or a ``run_steps`` window
+reads the host.  A scale set on the host (``loss_scale = ...``,
+``load_state``) is written into the device state before the next call.
+
 The embedding's id range check is deferred (``ops.tensor.IdCheck``):
 the ids are clamped on the device and their range recorded there.  On
 CUDA the trainer raises the eager check's :class:`MXNetError` at the
 entry of its next call (waiting for the previous call's work); on the
 CPU at once.
 
-A mesh, ZeRO, ``seq_axis`` and the AMP policy's loss scaler are not
-ported yet and raise.
+A mesh, ZeRO and ``seq_axis`` are not ported yet and raise.
 """
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 from functools import partial
 from typing import Callable, Optional
@@ -82,6 +98,8 @@ from .. import optimizer as opt_mod
 from .. import telemetry, tracing
 from ..base import MXNetError
 from ..context import resolve_device
+from ..amp import policy as _amp_policy
+from ..amp.loss_scaler import LossScaler, all_finite
 from ..executable import Executable, input_spec
 from ..gluon.block import _TraceContext
 from ..ops import optimizer_ops
@@ -125,9 +143,7 @@ class SPMDTrainer:
                  zero: Optional[int] = None, device=None):
         unported = [name for name, on in (
             ("mesh", mesh is not None), ("seq_axis", seq_axis is not None),
-            ("zero_stage", bool(zero_stage) or bool(zero)),
-            ("the AMP policy (MXNET_AMP=1)",
-             os.environ.get("MXNET_AMP") == "1")) if on]
+            ("zero_stage", bool(zero_stage) or bool(zero))) if on]
         if unported:
             raise MXNetError(f"SPMDTrainer: {', '.join(unported)} not "
                              f"ported yet; the port trains on one device")
@@ -141,6 +157,20 @@ class SPMDTrainer:
         self.micro_batches = int(micro_batches)
         self._data_transform = data_transform
         self.amp_dtype = torch.bfloat16 if dtype in _LOW_PRECISION else None
+        # the AMP policy: its compute dtype when dtype is not given, and a
+        # dynamic loss scaler whose state lives on the device
+        self._amp_scaler = None
+        if _amp_policy.enabled():
+            if self.amp_dtype is None:
+                self.amp_dtype = _amp_policy.compute_dtype()
+            half = _amp_policy.compute_dtype_str() == "float16"
+            self._amp_scaler = LossScaler(
+                init_scale=2.0 ** 16 if half else 1.0)
+            # (scale, clean steps, skipped steps of the call) on the device
+            self._amp_state = tuple(
+                torch.zeros((), dtype=torch.float32, device=self.device)
+                for _ in range(3))
+            self._amp_version = None
         self.optimizer = opt_mod.create(optimizer,
                                         **(optimizer_params or {}))
         self._update = getattr(optimizer_ops,
@@ -174,7 +204,8 @@ class SPMDTrainer:
 
     # -- the functions a graph holds -----------------------------------------
     def _loss(self, masters, ids, aux, data, label):
-        """The f32 loss mean of one batch.  The masters are cast to the
+        """The f32 loss mean of one batch (times the loss scale under
+        AMP).  The masters are cast to the
         compute dtype here, inside the differentiated graph, and the
         thread-local state the forward reads (training mode, the id
         check, the aux channel) is set here too, so that remat's
@@ -186,7 +217,10 @@ class SPMDTrainer:
             data = data.to(amp)
         with _params_as(self._plist, compute), ag.train_mode(), ids, aux:
             out = self.net(data)
-            return self.loss_fn(out, label).float().mean()
+            loss = self.loss_fn(out, label).float().mean()
+        if self._amp_scaler is not None:
+            loss = loss * self._amp_state[0]
+        return loss
 
     def _loss_and_grads(self, masters, live, ids, data, label):
         """``(loss, grads, aux)``: the gradients of the live masters, and
@@ -241,9 +275,64 @@ class SPMDTrainer:
                         torch._foreach_add(grads, g)
                 grads = torch._foreach_div(grads, float(k))
                 loss = torch.stack(losses).mean()
-        self._apply_updates(lr, wd, masters, live, grads)
+        finite = None
+        if self._amp_scaler is not None:
+            loss, grads, finite = self._amp_unscale(loss, grads)
+        self._apply_updates(lr, wd, masters, live, grads, finite)
         self._write_aux(aux)
+        if finite is not None:
+            self._amp_advance(finite)
         return loss.detach(), ids.bounds()
+
+    @torch.no_grad()
+    def _amp_unscale(self, loss, grads):
+        """``(loss, grads, finite)``: the loss and gradients times
+        1/scale, one all-finite over the gradients (before the wire's
+        rounding), then the gradients' round trip through the storage
+        dtype."""
+        inv = 1.0 / self._amp_state[0]
+        loss = loss * inv
+        grads = [g * inv.to(g.dtype) if g.is_floating_point() else g
+                 for g in grads]
+        finite = all_finite(grads)
+        return loss, [_amp_policy.wire_cast(g) for g in grads], finite
+
+    @torch.no_grad()
+    def _amp_advance(self, finite):
+        """The scaler's schedule on the device: grow after a window of
+        clean steps, halve (to no less than 1) on an overflow; count the
+        skipped step."""
+        scale, good, skipped = self._amp_state
+        factor = self._amp_scaler._scale_factor
+        window = self._amp_scaler._scale_window
+        good1 = good + 1.0
+        grown = torch.where(good1 >= window, scale * factor, scale)
+        new_scale = torch.where(finite, grown, torch.clamp(
+            scale * (1.0 / factor), min=1.0))
+        new_good = torch.where(finite, torch.where(good1 >= window, 0.0,
+                                                   good1), 0.0)
+        scale.copy_(new_scale)
+        good.copy_(new_good)
+        skipped.add_((~finite).float())
+
+    def _amp_enter(self):
+        """Before a call: the host's scale, if it was set there, into the
+        device state; the call's skipped count to 0."""
+        sc = self._amp_scaler
+        if sc is None:
+            return
+        if self._amp_version != sc._version:
+            sc._fold()
+            self._amp_state[0].fill_(sc._loss_scale)
+            self._amp_state[1].fill_(float(sc._unskipped))
+            self._amp_version = sc._version
+        self._amp_state[2].zero_()
+
+    def _amp_leave(self):
+        """After a call: the device state to the scaler (read one call
+        later)."""
+        if self._amp_scaler is not None:
+            self._amp_scaler.adopt_traced(*self._amp_state)
 
     @torch.no_grad()
     def _write_aux(self, aux):
@@ -255,10 +344,12 @@ class SPMDTrainer:
             torch._foreach_copy_([p._data for p in aux], list(aux.values()))
 
     @torch.no_grad()
-    def _apply_updates(self, lr, wd, masters, live, grads):
+    def _apply_updates(self, lr, wd, masters, live, grads, finite=None):
         """Every live parameter's update, one multi-tensor call of the
         optimizer's op for each group of equal (lr_mult, wd_mult); masters
-        and state are overwritten in place."""
+        and state are overwritten in place.  Under AMP each new value is
+        ``torch.where(finite, new, old)``: an overflowing step writes back
+        the old bits."""
         opt = self.optimizer
         statics = dict(opt.static_params(0))
         statics.setdefault("rescale_grad", 1.0)
@@ -276,9 +367,13 @@ class SPMDTrainer:
                 weights, [grads[j] for _, j in members],
                 *map(list, zip(*states)), lrs=_times(lr, lr_mult),
                 wds=_times(wd, wd_mult), **statics)
-            torch._foreach_copy_(weights, new_w)
-            for n, new in enumerate(new_states):
-                torch._foreach_copy_([st[n] for st in states], new)
+            olds = [weights] + [[st[n] for st in states]
+                                for n in range(len(new_states))]
+            for old, new in zip(olds, [new_w, *new_states]):
+                if finite is not None:
+                    new = [torch.where(finite, a, b)
+                           for a, b in zip(new, old)]
+                torch._foreach_copy_(old, new)
 
     def _predict_body(self, ids, x):
         """The forward in eval mode: ``(f32 output, id bounds)``."""
@@ -366,7 +461,8 @@ class SPMDTrainer:
         return lr, wd
 
     def _step_sig(self, d, l):
-        return ("step",) + input_spec(d) + input_spec(l)
+        return ("step",) + input_spec(d) + input_spec(l) + (
+            _amp_policy.cache_token(),)
 
     # -- entry points ------------------------------------------------------------
     def step(self, data, label, batch_size: Optional[int] = None):
@@ -383,10 +479,12 @@ class SPMDTrainer:
                 sp.annotate(step=self.num_update)
                 entry, fresh = self._executable(sig, self._train_body,
                                                 (lr, wd, d, l))
+                self._amp_enter()
                 with tracing.span("compile.spmd_step" if fresh
                                   else "step.dispatch"):
                     loss, bounds = self._call(sig, entry, fresh,
                                               (lr, wd, d, l))
+                self._amp_leave()
                 sp.annotate(fresh_compile=fresh)
                 loss = loss.clone()
                 self._defer_ids(bounds, entry[1].vocabs)
@@ -427,6 +525,7 @@ class SPMDTrainer:
                 losses = torch.empty((n,), dtype=torch.float32,
                                      device=self.device)
                 bounds = []
+                self._amp_enter()
                 for i, (di, li) in enumerate(batches):
                     with tracing.span("compile.spmd_step" if fresh
                                       else "step.dispatch"):
@@ -436,6 +535,7 @@ class SPMDTrainer:
                     losses[i] = loss
                     if b is not None:
                         bounds.append(b.clone())
+                self._amp_leave()
                 if bounds:
                     self._defer_ids(torch.cat(bounds), entry[1].vocabs * n)
         finally:
@@ -448,7 +548,7 @@ class SPMDTrainer:
         trainer's pool and stream."""
         self._check_ids()
         x = _batch(data)
-        sig = ("predict",) + input_spec(x)
+        sig = ("predict",) + input_spec(x) + (_amp_policy.cache_token(),)
         entry, fresh = self._executable(sig, self._predict_body, (x,))
         out, bounds = self._call(sig, entry, fresh, (x,))
         out = out.clone()
@@ -470,7 +570,9 @@ class SPMDTrainer:
         lr, wd = (torch.tensor(v, device=self.device)
                   for v in self._schedule(1))
         ids = IdCheck()
+        self._amp_enter()
         loss, bounds = self._train_body(ids, lr, wd, d, l)
+        self._amp_leave()
         if bounds is not None:
             IdCheck.raise_if_bad(bounds.cpu(), ids.vocabs)
         return loss

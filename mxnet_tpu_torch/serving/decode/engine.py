@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import kernels, telemetry
+from ...amp import policy as _amp_policy
 from ...base import MXNetError
 from ...context import resolve_device
 from ...log import get_logger
@@ -418,6 +419,7 @@ class DecodeEngine:
                                     dtype=torch.int32, device=self.device)
                         if self.spec_enabled else None)
         self._exec: Dict[str, Executable] = {}
+        self._exec_token = _amp_policy.cache_token()
         # what the engine's graphs share: a memory pool and a capture stream
         self._capture_with = (None, None)
         if self.device.type == "cuda":
@@ -444,7 +446,14 @@ class DecodeEngine:
     def _get_exec(self, key: str, fn, args) -> Executable:
         """Fetch-or-capture one executable WITHOUT running it (the warm
         run before a capture takes zeroed inputs: every slot masked).
-        A capture ticks ``compiles`` and ``compile.decode.*``."""
+        A capture ticks ``compiles`` and ``compile.decode.*``.  The AMP
+        policy's cache token is part of every executable's signature:
+        when it changes, the executables captured under the old one are
+        dropped and captured again."""
+        token = _amp_policy.cache_token()
+        if token != self._exec_token:
+            self._exec.clear()
+            self._exec_token = token
         ex = self._exec.get(key)
         if ex is not None:
             return ex

@@ -15,9 +15,11 @@ from mxnet_tpu_torch.base import MXNetError
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "mxnet_tpu_torch"
 # a path such as ``mxnet_tpu/ops/rope.py`` cites the reference kernel a
-# port replaces (file and line); the bare package name or a dotted
-# module path would be a use of it
-REFERENCE = re.compile(r"\bmxnet_tpu\b(?!_torch|/)")
+# port replaces (file and line), and a hyphenated name such as
+# ``mxnet_tpu-updater-states-v1`` is a data format both packages read and
+# write; the bare package name or a dotted module path would be a use of
+# it
+REFERENCE = re.compile(r"\bmxnet_tpu\b(?!_torch|/|-)")
 JAX_IMPORT = re.compile(r"\bimport jax\b|\bfrom jax\b")
 
 

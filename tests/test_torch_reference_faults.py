@@ -14,7 +14,13 @@ against ``mxnet_tpu`` on the same numpy inputs on the CPU:
   and applies the activation after the bias (1e-5 on f32 outputs);
 * ``SPMDTrainer``'s default optimizer, ``"sgd"``, exists (F6; losses
   and weights at rtol 1e-5);
-* the top level exposes the port's subpackages after a bare import.
+* the top level exposes the port's subpackages after a bare import;
+* F7: an optimizer given an lr scheduler sets the scheduler's ``base_lr``
+  to its own ``learning_rate`` (exact, host floats);
+* F8: ``Optimizer.__init__`` takes the reference's arguments and
+  ``**extra``, and ``set_learning_rate`` / ``set_lr_mult`` /
+  ``set_wd_mult`` / ``_get_lr`` / ``_get_wd`` / ``_update_count`` behave
+  as the reference's (exact).
 """
 import pathlib
 import subprocess
@@ -368,3 +374,95 @@ def test_bare_import_exposes_the_subpackages():
                          cwd=pathlib.Path(__file__).resolve().parents[1],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# -- F7: the optimizer sets its scheduler's base lr ----------------------------
+
+def _schedulers(pkg):
+    return [pkg.lr_scheduler.FactorScheduler(step=3, factor=0.5,
+                                             base_lr=0.5),
+            pkg.lr_scheduler.CosineScheduler(max_update=20, base_lr=0.5,
+                                             warmup_steps=4,
+                                             warmup_begin_lr=0.05)]
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["factor", "cosine-warmup"])
+@pytest.mark.parametrize("kw", [{"learning_rate": 0.1, "momentum": 0.9},
+                                {"momentum": 0.9}, {}],
+                         ids=["lr-given", "lr-default", "plain"])
+def test_optimizer_sets_its_schedulers_base_lr(which, kw):
+    """F7: ``create('sgd', lr_scheduler=s, ...)`` with a scheduler whose
+    own ``base_lr`` is 0.5 trains at the optimizer's ``learning_rate``
+    (0.1 given, SGD's default 0.01 otherwise) in the reference; the port
+    kept 0.5.  The warmup's final lr stays the scheduler's own, in both.
+    Every ``num_update`` of 0-30 gives the same lr, exactly."""
+    import mxnet_tpu.lr_scheduler  # noqa: F401
+    import mxnet_tpu_torch.lr_scheduler  # noqa: F401
+    ref = mx.optimizer.create("sgd", lr_scheduler=_schedulers(mx)[which],
+                              **kw)
+    got = mt.optimizer.create("sgd", lr_scheduler=_schedulers(mt)[which],
+                              **kw)
+    assert got.lr_scheduler.base_lr == ref.lr_scheduler.base_lr
+    assert got.lr_scheduler.warmup_final_lr == \
+        ref.lr_scheduler.warmup_final_lr
+    for n in range(31):
+        ref.num_update = got.num_update = n
+        assert got.learning_rate == ref.learning_rate, n
+
+
+# -- F8: the reference's constructor and multipliers ---------------------------
+
+@pytest.mark.parametrize("name,kw", [
+    ("adam", {"multi_precision": True}),
+    ("sgd", {"aggregate_num": 4, "momentum": 0.9}),
+    ("adam", {"use_fused_step": False, "param_idx2name": {0: "w"}}),
+    ("rmsprop", {"an_unknown_keyword": 3}),
+    ("sgd", {"param_dict": {}, "clip_gradient": 1.0, "rescale_grad": 0.5}),
+], ids=["multi_precision", "aggregate_num", "fused-idx2name", "extra",
+        "param_dict"])
+def test_optimizer_takes_the_reference_arguments(name, kw):
+    """F8: these raised ``TypeError`` in the port; both packages accept
+    them and keep the same attributes."""
+    ref = mx.optimizer.create(name, **kw)
+    got = mt.optimizer.create(name, **kw)
+    for attr in ("rescale_grad", "lr", "wd", "clip_gradient",
+                 "multi_precision", "aggregate_num", "idx2name",
+                 "num_update"):
+        assert getattr(got, attr) == getattr(ref, attr), attr
+
+
+def test_aggregation_size_comes_from_the_environment(monkeypatch):
+    """F8: ``aggregate_num`` 0 reads ``MXNET_OPTIMIZER_AGGREGATION_SIZE``
+    in both packages."""
+    monkeypatch.setenv("MXNET_OPTIMIZER_AGGREGATION_SIZE", "7")
+    assert mt.optimizer.create("sgd").aggregate_num == \
+        mx.optimizer.create("sgd").aggregate_num == 7
+
+
+def test_learning_rate_setters_and_multipliers_match():
+    """F8: ``set_learning_rate`` (and its refusal under a scheduler),
+    ``set_lr_mult``/``set_wd_mult`` with the parameters' own multipliers
+    from ``param_dict``, ``_get_lr``/``_get_wd`` and ``_update_count``."""
+    import mxnet_tpu.lr_scheduler  # noqa: F401
+    import mxnet_tpu_torch.lr_scheduler  # noqa: F401
+
+    class P:                          # a parameter's multipliers
+        lr_mult, wd_mult = 0.5, 3.0
+
+    outs = []
+    for pkg in (mx, mt):
+        o = pkg.optimizer.create("sgd", learning_rate=0.2, wd=0.01,
+                                 param_idx2name={0: "a", 1: "b", 2: "c"},
+                                 param_dict={"a": P()})
+        o.set_learning_rate(0.4)
+        o.set_lr_mult({"b": 2.0})
+        o.set_wd_mult({"b": 0.0, "c": 10.0})
+        counts = [o._update_count(i) for i in (0, 1, 1, 2, 1)]
+        row = [o.learning_rate, counts, o.num_update]
+        row += [(o._get_lr(i), o._get_wd(i)) for i in range(4)]
+        s = pkg.optimizer.create("sgd", lr_scheduler=pkg.lr_scheduler.
+                                 FactorScheduler(step=2, base_lr=0.3))
+        with pytest.raises(Exception, match="already been defined"):
+            s.set_learning_rate(0.1)
+        outs.append(row)
+    assert outs[1] == outs[0]
