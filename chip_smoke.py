@@ -203,9 +203,31 @@ exits non-zero and prints no result:
              with an inf in the data leaves masters and momenta bitwise
              unchanged, halves the scale and skips one update, without a
              new capture; amp.all_finite sees a NaN.
+18. ckpt   — checkpointing at full width, the flash kernels' counts
+             zeroed just before and read just after (8 launches each a
+             transformer step, K1 also once a layer for each
+             model-building forward; no plain call): the training row's
+             SPMDTrainer A takes 3 steps, ``save_checkpoint(block=False)``
+             (the snapshot: one device copy and one copy to pinned memory
+             behind the step), 3 steps with the save in flight, 3 after
+             it; a fresh net and trainer B (other weights) load the
+             checkpoint and take 6 steps bitwise equal to A's steps 4-9
+             (losses, masters, Adam's m and v); the checkpoint loaded into
+             A in place leaves ``compiles`` and the graph as they were and
+             A's next step equals B's first.  Host ms a synced step with a
+             save in flight and without one, in blocks taken in turns;
+             bytes, leaves, snapshot_ms, save_ms, write GB/s, load ms and
+             the staging's device and pinned bytes.  Then the eager Gluon
+             loop (amp bf16, Adam): save_parameters + save_states after 3
+             steps, a fresh net and trainer load them, 3 more steps bitwise
+             equal to 3 uninterrupted ones; and ResNet-50 at bench width
+             (batch 256, bf16, SGD momentum, cuDNN deterministic):
+             run_steps(2), a blocking save, run_steps(2), a fresh trainer
+             resumed bitwise, running statistics included.  The directory
+             is a temporary one, removed at the end.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
-carry ``launches_gluon_train``); the last is
+carry ``launches_gluon_train`` and ``launches_ckpt``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -906,7 +928,7 @@ def state_of(trainer):
     """Every master, then Adam's m and v, of a trainer, in order."""
     out = []
     for k in trainer._pkeys:
-        out.append((k, trainer._params[k].data()))
+        out.append((k, trainer._params[k]._tensor()))
         out += [(f"{k}:{s}", t) for s, t in zip("mv", trainer._opt_state[k])]
     return out
 
@@ -1029,7 +1051,7 @@ def phase_train_variants(torch):
             "max_allocated_bytes": torch.cuda.max_memory_allocated()
             - base[0],
             "reserved_bytes": torch.cuda.memory_reserved() - base[1]}
-        masters = [p.data().cpu() for p in trainer._plist]
+        masters = [p._tensor().cpu() for p in trainer._plist]
         del trainer
         if ref is None:
             ref = (losses, masters)
@@ -1072,14 +1094,14 @@ def phase_train_check(torch):
         params = net.collect_params()
         out = net(data)
         loss = loss_fn(out, label).float().mean()
-        grads = torch.autograd.grad(loss, [p.data()
+        grads = torch.autograd.grad(loss, [p._tensor()
                                            for p in params.values()])
         return float(loss.detach()), dict(zip(params, grads))
 
     loss_f, grads_f = loss_and_grads(flash)
     dense = train_model(torch, use_flash=False, seed=1)
     for name, p in dense.collect_params().items():
-        p.set_data(flash.collect_params()[name].data().detach())
+        p.set_data(flash.collect_params()[name]._tensor().detach())
     del flash
     torch.cuda.empty_cache()
     loss_d, grads_d = loss_and_grads(dense)
@@ -2255,7 +2277,7 @@ def resnet_state(trainer):
     and the momentum of each parameter the optimizer updates."""
     out = {}
     for k, p in zip(trainer._pkeys, trainer._plist):
-        out[k] = p.data()
+        out[k] = p._tensor()
         if p.grad_req != "null":
             out[k + ":momentum"] = trainer._opt_state[k][0]
     return out
@@ -2925,9 +2947,9 @@ def _gluon_vs_spmd(torch, mx, failures):
     gloss = float(loss.mean().asscalar())
     gp, sp = gnet.collect_params(), snet.collect_params()
     aux = [k for k in gp if k.endswith(("running_mean", "running_var"))]
-    w_err = max(rel_l2(gp[k].data(), sp[k].data()) for k in gp
+    w_err = max(rel_l2(gp[k]._tensor(), sp[k]._tensor()) for k in gp
                 if k not in aux)
-    a_err = max(rel_l2(gp[k].data(), sp[k].data()) for k in aux)
+    a_err = max(rel_l2(gp[k]._tensor(), sp[k]._tensor()) for k in aux)
     names = _named(trainer, gnet)
     m_err = max(rel_l2(st[0]._data, spmd._opt_state[names[i]][0])
                 for i, st in trainer._updaters[0].states.items())
@@ -3044,7 +3066,7 @@ def _spmd_amp_replays(torch, mx, failures):
         step_graph(rep)
 
         def state(tr):
-            out = {f"{k}": p.data() for k, p in zip(tr._pkeys, tr._plist)}
+            out = {f"{k}": p._tensor() for k, p in zip(tr._pkeys, tr._plist)}
             out.update({f"{k}:mom": s[0] for k, s in tr._opt_state.items()
                         if s})
             return out
@@ -3114,6 +3136,271 @@ def phase_gluon_check(torch):
     torch.cuda.empty_cache()
 
 
+CKPT_STEPS = 3             # steps before a save, in flight, and after it
+
+
+def ckpt_numbers(before):
+    """What the checkpoint service recorded since ``before`` (a telemetry
+    snapshot): bytes written, the last save's and snapshot's ms (writer
+    thread and step path), the write rate."""
+    from mxnet_tpu_torch import telemetry
+    now = telemetry.snapshot("checkpoint.")
+    save_ms = telemetry.histogram("checkpoint.save_ms").samples()[-1]
+    nbytes = now["checkpoint.bytes"] - before["checkpoint.bytes"]
+    return {"bytes": nbytes,
+            "saves": now["checkpoint.saves"] - before["checkpoint.saves"],
+            "failures": now["checkpoint.failures"]
+            - before["checkpoint.failures"],
+            "snapshot_ms": telemetry.histogram(
+                "checkpoint.snapshot_ms").samples()[-1],
+            "save_ms": save_ms,
+            "write_gb_per_s": nbytes / (save_ms / 1e3) / 1e9}
+
+
+def timed_load(torch, trainer, directory):
+    """``load_checkpoint`` to the end of its device work: (meta, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = trainer.load_checkpoint(directory)
+    torch.cuda.synchronize()
+    return meta, (time.perf_counter() - t0) * 1e3
+
+
+def phase_ckpt(torch, fa_mod, smi):
+    """Checkpointing at full width (phase 18): the training row's trainer
+    A takes 3 steps, saves asynchronously (``save_checkpoint(block=
+    False)``), takes 3 steps while the save is in flight, waits for it
+    and takes 3 more.  A fresh net and trainer B (other weights) load the
+    checkpoint and take 6 steps, bitwise equal to A's steps 4-9 (losses,
+    masters, Adam's m and v); the checkpoint loaded into A itself after
+    its steps leaves ``compiles`` as it was, and A's next step replays
+    the old graph bitwise equal to B's first.  Host ms a step with a save
+    in flight and without one, in blocks taken in turns.  Then ResNet-50
+    at bench width (run_steps windows of 2, save, 2 more; the running
+    statistics come back bitwise) and the eager Gluon loop on the
+    transformer (save_parameters + Trainer.save_states, a fresh net and
+    trainer, load_parameters + load_states, 3 more steps bitwise).  The
+    flash kernels' counts are zeroed just before and read just after:
+    8 launches each a transformer step and no plain call."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, checkpoint, telemetry
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    out = {"phase": "ckpt", "gpu": smi}
+    try:
+        data, label = train_batch(torch)
+        a = train_trainer(torch, train_model(torch))
+        reset_counts(*fns)
+        steps = inits = 0
+
+        def model(seed):
+            nonlocal inits
+            inits += 1                  # its (1, 8) forward launches K1
+            return train_model(torch, seed=seed)
+
+        def step(tr):
+            nonlocal steps
+            steps += 1
+            s0 = time.perf_counter()
+            loss = float(tr.step(data, label))          # float() syncs
+            return loss, (time.perf_counter() - s0) * 1e3
+
+        losses_a = [step(a)[0] for _ in range(CKPT_STEPS)]
+        before = telemetry.snapshot("checkpoint.")
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        s0 = time.perf_counter()
+        job = a.save_checkpoint(os.path.join(root, "lm"), block=False)
+        call_ms = (time.perf_counter() - s0) * 1e3
+        staging = torch.cuda.memory_allocated() - mem0
+        in_flight = []
+        for _ in range(CKPT_STEPS):
+            loss, ms = step(a)
+            losses_a.append(loss)
+            in_flight.append({"ms": ms, "save_done": job.done()})
+        checkpoint.wait_pending()
+        job.result()
+        lm = ckpt_numbers(before)
+        losses_a += [step(a)[0] for _ in range(CKPT_STEPS)]
+        leaves = len(job.snapshot.leaves)
+        b = train_trainer(torch, model(1))
+        meta, load_ms = timed_load(torch, b, os.path.join(root, "lm"))
+        losses_b = [step(b)[0] for _ in range(2 * CKPT_STEPS)]
+        diff = differing(torch, state_of(a), state_of(b))
+        if losses_b != losses_a[CKPT_STEPS:] or diff or \
+                meta["num_update"] != CKPT_STEPS:
+            raise AssertionError(f"ckpt: the resumed trainer differs: "
+                                 f"losses {losses_b} vs "
+                                 f"{losses_a[CKPT_STEPS:]}; state "
+                                 f"{diff[:6]} ({len(diff)} tensors); meta "
+                                 f"{meta}")
+        compiles, graph = a.compiles, step_graph(a)
+        _, load_live_ms = timed_load(torch, a, os.path.join(root, "lm"))
+        again = step(a)[0]
+        if a.compiles != compiles or step_graph(a) is not graph or \
+                again != losses_b[0]:
+            raise AssertionError(f"ckpt: a load into the live trainer "
+                                 f"moved compiles {compiles} -> "
+                                 f"{a.compiles} or its next loss {again} "
+                                 f"!= {losses_b[0]}")
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        # host ms a step with a save in flight and without one, in turns
+        turns = {"save_in_flight": [], "no_save": []}
+        for r in range(3):
+            j = a.save_checkpoint(os.path.join(root, "turns"), block=False)
+            turns["save_in_flight"] += [step(a)[1] for _ in range(2)]
+            j.result()
+            turns["no_save"] += [step(a)[1] for _ in range(2)]
+        torch.cuda.synchronize()
+        reused = telemetry.histogram("checkpoint.snapshot_ms").samples()[-3:]
+        out["transformer"] = {
+            "model": {"vocab": VOCAB, "units": DIM, "layers": LAYERS,
+                      "heads": HEADS, "batch": BATCH, "seq": SEQ,
+                      "dtype": "bfloat16", "optimizer": "adam"},
+            "leaves": leaves, **lm, "save_call_ms": call_ms,
+            "snapshot_ms_buffers_reused": reused,
+            "staging_bytes_device": staging,
+            "staging_bytes_pinned_host": checkpoint.staging_bytes(),
+            "load_ms": load_ms, "load_into_live_trainer_ms": load_live_ms,
+            "losses_a": losses_a, "losses_b": losses_b,
+            "bitwise_equal": True, "state_tensors": len(state_of(a)),
+            "compiles_unchanged_after_live_load": compiles,
+            "step_ms_while_saving": in_flight,
+            "step_ms_in_turns": {k: {"ms": v, "median":
+                                     sorted(v)[len(v) // 2]}
+                                 for k, v in turns.items()}}
+        del a
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the eager Gluon loop on the transformer row
+        amp.init("bfloat16")
+        try:
+            loss_fn = SoftmaxCrossEntropyLoss()
+            x, y = mx.nd.array(data), mx.nd.array(label)
+
+            def gluon(seed):
+                net = model(seed)
+                tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                                      {"learning_rate": LR})
+                amp.init_trainer(tr)
+                return net, tr
+
+            def gstep(net, tr):
+                nonlocal steps
+                steps += 1
+                return float(gluon_loop_step(mx, amp, net, loss_fn, tr, x, y,
+                                             BATCH).mean().asscalar())
+
+            net1, tr1 = gluon(0)
+            g1 = [gstep(net1, tr1) for _ in range(CKPT_STEPS)]
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            net1.save_parameters(os.path.join(root, "gluon.params"))
+            tr1.save_states(os.path.join(root, "gluon.states"))
+            gsave_ms = (time.perf_counter() - s0) * 1e3
+            g1 += [gstep(net1, tr1) for _ in range(CKPT_STEPS)]
+            net2, tr2 = gluon(1)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            net2.load_parameters(os.path.join(root, "gluon.params"))
+            tr2.load_states(os.path.join(root, "gluon.states"))
+            torch.cuda.synchronize()
+            gload_ms = (time.perf_counter() - s0) * 1e3
+            g2 = [gstep(net2, tr2) for _ in range(CKPT_STEPS)]
+            p1, p2 = net1.collect_params(), net2.collect_params()
+            gdiff = [k for k in p1 if not torch.equal(p1[k]._tensor(),
+                                                      p2[k]._tensor())]
+            if g2 != g1[CKPT_STEPS:] or gdiff:
+                raise AssertionError(f"ckpt: the resumed Gluon loop "
+                                     f"differs: losses {g2} vs "
+                                     f"{g1[CKPT_STEPS:]}; parameters "
+                                     f"{gdiff[:6]}")
+        finally:
+            amp.reset()
+        torch.cuda.synchronize()
+        counts = {f.__name__: {"launches": f.launches,
+                               "plain_calls": f.plain_calls} for f in fns}
+        for f in fns:
+            n = steps + (inits if f is fa_mod.flash_fwd else 0)
+            if counts[f.__name__] != {"launches": LAYERS * n,
+                                      "plain_calls": 0}:
+                raise AssertionError(
+                    f"ckpt: {f.__name__} ran {counts[f.__name__]}, "
+                    f"expected {LAYERS} launches a step for {steps} steps "
+                    f"(and {inits} model-building forwards for K1), no "
+                    f"plain call")
+        out["gluon"] = {"losses_uninterrupted": g1, "losses_resumed": g2,
+                        "bitwise_equal": True, "parameters": len(p1),
+                        "save_parameters_and_states_ms": gsave_ms,
+                        "load_parameters_and_states_ms": gload_ms}
+        del net1, tr1, net2, tr2, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["counts"] = counts
+        out["transformer_steps"] = steps
+        out["model_building_forwards"] = inits
+        out["resnet"] = ckpt_resnet(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    return counts
+
+
+def ckpt_resnet(torch, root):
+    """ResNet-50 at bench width (batch 256, bf16, SGD momentum): a
+    run_steps window of 2, a blocking save, a window of 2 more; a fresh
+    trainer (other weights) loads the checkpoint and runs a window of 2,
+    bitwise equal (losses, masters with the running statistics,
+    momenta; cuDNN deterministic)."""
+    from mxnet_tpu_torch import telemetry
+    torch.backends.cudnn.deterministic = True
+    try:
+        data, label = resnet_batch(torch, RESNET_BATCH)
+        r1 = resnet_trainer(torch, resnet_net(torch, DEV), dtype="bfloat16")
+        first = [float(v) for v in r1.run_steps(data, label, 2).cpu()]
+        before = telemetry.snapshot("checkpoint.")
+        path = os.path.join(root, "resnet")
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        r1.save_checkpoint(path)
+        block_ms = (time.perf_counter() - s0) * 1e3
+        numbers = ckpt_numbers(before)
+        want = [float(v) for v in r1.run_steps(data, label, 2).cpu()]
+        state = {k: t.clone() for k, t in resnet_state(r1).items()}
+        del r1
+        gc.collect()
+        torch.cuda.empty_cache()
+        r2 = resnet_trainer(torch, resnet_net(torch, DEV, seed=1),
+                            dtype="bfloat16")
+        meta, load_ms = timed_load(torch, r2, path)
+        got = [float(v) for v in r2.run_steps(data, label, 2).cpu()]
+        now = resnet_state(r2)
+        diff = [k for k in state if not torch.equal(state[k], now[k])]
+        stats = [k for k in state if k.endswith(("running_mean",
+                                                 "running_var"))]
+        if got != want or diff or meta["num_update"] != 2:
+            raise AssertionError(f"ckpt: resumed ResNet-50 differs: losses "
+                                 f"{got} vs {want}; state {diff[:6]} "
+                                 f"({len(diff)} tensors)")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del r2, state, now
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": RESNET_BATCH, "dtype": "bfloat16",
+            "losses_first": first, "losses_uninterrupted": want,
+            "losses_resumed": got, "bitwise_equal": True,
+            "running_statistics": len(stats), **numbers,
+            "blocking_save_ms": block_ms, "load_ms": load_ms}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3172,6 +3459,10 @@ def main():
                 gluon_counts[row["name"]]["launches"]
     phase_gluon_resnet(torch, smi)
     phase_gluon_check(torch)
+    ckpt_counts = phase_ckpt(torch, fa_mod, smi)
+    for row in kernels:                  # K1-K3 in the checkpoint phase
+        if row["name"] in ckpt_counts:
+            row["launches_ckpt"] = ckpt_counts[row["name"]]["launches"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -35,9 +35,11 @@ from . import ndarray as nd  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
 from . import log, telemetry, tracing  # noqa: F401
 from . import amp, kvstore, lr_scheduler  # noqa: F401
+from . import kvstore as kv  # noqa: F401
 from . import gluon, initializer, optimizer, parallel, serving  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray",
            "gluon", "initializer", "optimizer", "parallel", "serving",
-           "tracing", "telemetry", "log", "amp", "kvstore", "lr_scheduler"]
+           "tracing", "telemetry", "log", "amp", "kvstore", "kv",
+           "lr_scheduler"]

@@ -27,9 +27,11 @@ __all__ = ["resolve_device", "Context", "cpu", "gpu", "current_context",
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None``/``"cuda"``/``"cuda:N"``/``"cpu"``/``torch.device`` →
-    a concrete ``torch.device`` (a bare ``cuda`` gets the current
-    device's index)."""
+    """``None``/``"cuda"``/``"cuda:N"``/``"cpu"``/``torch.device``/a
+    ``Context`` → a concrete ``torch.device`` (a bare ``cuda`` gets the
+    current device's index)."""
+    if isinstance(device, Context):
+        return device.torch_device
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cpu":
         return dev

@@ -24,6 +24,7 @@ the trace context's aux channel instead (:class:`_TraceContext`, read by
 """
 from __future__ import annotations
 
+import re
 import threading
 from collections import OrderedDict
 from typing import Optional
@@ -32,8 +33,8 @@ import torch
 
 from .. import autograd as ag
 from .. import initializer as init_mod
-from ..context import resolve_device
-from .parameter import Parameter, ParameterDict
+from ..base import MXNetError
+from .parameter import Parameter, ParameterDict, init_device
 
 __all__ = ["Block", "HybridBlock", "current_trace"]
 
@@ -111,12 +112,32 @@ def _wrap(v):
     return v
 
 
+class _HookHandle:
+    """What ``register_forward_hook`` returns: ``detach()`` removes the
+    hook."""
+
+    def __init__(self, hooks, hook):
+        self._hooks, self._hook = hooks, hook
+
+    def detach(self):
+        if self._hook in self._hooks:
+            self._hooks.remove(self._hook)
+
+
 class Block(torch.nn.Module):
-    """Base class for layers and models."""
+    """Base class for layers and models.  The Gluon methods that share a
+    name with ``torch.nn.Module``'s (``zero_grad``, ``apply``,
+    ``register_forward_hook``, ``register_forward_pre_hook``) are the
+    reference's (``mxnet_tpu/gluon/block.py:182-256``)."""
 
     def __init__(self):
         super().__init__()
         self._reg_params: "OrderedDict[str, Parameter]" = OrderedDict()
+        # Gluon forward hooks: pre-hooks get (block, args), hooks
+        # (block, args, out), as NDArrays (a child called with tensors
+        # inside its parent's forward too, as in the reference)
+        self._gluon_pre_hooks = []
+        self._gluon_hooks = []
 
     def __setattr__(self, name, value):
         if isinstance(value, Parameter):
@@ -133,11 +154,16 @@ class Block(torch.nn.Module):
     def register_child(self, block: "Block", name: Optional[str] = None):
         self.add_module(name or str(len(self._modules)), block)
 
-    def collect_params(self) -> ParameterDict:
+    def collect_params(self, select: Optional[str] = None) -> ParameterDict:
         """Hierarchical name → Parameter: the Block's own parameters, then
-        each child's under ``<child name>.``."""
+        each child's under ``<child name>.``; with ``select``, only the
+        names the regular expression matches (``re.search``)."""
         out = ParameterDict()
         self._collect_params_into(out, "")
+        if select is not None:
+            pat = re.compile(select)
+            out = ParameterDict((k, v) for k, v in out.items()
+                                if pat.search(k))
         return out
 
     def _collect_params_into(self, out: ParameterDict, prefix: str):
@@ -156,21 +182,91 @@ class Block(torch.nn.Module):
             seen.add(id(t))
             yield (f"{prefix}.{name}" if prefix else name), t
 
-    def initialize(self, init=None, device=None, verbose=False,
-                   force_reinit=False, generator=None):
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, *, device=None, generator=None):
         """Initialize every parameter: each one's own initializer, else
-        ``init`` (default ``Uniform()``).  ``device`` defaults to
-        ``cuda`` and takes ``"cpu"`` only when asked; values are drawn
-        from ``generator`` (default: a host generator seeded with 0) in
-        ``collect_params()`` order, deferred ones at their first
-        forward."""
-        dev = resolve_device(device)
+        ``init`` (default ``Uniform()``).  The device is ``ctx`` (a
+        ``Context`` or a list of one) or the port's ``device=``; without
+        either, the ``with mx.cpu():`` / ``with mx.gpu(n):`` scope's, else
+        ``cuda`` (which raises without a card: the CPU is used only when
+        asked for).  Values are drawn from ``generator`` (default: a host
+        generator seeded with 0) in ``collect_params()`` order, deferred
+        ones at their first forward."""
+        dev = init_device(ctx, device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         default = init_mod.create(init)
         for p in self.collect_params().values():
             p.initialize(init=None, device=dev, default_init=default,
                          force_reinit=force_reinit, generator=generator)
+
+    def zero_grad(self):
+        """Zero every Gluon gradient buffer of the block and its
+        children (``grad_req="add"`` included)."""
+        self.collect_params().zero_grad()
+
+    def reset_ctx(self, ctx):
+        """Move every parameter to ``ctx``."""
+        self.collect_params().reset_ctx(ctx)
+
+    def apply(self, fn):
+        """``fn`` on every child Block (recursively), then on this one;
+        returns ``self``."""
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before each forward; returns a handle
+        whose ``detach()`` removes it."""
+        self._gluon_pre_hooks.append(hook)
+        return _HookHandle(self._gluon_pre_hooks, hook)
+
+    def register_forward_hook(self, hook):
+        """``hook(block, args, out)`` after each forward; returns a handle
+        whose ``detach()`` removes it."""
+        self._gluon_hooks.append(hook)
+        return _HookHandle(self._gluon_hooks, hook)
+
+    # -- persistence (``mxnet_tpu/gluon/block.py:195-233``) -----------------
+    def save_parameters(self, filename: str, deduplicate: bool = False):
+        """Every parameter under its ``collect_params()`` name, through
+        ``nd.save`` (its codec: ``MXNET_NDARRAY_SAVE_FORMAT``)."""
+        from ..ndarray import save as nd_save
+        nd_save(filename, {k: p.data()
+                           for k, p in self.collect_params().items()})
+
+    def load_parameters(self, filename: str, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load what ``save_parameters`` (of either package) or the
+        reference's ``mx.model`` / ``export`` wrote (``arg:`` / ``aux:``
+        prefixes are dropped).  Each value is cast to its parameter's
+        type and copied in place into it (``Parameter.set_data``); a
+        missing name raises unless ``allow_missing``, an extra one unless
+        ``ignore_extra``."""
+        params = self.collect_params()
+        loaded = _load_named(filename, params, ctx)
+        if any(k.startswith(("arg:", "aux:")) for k in loaded):
+            loaded = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                      else k: v for k, v in loaded.items()}
+        for name, p in params.items():
+            if name in loaded:
+                p.set_data(loaded[name])
+            elif not allow_missing:
+                raise MXNetError(f"parameter {name} missing in {filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(params)
+            if extra:
+                raise MXNetError(f"file {filename} contains extra "
+                                 f"parameters: {extra}")
+
+    def save(self, prefix):
+        self.save_parameters(prefix + ".params")
+
+    def load(self, prefix):
+        self.load_parameters(prefix + ".params")
 
     def hybridize(self, active=True, **kwargs):
         """Accepted for the reference's API; the block stays eager."""
@@ -188,16 +284,40 @@ class Block(torch.nn.Module):
         """Tensors in, tensors out; NDArrays in (``mxnet_tpu/gluon/
         block.py:258-269``), NDArrays out, the forward recorded for
         ``backward`` exactly when ``autograd.is_recording()``."""
+        for hook in self._gluon_pre_hooks:
+            hook(self, _wrap(args))
         if not (_has_nd(args) or _has_nd(kwargs.values())):
-            return super().__call__(*args, **kwargs)
-        args = _unwrap(args)
-        kwargs = {k: _unwrap(v) for k, v in kwargs.items()}
-        with torch.set_grad_enabled(ag.is_recording()):
             out = super().__call__(*args, **kwargs)
-        return _wrap(out)
+        else:
+            with torch.set_grad_enabled(ag.is_recording()):
+                out = _wrap(super().__call__(
+                    *_unwrap(args),
+                    **{k: _unwrap(v) for k, v in kwargs.items()}))
+        for hook in self._gluon_hooks:
+            hook(self, _wrap(args), _wrap(out))
+        return out
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
+
+
+def _load_named(filename, params, ctx=None) -> dict:
+    """``nd.load(filename)`` as a name → NDArray dict, placed on ``ctx``,
+    else on the device of the parameters' values (else the current
+    context)."""
+    from ..context import Context, current_context
+    from ..ndarray import load as nd_load
+    if ctx is None:
+        devs = [p._data.device for p in params.values()
+                if p._data is not None]
+        ctx = Context.of(devs[0]) if devs else current_context()
+    with (ctx[0] if isinstance(ctx, (list, tuple)) else ctx):
+        loaded = nd_load(filename)
+    if not isinstance(loaded, dict):
+        raise MXNetError(f"{filename} holds an unnamed array list, not a "
+                         f"name->param dict; parameters need named "
+                         f"entries")
+    return loaded
 
 
 class HybridBlock(Block):

@@ -116,10 +116,10 @@ class TransformerLM(HybridBlock):
             raise MXNetError(f"sequence length {s_} exceeds max_len "
                              f"{self._max_len}")
         x = self.embed(tokens)
-        x = x + self.pos_embed.data()[:s_].reshape(1, s_, -1)
+        x = x + self.pos_embed._tensor()[:s_].reshape(1, s_, -1)
         x = self.ln_f(self.blocks(x))
         if self._tied:
-            w = self.embed.weight.data()
+            w = self.embed.weight._tensor()
             return tensor_ops.dot(x.reshape(-1, x.shape[-1]), w,
                                   transpose_b=True).reshape(
                 tuple(tokens.shape) + (w.shape[0],))

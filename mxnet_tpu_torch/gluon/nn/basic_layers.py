@@ -1,5 +1,6 @@
 """Basic Gluon layers on the training paths (counterpart of part of
-``mxnet_tpu/gluon/nn/basic_layers.py``): ``HybridSequential``,
+``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
+``HybridSequential``,
 ``Dense``, ``Dropout``, ``Embedding``, ``BatchNorm``, ``BatchNormReLU``,
 ``LayerNorm``, ``Flatten``, ``Identity``, ``Activation`` and ``GELU``."""
 from __future__ import annotations
@@ -12,14 +13,14 @@ from ... import initializer as init_mod
 from ...base import MXNetError
 from ...ops import nn as nn_ops
 from ...ops import tensor as tensor_ops
-from ..block import HybridBlock, current_trace
+from ..block import Block, HybridBlock, current_trace
 from ..parameter import Parameter
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "Embedding",
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
            "BatchNorm", "BatchNormReLU", "LayerNorm", "Flatten", "Identity",
            "Activation", "GELU"]
 
-class HybridSequential(HybridBlock):
+class _SequentialMixin:
     """Children run in order; ``add`` names them ``0``, ``1``, ..."""
 
     def add(self, *blocks):
@@ -43,6 +44,14 @@ class HybridSequential(HybridBlock):
 
     def __iter__(self):
         return iter(self._children.values())
+
+
+class Sequential(_SequentialMixin, Block):
+    """The eager container (``mxnet_tpu/gluon/nn/basic_layers.py:29``)."""
+
+
+class HybridSequential(_SequentialMixin, HybridBlock):
+    """The hybridizable container; here it runs eagerly too."""
 
 
 class Dense(HybridBlock):
@@ -76,8 +85,8 @@ class Dense(HybridBlock):
     def forward(self, x):
         self._finish_deferred(x)
         out = nn_ops.fully_connected(
-            x, self.weight.data(),
-            self.bias.data() if self.bias is not None else None,
+            x, self.weight._tensor(),
+            self.bias._tensor() if self.bias is not None else None,
             flatten=self._flatten)
         if self._activation:
             out = nn_ops.activation(out, act_type=self._activation)
@@ -118,7 +127,7 @@ class Embedding(HybridBlock):
                                 init=weight_initializer)
 
     def forward(self, x):
-        return tensor_ops.embedding(x, self.weight.data())
+        return tensor_ops.embedding(x, self.weight._tensor())
 
     def __repr__(self):
         return f"Embedding({self._input_dim} -> {self._output_dim})"
@@ -179,15 +188,15 @@ class BatchNorm(HybridBlock):
         self._finish_deferred(x)
         training = ag.is_training() and not self._use_global_stats
         out, mean, var = nn_ops.batch_norm(
-            x, self.gamma.data(), self.beta.data(), self.running_mean.data(),
-            self.running_var.data(), eps=self._epsilon,
+            x, self.gamma._tensor(), self.beta._tensor(), self.running_mean._tensor(),
+            self.running_var._tensor(), eps=self._epsilon,
             fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
             use_batch_stats=training)
         if training:
             m = self._momentum
             with torch.no_grad():
-                new = {p: p.data() * m + stat * (1 - m)
+                new = {p: p._tensor() * m + stat * (1 - m)
                        for p, stat in ((self.running_mean, mean),
                                        (self.running_var, var))}
             tc = current_trace()
@@ -196,7 +205,7 @@ class BatchNorm(HybridBlock):
                     tc.aux_update(p, value)
                 else:
                     with torch.no_grad():
-                        p.data().copy_(value)
+                        p._tensor().copy_(value)
         return out
 
     def __repr__(self):
@@ -264,7 +273,7 @@ class LayerNorm(HybridBlock):
         for p in (self.gamma, self.beta):
             if p._deferred_init is not None:
                 p._finish_deferred_init((c,))
-        return nn_ops.layer_norm(x, self.gamma.data(), self.beta.data(),
+        return nn_ops.layer_norm(x, self.gamma._tensor(), self.beta._tensor(),
                                  axis=self._axis, eps=self._epsilon)
 
 

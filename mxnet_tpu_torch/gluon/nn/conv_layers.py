@@ -58,8 +58,8 @@ class _Conv(HybridBlock):
     def forward(self, x):
         self._finish_deferred(x)
         out = nn_ops.convolution(
-            x, self.weight.data(),
-            self.bias.data() if self.bias is not None else None,
+            x, self.weight._tensor(),
+            self.bias._tensor() if self.bias is not None else None,
             kernel=self._kernel, stride=self._strides,
             dilate=self._dilation, pad=self._padding,
             num_filter=self._channels, num_group=self._groups,

@@ -3,8 +3,11 @@
 A ``Parameter`` describes one weight of a Block — shape (possibly with
 unknown dims, filled in by the first forward: deferred init), type,
 initializer, ``grad_req`` and lr/wd multipliers — and holds its value as
-a ``torch.nn.Parameter`` once initialized: ``data()`` is that tensor,
-which the layers read.
+a ``torch.nn.Parameter`` once initialized.  As in the reference,
+``data()``, ``list_data()`` and ``grad()`` are NDArrays and ``set_data``
+takes one; ``_tensor()`` is the tensor itself, which the layers and the
+trainers read (a captured step holds its address, so ``set_data`` copies
+into it in place).
 
 For the eager Gluon loop (``autograd.record()``, ``backward``,
 ``gluon.Trainer``) an initialized parameter with ``grad_req`` ``write``
@@ -26,7 +29,7 @@ import torch
 from .. import autograd as ag
 from .. import initializer as init_mod
 from ..base import MXNetError
-from ..context import resolve_device
+from ..context import Context, resolve_device
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
            "torch_dtype"]
@@ -85,7 +88,7 @@ class Parameter:
         self._trainer = None
         # (initializer, device, generator) kept until the shape is known
         self._deferred_init = None
-        # a stand-in tensor that data() returns while set (the trainer's
+        # a stand-in tensor that _tensor() returns while set (the trainer's
         # low-precision copy inside a step)
         self._override: Optional[torch.Tensor] = None
 
@@ -121,15 +124,17 @@ class Parameter:
                f"dtype={self.dtype})"
 
     # -- init --------------------------------------------------------------
-    def initialize(self, init=None, device=None, default_init=None,
-                   force_reinit=False, generator=None):
-        """Draw the value now, or once the shape is known.  ``device``
-        defaults to ``cuda`` (``"cpu"`` on request); ``generator`` is the
-        host ``torch.Generator`` values are drawn from (a fresh one
-        seeded with 0 when left out)."""
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False, *, device=None, generator=None):
+        """Draw the value now, or once the shape is known, on ``ctx`` (a
+        ``Context`` or a list of one) or ``device``; without either, on
+        the ``with mx.cpu():`` / ``with mx.gpu(n):`` scope's device, else
+        on ``cuda``.  ``generator`` is the host ``torch.Generator``
+        values are drawn from (a fresh one seeded with 0 when left
+        out)."""
         if self._data is not None and not force_reinit:
             return
-        dev = resolve_device(device)
+        dev = init_device(ctx, device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         eff = self.init if init is None else init
@@ -186,22 +191,39 @@ class Parameter:
         raise MXNetError(f"parameter {self.name} has not been "
                          f"initialized; call net.initialize()")
 
-    def data(self) -> torch.Tensor:
+    def _tensor(self) -> torch.Tensor:
+        """The value as the tensor the layers read: the
+        ``torch.nn.Parameter`` (or, inside a trainer's step, its
+        compute-dtype stand-in)."""
         if self._override is not None:
             return self._override
         self._check_initialized()
         return self._data
 
+    def data(self, ctx=None):
+        """The value as an NDArray over :meth:`_tensor` (the autograd
+        variable).  A parameter lives on one device, so ``ctx`` selects
+        nothing, as in the reference."""
+        if self._override is not None:
+            from ..ndarray.ndarray import NDArray
+            return NDArray._wrap(self._override)
+        return self._data_nd()
+
     def _data_nd(self):
-        """The value as an NDArray (the autograd variable), over the
-        tensor :meth:`data` returns."""
+        """The value as an NDArray (the autograd variable) over the
+        parameter's tensor."""
         self._check_initialized()
         return self._nd
 
     def list_data(self):
         return [self.data()]
 
-    def grad(self):
+    def list_ctx(self):
+        """The contexts holding the value: the one device's."""
+        self._check_initialized()
+        return [Context.of(self._data.device)]
+
+    def grad(self, ctx=None):
         """The gradient buffer, an NDArray ``backward`` writes."""
         self._check_initialized()
         if self._grad is None:
@@ -219,11 +241,16 @@ class Parameter:
             self._grad._data = torch.zeros_like(self._grad._data)
 
     def set_data(self, data):
-        """Replace the value: the shape must agree with the declared one
-        (unknown dims are filled in); the value is cast to the
-        parameter's type and, when already initialized, copied in place
-        on the parameter's device."""
-        data = torch.as_tensor(data)
+        """Replace the value with ``data`` (an NDArray, tensor or numpy
+        array): the shape must agree with the declared one (unknown dims
+        are filled in); the value is cast to the parameter's type and,
+        when already initialized, copied in place (``copy_``) into the
+        parameter's tensor on its device, so that what holds its address
+        (a captured step) reads the new value."""
+        from ..ndarray.ndarray import NDArray
+        if isinstance(data, NDArray):
+            data = data._data
+        data = torch.as_tensor(data).detach()
         self.shape = tuple(data.shape)
         if self._data is None:
             self._set(data.to(self.dtype))
@@ -235,6 +262,15 @@ class Parameter:
         with torch.no_grad():
             self._data.copy_(data.to(self._data.device, self._data.dtype))
 
+    def reset_ctx(self, ctx):
+        """Move the value to ``ctx`` (a ``Context`` or a list of one): a
+        new tensor there, with a zero gradient buffer (a trainer's graphs
+        captured on the old one are dropped at its next call)."""
+        if self._data is not None:
+            dev = init_device(ctx, None)
+            if dev != self._data.device:
+                self._set(self._data.detach().to(dev))
+
     def cast(self, dtype):
         """Change the parameter's type; an initialized value is replaced by
         a cast copy (a new tensor: a trainer's graphs captured on the old
@@ -245,13 +281,66 @@ class Parameter:
             self._set(self._data.detach().to(self.dtype))
 
 
+def init_device(ctx=None, device=None) -> torch.device:
+    """The device a parameter is made on: ``device`` (the port's keyword),
+    else ``ctx`` (a ``Context``, a list of one, or a device name), else
+    the innermost ``with ctx:`` scope's, else ``cuda`` (which raises
+    without a visible card)."""
+    from ..context import _stack
+    if device is None:
+        device = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
+    if device is None and _stack():
+        device = _stack()[-1]
+    return resolve_device(device)
+
+
 class ParameterDict(OrderedDict):
     """Hierarchical name → Parameter, in registration order."""
+
+    def initialize(self, init=None, ctx=None, force_reinit=False, *,
+                   device=None, generator=None, **kwargs):
+        """Initialize every parameter with ``init`` (over each one's own
+        initializer, as the reference does), drawn from one
+        ``generator`` in order."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for p in self.values():
+            p.initialize(init=init, ctx=ctx, force_reinit=force_reinit,
+                         device=device, generator=generator)
 
     def zero_grad(self):
         for p in self.values():
             p.zero_grad()
 
+    def reset_ctx(self, ctx):
+        for p in self.values():
+            p.reset_ctx(ctx)
+
     def setattr(self, name, value):
         for p in self.values():
             setattr(p, name, value)
+
+    def save(self, filename, strip_prefix=""):
+        """Every parameter through ``nd.save``, named without
+        ``strip_prefix``."""
+        from ..ndarray import save as nd_save
+        nd_save(filename, {
+            (k[len(strip_prefix):] if k.startswith(strip_prefix) else k):
+                p.data() for k, p in self.items()})
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load what :meth:`save` wrote, each value copied in place into
+        the parameter named ``restore_prefix + name``."""
+        from .block import _load_named
+        loaded = _load_named(filename, self, ctx)
+        for name, p in self.items():
+            key = restore_prefix + name
+            if key in loaded:
+                p.set_data(loaded[key])
+            elif not allow_missing:
+                raise MXNetError(f"parameter {key} missing in {filename}")
+        if not ignore_extra:
+            extra = set(loaded) - {restore_prefix + n for n in self}
+            if extra:
+                raise MXNetError(f"extra parameters in {filename}: {extra}")

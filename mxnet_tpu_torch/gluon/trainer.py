@@ -39,8 +39,8 @@ __all__ = ["Trainer"]
 
 def _zero_requested(zero) -> bool:
     if zero is None:
-        return os.environ.get("MXNET_ZERO", "0").lower() \
-            not in ("0", "", "false", "off")
+        return os.environ.get("MXNET_ZERO", "0").lower() in (
+            "1", "true", "on")
     return bool(zero)
 
 
@@ -61,7 +61,7 @@ class Trainer:
             self._params.append(param)
         if compression_params:
             raise MXNetError("gradient compression is not ported yet "
-                             "(distribution, queue 1 item 10)")
+                             "(distribution, queue 1 item 11)")
         self._scale = 1.0
         self._init_optimizer(optimizer, optimizer_params or {})
         self._kvstore_params = {"kvstore": kvstore,
@@ -76,7 +76,7 @@ class Trainer:
         if _zero_requested(self._zero):
             raise MXNetError("Trainer(zero=1) (ZeRO-1 sharding of the "
                              "update) is not ported yet (distribution, "
-                             "queue 1 item 10)")
+                             "queue 1 item 11)")
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: p for i, p in enumerate(self._params)}

@@ -85,5 +85,5 @@ def create(name: str = "local", **kwargs) -> KVStoreBase:
         return _KV_REGISTRY["kvstore"](key)
     if key.startswith(("dist", "p3")) or key in ("horovod", "byteps"):
         raise MXNetError(f"kvstore {name!r} is not ported yet "
-                         f"(distribution, queue 1 item 10)")
+                         f"(distribution, queue 1 item 11)")
     raise MXNetError(f"unknown kvstore type {name!r}")

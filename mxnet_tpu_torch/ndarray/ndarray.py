@@ -22,13 +22,14 @@ import numpy as onp
 import torch
 
 from .. import autograd as ag
-from ..base import MXNetError, check_shape, dtype_name, np_dtype, torch_dtype
+from ..base import (MXNetError, check_shape, dtype_name, np_dtype,
+                    numpy_bits, tensor_from_bits, torch_dtype)
 from ..context import Context, current_context
 from ..ops import tensor as tensor_ops
 from ..ops.registry import apply_torch, invoke
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "waitall"]
+           "waitall", "save", "load", "load_frombuffer"]
 
 
 def _device(ctx: Optional[Context]) -> torch.device:
@@ -405,3 +406,113 @@ def waitall():
     """Wait for all work queued on every visible card."""
     for i in range(torch.cuda.device_count()):
         torch.cuda.synchronize(i)
+
+
+# --------------------------------------------------------------------------
+# serialization (``mxnet_tpu/ndarray/ndarray.py:636-748``).  Two codecs:
+#   * "npz" (default): numpy .npz, one entry per array named
+#     ``__single__:0`` / ``__list__:<i>`` / ``__dict__:<name>``; types
+#     numpy lacks (bfloat16, fp8) stored as their bit patterns, their
+#     names under ``__dtypes__``; an empty container marked ``__empty__``;
+#   * "mxnet": the reference's binary wire format
+#     (``legacy_serialization``).
+# ``load`` tells them apart by the file's magic; loaded arrays land on the
+# current context (``gpu(0)``, or the ``with mx.cpu():`` scope).
+# --------------------------------------------------------------------------
+
+def _payload(data):
+    if isinstance(data, (NDArray, torch.Tensor)):
+        return [data], ["__single__:0"]
+    if isinstance(data, (list, tuple)):
+        return list(data), [f"__list__:{i}" for i in range(len(data))]
+    if isinstance(data, dict):
+        return list(data.values()), [f"__dict__:{k}" for k in data]
+    raise MXNetError("save: data must be NDArray, list, or dict")
+
+
+def save(fname: str, data, format: str = None):
+    """Save an NDArray, a list or a dict of them to ``fname`` in
+    ``format`` (default ``MXNET_NDARRAY_SAVE_FORMAT``, else ``"npz"``)."""
+    import json
+    import os
+    if format is None:
+        format = os.environ.get("MXNET_NDARRAY_SAVE_FORMAT", "npz")
+    if format in ("mxnet", "binary", "params"):
+        from .legacy_serialization import save_mxnet
+        return save_mxnet(fname, data)
+    if format != "npz":
+        raise MXNetError(f"save: unknown format {format!r} "
+                         "(expected 'npz' or 'mxnet')")
+    payload, names = _payload(data)
+    arrays, tags = {}, {}
+    for n, p in zip(names, payload):
+        t = p._data if isinstance(p, NDArray) else p
+        arrays[n], name = numpy_bits(t)
+        if arrays[n].dtype.name != name:
+            tags[n] = name
+    if tags:
+        arrays["__dtypes__"] = onp.frombuffer(json.dumps(tags).encode(),
+                                              dtype=onp.uint8)
+    if not payload:
+        kind = "list" if isinstance(data, (list, tuple)) else "dict"
+        arrays["__empty__"] = onp.frombuffer(kind.encode(),
+                                             dtype=onp.uint8)
+    # the exact filename (np.savez appends .npz to a bare path)
+    with open(fname, "wb") as f:
+        onp.savez(f, **arrays)
+
+
+def load_frombuffer(buf):
+    """NDArrays from an in-memory buffer in either codec."""
+    from .legacy_serialization import decode_list, is_mxnet_format
+    buf = bytes(buf)
+    if is_mxnet_format(buf[:8]):
+        data, names = decode_list(buf)
+        return dict(zip(names, data)) if names else data
+    import io
+    return _load_npz(io.BytesIO(buf))
+
+
+def load(fname: str):
+    """What :func:`save` wrote (either codec, by its magic), or a
+    reference ``.params`` file."""
+    import os
+    from .legacy_serialization import is_mxnet_format, load_mxnet
+    if not fname.endswith(".npz") and not os.path.exists(fname) and \
+            os.path.exists(fname + ".npz"):
+        fname = fname + ".npz"
+    if os.path.exists(fname):
+        with open(fname, "rb") as f:
+            if is_mxnet_format(f.read(8)):
+                return load_mxnet(fname)
+    return _load_npz(fname)
+
+
+def _load_npz(path_or_filelike):
+    import json
+    try:
+        z = onp.load(path_or_filelike, allow_pickle=False)
+    except (OSError, ValueError) as e:
+        raise MXNetError(f"load: not an NDArray file ({e})") from e
+    with z:
+        keys = list(z.keys())
+        if "__empty__" in z:
+            return [] if bytes(z["__empty__"]).decode() == "list" else {}
+        tags = {}
+        if "__dtypes__" in z:
+            tags = json.loads(bytes(z["__dtypes__"]).decode())
+            keys = [k for k in keys if k != "__dtypes__"]
+
+        def restore(k):
+            if k in tags:
+                return NDArray._wrap(tensor_from_bits(
+                    z[k], tags[k], current_context().torch_device))
+            return NDArray(z[k])
+
+        if keys and keys[0].startswith("__single__"):
+            return restore(keys[0])
+        if keys and keys[0].startswith("__list__"):
+            return [restore(k) for k in sorted(
+                keys, key=lambda k: int(k.split(":", 1)[1]))]
+        return {(k.split(":", 1)[1] if ":" in k else k): restore(k)
+                for k in keys}

@@ -23,7 +23,7 @@ FTML, Test), attributes that move with the update count (``t``,
 that appears twice (tied parameters).
 
 The ZeRO-sharded update (``make_sharded_update_fn``, ``shard_states``,
-``zero_*``) is not ported yet (distribution, queue 1 item 10).
+``zero_*``) is not ported yet (distribution, queue 1 item 11).
 """
 from __future__ import annotations
 

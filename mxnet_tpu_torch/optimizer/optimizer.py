@@ -33,7 +33,7 @@ import numpy as onp
 import torch
 
 from .. import telemetry as _telemetry
-from ..base import MXNetError
+from ..base import MXNetError, numpy_bits, tensor_from_bits
 from ..ops import optimizer_ops
 
 __all__ = ["Optimizer", "Updater", "create", "register", "get_updater",
@@ -710,37 +710,6 @@ class GroupAdaGrad(Optimizer):
 # Updater (``mxnet_tpu/optimizer/optimizer.py:797-916``)
 # --------------------------------------------------------------------------
 
-# itemsize -> (torch integer type, numpy type of its bits, stored type)
-_BITS = {2: (torch.int16, onp.int16, onp.uint16),
-         1: (torch.uint8, onp.uint8, onp.uint8)}
-
-
-def _to_numpy(t: torch.Tensor):
-    """``(array, dtype name)``: numpy's own dtypes as they are; bfloat16
-    and the fp8 types (which numpy lacks) as their bit patterns."""
-    t = t.detach().cpu()
-    name = str(t.dtype).replace("torch.", "")
-    try:
-        return t.numpy(), name
-    except TypeError:
-        tdt, _, stored = _BITS[t.element_size()]
-        return t.view(tdt).numpy().view(stored), name
-
-
-def _from_numpy(raw: onp.ndarray, want: Optional[str], device):
-    """A tensor on ``device`` from a stored array and its dtype name."""
-    if want is not None and str(raw.dtype) != want:
-        dt = getattr(torch, want, None)
-        if not isinstance(dt, torch.dtype) or dt.itemsize != raw.itemsize:
-            raise MXNetError(f"optimizer states: cannot read dtype {want!r} "
-                             f"from a {raw.dtype} array")
-        _, bits, _ = _BITS[raw.itemsize]
-        t = torch.from_numpy(onp.array(raw).view(bits)).view(dt)
-    else:
-        t = torch.from_numpy(onp.array(raw))
-    return t.to(device)
-
-
 class Updater:
     """The per-parameter state dict of one optimizer, and the call that
     updates a parameter with it."""
@@ -771,7 +740,11 @@ class Updater:
 
     def get_states(self, dump_optimizer=False) -> bytes:
         """The states as the reference's npz blob: a JSON header naming
-        each key, its slots and their dtypes; no pickle."""
+        each key, its slots and their dtypes; no pickle.  The header also
+        keeps the optimizer's update counts (``counts``: ``num_update``
+        and each index's), which the reference's blob drops: a resumed
+        optimizer then continues its bias correction and schedule where
+        it stopped.  The reference's reader ignores the field."""
         arrays, keys = {}, []
         for j, (k, v) in enumerate(self.states.items()):
             tup = v if isinstance(v, tuple) else (v,)
@@ -779,11 +752,15 @@ class Updater:
                    "str": isinstance(k, str), "slots": len(tup),
                    "tuple": isinstance(v, tuple), "dtypes": []}
             for i, s in enumerate(tup):
-                d, name = _to_numpy(_tensor(s))
+                d, name = numpy_bits(_tensor(s))
                 ent["dtypes"].append(name)
                 arrays[f"s{j}::{i}"] = d
             keys.append(ent)
-        header = {"format": self._STATES_FORMAT, "keys": keys}
+        opt = self.optimizer
+        header = {"format": self._STATES_FORMAT, "keys": keys,
+                  "counts": {"num_update": int(opt.num_update),
+                             "index": [[k, int(c)] for k, c in
+                                       opt._index_update_count.items()]}}
         if dump_optimizer:
             header["optimizer"] = type(self.optimizer).__name__
         arrays["__header__"] = onp.frombuffer(
@@ -819,13 +796,18 @@ class Updater:
             for j, ent in enumerate(header["keys"]):
                 k = str(ent["key"]) if ent.get("str") else int(ent["key"])
                 dtypes = ent.get("dtypes") or []
-                slots = [NDArray._wrap(_from_numpy(
+                slots = [NDArray._wrap(tensor_from_bits(
                     z[f"s{j}::{i}"], dtypes[i] if i < len(dtypes) else None,
                     dev)) for i in range(int(ent["slots"]))]
                 out[k] = tuple(slots) if ent.get("tuple", True) \
                     else slots[0]
         self.states = out
         self.states_synced = {k: True for k in self.states}
+        counts = header.get("counts")
+        if counts:                     # a blob the port wrote
+            self.optimizer.num_update = int(counts["num_update"])
+            self.optimizer._index_update_count = {
+                k: int(c) for k, c in counts["index"]}
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

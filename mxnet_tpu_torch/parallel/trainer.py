@@ -80,11 +80,26 @@ CUDA the trainer raises the eager check's :class:`MXNetError` at the
 entry of its next call (waiting for the previous call's work); on the
 CPU at once.
 
+Persistence (``mxnet_tpu/parallel/trainer.py:1025-1317``):
+``save_states`` / ``load_states`` (the ``mxnet_tpu-trainer-states-v1``
+npz, no pickle), ``save_checkpoint`` / ``load_checkpoint`` through the
+async checkpoint service (``checkpoint.py``: the tree is ``param/<k>``
+and ``opt/<k>/<i>``, the header ``num_update``, ``slots``, ``meta``,
+``mesh_axes`` and, under AMP, the scaler's state), and ``fit`` with its
+auto-resume.  A load writes into the existing masters, optimizer states
+and AMP state in place (``copy_``): the graphs captured before it stay
+valid, and the next step replays one of them.  The reference also
+saves its global PRNG chain (``rng_key``); the port has no ``mx.random``
+yet and no step of it draws randomness, so it writes a chain through
+unchanged when a loaded checkpoint carried one and otherwise none.
+
 A mesh, ZeRO and ``seq_axis`` are not ported yet and raise.
 """
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import time
 from functools import partial
 from typing import Callable, Optional
@@ -96,7 +111,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import autograd as ag
 from .. import optimizer as opt_mod
 from .. import telemetry, tracing
-from ..base import MXNetError
+from ..base import MXNetError, numpy_bits, tensor_from_bits
 from ..context import resolve_device
 from ..amp import policy as _amp_policy
 from ..amp.loss_scaler import LossScaler, all_finite
@@ -112,7 +127,7 @@ _LOW_PRECISION = ("bfloat16", "bf16", "float16")
 
 @contextlib.contextmanager
 def _params_as(params, tensors):
-    """Let each parameter's ``data()`` return the given tensor inside the
+    """Let each parameter's ``_tensor()`` return the given tensor inside the
     scope (the compute-dtype copies of a step)."""
     try:
         for p, t in zip(params, tensors):
@@ -180,13 +195,16 @@ class SPMDTrainer:
         self._plist = [self._params[k] for k in self._pkeys]
         for k, p in zip(self._pkeys, self._plist):
             p._check_initialized()
-            if p.data().device != self.device:
-                raise MXNetError(f"parameter {k} is on {p.data().device}, "
+            if p._tensor().device != self.device:
+                raise MXNetError(f"parameter {k} is on {p._tensor().device}, "
                                  f"the trainer on {self.device}")
         self._opt_state = {
-            k: tuple(self.optimizer.create_state(i, self._params[k].data()))
+            k: tuple(self.optimizer.create_state(i, self._params[k]._tensor()))
             for i, k in enumerate(self._pkeys)}
         self.num_update = 0
+        # the reference's PRNG chain, kept from a loaded checkpoint or
+        # states file and written back into the next one (never drawn)
+        self._rng_key = None
         # signature -> (Executable, its IdCheck); the addresses of the
         # masters and states they were captured on
         self._exec = {}
@@ -255,7 +273,7 @@ class SPMDTrainer:
     def _train_body(self, ids, lr, wd, data, label):
         """One step on the (static) inputs: ``(loss, id bounds)``."""
         ids.reset()
-        masters = [p.data() for p in self._plist]
+        masters = [p._tensor() for p in self._plist]
         live = [i for i, p in enumerate(self._plist)
                 if p.grad_req != "null"]
         if self._data_transform is not None:
@@ -383,7 +401,7 @@ class SPMDTrainer:
         amp = self.amp_dtype
         with ag.pause():
             compute = [w.to(amp) if amp is not None and w.is_floating_point()
-                       else w for w in (p.data() for p in self._plist)]
+                       else w for w in (p._tensor() for p in self._plist)]
             if amp is not None and x.is_floating_point():
                 x = x.to(amp)
             with _params_as(self._plist, compute), ids:
@@ -393,7 +411,7 @@ class SPMDTrainer:
     # -- executables -----------------------------------------------------------
     def _state_ptrs(self):
         return tuple(t.data_ptr() for k, p in zip(self._pkeys, self._plist)
-                     for t in (p.data(), *self._opt_state[k]))
+                     for t in (p._tensor(), *self._opt_state[k]))
 
     def _executable(self, sig, body, args):
         """``(entry, fresh)``: the signature's executable and id check,
@@ -585,3 +603,258 @@ class SPMDTrainer:
         if bounds is not None:
             IdCheck.raise_if_bad(bounds.cpu(), ids.vocabs)
         return out
+
+    # -- persistence (``mxnet_tpu/parallel/trainer.py:1025-1317``) --------------
+    _STATES_FORMAT = "mxnet_tpu-trainer-states-v1"
+
+    def save_states(self, fname):
+        """The optimizer state and step counter as an npz with a JSON
+        header under ``__header__`` and one entry ``<param>::<slot>`` a
+        state (bfloat16 and fp8 as their bit patterns, named in the
+        header's ``dtypes``); no pickle."""
+        arrays, slots, dtypes = {}, {}, {}
+        for k in self._pkeys:
+            st = self._opt_state[k]
+            slots[k] = len(st)
+            dtypes[k] = []
+            for i, t in enumerate(st):
+                arrays[f"{k}::{i}"], name = numpy_bits(t)
+                dtypes[k].append(name)
+        header = {"format": self._STATES_FORMAT,
+                  "num_update": self.num_update,
+                  "slots": slots, "dtypes": dtypes}
+        if self._rng_key:
+            header["rng_key"] = self._rng_key
+        arrays["__header__"] = onp.frombuffer(
+            json.dumps(header).encode("utf-8"), dtype=onp.uint8)
+        with open(fname, "wb") as f:
+            onp.savez(f, **arrays)
+
+    def load_states(self, fname):
+        """Restore :meth:`save_states` (of either package) into the
+        optimizer state in place.  Only that npz is read
+        (``allow_pickle=False``: loading never runs code)."""
+        try:
+            z = onp.load(fname, allow_pickle=False)
+        except (OSError, ValueError) as e:
+            raise MXNetError(
+                f"{fname}: not a trainer-states npz (pickled states are "
+                f"refused: loading a pickle can run code): {e}") from e
+        if not isinstance(z, onp.lib.npyio.NpzFile):
+            raise MXNetError(f"{fname}: an .npy array, not a trainer-states "
+                             f"npz")
+        with z:
+            if "__header__" not in z:
+                raise MXNetError(
+                    f"{fname}: not a trainer-states file (no __header__)")
+            header = json.loads(bytes(z["__header__"]).decode("utf-8"))
+            if header.get("format") != self._STATES_FORMAT:
+                raise MXNetError(
+                    f"{fname}: unknown trainer-states format "
+                    f"{header.get('format')!r}")
+            dtypes = header.get("dtypes", {})
+            states = {}
+            for k, n in header["slots"].items():
+                if k not in self._opt_state:
+                    raise MXNetError(f"unknown optimizer-state key {k!r}")
+                names = dtypes.get(k) or []
+                states[k] = [tensor_from_bits(
+                    z[f"{k}::{i}"], names[i] if i < len(names) else None,
+                    "cpu") for i in range(int(n))]
+        self._restore_states(states, fname)
+        self.num_update = int(header["num_update"])
+        self.optimizer.num_update = self.num_update
+        if header.get("rng_key"):
+            self._rng_key = header["rng_key"]
+
+    def _restore_states(self, states, source):
+        """Copy ``{key: [state tensors]}`` into the optimizer state in
+        place, after checking every count, shape and dtype."""
+        dst, src = [], []
+        for k, new in states.items():
+            old = self._opt_state[k]
+            if len(new) != len(old):
+                raise MXNetError(f"{source}: optimizer state {k!r} has "
+                                 f"{len(new)} slots, the trainer's "
+                                 f"optimizer {len(old)}")
+            for i, (a, b) in enumerate(zip(old, new)):
+                _check_leaf(f"optimizer state {k!r} slot {i}", b, a, source)
+            dst += list(old)
+            src += new
+        _copy_in_place(dst, src)
+
+    def save_checkpoint(self, directory, tag="latest", meta=None,
+                        block=True):
+        """Checkpoint the masters, optimizer state and step counter
+        through the async checkpoint service (``checkpoint.save``): the
+        step path pays only the snapshot (one device copy and one
+        asynchronous copy to pinned memory); the shard files and the
+        publish happen on the writer thread.  ``meta``: extra JSON for
+        the manifest's header (``fit`` keeps its data cursor there).
+
+        ``block=True`` waits for the publish and returns the checkpoint's
+        path, raising ``MXNetError`` if the save failed after its
+        retries; ``block=False`` returns a ``checkpoint.PendingSave`` at
+        once, and a failed save logs and counts ``checkpoint.failures``
+        without raising into the step."""
+        from .. import checkpoint as _ckpt
+        tree = {f"param/{k}": self._params[k]._data for k in self._pkeys}
+        for k in self._pkeys:
+            for i, t in enumerate(self._opt_state[k]):
+                tree[f"opt/{k}/{i}"] = t
+        header = {"num_update": int(self.num_update),
+                  "slots": {k: len(self._opt_state[k])
+                            for k in self._pkeys},
+                  "meta": dict(meta or {}),
+                  # one device: a dp axis of 1 (the loader re-places
+                  # global arrays whatever mesh wrote them)
+                  "mesh_axes": {"dp": 1}}
+        if self._rng_key:
+            header["rng_key"] = self._rng_key
+        if self._amp_scaler is not None:
+            # the masters are f32 whatever the compute dtype; the header
+            # keeps the policy and the scaler's state for the resume
+            header["amp"] = {"enabled": True,
+                             "compute_dtype":
+                                 _amp_policy.compute_dtype_str(),
+                             "scaler": self._amp_scaler.state()}
+        rank, world = _ckpt.rank_world()
+        job = _ckpt.save(directory, tree, header, tag=tag, block=block,
+                         rank=rank, world=world)
+        return job.result() if block else job
+
+    def load_checkpoint(self, directory, tag="latest"):
+        """Restore a :meth:`save_checkpoint` (of either package; falling
+        back to ``tag.old``, then to the newest ``step-<n>``), whatever
+        shard layout wrote it, into the masters, optimizer state and AMP
+        state in place, with the step counter.  A missing leaf, or a
+        shape or dtype that differs from the trainer's, raises.  Returns
+        the checkpoint's meta with ``num_update``, or None when there is
+        no checkpoint."""
+        from .. import checkpoint as _ckpt
+        loaded = _ckpt.load(directory, tag)
+        if loaded is None:
+            return self._load_checkpoint_v1(directory, tag)
+        leaves, header = loaded
+        slots = header.get("slots") or {}
+        dst, src = [], []
+        for k in self._pkeys:
+            name = f"param/{k}"
+            if name not in leaves:
+                raise MXNetError(f"checkpoint {directory!r} has no entry "
+                                 f"for parameter {k!r}")
+            _check_leaf(f"parameter {k!r}", leaves[name],
+                        self._params[k]._data, f"checkpoint {directory!r}")
+            dst.append(self._params[k]._data)
+            src.append(leaves[name])
+        states = {}
+        for k in self._pkeys:
+            n = int(slots.get(k, len(self._opt_state[k])))
+            names = [f"opt/{k}/{i}" for i in range(n)]
+            missing = [nm for nm in names if nm not in leaves]
+            if missing:
+                raise MXNetError(f"checkpoint {directory!r} has no entry "
+                                 f"for optimizer state {missing[0]!r}")
+            states[k] = [leaves[nm] for nm in names]
+        self._restore_states(states, f"checkpoint {directory!r}")
+        _copy_in_place(dst, src)
+        self.num_update = int(header.get("num_update", self.num_update))
+        self.optimizer.num_update = self.num_update
+        if header.get("rng_key"):
+            self._rng_key = header["rng_key"]
+        amp_hdr = header.get("amp")
+        if amp_hdr and self._amp_scaler is not None \
+                and amp_hdr.get("scaler"):
+            # written into the device state before the next call
+            self._amp_scaler.load_state(amp_hdr["scaler"])
+        meta = dict(header.get("meta") or {})
+        meta["num_update"] = self.num_update
+        return meta
+
+    def _load_checkpoint_v1(self, directory, tag):
+        """The layout before the manifest: ``model.params`` and
+        ``trainer.npz`` (and an optional ``meta.json``) in the tag's
+        directory or its ``.old`` backup."""
+        for cand in (os.path.join(directory, tag),
+                     os.path.join(directory, f"{tag}.old")):
+            if os.path.isfile(os.path.join(cand, "model.params")):
+                break
+        else:
+            return None
+        meta = {}
+        meta_path = os.path.join(cand, "meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = dict(json.load(f))
+        self.net.load_parameters(os.path.join(cand, "model.params"))
+        self.load_states(os.path.join(cand, "trainer.npz"))
+        meta["num_update"] = self.num_update
+        return meta
+
+    def fit(self, data_iter, epochs=1, verbose=False, checkpoint_dir=None,
+            checkpoint_every=0, resume=True):
+        """Epoch loop over ``data_iter`` (batches of ``(data, label)``).
+        With ``checkpoint_dir``: resume from its latest checkpoint first
+        (skipping the batches the checkpointed ``fit`` had seen,
+        ``meta["fit_seen"]``), save asynchronously every
+        ``checkpoint_every`` steps, and save blocking at the end, so that
+        a returned ``fit`` has published its checkpoint.  Returns the
+        losses of the steps it took."""
+        skip = 0
+        if checkpoint_dir and resume:
+            meta = self.load_checkpoint(checkpoint_dir)
+            if meta:
+                skip = int(meta.get("fit_seen", 0))
+        losses = []
+        seen = 0
+        fast_forward = getattr(data_iter, "fast_forward", None)
+        for epoch in range(epochs):
+            batch_idx = 0
+            if seen < skip and fast_forward is not None:
+                try:
+                    epoch_len = len(data_iter)
+                except TypeError:
+                    epoch_len = None
+                if epoch_len is not None:
+                    n = min(skip - seen, epoch_len)
+                    fast_forward(n)
+                    seen += n
+                    batch_idx = n
+            for batch in data_iter:
+                seen += 1
+                if seen <= skip:
+                    continue            # trained before the checkpoint
+                batch_idx += 1
+                losses.append(self.step(batch[0], batch[1]))
+                if (checkpoint_dir and checkpoint_every
+                        and len(losses) % checkpoint_every == 0):
+                    self.save_checkpoint(
+                        checkpoint_dir, block=False,
+                        meta={"fit_seen": seen,
+                              "cursor": {"epoch": epoch,
+                                         "batch": batch_idx}})
+        if checkpoint_dir:
+            # blocking, and the writer's queue is FIFO: this also drains
+            # every earlier async save
+            self.save_checkpoint(
+                checkpoint_dir,
+                meta={"fit_seen": seen,
+                      "cursor": {"epoch": epochs - 1, "batch": seen}})
+        return losses
+
+
+def _check_leaf(what, new, old, source):
+    if tuple(new.shape) != tuple(old.shape):
+        raise MXNetError(f"{source}: {what} has shape {tuple(new.shape)}, "
+                         f"the trainer expects {tuple(old.shape)}")
+    if new.dtype != old.dtype:
+        raise MXNetError(f"{source}: {what} has dtype {new.dtype}, the "
+                         f"trainer expects {old.dtype}")
+
+
+@torch.no_grad()
+def _copy_in_place(dst, src):
+    """Host or device values into the trainer's tensors, in place: what a
+    captured graph holds keeps its address."""
+    for d, s in zip(dst, src):
+        d.copy_(s)

@@ -1,12 +1,15 @@
 """Process-wide metrics registry and per-step records (the part of
-``mxnet_tpu/telemetry.py`` that decode serving calls).
+``mxnet_tpu/telemetry.py`` that decode serving, the trainers and the
+checkpoint service call).
 
-Counters and gauges always accumulate (plain attribute adds).  A step
+Counters, gauges and histograms always accumulate (plain attribute
+adds; a histogram keeps count, total, min, max and a bounded ring of
+the most recent samples).  A step
 funnel brackets its work with ``begin_step``/``end_step``; the record is
 built and fanned out only while a sink is attached, so with no sink the
 per-step cost is one list check.  A sink is any object with
-``emit(record)``.  The reference's JSONL/log/TensorBoard sinks,
-histograms and reports come with the telemetry port of a later slice.
+``emit(record)``.  The reference's JSONL/log/TensorBoard sinks and
+reports come with the telemetry port of a later slice.
 """
 from __future__ import annotations
 
@@ -14,11 +17,15 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
-__all__ = ["Counter", "Gauge", "counter", "gauge", "snapshot", "add_sink",
+__all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge",
+           "histogram", "metrics", "reset", "snapshot", "add_sink",
            "remove_sink", "clear_sinks", "enabled", "begin_step",
            "end_step", "record_compile", "last_record"]
 
 _LOCK = threading.Lock()
+
+# samples a histogram keeps (the most recent), beside its aggregates
+_RESERVOIR = 64
 
 
 class Counter:
@@ -36,6 +43,12 @@ class Counter:
     def get(self):
         return self.value
 
+    def reset(self):
+        self.value = 0
+
+    def describe(self):
+        return self.value
+
 
 class Gauge:
     """Last-value metric."""
@@ -51,6 +64,59 @@ class Gauge:
 
     def get(self):
         return self.value
+
+    def reset(self):
+        self.value = None
+
+    def describe(self):
+        return self.value
+
+
+class Histogram:
+    """A distribution: count, total, min and max, and a ring of the most
+    recent ``_RESERVOIR`` samples (O(1) in time and memory a sample)."""
+
+    __slots__ = ("name", "count", "total", "min", "max", "_ring", "_pos")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.reset()
+
+    def observe(self, v: float):
+        self.count += 1
+        self.total += v
+        if self.min is None or v < self.min:
+            self.min = v
+        if self.max is None or v > self.max:
+            self.max = v
+        if len(self._ring) < _RESERVOIR:
+            self._ring.append(v)
+        else:
+            self._ring[self._pos] = v
+            self._pos = (self._pos + 1) % _RESERVOIR
+
+    @property
+    def mean(self):
+        return self.total / self.count if self.count else 0.0
+
+    def samples(self) -> List[float]:
+        """The most recent samples (at most ``_RESERVOIR``)."""
+        return list(self._ring)
+
+    def get(self):
+        return self.describe()
+
+    def reset(self):
+        self.count = 0
+        self.total = 0.0
+        self.min = None
+        self.max = None
+        self._ring: List[float] = []
+        self._pos = 0
+
+    def describe(self):
+        return {"count": self.count, "total": self.total,
+                "min": self.min, "max": self.max, "mean": self.mean}
 
 
 _REGISTRY: Dict[str, Any] = {}
@@ -79,11 +145,27 @@ def gauge(name: str) -> Gauge:
     return _get_or_create(name, Gauge)
 
 
-def snapshot(prefix: str = "") -> Dict[str, Any]:
-    """Plain-data view of the registry (JSON-serializable)."""
+def histogram(name: str) -> Histogram:
+    return _get_or_create(name, Histogram)
+
+
+def metrics(prefix: str = "") -> Dict[str, Any]:
+    """The live metric objects whose names start with ``prefix``."""
     with _LOCK:
         items = sorted(_REGISTRY.items())
-    return {k: v.value for k, v in items if k.startswith(prefix)}
+    return {k: v for k, v in items if k.startswith(prefix)}
+
+
+def snapshot(prefix: str = "") -> Dict[str, Any]:
+    """Plain-data view of the registry (JSON-serializable)."""
+    return {k: v.describe() for k, v in metrics(prefix).items()}
+
+
+def reset(prefix: str = "") -> None:
+    """Zero the values of the metrics whose names start with ``prefix``,
+    in place: modules keep references to their metrics."""
+    for v in metrics(prefix).values():
+        v.reset()
 
 
 _C_COMPILES = counter("compile.count")

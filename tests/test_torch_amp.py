@@ -153,9 +153,9 @@ def test_convert_model_matches_reference():
     got = amp.convert_model(_mlp(mt), "bfloat16")
     for k, p in ref.collect_params().items():
         q = got.collect_params()[k]
-        assert q.data().dtype == torch.bfloat16 and p.dtype.name == \
+        assert q._tensor().dtype == torch.bfloat16 and p.dtype.name == \
             "bfloat16"
-        onp.testing.assert_array_equal(q.data().detach().float().numpy(),
+        onp.testing.assert_array_equal(q._tensor().detach().float().numpy(),
                                        p.data().astype("float32").asnumpy())
     r = ref(mx.nd.array(X).astype("bfloat16")).astype("float32").asnumpy()
     g = got(torch.from_numpy(X).bfloat16()).detach().float().numpy()
@@ -249,11 +249,11 @@ def _scaled_loop(pkg, overflow_at):
         grads = [float(abs(p.grad().asnumpy()).sum())
                  for p in net.collect_params().values()]
         before = {k: p.data().asnumpy() if pkg is mx else
-                  p.data().detach().numpy().copy()
+                  p._tensor().detach().numpy().copy()
                   for k, p in net.collect_params().items()}
         tr.step(8)
         after = {k: p.data().asnumpy() if pkg is mx else
-                 p.data().detach().numpy().copy()
+                 p._tensor().detach().numpy().copy()
                  for k, p in net.collect_params().items()}
         rows.append((float(loss.mean().asnumpy()),
                      tr._amp_loss_scaler.loss_scale,

@@ -151,19 +151,19 @@ def test_deferred_init_and_initializers():
     with pytest.raises(DeferredInitializationError):
         d.weight.data()
     d(torch.zeros(2, 6))
-    w = d.weight.data()
+    w = d.weight._tensor()
     bound = (3.0 / ((6 + 4) / 2.0)) ** 0.5
     assert w.shape == (4, 6) and float(w.detach().abs().max()) <= bound
-    assert not d.bias.data().any()
+    assert not d.bias._tensor().any()
     again = nn.Dense(4)
     again.initialize(init="xavier", device="cpu",
                      generator=torch.Generator().manual_seed(3))
     again(torch.zeros(2, 6))
-    assert torch.equal(again.weight.data(), w)
+    assert torch.equal(again.weight._tensor(), w)
     ln = nn.LayerNorm()
     ln.initialize(device="cpu")
     ln(torch.zeros(1, 5))
-    assert torch.equal(ln.gamma.data(), torch.ones(5))
+    assert torch.equal(ln.gamma._tensor(), torch.ones(5))
     with pytest.raises(MXNetError, match="unknown initializer"):
         initializer.create("nope")
 

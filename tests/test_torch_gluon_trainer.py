@@ -114,7 +114,7 @@ def _port_resnet(init, dtype="float32"):
                              RESNET_Y, "sgd", RESNET_SGD)
     states = {i: s[0].astype(onp.float64)
               for i, s in _port_states(ptr).items()}
-    params = {k: p.data().detach().double().numpy()
+    params = {k: p._tensor().detach().double().numpy()
               for k, p in net.collect_params().items()}
     return onp.asarray(losses), params, states
 
@@ -329,10 +329,10 @@ def test_stale_gradient(pkg):
     with pytest.raises(Exception, match="has no gradient"):
         tr.step(8)
     before = bias.data().asnumpy() if pkg is mx else \
-        bias.data().detach().numpy().copy()
+        bias._tensor().detach().numpy().copy()
     tr.step(8, ignore_stale_grad=True)
     after = bias.data().asnumpy() if pkg is mx else \
-        bias.data().detach().numpy()
+        bias._tensor().detach().numpy()
     assert onp.array_equal(before, after)
 
 
@@ -508,7 +508,7 @@ def test_record_train_mode_drives_the_layers():
                 y = bn(xs)
             row.append((y.asnumpy(), bn.running_mean.data().asnumpy()
                         if pkg is mx else
-                        bn.running_mean.data().detach().numpy().copy()))
+                        bn.running_mean._tensor().detach().numpy().copy()))
         outs.append(row)
     for (ry, rm), (gy, gm) in zip(*outs):
         onp.testing.assert_allclose(gy, ry, rtol=1e-5, atol=1e-5)
@@ -549,18 +549,19 @@ def test_block_wraps_nested_outputs_and_leaves_tensors_alone():
 
 
 def test_cast_and_set_data_keep_the_variable():
-    """``data()`` is the tensor the variable ``_data_nd()`` wraps, before
-    and after ``set_data`` (in place) and ``cast`` (a new variable with a
-    buffer of the new type); ``grad_req="null"`` has no buffer."""
+    """``_tensor()`` is the tensor the variable ``_data_nd()`` (which
+    ``data()`` returns) wraps, before and after ``set_data`` (in place)
+    and ``cast`` (a new variable with a buffer of the new type);
+    ``grad_req="null"`` has no buffer."""
     d = nn.Dense(2, in_units=3)
     d.initialize(device="cpu")
     w = d.weight
-    assert w._data_nd()._data is w.data()
-    before = w.data()
+    assert w._data_nd()._data is w._tensor() and w.data() is w._data_nd()
+    before = w._tensor()
     w.set_data(onp.ones((2, 3), onp.float32))
-    assert w.data() is before and w._data_nd()._data is before
+    assert w._tensor() is before and w._data_nd()._data is before
     w.cast("float64")
-    assert w._data_nd()._data is w.data()
+    assert w._data_nd()._data is w._tensor()
     assert w.grad()._data.dtype == torch.float64
     x = mt.nd.array(onp.ones((1, 3)), ctx=mt.cpu(), dtype="float64")
     d.bias.cast("float64")

@@ -124,7 +124,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         net.initialize()
     net.initialize(device="cpu")
     net(torch.zeros((1, 4), dtype=torch.int32))
-    assert net.embed.weight.data().device.type == "cpu"
+    assert net.embed.weight._tensor().device.type == "cpu"
     with pytest.raises(MXNetError, match="device='cpu'"):
         SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam")
     tr = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam",
@@ -175,3 +175,50 @@ def test_resnet_entry_points_default_to_cuda(monkeypatch):
         SPMDTrainer(net, SoftmaxCrossEntropyLoss())
     tr = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), device="cpu")
     assert tr.device.type == "cpu" and tr.optimizer.op_name == "sgd_update"
+
+
+PERSISTENCE_MODULES = ["checkpoint.py", "checkpoint_gc.py", "faultinject.py",
+                       "ndarray/legacy_serialization.py", "ndarray/ndarray.py",
+                       "gluon/block.py", "gluon/parameter.py",
+                       "parallel/trainer.py", "base.py"]
+ML_DTYPES = re.compile(r"\bimport ml_dtypes\b|\bfrom ml_dtypes\b")
+
+
+@pytest.mark.parametrize("rel", PERSISTENCE_MODULES)
+def test_persistence_modules_are_held_to_the_rules(rel):
+    """The persistence path's modules are among the sources checked
+    above, import no ``ml_dtypes`` (the card's machine lacks it: bfloat16
+    and fp8 travel as bit patterns), and each imports alone in a fresh
+    process without loading JAX, ``ml_dtypes`` or the reference."""
+    path = PORT / rel
+    assert path in SOURCES
+    assert not ML_DTYPES.search(path.read_text()), rel
+    mod = "mxnet_tpu_torch." + rel[:-3].replace("/", ".")
+    script = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({mod!r})
+        print(sorted(n for n in sys.modules if n.split(".")[0] in
+                     ("jax", "mxnet_tpu", "ml_dtypes", "triton")))
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_no_port_module_imports_ml_dtypes():
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import mxnet_tpu_torch
+        for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
+                                       "mxnet_tpu_torch."):
+            importlib.import_module(m.name)
+        print(sorted(n for n in sys.modules
+                     if n.split(".")[0] == "ml_dtypes"))
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    for path in SOURCES:
+        assert not ML_DTYPES.search(path.read_text()), path

@@ -20,7 +20,20 @@ against ``mxnet_tpu`` on the same numpy inputs on the CPU:
 * F8: ``Optimizer.__init__`` takes the reference's arguments and
   ``**extra``, and ``set_learning_rate`` / ``set_lr_mult`` /
   ``set_wd_mult`` / ``_get_lr`` / ``_get_wd`` / ``_update_count`` behave
-  as the reference's (exact).
+  as the reference's (exact);
+* F9: ``Block.zero_grad`` / ``apply`` / ``register_forward_hook`` /
+  ``register_forward_pre_hook`` / ``reset_ctx`` are the reference's, not
+  ``torch.nn.Module``'s (gradients and hook arguments exact);
+* F10: ``Parameter.data`` / ``grad`` / ``list_data`` / ``list_ctx`` /
+  ``reset_ctx`` / ``set_data`` take and return NDArrays (exact);
+* F11: ``initialize`` takes ``ctx`` and honours a ``with mx.cpu():``
+  scope, ``collect_params`` a regex, and ``ParameterDict`` has
+  ``initialize`` / ``reset_ctx``;
+* F12: ``mx.kv``, ``optimizer.Ftrl``, ``gluon.nn.Sequential`` and
+  ``serving.OutOfPagesError`` / ``PagedKVCache`` exist (``Sequential``'s
+  forward at 1e-6);
+* F13: ``MXNET_ZERO`` requests ZeRO for the values the reference's
+  ``zero_enabled`` takes, and only those.
 """
 import pathlib
 import subprocess
@@ -285,7 +298,7 @@ def test_spmd_trainer_bf16_dense_updates_like_the_reference():
                                       jnp.bfloat16, lr, wd)
             for got, ref in zip((o[i] for o in outs), want):
                 assert int((got != ref).sum()) == 0
-    assert td.weight.data().dtype == torch.bfloat16
+    assert td.weight._tensor().dtype == torch.bfloat16
     onp.testing.assert_allclose(losses, ref_losses, rtol=2e-2)
 
 
@@ -318,7 +331,7 @@ def test_spmd_trainer_default_optimizer_is_sgd_like_the_reference():
     assert tr.optimizer.op_name == "sgd_update"
     got = [float(tr.step(x, y)) for _ in range(3)]
     onp.testing.assert_allclose(got, want, rtol=1e-5)
-    onp.testing.assert_allclose(td.weight.data().detach().numpy(),
+    onp.testing.assert_allclose(td.weight._tensor().detach().numpy(),
                                 jd.weight.data().asnumpy(), rtol=1e-5,
                                 atol=1e-7)
 
@@ -466,3 +479,214 @@ def test_learning_rate_setters_and_multipliers_match():
             s.set_learning_rate(0.1)
         outs.append(row)
     assert outs[1] == outs[0]
+
+
+# -- F9-F13: the Gluon surface under persistence ---------------------------------
+
+MLP_X = onp.random.RandomState(5).randn(4, 6).astype(onp.float32)
+
+
+def _mlp_pair(grad_req="write"):
+    """The same two-layer MLP in both packages, on the CPU, with the
+    reference's weights carried into the port."""
+    ref = jax_nn.HybridSequential()
+    ref.add(jax_nn.Dense(5, activation="relu"), jax_nn.Dense(3))
+    ref.initialize(init=mx.initializer.Xavier())
+    ref(mx.nd.array(MLP_X))
+    got = nn.HybridSequential()
+    got.add(nn.Dense(5, activation="relu", in_units=6), nn.Dense(3,
+                                                               in_units=5))
+    got.initialize(device="cpu")
+    convert.load_collected_params(
+        got, {k: p.data().asnumpy() for k, p in ref.collect_params().items()},
+        device="cpu")
+    for net in (ref, got):
+        net.collect_params().setattr("grad_req", grad_req)
+    return ref, got
+
+
+def _backward(pkg, net, x=MLP_X):
+    with pkg.autograd.record():
+        y = net(pkg.nd.array(x, ctx=pkg.cpu()))
+        loss = (y * y).sum()
+    loss.backward()
+
+
+def test_block_zero_grad_zeroes_the_gluon_buffers():
+    """F9: ``net.zero_grad()`` was torch's and left the Gluon buffers;
+    with ``grad_req="add"`` both packages accumulate two backwards and
+    then read zeros everywhere."""
+    ref, got = _mlp_pair("add")
+    for pkg, net in ((mx, ref), (mt, got)):
+        net.collect_params().zero_grad()
+        _backward(pkg, net)
+        _backward(pkg, net)
+    for k, p in ref.collect_params().items():
+        onp.testing.assert_allclose(got.collect_params()[k].grad().asnumpy(),
+                                    p.grad().asnumpy(), rtol=1e-5, atol=1e-6)
+        assert onp.abs(p.grad().asnumpy()).sum() > 0, k
+    ref.zero_grad()
+    got.zero_grad()
+    for net in (ref, got):
+        for k, p in net.collect_params().items():
+            assert not onp.any(p.grad().asnumpy()), k
+
+
+def test_block_apply_and_forward_hooks_follow_the_reference():
+    """F9: ``apply`` visits children first then the block and returns it;
+    forward hooks get the block, the arguments as passed (NDArrays) and
+    the output, and ``detach()`` on the handle removes them."""
+    ref, got = _mlp_pair()
+    seen = {}
+    for name, pkg, net in (("ref", mx, ref), ("got", mt, got)):
+        order = []
+        assert net.apply(lambda b: order.append(type(b).__name__)) is net
+        calls = []
+        pre = net[0].register_forward_pre_hook(
+            lambda b, args: calls.append(("pre", type(args[0]).__name__)))
+        post = net[0].register_forward_hook(
+            lambda b, args, out: calls.append(
+                ("post", type(out).__name__, out.asnumpy().copy())))
+        out = net(pkg.nd.array(MLP_X, ctx=pkg.cpu()))
+        pre.detach()
+        post.detach()
+        net(pkg.nd.array(MLP_X, ctx=pkg.cpu()))
+        seen[name] = (order, calls, out.asnumpy())
+    assert seen["got"][0] == seen["ref"][0] == \
+        ["Dense", "Dense", "HybridSequential"]
+    (_, calls_r, out_r), (_, calls_g, out_g) = seen["ref"], seen["got"]
+    assert [c[:2] for c in calls_g] == [c[:2] for c in calls_r] == \
+        [("pre", "NDArray"), ("post", "NDArray")]
+    onp.testing.assert_allclose(calls_g[1][2], calls_r[1][2], rtol=1e-5,
+                                atol=1e-6)
+    onp.testing.assert_allclose(out_g, out_r, rtol=1e-5, atol=1e-6)
+
+
+def test_block_reset_ctx_moves_every_parameter():
+    """F9: ``reset_ctx`` was absent; it moves every parameter (here CPU
+    to CPU, the value kept)."""
+    _, got = _mlp_pair()
+    before = convert.collected_params_to_numpy(got)
+    got.reset_ctx(mt.cpu())
+    got.collect_params().reset_ctx([mt.cpu()])
+    after = convert.collected_params_to_numpy(got)
+    assert all(onp.array_equal(before[k], after[k]) for k in before)
+    assert {str(c) for p in got.collect_params().values()
+            for c in p.list_ctx()} == {"cpu(0)"}
+
+
+def test_parameter_data_and_grad_are_ndarrays():
+    """F10: ``data()`` returned the ``torch.nn.Parameter`` and
+    ``data(ctx)`` / ``grad(ctx)`` / ``list_ctx`` raised; both packages
+    now return NDArrays with the same values."""
+    ref, got = _mlp_pair()
+    for pkg, net in ((mx, ref), (mt, got)):
+        _backward(pkg, net)
+    for k, rp in ref.collect_params().items():
+        gp = got.collect_params()[k]
+        for g, r in ((gp.data(), rp.data()), (gp.data(mt.cpu()), rp.data()),
+                     (gp.list_data()[0], rp.list_data()[0]),
+                     (gp.grad(mt.cpu()), rp.grad())):
+            assert isinstance(g, mt.nd.NDArray)
+            onp.testing.assert_allclose(g.asnumpy(), r.asnumpy(), rtol=1e-5,
+                                        atol=1e-6)
+        assert gp.list_ctx() == [mt.cpu()] and len(rp.list_ctx()) == 1
+        assert gp.data()._data is gp._tensor()
+
+
+def test_parameter_set_data_takes_an_ndarray_in_place():
+    """F10: ``set_data(nd_array)`` raised ``TypeError``; it now copies
+    the value into the parameter's tensor in place (what a captured step
+    holds keeps its address), cast to the parameter's type, as the
+    reference's value."""
+    ref, got = _mlp_pair()
+    new = onp.random.RandomState(9).randn(5, 6).astype(onp.float64)
+    ref.collect_params()["0.weight"].set_data(mx.nd.array(new))
+    p = got.collect_params()["0.weight"]
+    held = p._tensor()
+    p.set_data(mt.nd.array(new, ctx=mt.cpu(), dtype="float64"))
+    assert p._tensor() is held and held.dtype == torch.float32
+    onp.testing.assert_array_equal(
+        p.data().asnumpy(), ref.collect_params()["0.weight"].data().asnumpy())
+    with pytest.raises(mt.MXNetError, match="shape"):
+        p.set_data(mt.nd.zeros((2, 2), ctx=mt.cpu()))
+
+
+def test_initialize_takes_ctx_and_honours_the_scope(monkeypatch):
+    """F11: ``initialize(ctx=mx.cpu())`` and ``device=mx.cpu()`` raised
+    ``TypeError`` and a ``with mx.cpu():`` scope was ignored; all three,
+    and a list of one context, now initialize on the host.  With no
+    scope, no argument and no card, ``initialize()`` still raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    nets = [nn.Dense(3, in_units=2) for _ in range(5)]
+    nets[0].initialize(ctx=mt.cpu())
+    nets[1].initialize(ctx=[mt.cpu()])
+    nets[2].initialize(device=mt.cpu())
+    with mt.cpu():
+        nets[3].initialize()
+    for net in nets[:4]:
+        assert net.weight.list_ctx() == [mt.cpu()]
+    with pytest.raises(mt.MXNetError, match="device='cpu'"):
+        nets[4].initialize()
+    params = nets[4].collect_params()
+    params.initialize(ctx=mt.cpu())
+    assert params["weight"].list_ctx() == [mt.cpu()]
+
+
+def test_collect_params_selects_by_regex():
+    """F11: ``collect_params(select)`` raised ``TypeError``; it keeps the
+    names the regex finds, as the reference's."""
+    ref, got = _mlp_pair()
+    for select in (".*bias", "^1\\.", "weight$", "nothing"):
+        assert list(got.collect_params(select)) == \
+            list(ref.collect_params(select)), select
+
+
+def test_reference_names_exist():
+    """F12: ``mx.kv``, ``optimizer.Ftrl``, ``gluon.nn.Sequential`` and
+    ``serving.OutOfPagesError`` / ``serving.PagedKVCache``."""
+    assert mt.kv is mt.kvstore and mt.kv.create("local") is not None
+    assert mt.optimizer.Ftrl is mt.optimizer.FTRL
+    assert mx.optimizer.Ftrl is mx.optimizer.FTRL
+    from mxnet_tpu_torch.serving.decode import paged_kv
+    assert mt.serving.OutOfPagesError is paged_kv.OutOfPagesError
+    assert mt.serving.PagedKVCache is paged_kv.PagedKVCache
+    for name in ("Ftrl", ):
+        assert name in mt.optimizer.__all__
+    for name in ("OutOfPagesError", "PagedKVCache"):
+        assert name in mt.serving.__all__ and name in mx.serving.__all__
+
+
+def test_sequential_is_the_eager_container():
+    """F12: ``nn.Sequential`` runs its children in order as the
+    reference's does (1e-6 on the outputs), and is a plain Block."""
+    ref, got = _mlp_pair()
+    seq_r, seq_g = jax_nn.Sequential(), nn.Sequential()
+    seq_r.add(*ref)
+    seq_g.add(*got)
+    assert not isinstance(seq_g, mt.gluon.HybridBlock)
+    assert len(seq_g) == len(seq_r) == 2 and seq_g[1] is got[1]
+    onp.testing.assert_allclose(
+        seq_g(mt.nd.array(MLP_X, ctx=mt.cpu())).asnumpy(),
+        seq_r(mx.nd.array(MLP_X)).asnumpy(), rtol=1e-6, atol=1e-6)
+    assert list(seq_g.collect_params()) == list(seq_r.collect_params())
+
+
+@pytest.mark.parametrize("value", ["1", "true", "on", "0", "no", "yes",
+                                   "off", "false", ""])
+def test_mxnet_zero_is_read_as_the_reference_reads_it(value, monkeypatch):
+    """F13: the port took every value but 0/""/false/off as a request for
+    ZeRO (which is not ported, so ``MXNET_ZERO=yes`` made ``step`` raise);
+    both now request it for 1, true and on only."""
+    from mxnet_tpu.optimizer import fused_step as jax_fused
+    from mxnet_tpu_torch.gluon import trainer as port_trainer
+    monkeypatch.setenv("MXNET_ZERO", value)
+    assert port_trainer._zero_requested(None) == jax_fused.zero_enabled()
+    _, got = _mlp_pair()
+    if jax_fused.zero_enabled():
+        with pytest.raises(mt.MXNetError, match="not ported yet"):
+            mt.gluon.Trainer(got.collect_params(), "sgd")
+    else:
+        tr = mt.gluon.Trainer(got.collect_params(), "sgd")
+        _backward(mt, got)
+        tr.step(4)

@@ -197,10 +197,10 @@ def test_run_steps_writes_the_statistics_every_step():
     assert window.run_steps(x, y, 2).tolist() == losses
     assert window.num_update == two.num_update == 2
     for k in two._pkeys:
-        a, b = two._params[k].data(), window._params[k].data()
+        a, b = two._params[k]._tensor(), window._params[k]._tensor()
         assert torch.equal(a, b), k
         if k.endswith(("running_mean", "running_var")):
-            assert not torch.equal(a, one._params[k].data()), k
+            assert not torch.equal(a, one._params[k]._tensor()), k
         if two._opt_state[k]:
             assert torch.equal(two._opt_state[k][0],
                                window._opt_state[k][0]), k

@@ -219,16 +219,16 @@ def test_batch_norm_layer_running_update(dtype):
     close(out, ref_out.astype("float32").asnumpy(), tol, "out")
     for name in ("running_mean", "running_var"):
         want = getattr(ref_net, name).data().asnumpy()
-        close(getattr(net, name).data(), want, tol, name)
+        close(getattr(net, name)._tensor(), want, tol, name)
     unbiased = 0.9 + 0.1 * x.var(axis=(0, 2, 3), ddof=1)
     if dtype == "float32":
-        assert not onp.allclose(net.running_var.data().numpy(), unbiased,
+        assert not onp.allclose(net.running_var._tensor().numpy(), unbiased,
                                 rtol=1e-3)
     # outside record(): eval mode, the running statistics normalise and
     # nothing is written
-    before = net.running_mean.data().clone()
+    before = net.running_mean._tensor().clone()
     net(xt)
-    assert torch.equal(net.running_mean.data(), before)
+    assert torch.equal(net.running_mean._tensor(), before)
 
 
 # -- the small ops ----------------------------------------------------------------

@@ -106,7 +106,7 @@ def test_batch_norm_eager_under_record():
     for name, p in blk.collect_params().items():
         if name.endswith("running_mean"):
             assert p.grad_req == "null" and p._is_aux
-            assert not p.data().requires_grad
+            assert not p._tensor().requires_grad
 
 
 def test_predict_and_cast_to_bf16():
@@ -139,7 +139,7 @@ def test_predict_and_cast_to_bf16():
     want16 = ref(NDArray(X).astype("bfloat16")).astype("float32").asnumpy()
     net.cast("bfloat16")
     for p in net.collect_params().values():
-        assert p.data().dtype == torch.bfloat16 and p.dtype == torch.bfloat16
+        assert p._tensor().dtype == torch.bfloat16 and p.dtype == torch.bfloat16
     got16 = net(torch.from_numpy(X).bfloat16())
     assert got16.dtype == torch.bfloat16
     err = onp.abs(got16.float().detach().numpy() - want16).max()
@@ -163,8 +163,8 @@ def test_get_model_and_the_default_optimizer():
     tr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), device="cpu")
     assert isinstance(tr.optimizer, mt.optimizer.SGD)
     assert tr.optimizer.op_name == "sgd_update"
-    w0 = net.output.weight.data().clone()
+    w0 = net.output.weight._tensor().clone()
     loss = tr.step(X, Y)
     assert torch.isfinite(loss) and not torch.equal(w0,
-                                                    net.output.weight.data())
+                                                    net.output.weight._tensor())
 

@@ -298,13 +298,13 @@ def test_replaced_parameter_makes_the_trainer_capture_again(remat_ref):
     tr = _port_trainer(net)
     tr.step(DATA, LABEL)
     p = net.collect_params()["blocks.0.ffn1.weight"]
-    in_place = p.data().clone()
+    in_place = p._tensor().clone()
     p.set_data(in_place)                     # copies: the same address
     tr.step(DATA, LABEL)
     assert tr.compiles == 1
-    old = p.data()
+    old = p._tensor()
     p._set(old.detach() * 0.5)               # a new tensor
-    new = p.data()
+    new = p._tensor()
     frozen = old.detach().clone()
     start = new.detach().clone()
     tr.step(DATA, LABEL)
