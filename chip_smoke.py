@@ -249,6 +249,16 @@ ms, idle share (of the profiled and of the unprofiled host ms) and the
 kernels a step (copies and memsets apart); and each kernel's launches a
 step by name from a CUDA-only trace; then the host blocks once more,
 after the profiles.  The last line is ``{"trees": [...]}``.
+
+    python3 chip_smoke.py --gluon-ab TREE [TREE ...]
+
+does the same for what the whole-step capture costs the loops it does
+not capture: each TREE in a process of its own builds K1-K3 and K6 and
+prints the host ms a step (5 or 4 blocks, the modes in turns, each
+block ended by a sync) of the nd path's recorded K6 step and of
+``gluon_train``'s eager loop (``amp.scale_loss``, Adam), under each
+setting of ``MXNET_CACHED_STEP`` and ``MXNET_FUSED_STEP`` the tree has
+(see ``gluon_ab_child``).  The last line is ``{"trees": [...]}``.
 """
 import gc
 import json
@@ -2190,6 +2200,154 @@ def train_ab(trees):
     return 0
 
 
+def gluon_ab_child(torch, tree):
+    """One tree of ``--gluon-ab``, in a process of its own: that tree's
+    ``chip_smoke`` and ``mxnet_tpu_torch``.  Host ms a step (blocks of
+    steps ended by a sync, the modes in turns, medians) of the nd path's
+    recorded step (``nd_step``, K6, bf16) and of ``gluon_train``'s eager
+    Gluon loop (the transformer row, ``amp.scale_loss``, Adam), under
+    each setting of ``MXNET_CACHED_STEP`` and ``MXNET_FUSED_STEP`` that
+    tells the whole-step capture's cost on loops it does not capture:
+    the nd step with no gluon Trainer alive, and with one alive that may
+    capture; the Gluon loop observed and declined every step (the fused
+    step off), breaking every step until the break latch, and after it.
+    Prints one JSON line."""
+    import importlib.util
+    sys.path.insert(0, tree)
+    import chip_smoke as cs
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.ops import attention as fa_mod
+    from mxnet_tpu_torch.ops import layernorm_residual as lnr_mod
+    if not os.path.abspath(fa_mod.__file__).startswith(tree):
+        raise AssertionError(f"imported {fa_mod.__file__}, not {tree}")
+    fa_mod.build()
+    lnr_mod.build()
+    capture = importlib.util.find_spec("mxnet_tpu_torch.imperative") \
+        is not None
+    out = {"tree": tree, "gpu": nvidia_smi(), "has_cached_step": capture}
+    off = {"MXNET_CACHED_STEP": "0"}
+
+    def with_env(env, fn):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            return fn()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def blocks(modes, calls, rounds=5):
+        res = {name: [] for name in modes}
+        for _ in range(rounds):
+            for name, (env, fn) in modes.items():
+                def block():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+                    return (time.perf_counter() - t0) * 1e3 / calls
+                res[name].append(with_env(env, block))
+        return {name: {"median": sorted(v)[len(v) // 2], "blocks": v}
+                for name, v in res.items()}
+
+    rng = onp.random.RandomState(31)
+    shape = (cs.BATCH, cs.SEQ, cs.DIM)
+    host = [rng.randn(*shape).astype(onp.float32),
+            rng.randn(*shape).astype(onp.float32),
+            (rng.rand(cs.DIM) + 0.5).astype(onp.float32),
+            (rng.randn(cs.DIM) * 0.1).astype(onp.float32)]
+    arrays = [mx.nd.array(h, ctx=mx.gpu(0), dtype="bfloat16") for h in host]
+    for a in arrays:
+        a.attach_grad()
+
+    def nd():
+        cs.nd_step(mx, arrays)
+
+    nd()
+    nd_modes = {"nd": ({}, nd)}
+    if capture:
+        nd_modes["nd_cached_step_off"] = (off, nd)
+    out["nd_no_trainer"] = blocks(nd_modes, cs.ND_STEPS)
+
+    amp.init("bfloat16")
+    net = cs.train_model(torch)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": cs.LR})
+    amp.init_trainer(trainer)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    ids, labels = cs.train_batch(torch)
+    x, y = mx.nd.array(ids), mx.nd.array(labels)
+
+    def step():
+        cs.gluon_loop_step(mx, amp, net, loss_fn, trainer, x, y, cs.BATCH)
+
+    unfused = {"MXNET_FUSED_STEP": "0"}
+    for env in (unfused, {}):
+        with_env({**env, **off}, step)                # warm
+    modes = {"unfused": (unfused, step)}
+    if capture:
+        modes = {"unfused_observed": (unfused, step),
+                 "unfused_cached_step_off": ({**unfused, **off}, step)}
+    out["gluon_unfused"] = blocks(modes, 5, rounds=4)
+    if capture:
+        from mxnet_tpu_torch.imperative import cached_step
+        out["gluon_state_after_unfused"] = cached_step.trainer_state(trainer)
+        # MXNET_CACHED_STEP at its default: each deferred step breaks at
+        # scale_loss's overflow read until the latch
+        times = []
+        for _ in range(40):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        state = cached_step.trainer_state(trainer)
+        n = state["breaks"]
+        out["gluon_breaking"] = {"step_ms": times, "state": state,
+                                 "median_of_breaking_steps":
+                                 sorted(times[1:n + 1])[n // 2]}
+        modes = {"latched": ({}, step), "cached_step_off": (off, step)}
+    else:
+        modes = {"eager": ({}, step)}
+    out["gluon"] = blocks(modes, 5, rounds=4)
+    amp.reset()
+    # a second trainer, which may still capture: record() is observed
+    small = mx.gluon.nn.Dense(1, in_units=4)
+    small.initialize(ctx=mx.gpu(0))
+    keep = mx.gluon.Trainer(small.collect_params(), "sgd",
+                            {"learning_rate": 0.1})
+    modes = {"nd_trainer_alive": ({}, nd)}
+    if capture:
+        modes["nd_trainer_alive_cached_step_off"] = (off, nd)
+    out["nd_trainer_alive"] = blocks(modes, cs.ND_STEPS)
+    del keep
+    print(json.dumps(out), flush=True)
+
+
+def gluon_ab(trees):
+    """``--gluon-ab``: each tree in turn, in a process of its own; the
+    last line holds every tree's line."""
+    results = []
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--gluon-ab-child",
+             tree], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        results.append(json.loads(line))
+    print(json.dumps({"trees": results}), flush=True)
+    return 0
+
+
 # kernel names by kind, first match wins (convolutions before GEMMs:
 # cuDNN's implicit-GEMM kernels hold "gemm" too)
 KERNEL_KINDS = (
@@ -2758,6 +2916,9 @@ def phase_gluon_train(torch, fa_mod, smi):
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     t0 = time.perf_counter()
     amp.init("bfloat16")
+    # the eager loop, as measured since it was ported: scale_loss's host
+    # read would break every captured step (gluon_capture checks that)
+    os.environ["MXNET_CACHED_STEP"] = "0"
     try:
         net = train_model(torch)
         trainer = mx.gluon.Trainer(net.collect_params(), "adam",
@@ -2824,13 +2985,14 @@ def phase_gluon_train(torch, fa_mod, smi):
                                  f"{grads_zero}")
     finally:
         amp.reset()
+        os.environ.pop("MXNET_CACHED_STEP", None)
     med = host["median"]
     emit({"phase": "gluon_train", "gpu": smi,
           "model": {"vocab": VOCAB, "units": DIM, "layers": LAYERS,
                     "heads": HEADS, "batch": BATCH, "seq": SEQ,
                     "tied": True, "amp": "bfloat16", "optimizer": "adam",
                     "lr": LR, "loop": "autograd.record + scale_loss + "
-                    "gluon.Trainer.step"},
+                    "gluon.Trainer.step", "MXNET_CACHED_STEP": "0"},
           "warmup_s": warm_s, "losses": losses, "host_ms": host,
           "tokens_per_s": BATCH * SEQ / (med / 1e3),
           "profile": prof, "optimizer_step": opt,
@@ -2889,7 +3051,17 @@ def phase_gluon_resnet(torch, smi):
         raise AssertionError(f"gluon_resnet: losses not finite and falling: "
                              f"{losses}")
     prof = profiled_kinds(torch, lambda: run(1), 3)
+    # BatchNorm's running statistics need real values inside record():
+    # every deferred step breaks, as in the reference, and the loop stays
+    # eager (until the breaks latch capture off)
+    from mxnet_tpu_torch.imperative import cached_step
+    capture = cached_step.trainer_state(trainer)
+    if capture["breaks"] < 1 or capture["last_reason"] != \
+            "host sync on a deferred array":
+        raise AssertionError(f"gluon_resnet: the BatchNorm net did not "
+                             f"break its captured steps: {capture}")
     emit({"phase": "gluon_resnet", "gpu": smi,
+          "cached_step": capture,
           "model": {"net": "resnet50_v1", "classes": 1000,
                     "image": RESNET_IMAGE, "batch": RESNET_BATCH,
                     "params": "bfloat16 (amp.convert_model)",
@@ -2906,6 +3078,445 @@ def phase_gluon_resnet(torch, smi):
     del trainer, net, x, y, data, label
     gc.collect()
     torch.cuda.empty_cache()
+
+
+GLUON_CAPTURE_STEPS = 10
+GLUON_REPLAY_STEPS = 5
+
+
+def gluon_snapshot(trainer):
+    """Copies of a Gluon trainer's weights, optimizer states and update
+    counts."""
+    opt = trainer._optimizer
+    return ([p._data.detach().clone() for p in trainer._params],
+            {i: [s._data.clone() for s in st]
+             for i, st in trainer._updaters[0].states.items()},
+            (dict(opt._index_update_count), opt.num_update))
+
+
+def gluon_restore(torch, trainer, snap):
+    """A snapshot written back in place (a captured step keeps the
+    addresses it was captured on)."""
+    weights, states, (counts, num_update) = snap
+    with torch.no_grad():
+        for p, w in zip(trainer._params, weights):
+            p._data.copy_(w)
+        for i, st in trainer._updaters[0].states.items():
+            for s, v in zip(st, states[i]):
+                s._data.copy_(v)
+    trainer._optimizer._index_update_count = dict(counts)
+    trainer._optimizer.num_update = num_update
+
+
+def gluon_differ(torch, trainer, snap):
+    """(tensors of the trainer not bitwise equal to ``snap``'s, the
+    largest absolute deviation)."""
+    now = gluon_snapshot(trainer)
+    pairs = list(zip(now[0], snap[0])) + [
+        (a, b) for i in snap[1] for a, b in zip(now[1][i], snap[1][i])]
+    bad = [n for n, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    dev = max((float((pairs[n][0].float() - pairs[n][1].float()).abs()
+                     .max()) for n in bad), default=0.0)
+    return bad, dev
+
+
+def gluon_capture_hybridize(torch, mx, smi):
+    """``HybridBlock.hybridize`` on the card: the ResNet-50 of
+    ``resnet_infer`` (Xavier seed 0) cast to bf16 (``net.cast``), batch
+    128, eval mode.  With cuDNN restricted to deterministic algorithms
+    (as ``resnet_replay_check``), the eager forward, the capturing call
+    and a replay bitwise equal, one capture for the signature.  Then,
+    captured again with cuDNN's free choice, img/s hybridized against
+    eager (``marginal``, windows of 4 and 24 forwards, each ending in one
+    read of the summed logits), in one process."""
+    from mxnet_tpu_torch import telemetry
+    net = resnet_net(torch, DEV)
+    net.cast("bfloat16")
+    g = torch.Generator(device=DEV).manual_seed(0)
+    x = mx.nd.array(torch.randn((RESNET_INFER_BATCH, 3, RESNET_IMAGE,
+                                 RESNET_IMAGE), generator=g,
+                                device=DEV).to(torch.bfloat16))
+    compiles = telemetry.counter("compile.cached_op.count")
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = net(x)._data.clone()
+        net.hybridize()
+        c0 = compiles.value
+        first = net(x)._data.clone()
+        second = net(x)._data.clone()
+        captures = compiles.value - c0
+        graph = next(iter(net._cached_graphs.values())).exe.graph
+        if not (torch.equal(first, eager) and torch.equal(second, eager)) \
+                or captures != 1 or graph is None or \
+                len(net._cached_graphs) != 1:
+            raise AssertionError(
+                f"gluon_capture: the hybridized ResNet-50 forward differs "
+                f"from the eager one (max |d| "
+                f"{float((second.float() - eager.float()).abs().max())}) "
+                f"or captured {captures} times (graph {graph is not None})")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rows = {}
+    for mode in ("hybridized", "eager"):
+        net.hybridize(mode == "hybridized")
+
+        def run(n):
+            acc = torch.zeros((), device=DEV)
+            for _ in range(n):
+                acc += net(x)._data.float().sum()
+            float(acc)
+
+        slope, t1, t2 = marginal(run)
+        rows[mode] = {"img_per_s": RESNET_INFER_BATCH / slope,
+                      "forward_ms": slope * 1e3,
+                      "window_s": {str(WINDOWS[0]): t1,
+                                   str(WINDOWS[1]): t2}}
+    out = {"net": "resnet50_v1", "batch": RESNET_INFER_BATCH,
+           "image": RESNET_IMAGE, "dtype": "bfloat16 (net.cast)",
+           "bitwise_equal_eager": True, "captures": captures, **rows}
+    del net, x, eager, first, second
+    return out
+
+
+def phase_gluon_capture(torch, fa_mod, smi):
+    """The whole-step capture of the eager Gluon loop at full width: the
+    training row (vocab 32000, dim 512, 8 heads, 8 layers, batch 8 x
+    2048, the int32 ids of ``train_batch``, Xavier seed 0) through
+    ``gluon.Trainer(..., "adam", lr 3e-4)`` under ``amp.init("bfloat16")``
+    WITHOUT ``scale_loss`` (the path the reference captures).
+
+    One eager warm step, then 10 steps with the counts zeroed just before
+    and read just after: the first captures (``warmup_s`` and the graph
+    pool's memory), 9 replay; ``compiles`` 1, ``hits`` 9, no break, no
+    fallback, ``dispatch.count`` +1 a step, K1-K3 8 launches a step each
+    and no plain call, losses finite and falling.  5 replays against 5
+    ``MXNET_CACHED_STEP=0`` steps from the same weights, Adam state and
+    counts: losses, weights and Adam's m and v bitwise.  Host ms a step
+    captured against eager in blocks taken in turns, tokens/s, the
+    profiler's device busy ms, idle share and kernels a step, peak
+    memory, and this process's SPMDTrainer host ms.  An overflow (an inf
+    written into a weight the graph reads) skips the update in the graph
+    and halves the scale, with no new compile.  The fallback matrix: a
+    loss read before ``step`` breaks with the reference's reason and
+    gives the eager step; ``amp.scale_loss`` inside ``record()`` breaks
+    (the reference raises there) and gives the eager step.  Then
+    ``hybridize`` (:func:`gluon_capture_hybridize`), and a plain Block's
+    branch (:func:`gluon_capture_plain_branch`)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, telemetry
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.imperative import cached_step
+    t0 = time.perf_counter()
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    dispatch = telemetry.counter("dispatch.count")
+    out = {"phase": "gluon_capture", "gpu": smi,
+           "model": {"vocab": VOCAB, "units": DIM, "layers": LAYERS,
+                     "heads": HEADS, "batch": BATCH, "seq": SEQ,
+                     "tied": True, "amp": "bfloat16", "optimizer": "adam",
+                     "lr": LR, "loop": "autograd.record + backward + "
+                     "gluon.Trainer.step (no scale_loss)"}}
+    failures = []
+    amp.init("bfloat16")
+    try:
+        net = train_model(torch)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": LR})
+        loss_fn = SoftmaxCrossEntropyLoss()
+        ids, labels = train_batch(torch)
+        x, y = mx.nd.array(ids), mx.nd.array(labels)
+
+        def step(read=True):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(BATCH)
+            return float(loss.mean().asscalar()) if read else loss
+
+        def eager_step():
+            os.environ["MXNET_CACHED_STEP"] = "0"
+            try:
+                return step()
+            finally:
+                os.environ.pop("MXNET_CACHED_STEP", None)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        w0 = time.perf_counter()
+        losses = [step()]                          # the eager warm step
+        reserved0 = torch.cuda.memory_reserved()
+        s0 = cached_step.stats()
+        reset_counts(*fns)
+        per_step = []
+        for _ in range(GLUON_CAPTURE_STEPS):
+            d0 = dispatch.value
+            loss = step(read=False)
+            per_step.append(dispatch.value - d0)
+            if len(per_step) == 1:                 # the capturing step
+                torch.cuda.synchronize()
+                warm_s = time.perf_counter() - w0
+                pool = torch.cuda.memory_reserved() - reserved0
+            losses.append(float(loss.mean().asscalar()))
+        torch.cuda.synchronize()
+        counts = {f.__name__: {"launches": f.launches,
+                               "plain_calls": f.plain_calls} for f in fns}
+        s1 = cached_step.stats()
+        stats = {k: s1[k] - s0[k]
+                 for k in ("compiles", "hits", "graph_breaks", "fallbacks")}
+        peak = torch.cuda.max_memory_allocated()
+        want = {"compiles": 1, "hits": GLUON_CAPTURE_STEPS - 1,
+                "graph_breaks": 0, "fallbacks": 0}
+        if stats != want or per_step != [1] * GLUON_CAPTURE_STEPS:
+            failures.append(f"counters {stats} (want {want}), dispatches "
+                            f"a step {per_step}")
+        for name, c in counts.items():
+            if c != {"launches": LAYERS * GLUON_CAPTURE_STEPS,
+                     "plain_calls": 0}:
+                failures.append(f"{name} ran {c}: want {LAYERS} launches "
+                                f"a step over {GLUON_CAPTURE_STEPS} steps")
+        if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+            failures.append(f"losses not finite and falling: {losses}")
+        exe = next(iter(next(iter(
+            trainer._cached_step_state.cache.values())).execs.values()))[0]
+        if exe.graph is None:
+            failures.append("the cached step holds no CUDA graph")
+        out.update({"warmup_s": warm_s, "graph_pool_reserved_bytes": pool,
+                    "losses": losses, "counts": counts,
+                    "launches_per_step": LAYERS, "cached_step": stats,
+                    "dispatches_per_step": per_step})
+
+        # replays against MXNET_CACHED_STEP=0 steps from the same state
+        snap = gluon_snapshot(trainer)
+        lc = [step() for _ in range(GLUON_REPLAY_STEPS)]
+        captured = gluon_snapshot(trainer)
+        gluon_restore(torch, trainer, snap)
+        le = [eager_step() for _ in range(GLUON_REPLAY_STEPS)]
+        bad, dev = gluon_differ(torch, trainer, captured)
+        if lc != le or bad:
+            failures.append(f"replays differ from MXNET_CACHED_STEP=0 "
+                            f"steps: losses {lc} vs {le}; {len(bad)} "
+                            f"tensors, max |d| {dev}")
+        out["replay_check"] = {"steps": GLUON_REPLAY_STEPS,
+                               "losses_captured": lc, "losses_eager": le,
+                               "tensors_compared": len(snap[0]) + sum(
+                                   len(v) for v in snap[1].values()),
+                               "tensors_differing": len(bad),
+                               "max_abs_deviation": dev,
+                               "bitwise_equal": lc == le and not bad}
+
+        # where a captured step's host time goes: the deferred forward
+        # and backward, trainer.step to the replay's launch, then the
+        # wait for the card (medians of 5 steps)
+        parts = {"forward_ms": [], "backward_ms": [], "step_ms": [],
+                 "wait_ms": []}
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = [time.perf_counter()]
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            t.append(time.perf_counter())
+            loss.backward()
+            t.append(time.perf_counter())
+            trainer.step(BATCH)
+            t.append(time.perf_counter())
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            for k, a, b in zip(parts, t, t[1:]):
+                parts[k].append((b - a) * 1e3)
+        out["host_breakdown_ms"] = {k: sorted(v)[2]
+                                    for k, v in parts.items()}
+
+        # timing, in one process
+        host = host_ms_blocks({"captured": step, "eager": eager_step},
+                              calls=5, rounds=2)
+        # a loop that reads the loss once every 10 steps, captured and
+        # eager in turns: the host may run ahead of the card
+        def window(env, n=10):
+            if env is not None:
+                os.environ["MXNET_CACHED_STEP"] = env
+            try:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(n):
+                    loss = step(read=False)
+                float(loss.mean().asscalar())
+                return (time.perf_counter() - t1) * 1e3 / n
+            finally:
+                os.environ.pop("MXNET_CACHED_STEP", None)
+
+        loops = {"captured": [], "eager": []}
+        for _ in range(2):
+            loops["captured"].append(window(None))
+            loops["eager"].append(window("0"))
+        out["loop_ms"] = {k: {"windows": v, "min": min(v)}
+                          for k, v in loops.items()}
+        out["tokens_per_s_loop"] = {k: BATCH * SEQ / (min(v) / 1e3)
+                                    for k, v in loops.items()}
+        prof = profiled_kinds(torch, step, 3)
+        prof["device_idle_share_of_host_ms"] = (
+            1 - prof["device_busy_ms"] / host["captured"]["median"])
+        prof_e = profiled_kinds(torch, eager_step, 3)
+        prof_e["device_idle_share_of_host_ms"] = (
+            1 - prof_e["device_busy_ms"] / host["eager"]["median"])
+        out.update({"host_ms": host,
+                    "tokens_per_s": BATCH * SEQ / (
+                        host["captured"]["median"] / 1e3),
+                    "tokens_per_s_eager": BATCH * SEQ / (
+                        host["eager"]["median"] / 1e3),
+                    "profile": prof, "profile_eager": prof_e,
+                    "memory_bytes": {"max_allocated_steps": peak},
+                    "spmd_trainer_host_ms_same_process": GLUON_SPMD_HOST})
+
+        # an overflow in the graph: an inf in a weight it reads
+        scaler = trainer._amp_loss_scaler
+        scaler.loss_scale = 1024.0        # a power of two: exact
+        step()
+        snap = gluon_snapshot(trainer)
+        c0 = cached_step.stats()["compiles"]
+        sk0 = telemetry.counter("amp.skipped_updates").value
+        pos = net.collect_params()["pos_embed"]._data
+        keep = pos[0, 0].clone()
+        with torch.no_grad():
+            pos[0, 0] = float("inf")
+        d0 = dispatch.value
+        step(read=False)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            pos[0, 0] = keep
+        overflow = {"scale_before_after": [1024.0, scaler.loss_scale],
+                    "compiles": cached_step.stats()["compiles"] - c0,
+                    "dispatches": dispatch.value - d0,
+                    "skipped_updates": telemetry.counter(
+                        "amp.skipped_updates").value - sk0,
+                    "tensors_changed": len(gluon_differ(torch, trainer,
+                                                        snap)[0])}
+        if overflow != {"scale_before_after": [1024.0, 512.0],
+                        "compiles": 0, "dispatches": 1,
+                        "skipped_updates": 1, "tensors_changed": 0}:
+            failures.append(f"overflow not skipped in the graph: "
+                            f"{overflow}")
+        out["overflow"] = overflow
+
+        # the fallback matrix: a host read before step, scale_loss
+        # (scale_loss: two steps; the first meets the plain loop's
+        # structure, which has no scaling op, breaks there and arms the
+        # scaled loop's; the second breaks at the overflow check's read)
+        matrix = {}
+        for case, n in (("loss_read_before_step", 1), ("scale_loss", 2)):
+            snap = gluon_snapshot(trainer)
+            b0 = cached_step.trainer_state(trainer)["breaks"]
+            results = []
+            for env in ("1", "0"):
+                gluon_restore(torch, trainer, snap)
+                os.environ["MXNET_CACHED_STEP"] = env
+                try:
+                    for _ in range(n):
+                        with mx.autograd.record():
+                            loss = loss_fn(net(x), y)
+                            if case == "scale_loss":
+                                with amp.scale_loss(loss, trainer) as sl:
+                                    sl.backward()
+                        if case == "loss_read_before_step":
+                            loss.backward()
+                            read = loss.asnumpy()   # a host sync
+                        trainer.step(BATCH)
+                finally:
+                    os.environ.pop("MXNET_CACHED_STEP", None)
+                if env == "1":
+                    state = cached_step.trainer_state(trainer)
+                    results.append(gluon_snapshot(trainer))
+            bad, dev = gluon_differ(torch, trainer, results[0])
+            row = {"steps": n, "breaks": state["breaks"] - b0,
+                   "last_reason": state["last_reason"],
+                   "tensors_differing_from_eager": len(bad),
+                   "max_abs_deviation": dev}
+            if row["breaks"] != n or bad or row["last_reason"] != \
+                    "host sync on a deferred array":
+                failures.append(f"{case}: {row}")
+            matrix[case] = row
+        out["fallback_matrix"] = matrix
+        out["loss_read_before_step"] = float(read.mean())
+    finally:
+        amp.reset()
+    del trainer, net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["hybridize"] = gluon_capture_hybridize(torch, mx, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["plain_block_branch"] = gluon_capture_plain_branch(torch, mx,
+                                                           failures)
+    out["failures"] = failures
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    if failures:
+        raise AssertionError(f"gluon_capture: {failures}")
+    return counts
+
+
+def gluon_capture_plain_branch(torch, mx, failures):
+    """A plain Block whose forward takes a branch on a Python attribute
+    (a tanh between its two Dense layers from step 4 on), 6 SGD steps on
+    the card, captured and under ``MXNET_CACHED_STEP=0``, from the same
+    weights and batch.  The plain forward runs at every step, so the
+    flip is a divergence from the captured tape: one break with the
+    reference's reason, a second capture for the new path, and the
+    eager run's weights (bitwise, else within 1e-6).  A graph that held
+    the whole forward would replay the old path."""
+    from mxnet_tpu_torch.imperative import cached_step
+    nn = mx.gluon.nn
+
+    class Branchy(mx.gluon.Block):
+        def __init__(self):
+            super().__init__()
+            self.a = nn.Dense(64, in_units=64, activation="relu")
+            self.act = nn.Activation("tanh")
+            self.out = nn.Dense(1, in_units=64)
+            self.squash = False
+
+        def forward(self, x):
+            h = self.a(x)
+            if self.squash:
+                h = self.act(h)
+            return self.out(h)
+
+    x = on_card(torch, mx, onp.random.RandomState(61).standard_normal(
+        (32, 64)).astype(onp.float32))
+
+    def run(env):
+        os.environ["MXNET_CACHED_STEP"] = env
+        try:
+            net = Branchy()
+            net.initialize(ctx=mx.gpu(0))
+            trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                       {"learning_rate": 0.01},
+                                       kvstore=None)
+            for i in range(6):
+                net.squash = i >= 3
+                with mx.autograd.record():
+                    y = net(x)
+                    loss = (y * y).sum()
+                loss.backward()
+                trainer.step(32)
+            torch.cuda.synchronize()
+            return ({k: p.data()._data.detach().clone()
+                     for k, p in net.collect_params().items()},
+                    cached_step.trainer_state(trainer))
+        finally:
+            os.environ.pop("MXNET_CACHED_STEP", None)
+
+    got, state = run("1")
+    want, _ = run("0")
+    dev = max(float((got[k] - want[k]).abs().max()) for k in got)
+    row = {"steps": 6, "squash_from_step": 4, "captures": state["captures"],
+           "breaks": state["breaks"], "last_reason": state["last_reason"],
+           "last_capture_error": state.get("last_error"),
+           "bitwise_equal_eager": all(torch.equal(got[k], want[k])
+                                      for k in got),
+           "max_abs_deviation": dev, "tolerance": 1e-6}
+    if (row["captures"], row["breaks"], row["last_reason"]) != \
+            (2, 1, "op divergence from captured tape") or dev > 1e-6:
+        failures.append(f"plain Block branch: {row}")
+    return row
 
 
 GLUON_CHECK_TOL = {"weights_rel_l2": 1e-5, "running_stats_rel_l2": 1e-4}
@@ -3412,6 +4023,11 @@ def main():
         return 0
     if sys.argv[1:2] == ["--train-ab"]:
         return train_ab([os.path.abspath(t) for t in sys.argv[2:]])
+    if sys.argv[1:2] == ["--gluon-ab-child"]:
+        gluon_ab_child(torch, os.path.abspath(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--gluon-ab"]:
+        return gluon_ab([os.path.abspath(t) for t in sys.argv[2:]])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mxnet_tpu_torch.ops import attention as fa_mod
     from mxnet_tpu_torch.ops import layernorm_residual as lnr_mod
@@ -3457,6 +4073,11 @@ def main():
         if row["name"] in gluon_counts:
             row["launches_gluon_train"] = \
                 gluon_counts[row["name"]]["launches"]
+    capture_counts = phase_gluon_capture(torch, fa_mod, smi)
+    for row in kernels:                  # K1-K3 in the captured Gluon step
+        if row["name"] in capture_counts:
+            row["launches_gluon_capture"] = \
+                capture_counts[row["name"]]["launches"]
     phase_gluon_resnet(torch, smi)
     phase_gluon_check(torch)
     ckpt_counts = phase_ckpt(torch, fa_mod, smi)

@@ -26,7 +26,8 @@ import torch
 
 from .. import telemetry
 
-__all__ = ["LossScaler", "all_finite"]
+__all__ = ["LossScaler", "all_finite", "device_state", "enter_device",
+           "advance_device"]
 
 
 def all_finite(tensors) -> torch.Tensor:
@@ -43,6 +44,46 @@ def all_finite(tensors) -> torch.Tensor:
     if not flags:
         return torch.ones((), dtype=torch.bool)
     return flags[0] if len(flags) == 1 else torch.stack(flags).all()
+
+
+# -- a captured step's scaler state on the device (SPMDTrainer, the cached
+# step): (scale, clean steps, skipped steps of the call), 0-d f32 tensors
+# that the step's graph reads and updates in place --------------------------
+
+def device_state(device) -> tuple:
+    """A new (scale, clean steps, skipped steps) on ``device``, zeroed."""
+    return tuple(torch.zeros((), dtype=torch.float32, device=device)
+                 for _ in range(3))
+
+
+def enter_device(state, scaler: "LossScaler", version):
+    """Before a captured call: the host's scale and clean-step count into
+    ``state`` when the host set them since ``version`` (or on first use);
+    the call's skipped count to 0.  Returns the version ``state`` holds."""
+    if version != scaler._version:
+        scaler._fold()
+        state[0].fill_(scaler._loss_scale)
+        state[1].fill_(float(scaler._unskipped))
+        version = scaler._version
+    state[2].zero_()
+    return version
+
+
+@torch.no_grad()
+def advance_device(state, finite, factor, window) -> None:
+    """The scaler's schedule inside the graph: grow the scale by
+    ``factor`` after ``window`` clean steps, halve it (to no less than 1)
+    on an overflow (``finite`` false); count the skipped step."""
+    scale, good, skipped = state
+    good1 = good + 1.0
+    grown = torch.where(good1 >= window, scale * factor, scale)
+    new_scale = torch.where(finite, grown, torch.clamp(
+        scale * (1.0 / factor), min=1.0))
+    new_good = torch.where(finite, torch.where(good1 >= window, 0.0, good1),
+                           0.0)
+    scale.copy_(new_scale)
+    good.copy_(new_good)
+    skipped.add_((~finite).float())
 
 
 class LossScaler:
@@ -129,12 +170,22 @@ class LossScaler:
     def has_overflow(self, params) -> bool:
         """True when a gradient holds an inf or a NaN: one device bool for
         the whole set, read once."""
-        grads = [p._grad._data for p in params
-                 if getattr(p, "_grad", None) is not None]
+        from ..imperative.cached_step import ensure_real
+        grads = []
+        for p in params:
+            g = getattr(p, "_grad", None)
+            if g is None:
+                continue
+            # under a deferred captured step the buffer may still be a
+            # placeholder: reading it is a graph break, after which it
+            # holds the eager backward's gradient
+            ensure_real(g)
+            grads.append(g._data)
         return not bool(all_finite(grads))
 
     def update_scale(self, overflow: bool):
         self._fold()
+        self._version += 1        # the host set the state
         if overflow:
             self._loss_scale = max(self._loss_scale / self._scale_factor,
                                    1.0)

@@ -41,6 +41,7 @@ import weakref
 import torch
 
 from .base import MXNetError
+from .imperative import cached_step as _cached_step
 
 __all__ = ["is_training", "set_training", "is_recording", "set_recording",
            "record", "train_mode", "predict_mode", "pause",
@@ -89,6 +90,10 @@ class _Scope:
             self._old_train = set_training(self._train)
         if self._rec is not None:
             self._old_rec = set_recording(self._rec)
+            if self._rec and not self._old_rec:
+                # an outermost record(): the whole-step capture observes,
+                # or defers, the training step starting here
+                _cached_step.note_record_enter()
         if self._grad is not None:
             self._old_grad = torch.is_grad_enabled()
             torch.set_grad_enabled(self._grad)
@@ -175,7 +180,18 @@ def _heads(heads, head_grads):
 def backward(heads, head_grads=None, retain_graph: bool = False,
              train_mode: bool = True, create_graph: bool = False) -> None:
     """Gradients of ``heads`` into every reachable variable's buffer,
-    under its ``grad_req`` (parity: ``mxnet_tpu/autograd.py:212``)."""
+    under its ``grad_req`` (parity: ``mxnet_tpu/autograd.py:212``).  A
+    deferring cached step absorbs the backward into its capture
+    (``imperative/cached_step.py``); an eager one is shown to it."""
+    from .ndarray.ndarray import NDArray
+    if isinstance(heads, NDArray):
+        heads = [heads]
+        if head_grads is not None and not isinstance(head_grads,
+                                                     (list, tuple)):
+            head_grads = [head_grads]
+    if _cached_step._ACTIVE and _cached_step.deferred_backward(
+            heads, head_grads, retain_graph, train_mode, create_graph):
+        return
     outs, seeds = _heads(heads, head_grads)
     variables = [v for v in list(_VARIABLES.values())
                  if v._grad_req != "null" and v._leaf.requires_grad]
@@ -186,17 +202,23 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
             outs, [v._leaf for v in variables], seeds,
             retain_graph=retain_graph, create_graph=create_graph,
             allow_unused=True)
+    delivered = []
     for v, g in zip(variables, grads):
         if g is None:                   # not reachable from the heads
             continue
         if not create_graph:
             g = g.detach()
         buf = v._grad
+        _cached_step.ensure_real(buf)
         buf._data = buf._data + g if v._grad_req == "add" else g
+        delivered.append(v)
     if not retain_graph:                # the recorded graph is spent
         for v in variables:
             if v._data is not v._leaf:
                 v._rebind(v._data)
+    if not create_graph:
+        _cached_step.note_backward(heads, head_grads, train_mode,
+                                   retain_graph, delivered)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -206,6 +228,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     The variables must have been marked (``attach_grad``) before the
     heads were recorded."""
     from .ndarray.ndarray import NDArray
+    _cached_step.break_if_deferring("backward flags unsupported by capture")
     single = isinstance(variables, NDArray)
     if single:
         variables = [variables]
@@ -274,6 +297,8 @@ class Function:
 
     def __call__(self, *inputs):
         from .ndarray.ndarray import NDArray
+        # the call runs outside the op funnel: it cannot be captured
+        _cached_step.break_if_deferring("custom autograd Function")
         if not (is_recording() and any(x._data.requires_grad
                                        for x in inputs)):
             with _Scope(recording=False):

@@ -57,11 +57,63 @@ from .ops.attention import flash_bwd_dkdv, flash_bwd_dq, flash_fwd
 from .ops.paged_attention import paged_attention
 from .ops.rope import rope
 
-__all__ = ["Executable", "input_spec"]
+__all__ = ["Executable", "CaptureOwner", "input_spec"]
 
 _ALIGN = 16
 # wrappers whose launches a graph holds
 _COUNTED = (paged_attention, rope, flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
+
+
+class CaptureOwner:
+    """What an owner of executables keeps beside them (the decode
+    engine, ``SPMDTrainer``, a trainer's cached steps, a hybridized
+    block): the memory pool and capture stream its graphs share, made at
+    first use on a card, and the embedding-id check its last captured
+    call deferred."""
+
+    __slots__ = ("_with", "_pending")
+
+    def __init__(self):
+        self._with = None
+        self._pending = None
+
+    def capture_with(self, device):
+        """``(graph pool, capture stream)`` on a CUDA ``device``, else
+        ``(None, None)``."""
+        if self._with is None:
+            self._with = (None, None)
+            if device.type == "cuda":
+                with torch.cuda.device(device):
+                    self._with = (torch.cuda.graph_pool_handle(),
+                                  torch.cuda.Stream(device))
+        return self._with
+
+    def defer_ids(self, bounds, vocabs, device) -> None:
+        """A captured call's embedding id bounds (None: no embedding ran):
+        on the CPU, raise now if an id was out of range; on CUDA, copy
+        them to the host behind the call's work, for the next call's
+        :meth:`check_ids`."""
+        from .ops.tensor import IdCheck
+        if bounds is None:
+            return
+        if device.type != "cuda":
+            IdCheck.raise_if_bad(bounds, list(vocabs))
+            return
+        host = torch.empty(bounds.shape, dtype=bounds.dtype,
+                           pin_memory=True)
+        host.copy_(bounds, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        self._pending = (host, list(vocabs), done)
+
+    def check_ids(self) -> None:
+        """Raise the previous call's embedding error, if it had one."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            from .ops.tensor import IdCheck
+            host, vocabs, done = pending
+            done.synchronize()
+            IdCheck.raise_if_bad(host, vocabs)
 
 
 def input_spec(a):
@@ -136,7 +188,10 @@ class Executable:
                                   capture_error_mode="thread_local"):
                 self.outputs = self.fn(*self.inputs)
         except Exception as e:
-            raise MXNetError(f"CUDA graph capture failed: {e}") from e
+            err = MXNetError(f"CUDA graph capture failed: {e}")
+            # what the warm run computed (and, for a step, applied)
+            err.warm_outputs = warm
+            raise err from e
         for i, f in enumerate(_COUNTED):
             self._launches[i] = f.launches - before[i]
             f.launches = before[i]            # nothing ran yet

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from ... import autograd as ag
 from ... import initializer as init_mod
 from ...base import MXNetError
+from ...imperative import cached_step as _cs
 from ...ops import nn as nn_ops
 from ...ops import tensor as tensor_ops
 from ..block import Block, HybridBlock, current_trace
@@ -200,6 +201,10 @@ class BatchNorm(HybridBlock):
                        for p, stat in ((self.running_mean, mean),
                                        (self.running_var, var))}
             tc = current_trace()
+            if tc is None:
+                # an in-place write of real values: the record it runs in
+                # cannot be deferred by the whole-step capture
+                _cs.note_aux_write()
             for p, value in new.items():
                 if tc is not None:
                     tc.aux_update(p, value)

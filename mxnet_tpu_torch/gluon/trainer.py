@@ -11,7 +11,13 @@ optimizer step of the eager Gluon loop::
 ``step`` sets ``rescale_grad`` to ``1 / batch_size`` (times the AMP loss
 scale's inverse, ``_scale``), reduces the gradients through the kvstore,
 and updates every parameter from its gradient buffer (``Parameter.grad``)
-in place.  The update takes the fused whole-set step (``optimizer.
+in place.  By default the whole step is captured
+(``imperative/cached_step.py``, ``MXNET_CACHED_STEP``): after one eager
+step, a matching ``record()`` -> ``backward()`` -> ``step()`` runs as one
+function, a CUDA graph on a card, which ``step`` executes; a step the
+capture cannot hold runs eagerly as described here.
+
+The eager update takes the fused whole-set step (``optimizer.
 fused_step``: one multi-tensor call per group of equal attributes) when
 it accepts the optimizer, else ``aggregate_num`` parameters per call
 (``Updater.update_multi``), else one parameter at a time.  With a
@@ -21,8 +27,8 @@ the reduction of one value per key is an identity and is folded away
 the optimizer on its copy of each weight and the parameters pull the
 result.
 
-The reference's whole-step capture (``imperative/cached_step.py``),
-ZeRO (``zero=1``) and the distributed stores are not ported yet.
+ZeRO (``zero=1``) and the distributed stores are not ported yet
+(distribution, queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import List
 
 from .. import optimizer as opt_mod
 from .. import telemetry, tracing
+from ..imperative import cached_step
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
@@ -71,6 +78,7 @@ class Trainer:
         self._update_on_kvstore = None
         self._zero = zero
         self._check_zero()
+        cached_step.register_trainer(self)
 
     def _check_zero(self):
         if _zero_requested(self._zero):
@@ -150,6 +158,11 @@ class Trainer:
                 if not self._kv_initialized:
                     self._init_kvstore()
                 self._set_rescale(batch_size)
+                # the whole-step capture: a deferred record -> backward
+                # -> step runs here as one function; otherwise the eager
+                # step below is observed so that the next one can be
+                if cached_step.trainer_step(self, ignore_stale_grad):
+                    return
                 if not self._fold_device_allreduce():
                     with tracing.span("step.allreduce"):
                         self._allreduce_grads()
@@ -195,6 +208,9 @@ class Trainer:
         tok = telemetry.begin_step()
         try:
             with tracing.span("step.gluon_update"):
+                # only step() owns the whole-step capture: materialize
+                # any deferral
+                cached_step.break_if_deferring("Trainer.update")
                 self._check_zero()
                 if not self._kv_initialized:
                     self._init_kvstore()

@@ -25,6 +25,7 @@ from .. import autograd as ag
 from ..base import (MXNetError, check_shape, dtype_name, np_dtype,
                     numpy_bits, tensor_from_bits, torch_dtype)
 from ..context import Context, current_context
+from ..imperative.cached_step import ensure_real, resolve
 from ..ops import tensor as tensor_ops
 from ..ops.registry import apply_torch, invoke
 
@@ -38,6 +39,7 @@ def _device(ctx: Optional[Context]) -> torch.device:
 
 def _as_torch(data, ctx: Optional[Context], dtype) -> torch.Tensor:
     if isinstance(data, NDArray):
+        ensure_real(data)
         data = data._data
     if isinstance(data, torch.Tensor):
         t = data.detach()
@@ -120,7 +122,7 @@ class NDArray:
     def _rebind(self, t: torch.Tensor) -> "NDArray":
         """Replace the contents outside any graph; a variable becomes a
         fresh leaf."""
-        t = t.detach()
+        t = resolve(t).detach()
         if self._is_variable():
             t = self._leaf = t.requires_grad_()
         self._data = t
@@ -165,14 +167,19 @@ class NDArray:
                     retain_graph=retain_graph, train_mode=train_mode)
 
     def detach(self) -> "NDArray":
+        ensure_real(self)
         return NDArray._wrap(self._data.detach())
 
     # -- sync / transfer ---------------------------------------------------
+    # a host read of a deferred step's placeholder is a graph break
+    # (``imperative/cached_step.py``): each of these reads it for real
     def wait_to_read(self):
+        ensure_real(self)
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
 
     def asnumpy(self) -> onp.ndarray:
+        ensure_real(self)
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             raise MXNetError("asnumpy: numpy has no bfloat16; call "
@@ -183,6 +190,7 @@ class NDArray:
     def asscalar(self):
         if self.size != 1:
             raise MXNetError("The current array is not a scalar")
+        ensure_real(self)
         return self._data.detach().reshape(()).item()
 
     def __float__(self):
@@ -208,9 +216,11 @@ class NDArray:
         return invoke("cast", [self], dtype=dtype_name(dtype))
 
     def copy(self) -> "NDArray":
+        ensure_real(self)
         return NDArray._wrap(self._data.detach().clone())
 
     def copyto(self, other):
+        ensure_real(self)
         if isinstance(other, Context):
             return NDArray._wrap(self._data.detach().to(other.torch_device,
                                                         copy=True))
@@ -222,6 +232,7 @@ class NDArray:
     def as_in_context(self, ctx: Context) -> "NDArray":
         if ctx == self.context:
             return self
+        ensure_real(self)
         return NDArray._wrap(self._data.detach().to(ctx.torch_device))
 
     # -- indexing ----------------------------------------------------------
@@ -229,10 +240,16 @@ class NDArray:
         if isinstance(key, NDArray):
             idx = _take_rows_index(key, self.shape)
             return apply_torch(lambda d: d[idx], [self])
+        static = _static_index(key)
         key = _norm_index(key)
-        return apply_torch(lambda d: d[key], [self])
+        return apply_torch(lambda d: d[key], [self],
+                           None if static is None else ("__getitem__",
+                                                        static))
 
     def __setitem__(self, key, value):
+        ensure_real(self)
+        if isinstance(value, NDArray):
+            ensure_real(value)
         key = _norm_index(key)
         if isinstance(value, NDArray):
             if ag.is_recording():
@@ -283,6 +300,7 @@ class NDArray:
     __hash__ = None  # mutable
 
     def __repr__(self):
+        ensure_real(self)
         t = self._data.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -330,6 +348,20 @@ def _norm_index(key):
     if isinstance(key, list):
         return torch.as_tensor(key)
     return key
+
+
+def _static_index(key):
+    """``key`` when it is made of ints, slices, None and Ellipsis only
+    (the same call step after step, for the whole-step capture's key),
+    else None."""
+    if isinstance(key, tuple):
+        return key if all(_static_index(k) is not None or k is None
+                          for k in key) else None
+    if key is None or key is Ellipsis or isinstance(key, (int, slice)):
+        return key if not isinstance(key, slice) or all(
+            v is None or isinstance(v, int)
+            for v in (key.start, key.stop, key.step)) else None
+    return None
 
 
 def _take_rows_index(key, shape):

@@ -114,8 +114,9 @@ from .. import telemetry, tracing
 from ..base import MXNetError, numpy_bits, tensor_from_bits
 from ..context import resolve_device
 from ..amp import policy as _amp_policy
-from ..amp.loss_scaler import LossScaler, all_finite
-from ..executable import Executable, input_spec
+from ..amp.loss_scaler import (LossScaler, advance_device, all_finite,
+                               device_state, enter_device)
+from ..executable import CaptureOwner, Executable, input_spec
 from ..gluon.block import _TraceContext
 from ..ops import optimizer_ops
 from ..ops.tensor import IdCheck
@@ -182,9 +183,7 @@ class SPMDTrainer:
             self._amp_scaler = LossScaler(
                 init_scale=2.0 ** 16 if half else 1.0)
             # (scale, clean steps, skipped steps of the call) on the device
-            self._amp_state = tuple(
-                torch.zeros((), dtype=torch.float32, device=self.device)
-                for _ in range(3))
+            self._amp_state = device_state(self.device)
             self._amp_version = None
         self.optimizer = opt_mod.create(optimizer,
                                         **(optimizer_params or {}))
@@ -210,15 +209,9 @@ class SPMDTrainer:
         self._exec = {}
         self._ptrs = None
         self.compiles = 0
-        # the last call's deferred id check: (host bounds, vocabs, event)
-        self._pending_ids = None
-        # what the trainer's graphs share: a memory pool and a capture
-        # stream
-        self._capture_with = (None, None)
-        if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
-                self._capture_with = (torch.cuda.graph_pool_handle(),
-                                      torch.cuda.Stream(self.device))
+        # what the trainer's graphs share (a memory pool and a capture
+        # stream), and the last call's deferred id check
+        self._owner = CaptureOwner()
 
     # -- the functions a graph holds -----------------------------------------
     def _loss(self, masters, ids, aux, data, label):
@@ -299,7 +292,9 @@ class SPMDTrainer:
         self._apply_updates(lr, wd, masters, live, grads, finite)
         self._write_aux(aux)
         if finite is not None:
-            self._amp_advance(finite)
+            sc = self._amp_scaler
+            advance_device(self._amp_state, finite, sc._scale_factor,
+                           sc._scale_window)
         return loss.detach(), ids.bounds()
 
     @torch.no_grad()
@@ -315,36 +310,14 @@ class SPMDTrainer:
         finite = all_finite(grads)
         return loss, [_amp_policy.wire_cast(g) for g in grads], finite
 
-    @torch.no_grad()
-    def _amp_advance(self, finite):
-        """The scaler's schedule on the device: grow after a window of
-        clean steps, halve (to no less than 1) on an overflow; count the
-        skipped step."""
-        scale, good, skipped = self._amp_state
-        factor = self._amp_scaler._scale_factor
-        window = self._amp_scaler._scale_window
-        good1 = good + 1.0
-        grown = torch.where(good1 >= window, scale * factor, scale)
-        new_scale = torch.where(finite, grown, torch.clamp(
-            scale * (1.0 / factor), min=1.0))
-        new_good = torch.where(finite, torch.where(good1 >= window, 0.0,
-                                                   good1), 0.0)
-        scale.copy_(new_scale)
-        good.copy_(new_good)
-        skipped.add_((~finite).float())
-
     def _amp_enter(self):
         """Before a call: the host's scale, if it was set there, into the
         device state; the call's skipped count to 0."""
         sc = self._amp_scaler
         if sc is None:
             return
-        if self._amp_version != sc._version:
-            sc._fold()
-            self._amp_state[0].fill_(sc._loss_scale)
-            self._amp_state[1].fill_(float(sc._unskipped))
-            self._amp_version = sc._version
-        self._amp_state[2].zero_()
+        self._amp_version = enter_device(self._amp_state, sc,
+                                         self._amp_version)
 
     def _amp_leave(self):
         """After a call: the device state to the scaler (read one call
@@ -426,7 +399,8 @@ class SPMDTrainer:
             return entry, False
         ids = IdCheck()
         ex = Executable(partial(body, ids), args, self.device,
-                        *self._capture_with, warm="first_call")
+                        *self._owner.capture_with(self.device),
+                        warm="first_call")
         entry = self._exec[sig] = (ex, ids)
         self.compiles += 1
         return entry, True
@@ -445,30 +419,6 @@ class SPMDTrainer:
         telemetry.record_compile(time.perf_counter() - t0, "spmd_step")
         return out
 
-    def _defer_ids(self, bounds, vocabs):
-        """On the CPU, raise now if an id was out of range; on CUDA, copy
-        the bounds to the host behind the call's work, for the next
-        call's :meth:`_check_ids`."""
-        if bounds is None:
-            return
-        if self.device.type == "cpu":
-            IdCheck.raise_if_bad(bounds, vocabs)
-            return
-        host = torch.empty(bounds.shape, dtype=bounds.dtype,
-                           pin_memory=True)
-        host.copy_(bounds, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        self._pending_ids = (host, list(vocabs), done)
-
-    def _check_ids(self):
-        """Raise the previous call's embedding error, if it had one."""
-        pending, self._pending_ids = self._pending_ids, None
-        if pending is not None:
-            host, vocabs, done = pending
-            done.synchronize()
-            IdCheck.raise_if_bad(host, vocabs)
-
     def _schedule(self, n_steps):
         """lr and wd (as f32) at the window's entry point, then advance
         ``num_update`` by ``n_steps``."""
@@ -486,7 +436,7 @@ class SPMDTrainer:
     def step(self, data, label, batch_size: Optional[int] = None):
         """One training step; returns the f32 loss mean (a 0-d tensor on
         the device, a copy: the next call does not overwrite it)."""
-        self._check_ids()
+        self._owner.check_ids()
         d, l = _batch(data), _batch(label)
         self._check_split(d, l)
         sig = self._step_sig(d, l)
@@ -505,7 +455,7 @@ class SPMDTrainer:
                 self._amp_leave()
                 sp.annotate(fresh_compile=fresh)
                 loss = loss.clone()
-                self._defer_ids(bounds, entry[1].vocabs)
+                self._owner.defer_ids(bounds, entry[1].vocabs, self.device)
         finally:
             telemetry.end_step(tok, "SPMDTrainer")
         return loss
@@ -518,7 +468,7 @@ class SPMDTrainer:
         and step i trains on batch i: the window goes to the device in
         one copy each, and batch i is copied device to device into the
         graph's inputs."""
-        self._check_ids()
+        self._owner.check_ids()
         d, l = _batch(data), _batch(label)
         n = int(n_steps)
         if per_step_data:
@@ -555,7 +505,8 @@ class SPMDTrainer:
                         bounds.append(b.clone())
                 self._amp_leave()
                 if bounds:
-                    self._defer_ids(torch.cat(bounds), entry[1].vocabs * n)
+                    self._owner.defer_ids(torch.cat(bounds),
+                                          entry[1].vocabs * n, self.device)
         finally:
             telemetry.end_step(tok, "SPMDTrainer", extra={"n_steps": n})
         return losses
@@ -564,13 +515,13 @@ class SPMDTrainer:
         """The forward in eval mode with f32 output (a copy), on CUDA
         replayed from one graph per input signature that shares the
         trainer's pool and stream."""
-        self._check_ids()
+        self._owner.check_ids()
         x = _batch(data)
         sig = ("predict",) + input_spec(x) + (_amp_policy.cache_token(),)
         entry, fresh = self._executable(sig, self._predict_body, (x,))
         out, bounds = self._call(sig, entry, fresh, (x,))
         out = out.clone()
-        self._defer_ids(bounds, entry[1].vocabs)
+        self._owner.defer_ids(bounds, entry[1].vocabs, self.device)
         return out
 
     # -- eager runs of the same functions, for comparisons -----------------------
@@ -582,7 +533,7 @@ class SPMDTrainer:
     def _step_eager(self, data, label):
         """One step run eagerly (never captured) through the function a
         step's graph holds; an id out of range raises at once."""
-        self._check_ids()
+        self._owner.check_ids()
         d, l = self._on_device(data), self._on_device(label)
         self._check_split(d, l)
         lr, wd = (torch.tensor(v, device=self.device)
@@ -597,7 +548,7 @@ class SPMDTrainer:
 
     def _predict_eager(self, data):
         """``predict`` run eagerly through the function its graph holds."""
-        self._check_ids()
+        self._owner.check_ids()
         ids = IdCheck()
         out, bounds = self._predict_body(ids, self._on_device(data))
         if bounds is not None:

@@ -49,6 +49,7 @@ from ...context import resolve_device
 from ...log import get_logger
 from ...ops.paged_attention import paged_attention
 from ...ops.rope import rope_qk, rope_reference
+from ...executable import CaptureOwner
 from .exec import Executable
 from .paged_kv import PagedKVCache
 
@@ -421,11 +422,7 @@ class DecodeEngine:
         self._exec: Dict[str, Executable] = {}
         self._exec_token = _amp_policy.cache_token()
         # what the engine's graphs share: a memory pool and a capture stream
-        self._capture_with = (None, None)
-        if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
-                self._capture_with = (torch.cuda.graph_pool_handle(),
-                                      torch.cuda.Stream(self.device))
+        self._owner = CaptureOwner()
         self.compiles = 0
 
     # -- properties ----------------------------------------------------------
@@ -458,7 +455,8 @@ class DecodeEngine:
         if ex is not None:
             return ex
         t0 = time.perf_counter()
-        ex = Executable(fn, args, self.device, *self._capture_with)
+        ex = Executable(fn, args, self.device,
+                        *self._owner.capture_with(self.device))
         telemetry.record_compile(time.perf_counter() - t0, "decode")
         self._exec[key] = ex
         self.compiles += 1

@@ -215,13 +215,22 @@ def enabled() -> bool:
 
 # -- the per-step record stream ---------------------------------------------
 
+# the whole-step capture's counters and the dispatch counter, whose
+# deltas each step record carries
+_CACHED_STEP = ("hits", "compiles", "fallbacks", "graph_breaks")
+_C_CACHED = tuple(counter(f"cachedstep.{k}") for k in _CACHED_STEP)
+_C_DISPATCH = counter("dispatch.count")
+
+
 class _StepToken:
-    __slots__ = ("t0", "compiles", "compile_ms")
+    __slots__ = ("t0", "compiles", "compile_ms", "dispatches", "cached")
 
     def __init__(self):
         self.t0 = time.perf_counter()
         self.compiles = _C_COMPILES.value
         self.compile_ms = _C_COMPILE_MS.value
+        self.dispatches = _C_DISPATCH.value
+        self.cached = tuple(c.value for c in _C_CACHED)
 
 
 _tls = threading.local()
@@ -259,6 +268,9 @@ def end_step(token, source: str, extra: Optional[dict] = None) -> None:
         "host_ms": round(host_ms, 3),
         "compiles": _C_COMPILES.value - token.compiles,
         "compile_ms": round(_C_COMPILE_MS.value - token.compile_ms, 3),
+        "dispatches": _C_DISPATCH.value - token.dispatches,
+        "cached_step": {k: c.value - v for k, c, v in
+                        zip(_CACHED_STEP, _C_CACHED, token.cached)},
     }
     if extra:
         record.update(extra)

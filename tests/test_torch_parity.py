@@ -18,13 +18,22 @@ tensor:
   in a row, and f32 sums in another order).
 
 Other test files import :func:`assert_parity` and :func:`close` (pytest
-puts ``tests/`` on the path)."""
+puts ``tests/`` on the path).
+
+Importing this module also sets torch's CPU ops to one thread.  The
+suite runs as several pytest-xdist workers, each of which collects (and
+so imports) every test file; with torch's default of one thread per
+core in each worker, the workers' thread pools oversubscribe the cores
+and the port's small CPU ops run many times slower.  The results are
+those of a single-threaded CPU run, held to the same tolerances."""
 import numpy as onp
 import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
+
+torch.set_num_threads(1)
 
 TOL = {"float32": {"forward": 1e-5, "grad": 1e-4},
        "bfloat16": {"forward": 2e-2, "grad": 2e-2}}

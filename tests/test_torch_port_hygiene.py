@@ -25,6 +25,105 @@ JAX_IMPORT = re.compile(r"\bimport jax\b|\bfrom jax\b")
 
 SOURCES = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [
     ROOT / "chip_smoke.py"]
+BAD_TOP = ("jax", "mxnet_tpu", "ml_dtypes", "triton")
+
+RESNET_MODULES = ["ops/nn.py", "ops/optimizer_ops.py",
+                  "optimizer/optimizer.py", "gluon/parameter.py",
+                  "gluon/block.py", "gluon/nn/basic_layers.py",
+                  "gluon/nn/conv_layers.py",
+                  "gluon/model_zoo/vision/__init__.py",
+                  "gluon/model_zoo/vision/resnet.py", "parallel/trainer.py"]
+PERSISTENCE_MODULES = ["checkpoint.py", "checkpoint_gc.py", "faultinject.py",
+                       "ndarray/legacy_serialization.py", "ndarray/ndarray.py",
+                       "gluon/block.py", "gluon/parameter.py",
+                       "parallel/trainer.py", "base.py"]
+CAPTURE_MODULES = ["imperative/__init__.py", "imperative/cached_step.py",
+                   "ops/registry.py", "autograd.py", "gluon/block.py",
+                   "gluon/trainer.py", "executable.py"]
+
+
+def _module(rel):
+    return "mxnet_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(
+        ".__init__")
+
+
+# One process imports torch, then forks a child for each check: each
+# module imported alone, the whole port walked, and the bare import
+# under an audit hook.  Every child starts from the same state (torch
+# loaded, nothing of the port), as a fresh interpreter that imports the
+# port would after its first line.
+_CHILDREN = textwrap.dedent("""
+    import importlib, json, os, pkgutil, sys, traceback
+    import torch
+
+    BAD = {bad!r}
+
+    def bad():
+        return sorted(n for n in sys.modules if n.split(".")[0] in BAD)
+
+    def whole():
+        import mxnet_tpu_torch
+        for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
+                                       "mxnet_tpu_torch."):
+            importlib.import_module(m.name)
+        return {{"modules": len([n for n in sys.modules
+                                if n.startswith("mxnet_tpu_torch")]),
+                "bad": bad()}}
+
+    def bare():
+        events = []
+
+        def hook(event, args):
+            if event == "subprocess.Popen":
+                events.append(["popen", str(args[0])])
+            elif event == "ctypes.dlopen" and "torch_kernels" in str(
+                    args[0]):
+                events.append(["dlopen", str(args[0])])
+
+        sys.addaudithook(hook)
+        import mxnet_tpu_torch
+        from mxnet_tpu_torch.kernels import build
+        return {{"events": events, "bad": bad(),
+                "libs": sorted(build._LIBS)}}
+
+    def alone(mod):
+        importlib.import_module(mod)
+        return {{"bad": bad()}}
+
+    checks = [("whole", whole), ("bare", bare)] + [
+        (m, lambda m=m: alone(m)) for m in {mods!r}]
+    out = {{}}
+    for name, fn in checks:
+        r, w = os.pipe()
+        pid = os.fork()
+        if pid == 0:
+            os.close(r)
+            try:
+                res = {{"ok": True, **fn()}}
+            except BaseException:
+                res = {{"ok": False, "error": traceback.format_exc()}}
+            with os.fdopen(w, "w") as f:
+                f.write(json.dumps(res))
+            os._exit(0)
+        os.close(w)
+        with os.fdopen(r) as f:
+            data = f.read()
+        os.waitpid(pid, 0)
+        out[name] = json.loads(data)
+    print(json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def children():
+    import json
+    mods = sorted({_module(r) for r in
+                   RESNET_MODULES + PERSISTENCE_MODULES + CAPTURE_MODULES})
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILDREN.format(bad=BAD_TOP, mods=mods)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -35,73 +134,32 @@ def test_source_names_no_reference_or_jax(path):
     assert not JAX_IMPORT.search(code), JAX_IMPORT.search(code)
 
 
-def test_importing_the_whole_port_loads_no_jax_or_reference():
-    script = textwrap.dedent("""
-        import importlib, pkgutil, sys
-        import mxnet_tpu_torch
-        for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
-                                       "mxnet_tpu_torch."):
-            importlib.import_module(m.name)
-        bad = sorted(n for n in sys.modules
-                     if n == "jax" or n.startswith("jax.")
-                     or n == "mxnet_tpu" or n.startswith("mxnet_tpu."))
-        print(len([n for n in sys.modules
-                   if n.startswith("mxnet_tpu_torch")]), bad)
-    """)
-    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 20 and bad.strip() == "[]", out.stdout
+def test_importing_the_whole_port_loads_no_jax_or_reference(children):
+    res = children["whole"]
+    assert res["ok"], res.get("error")
+    assert res["modules"] >= 20
+    assert not [n for n in res["bad"]
+                if n.split(".")[0] in ("jax", "mxnet_tpu")], res["bad"]
 
 
-def test_importing_the_whole_port_loads_no_triton():
+def test_importing_the_whole_port_loads_no_triton(children):
     """Every kernel of the port is CUDA C++ behind ctypes: no module
     imports Triton, at import time or otherwise."""
-    script = textwrap.dedent("""
-        import importlib, pkgutil, sys
-        import mxnet_tpu_torch
-        for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
-                                       "mxnet_tpu_torch."):
-            importlib.import_module(m.name)
-        print(sorted(n for n in sys.modules
-                     if n == "triton" or n.startswith("triton.")))
-    """)
-    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]", out.stdout
+    res = children["whole"]
+    assert res["ok"], res.get("error")
+    assert not [n for n in res["bad"] if n.split(".")[0] == "triton"]
     for path in SOURCES:
         assert not re.search(r"\bimport triton\b|\bfrom triton\b",
                              path.read_text()), path
 
 
-def test_bare_import_builds_nothing():
+def test_bare_import_builds_nothing(children):
     """``import mxnet_tpu_torch`` alone starts no process (no nvcc),
     loads no built kernel library, builds nothing, and imports no
     Triton, JAX or reference module."""
-    script = textwrap.dedent("""
-        import sys
-        events = []
-
-        def hook(event, args):
-            if event == "subprocess.Popen":
-                events.append(("popen", str(args[0])))
-            elif event == "ctypes.dlopen" and "torch_kernels" in str(
-                    args[0]):
-                events.append(("dlopen", str(args[0])))
-
-        sys.addaudithook(hook)
-        import mxnet_tpu_torch
-        from mxnet_tpu_torch.kernels import build
-        bad = sorted(n for n in sys.modules
-                     if n.split(".")[0] in ("triton", "jax", "mxnet_tpu"))
-        print(events, bad, sorted(build._LIBS))
-    """)
-    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[] [] []", out.stdout
+    res = children["bare"]
+    assert res["ok"], res.get("error")
+    assert (res["events"], res["bad"], res["libs"]) == ([], [], [])
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -132,33 +190,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert tr.device.type == "cpu"
 
 
-RESNET_MODULES = ["ops/nn.py", "ops/optimizer_ops.py",
-                  "optimizer/optimizer.py", "gluon/parameter.py",
-                  "gluon/block.py", "gluon/nn/basic_layers.py",
-                  "gluon/nn/conv_layers.py",
-                  "gluon/model_zoo/vision/__init__.py",
-                  "gluon/model_zoo/vision/resnet.py", "parallel/trainer.py"]
-
-
 @pytest.mark.parametrize("rel", RESNET_MODULES)
-def test_resnet_path_modules_are_held_to_the_rules(rel):
+def test_resnet_path_modules_are_held_to_the_rules(rel, children):
     """The ResNet path's modules are among the sources checked above, and
-    each imports alone in a fresh process without loading JAX or the
-    reference."""
+    each imports alone (a child process that had imported only torch)
+    without loading JAX or the reference."""
     path = PORT / rel
     assert path in SOURCES
-    mod = "mxnet_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(
-        ".__init__")
-    script = textwrap.dedent(f"""
-        import importlib, sys
-        importlib.import_module({mod!r})
-        print(sorted(n for n in sys.modules
-                     if n.split(".")[0] in ("jax", "mxnet_tpu", "triton")))
-    """)
-    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]", out.stdout
+    res = children[_module(rel)]
+    assert res["ok"], res.get("error")
+    assert res["bad"] == [], res["bad"]
 
 
 def test_resnet_entry_points_default_to_cuda(monkeypatch):
@@ -177,48 +218,41 @@ def test_resnet_entry_points_default_to_cuda(monkeypatch):
     assert tr.device.type == "cpu" and tr.optimizer.op_name == "sgd_update"
 
 
-PERSISTENCE_MODULES = ["checkpoint.py", "checkpoint_gc.py", "faultinject.py",
-                       "ndarray/legacy_serialization.py", "ndarray/ndarray.py",
-                       "gluon/block.py", "gluon/parameter.py",
-                       "parallel/trainer.py", "base.py"]
 ML_DTYPES = re.compile(r"\bimport ml_dtypes\b|\bfrom ml_dtypes\b")
 
 
 @pytest.mark.parametrize("rel", PERSISTENCE_MODULES)
-def test_persistence_modules_are_held_to_the_rules(rel):
+def test_persistence_modules_are_held_to_the_rules(rel, children):
     """The persistence path's modules are among the sources checked
     above, import no ``ml_dtypes`` (the card's machine lacks it: bfloat16
-    and fp8 travel as bit patterns), and each imports alone in a fresh
-    process without loading JAX, ``ml_dtypes`` or the reference."""
+    and fp8 travel as bit patterns), and each imports alone (a child
+    process that had imported only torch) without loading JAX,
+    ``ml_dtypes`` or the reference."""
     path = PORT / rel
     assert path in SOURCES
     assert not ML_DTYPES.search(path.read_text()), rel
-    mod = "mxnet_tpu_torch." + rel[:-3].replace("/", ".")
-    script = textwrap.dedent(f"""
-        import importlib, sys
-        importlib.import_module({mod!r})
-        print(sorted(n for n in sys.modules if n.split(".")[0] in
-                     ("jax", "mxnet_tpu", "ml_dtypes", "triton")))
-    """)
-    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]", out.stdout
+    res = children[_module(rel)]
+    assert res["ok"], res.get("error")
+    assert res["bad"] == [], res["bad"]
 
 
-def test_no_port_module_imports_ml_dtypes():
-    script = textwrap.dedent("""
-        import importlib, pkgutil, sys
-        import mxnet_tpu_torch
-        for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
-                                       "mxnet_tpu_torch."):
-            importlib.import_module(m.name)
-        print(sorted(n for n in sys.modules
-                     if n.split(".")[0] == "ml_dtypes"))
-    """)
-    out = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "[]", out.stdout
+@pytest.mark.parametrize("rel", CAPTURE_MODULES)
+def test_capture_modules_are_held_to_the_rules(rel, children):
+    """The whole-step capture's and ``hybridize``'s modules are among the
+    sources checked above and each imports alone (a child process that
+    had imported only torch) without loading JAX, ``ml_dtypes``, Triton
+    or the reference."""
+    path = PORT / rel
+    assert path in SOURCES
+    assert not ML_DTYPES.search(path.read_text()), rel
+    res = children[_module(rel)]
+    assert res["ok"], res.get("error")
+    assert res["bad"] == [], res["bad"]
+
+
+def test_no_port_module_imports_ml_dtypes(children):
+    res = children["whole"]
+    assert res["ok"], res.get("error")
+    assert not [n for n in res["bad"] if n.split(".")[0] == "ml_dtypes"]
     for path in SOURCES:
         assert not ML_DTYPES.search(path.read_text()), path
