@@ -39,10 +39,12 @@ exits non-zero and prints no result:
 3. serve   — the decode-serving path at the full width of the repo's
              transformer LM (vocab 32000, dim 512, 8 heads, 8 layers,
              2048-position slots): DecodeModel → DecodeEngine →
-             DecodeScheduler → ServingServer; ``ServingServer.warmup``
-             captures one CUDA graph per exec key (decode, prefill_b16 ..
-             prefill_b128), then ``generate`` answers 16 overlapping
-             requests and 2 short ones that must equal the dense greedy
+             DecodeScheduler → ServingServer (beside a small block for
+             ``/predict``); ``srv.decoder.warmup`` captures one CUDA
+             graph per exec key (decode, prefill_b16 .. prefill_b128),
+             then ``generate`` answers 16 overlapping requests (each
+             one's TTFT from its ``serving.request`` span, tracing on)
+             and 2 short ones that must equal the dense greedy
              reference, all on graph replays: ``compiles`` may not move
              while serving.  Kernel launch counts are zeroed just before
              and read just after; both kernels must have launched and no
@@ -226,8 +228,40 @@ exits non-zero and prints no result:
              resumed bitwise, running statistics included.  The directory
              is a temporary one, removed at the end.
 
+19. batch_serve — batch serving of bench.py's ResNet-50 v1 (224², 1000
+             classes, Xavier seed 0, fp32, TF32 off, cuDNN deterministic)
+             through ``ServingServer(net, engine_args, batcher_args)``:
+             ``warmup([1, 2, 4, 8, 16, 32])`` captures 6 graphs; a closed
+             loop of 32 client threads x 8 synchronous ``predict`` calls
+             on fixed seeded images, in turns with the same stack at
+             ``max_batch_size=1``: req/s, mean occupancy, p50/p95 ms,
+             dispatches, padding waste, warm-up s and pool bytes.  No
+             capture and no eager batch while serving; at least 3x the
+             batch-1 baseline (serving_bench's gate); one ``POST
+             /predict`` equal to ``predict``; the bucket-32 rows bitwise
+             equal to the eager forward of the same batch and within
+             1e-4 of the largest logit of a batch-1 forward.  Then
+             ``net.cast("bfloat16")`` must drop the 6 graphs, and a
+             device-committed (128, 3, 224, 224) bf16 batch through a
+             bf16 engine's ``infer_batch`` (bitwise equal to the eager
+             forward) is timed against the eager bf16 forward.
+20. lm_serve — scoring: the training row's transformer LM (vocab 32000,
+             units 512, 8 layers, 8 heads, tied weights, Xavier seed 0)
+             cast to bf16 behind ``ServingServer`` with int32 ids,
+             ``seq_axes=(0,)``, batch buckets (1, 8), ``max_sigs`` 16;
+             ``warmup`` captures the 8 (batch, seq) buckets; 24 prompts
+             of 33-512 tokens (``RandomState(1)``) from 8 client
+             threads.  K1 must launch 8 times a dispatch (counted on
+             replays) with no plain call; no capture while serving; each
+             row within 2e-2 of its largest logit from the eager forward
+             of its prompt alone; the (8, 512) replay bitwise equal to
+             the eager forward of its input; an id out of range fails
+             its batch and the next serves.  req/s, p50/p95 ms, tokens
+             scored/s.
+
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
-carry ``launches_gluon_train`` and ``launches_ckpt``); the last is
+carry ``launches_gluon_train`` and ``launches_ckpt``, K1
+``launches_batch_serve``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -1486,13 +1520,13 @@ def replay_checks(torch, pa_mod, eng):
 
 
 def warm_engine(torch, srv, eng):
-    """``srv.warmup(PREFILL_LENGTHS)``: every exec key captured ahead of
-    traffic.  Returns what it took."""
+    """``srv.decoder.warmup(PREFILL_LENGTHS)``: every exec key captured
+    ahead of traffic.  Returns what it took."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    keys = srv.warmup(PREFILL_LENGTHS)
+    keys = srv.decoder.warmup(PREFILL_LENGTHS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     missing = [k for k, ex in eng._exec.items() if ex.graph is None]
@@ -1536,21 +1570,35 @@ def serve_requests(srv, prompts, max_new, stagger_s):
     return outs, lat, time.perf_counter() - t_start
 
 
+def decode_server(decoder):
+    """A server as the reference's decode tests build one: a small block
+    for ``/predict`` (``ServingServer``'s first argument) beside the
+    decoder for ``/generate``."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.serving import ServingServer
+    net = nn.Sequential()
+    net.add(nn.Dense(4, in_units=8))
+    net.initialize(device=DEV)
+    return ServingServer(net, engine_args={"example_shape": (8,),
+                                           "dtype": "float32"},
+                         decoder=decoder)
+
+
 def pct(xs, p):
     xs = sorted(xs)
     return xs[min(len(xs) - 1, int(round(p / 100 * (len(xs) - 1))))]
 
 
 def phase_serve(torch, rope_mod, pa_mod):
-    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch import telemetry, tracing
     from mxnet_tpu_torch.serving import (DecodeEngine, DecodeModel,
-                                         DecodeScheduler, ServingServer, slo)
+                                         DecodeScheduler)
     t0 = time.perf_counter()
     model = DecodeModel(VOCAB, dim=DIM, n_heads=HEADS, n_layers=LAYERS,
                         mlp_ratio=MLP, seed=0)
     eng = DecodeEngine(model, max_slots=SLOTS, page_size=PAGE,
                        pages_per_slot=PAGES_PER_SLOT, num_pages=NUM_PAGES)
-    srv = ServingServer(decoder=DecodeScheduler(eng))
+    srv = decode_server(DecodeScheduler(eng))
     setup_s = time.perf_counter() - t0
     warm = warm_engine(torch, srv, eng)
     stats_before = eng.stats()
@@ -1560,11 +1608,16 @@ def phase_serve(torch, rope_mod, pa_mod):
                for _ in range(16)]
     short = [[int(t) for t in rng.randint(0, VOCAB, size=n)]
              for n in (48, 128)]
-    n_seen = len(slo.recent_requests())
     steps = StepRecords()
     telemetry.add_sink(steps)
+    # each request's TTFT from its serving.request span
+    tracing.clear()
+    tracing.enable()
     reset_counts(rope_mod.rope, pa_mod.paged_attention)
     outs, lat, wall = serve_requests(srv, prompts, 32, stagger_s=0.05)
+    spans = [e for e in tracing.recent(4096)
+             if e["name"] == "serving.request"]
+    tracing._env_default()
     telemetry.remove_sink(steps)
     short_outs = [srv.generate(p, max_new_tokens=16, timeout_ms=120000)
                   for p in short]
@@ -1572,7 +1625,6 @@ def phase_serve(torch, rope_mod, pa_mod):
     counts = {f.__name__: {"launches": f.launches,
                            "plain_calls": f.plain_calls}
               for f in (rope_mod.rope, pa_mod.paged_attention)}
-    entries = slo.recent_requests()[n_seen:]
     srv.stop()
     stats_after = eng.stats()
     if stats_after["compiles"] != stats_before["compiles"]:
@@ -1612,7 +1664,11 @@ def phase_serve(torch, rope_mod, pa_mod):
                              f"attention once per layer of a decode step: "
                              f"{per_call}")
     replay = replay_checks(torch, pa_mod, eng)
-    ttft = [e["ttft_ms"] for e in entries[:len(prompts)] if "ttft_ms" in e]
+    ttft = [e["args"]["ttft_ms"] for e in spans
+            if e["args"].get("ttft_ms") is not None]
+    if len(ttft) != len(prompts):
+        raise AssertionError(f"{len(ttft)} serving.request spans with a "
+                             f"TTFT for {len(prompts)} requests")
     emit({"phase": "serve", "requests": len(prompts), "max_new_tokens": 32,
           "prompt_tokens": sum(map(len, prompts)),
           "model": {"vocab": VOCAB, "dim": DIM, "heads": HEADS,
@@ -1634,13 +1690,13 @@ def phase_serve(torch, rope_mod, pa_mod):
 
 def phase_spec(torch, rope_mod, pa_mod, model, prompts, outs):
     from mxnet_tpu_torch.serving import (DecodeEngine, DecodeModel,
-                                         DecodeScheduler, ServingServer)
+                                         DecodeScheduler)
     draft = DecodeModel(VOCAB, dim=256, n_heads=4, n_layers=2, seed=7)
     eng = DecodeEngine(model, draft_model=draft, spec_k=SPEC_K,
                        max_slots=SLOTS, page_size=PAGE,
                        pages_per_slot=PAGES_PER_SLOT, num_pages=NUM_PAGES)
     sch = DecodeScheduler(eng)
-    srv = ServingServer(decoder=sch)
+    srv = decode_server(sch)
     warm = warm_engine(torch, srv, eng)
     before = pa_mod.paged_attention.launches
     got, _lat, wall = serve_requests(srv, prompts[:4], 32, stagger_s=0.0)
@@ -4011,6 +4067,385 @@ def ckpt_resnet(torch, root):
             "running_statistics": len(stats), **numbers,
             "blocking_save_ms": block_ms, "load_ms": load_ms}
 
+# -- batch serving (slice 13) -------------------------------------------------
+
+SERVE_CLIENTS, SERVE_CALLS = 32, 8       # benchmark/serving_bench.py's loop
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+LM_REQUESTS, LM_CLIENTS, LM_BATCH = 24, 8, 8
+LM_SEQ_BUCKETS = (64, 128, 256, 512)
+
+
+class ServingRecords:
+    """Telemetry sink keeping the batcher's step records."""
+
+    def __init__(self):
+        self.records = []
+
+    def emit(self, record):
+        if record.get("source") == "serving.DynamicBatcher":
+            self.records.append(record)
+
+
+def serving_counts(telemetry):
+    return {k: telemetry.counter(k).value for k in (
+        "compile.serving.count", "serving.eager_batches",
+        "serving.capture_failures", "serving.batches", "serving.requests")}
+
+
+def counts_moved(before, after):
+    return {k: after[k] - before[k] for k in before}
+
+
+def closed_loop(predict, inputs, clients, calls):
+    """``clients`` threads, each making ``calls`` synchronous ``predict``
+    calls on its own fixed input; returns (per-request latency s, wall
+    s)."""
+    lat, errors = [], []
+
+    def client(c):
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            try:
+                predict(inputs[c % len(inputs)])
+            except Exception as e:      # re-raised on the main thread
+                errors.append(e)
+                return
+            lat.append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t_start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t_start
+    if errors:
+        raise errors[0]
+    if len(lat) != clients * calls:
+        raise AssertionError(f"closed loop: {len(lat)} of "
+                             f"{clients * calls} requests returned")
+    return lat, wall
+
+
+def loop_summary(lat, wall, records):
+    sizes = [r["serving"]["batch_size"] for r in records]
+    padded = [r["serving"]["padded_batch"] for r in records]
+    return {"requests": len(lat), "wall_s": wall,
+            "req_per_s": len(lat) / wall,
+            "latency_ms_p50": pct(lat, 50) * 1e3,
+            "latency_ms_p95": pct(lat, 95) * 1e3,
+            "dispatches": len(records),
+            "mean_occupancy": sum(sizes) / max(len(sizes), 1),
+            "padding_waste": 1 - sum(sizes) / max(sum(padded), 1)}
+
+
+def phase_batch_serve(torch, smi):
+    """Batch serving of bench.py's ResNet-50 v1 (``_infer_bench``: 224²,
+    1000 classes, Xavier seed 0, fp32, TF32 off) through
+    ``ServingServer(net, engine_args, batcher_args)``: ``warmup`` captures
+    one CUDA graph per batch bucket (1 .. 32); a closed loop of 32 client
+    threads x 8 synchronous ``predict`` calls on fixed seeded images
+    (``benchmark/serving_bench.py:94-140``) against the same stack with
+    ``max_batch_size=1``, in turns; one ``POST /predict``.  cuDNN is
+    restricted to deterministic algorithms, so that a replay and an eager
+    forward of one batch can be held bitwise.  Then ``net.cast
+    ("bfloat16")`` drops the graphs, and a device-committed (128, 3,
+    224, 224) bf16 batch goes through ``infer_batch`` of a bf16 engine
+    again and again, img/s beside the eager bf16 forward."""
+    import urllib.request
+    from mxnet_tpu_torch import autograd, telemetry
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.serving import InferenceEngine, ServingServer
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = resnet_net(torch, DEV)
+        shape = (3, RESNET_IMAGE, RESNET_IMAGE)
+        srv = ServingServer(net, engine_args={"example_shape": shape,
+                                              "dtype": "float32"},
+                            batcher_args={"max_batch_size": 32,
+                                          "max_delay_ms": 2,
+                                          "queue_depth": 1024})
+        eng = srv.engine
+        torch.cuda.synchronize()
+        alloc0, res0 = torch.cuda.memory_allocated(), \
+            torch.cuda.memory_reserved()
+        w0 = time.perf_counter()
+        tags = srv.warmup(list(SERVE_BUCKETS))
+        torch.cuda.synchronize()
+        warm = {"buckets": tags, "seconds": time.perf_counter() - w0,
+                "pool_allocated_bytes": torch.cuda.memory_allocated()
+                - alloc0,
+                "reserved_bytes": torch.cuda.memory_reserved() - res0}
+        graphs = [e.exe.graph for e in eng._compiled.values()
+                  if e != "eager"]
+        if len(graphs) != len(SERVE_BUCKETS) or None in graphs:
+            raise AssertionError(f"batch_serve: warmup left {tags} with "
+                                 f"graphs {graphs}")
+        images = list(onp.random.RandomState(0).randn(
+            SERVE_CLIENTS, *shape).astype(onp.float32))
+        base = ServingServer(eng, batcher_args={"max_batch_size": 1,
+                                                "max_delay_ms": 2,
+                                                "queue_depth": 1024})
+        rows = {"batched": [], "batch1": []}
+        c0 = serving_counts(telemetry)
+        for _ in range(2):                      # in turns
+            for mode, s in (("batched", srv), ("batch1", base)):
+                recs = ServingRecords()
+                telemetry.add_sink(recs)
+                lat, wall = closed_loop(
+                    lambda x, s=s: s.predict(x, timeout_ms=120000),
+                    images, SERVE_CLIENTS, SERVE_CALLS)
+                telemetry.remove_sink(recs)
+                rows[mode].append(loop_summary(lat, wall, recs.records))
+        moved = counts_moved(c0, serving_counts(telemetry))
+        base.stop()
+        if moved["compile.serving.count"] or \
+                moved["serving.eager_batches"] or \
+                moved["serving.capture_failures"]:
+            raise AssertionError(f"batch_serve: traffic captured or ran "
+                                 f"eagerly: {moved}")
+        rate = {m: sum(r["requests"] for r in rs) / sum(r["wall_s"]
+                                                       for r in rs)
+                for m, rs in rows.items()}
+        speedup = rate["batched"] / rate["batch1"]
+        if speedup < 3.0:
+            raise AssertionError(f"batch_serve: closed-loop {rate} is "
+                                 f"{speedup:.2f}x the batch-1 baseline, "
+                                 f"under serving_bench's 3x gate")
+        # one POST /predict against predict() of the same image (both a
+        # batch of one)
+        host, port = srv.start_http()
+        body = json.dumps({"data": images[0].tolist()}).encode()
+        req = urllib.request.Request(
+            f"http://{host}:{port}/predict", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            http_out = onp.asarray(json.loads(resp.read())["output"],
+                                   dtype=onp.float32)
+        if not onp.array_equal(http_out, srv.predict(images[0])):
+            raise AssertionError("batch_serve: POST /predict differs from "
+                                 "predict")
+        # the bucket-32 replay against the eager forward of that batch
+        results, meta = eng.infer_batch(images)
+        batch = torch.from_numpy(onp.stack(images)).to(DEV)
+        with autograd.pause():
+            eager = net(NDArray._wrap(batch))._data.cpu().numpy()
+        served = onp.stack(results)
+        if not (meta["compiled"] and meta["padded"] == SERVE_CLIENTS
+                and onp.array_equal(served, eager)):
+            raise AssertionError(
+                f"batch_serve: bucket {meta} rows differ from the eager "
+                f"forward of the same batch by "
+                f"{float(onp.abs(served - eager).max())}")
+        one_err = {}
+        for i in (0, 7, 31):
+            with torch.no_grad():
+                alone = net(batch[i:i + 1])[0].cpu().numpy()
+            err = float(onp.abs(served[i] - alone).max())
+            one_err[i] = err
+            if err > 1e-4 * float(onp.abs(alone).max()):
+                raise AssertionError(f"batch_serve: row {i} {err} from its "
+                                     f"batch-1 eager forward")
+        srv.stop()
+        # bf16: the cast replaces every parameter, so the f32 graphs drop
+        drops0 = telemetry.counter("serving.bucket_drops").value
+        net.cast("bfloat16")
+        if eng.buckets() or telemetry.counter(
+                "serving.bucket_drops").value - drops0 != len(SERVE_BUCKETS):
+            raise AssertionError(f"batch_serve: the f32 graphs survived "
+                                 f"net.cast: {eng.buckets()}")
+        del srv, base, eng, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng16 = InferenceEngine(net, example_shape=shape, dtype="bfloat16")
+        g = torch.Generator(device=DEV).manual_seed(0)
+        x16 = torch.randn((RESNET_INFER_BATCH, *shape), generator=g,
+                          device=DEV).to(torch.bfloat16)
+        first, meta16 = eng16.infer_batch(x16)
+        with torch.no_grad():
+            eager16 = net(x16).float().cpu().numpy()
+        if not (meta16["compiled"] and meta16["device_committed"] and
+                onp.array_equal(onp.stack(first), eager16)):
+            raise AssertionError(f"batch_serve: the bf16 bucket {meta16} "
+                                 f"differs from the eager forward")
+
+        def served_run(n):
+            for _ in range(n):
+                eng16.infer_batch(x16)
+
+        def eager_run(n):
+            for _ in range(n):
+                with torch.no_grad():
+                    net(x16).cpu()
+
+        c16 = serving_counts(telemetry)
+        bf16 = {}
+        for mode, run in (("infer_batch", served_run),
+                          ("eager_forward", eager_run)):
+            slope, t1, t2 = marginal(run)
+            bf16[mode] = {"img_per_s": RESNET_INFER_BATCH / slope,
+                          "ms": slope * 1e3}
+        moved16 = counts_moved(c16, serving_counts(telemetry))
+        if moved16["compile.serving.count"] or \
+                moved16["serving.capture_failures"]:
+            raise AssertionError(f"batch_serve: bf16 traffic captured: "
+                                 f"{moved16}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    emit({"phase": "batch_serve", "gpu": smi, "model": "resnet50_v1",
+          "image": RESNET_IMAGE, "dtype": "float32", "tf32": False,
+          "cudnn_deterministic": True, "clients": SERVE_CLIENTS,
+          "calls_per_client": SERVE_CALLS, "warmup": warm,
+          "batched": rows["batched"], "batch1": rows["batch1"],
+          "req_per_s": rate, "speedup": speedup, "gate": 3.0,
+          "counts_while_serving": moved,
+          "http_equals_predict": True, "bucket32_bitwise_eager": True,
+          "batch1_rows_max_abs_err": one_err,
+          "bf16": {"batch": RESNET_INFER_BATCH, "device_committed": True,
+                   "f32_graphs_dropped": len(SERVE_BUCKETS),
+                   "bitwise_eager": True, **bf16},
+          "phase_s": time.perf_counter() - t0})
+    del net, eng16, x16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(torch, fa_mod, smi):
+    """Scoring through batch serving: bench.py's transformer LM (vocab
+    32000, units 512, 8 layers, 8 heads, max_len 2048, tied weights,
+    Xavier seed 0) cast to bf16, served with ``example_shape=(None,)``,
+    int32 ids, ``seq_axes=(0,)``, batch buckets (1, 8) and ``max_sigs``
+    16; ``warmup`` captures every (batch, seq) bucket the traffic meets.
+    24 requests of 33-512 tokens (``RandomState(1)``) from 8 client
+    threads, ``max_batch_size`` 8.  K1 must launch 8 times a dispatch,
+    on replays, with no plain call; no capture while serving; each row
+    within 2e-2 of its largest logit from the eager forward of the
+    request alone at its own length; a replay bitwise equal to the eager
+    forward of the same padded batch; an id out of range fails its own
+    batch and the next one serves."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.serving import ServingServer
+    t0 = time.perf_counter()
+    net = train_model(torch)
+    net.cast("bfloat16")
+    srv = ServingServer(net, engine_args={
+        "example_shape": (None,), "dtype": "int32", "seq_axes": (0,),
+        "bucket_sizes": (1, LM_BATCH), "max_sigs": 16},
+        batcher_args={"max_batch_size": LM_BATCH, "max_delay_ms": 2,
+                      "queue_depth": 1024})
+    eng = srv.engine
+    w0 = time.perf_counter()
+    tags = srv.warmup([((b, s), "int32") for b in (1, LM_BATCH)
+                       for s in LM_SEQ_BUCKETS])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - w0
+    rng = onp.random.RandomState(1)
+    lengths = rng.randint(33, 513, size=LM_REQUESTS)
+    prompts = [rng.randint(0, VOCAB, size=n).astype(onp.int32)
+               for n in lengths]
+    served = [None] * LM_REQUESTS
+    lat = [0.0] * LM_REQUESTS
+    errors = []
+
+    def client(c):
+        for i in range(c, LM_REQUESTS, LM_CLIENTS):
+            s0 = time.perf_counter()
+            try:
+                served[i] = srv.predict(prompts[i], timeout_ms=120000)
+            except Exception as e:      # re-raised on the main thread
+                errors.append(e)
+                return
+            lat[i] = time.perf_counter() - s0
+
+    recs = ServingRecords()
+    telemetry.add_sink(recs)
+    c0 = serving_counts(telemetry)
+    reset_counts(fa_mod.flash_fwd)
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(LM_CLIENTS)]
+    t_start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    k1 = {"launches": fa_mod.flash_fwd.launches,
+          "plain_calls": fa_mod.flash_fwd.plain_calls}
+    telemetry.remove_sink(recs)
+    moved = counts_moved(c0, serving_counts(telemetry))
+    if errors:
+        raise errors[0]
+    dispatches = len(recs.records)
+    if moved["compile.serving.count"] or moved["serving.eager_batches"] \
+            or moved["serving.capture_failures"] or \
+            not all(r["serving"]["compiled"] for r in recs.records):
+        raise AssertionError(f"lm_serve: traffic captured or ran eagerly: "
+                             f"{moved}")
+    if k1 != {"launches": LAYERS * dispatches, "plain_calls": 0}:
+        raise AssertionError(f"lm_serve: K1 ran {k1} over {dispatches} "
+                             f"dispatches, expected {LAYERS} launches "
+                             f"each and no plain call")
+    errs = []
+    for x, row in zip(prompts, served):
+        with torch.no_grad():
+            alone = net(torch.as_tensor(x[None], device=DEV))[0]
+        alone = alone.float().cpu().numpy()
+        err = float(onp.abs(row[:len(x)] - alone).max())
+        scale = float(onp.abs(alone).max())
+        errs.append(err / scale)
+        if not (onp.isfinite(row).all() and err <= 2e-2 * scale):
+            raise AssertionError(f"lm_serve: a {len(x)}-token row is "
+                                 f"{err} from its own eager forward "
+                                 f"(max |ref| {scale})")
+    # a replay of the (8, 512) bucket against the eager forward of its
+    # static input
+    from mxnet_tpu_torch.amp import policy
+    entry = eng._compiled[(((LM_BATCH, 512), "int32"),
+                           policy.cache_token())]
+    batch = onp.zeros((LM_BATCH, 512), onp.int32)
+    for j, x in enumerate([p for p in prompts if len(p) > 256][:LM_BATCH]):
+        batch[j, :len(x)] = x
+    with eng._lock:
+        replayed = [t.clone() for t in entry.exe(batch)[0]]
+        eager = entry.exe.eager()[0]
+    if not all(torch.equal(a, b) for a, b in zip(replayed, eager)):
+        raise AssertionError("lm_serve: the (8, 512) replay differs from "
+                             "the eager forward of its input")
+    bad = prompts[0].copy()
+    bad[3] = VOCAB + 7
+    try:
+        srv.predict(bad, timeout_ms=120000)
+    except MXNetError as e:
+        bad_error = str(e)
+    else:
+        raise AssertionError("lm_serve: an id out of range was served")
+    after = srv.predict(prompts[1], timeout_ms=120000)
+    if after.shape != served[1].shape or not onp.isfinite(after).all():
+        raise AssertionError("lm_serve: the batch after the bad id failed")
+    srv.stop()
+    emit({"phase": "lm_serve", "gpu": smi,
+          "model": {"vocab": VOCAB, "units": DIM, "layers": LAYERS,
+                    "heads": HEADS, "max_len": SEQ, "dtype": "bfloat16"},
+          "buckets": tags, "warmup_s": warm_s, "requests": LM_REQUESTS,
+          "clients": LM_CLIENTS, "tokens_scored": int(lengths.sum()),
+          "wall_s": wall, "req_per_s": LM_REQUESTS / wall,
+          "tokens_scored_per_s": float(lengths.sum()) / wall,
+          "latency_ms_p50": pct(lat, 50) * 1e3,
+          "latency_ms_p95": pct(lat, 95) * 1e3,
+          "dispatches": dispatches,
+          "mean_occupancy": LM_REQUESTS / max(dispatches, 1),
+          "k1": k1, "counts_while_serving": moved,
+          "rows_max_rel_err": max(errs), "replay_bitwise_eager": True,
+          "bad_id_error": bad_error, "phase_s": time.perf_counter() - t0})
+    del srv, eng, net, entry, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_fwd": k1}
+
 
 def main():
     import torch
@@ -4084,6 +4519,12 @@ def main():
     for row in kernels:                  # K1-K3 in the checkpoint phase
         if row["name"] in ckpt_counts:
             row["launches_ckpt"] = ckpt_counts[row["name"]]["launches"]
+    phase_batch_serve(torch, smi)
+    serve_counts = phase_lm_serve(torch, fa_mod, smi)
+    for row in kernels:                  # K1 in the LM's bucket graphs
+        if row["name"] in serve_counts:
+            row["launches_batch_serve"] = \
+                serve_counts[row["name"]]["launches"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ An :class:`Executable` owns:
 - its static inputs: one byte buffer on the device holding every input
   at a fixed address, each in a 16-byte aligned slice viewed in the
   input's dtype and shape, with a pinned host twin, so that a call
-  stages all of its host inputs with one host-to-device copy; an input
+  stages all of its host inputs with one host-to-device copy (a batch
+  given as :class:`Rows` is written row by row into the twin); an input
   that already lies on the device is copied device to device into its
   slice instead;
 - on a CUDA device, a ``torch.cuda.CUDAGraph`` of ``fn`` over those
@@ -57,7 +58,7 @@ from .ops.attention import flash_bwd_dkdv, flash_bwd_dq, flash_fwd
 from .ops.paged_attention import paged_attention
 from .ops.rope import rope
 
-__all__ = ["Executable", "CaptureOwner", "input_spec"]
+__all__ = ["Executable", "CaptureOwner", "Rows", "input_spec"]
 
 _ALIGN = 16
 # wrappers whose launches a graph holds
@@ -114,6 +115,14 @@ class CaptureOwner:
             host, vocabs, done = pending
             done.synchronize()
             IdCheck.raise_if_bad(host, vocabs)
+
+
+class Rows(list):
+    """A batch input given as its rows (host arrays of the input's
+    trailing shape, at most its leading size): each row is written
+    straight into the input's host twin and the rows after the last are
+    zeroed, so the batch is never stacked (nor padded) in a host array
+    of its own first."""
 
 
 def input_spec(a):
@@ -210,6 +219,11 @@ class Executable:
                     on_device.append((self.inputs[i], a))
                     continue
                 self._host_views[i].copy_(a)
+            elif isinstance(a, Rows) and self._staged[i] is not None:
+                view = self._staged[i]
+                for j, row in enumerate(a):
+                    view[j] = row
+                view[len(a):] = 0
             elif self._staged[i] is not None:
                 self._staged[i][...] = a
             else:

@@ -188,21 +188,25 @@ _MAX_JIT_SIGS = _read_max_jit_sigs()
 class SigBudget:
     """The shared ``MXNET_JIT_MAX_SIGS`` budget (read once, at import)
     of a signature-keyed cache of captured executables: a hybridized
-    block's forwards and a trainer's cached steps.
+    block's forwards, a trainer's cached steps and the serving engine's
+    shape buckets.
 
     ``admit(n_compiled)`` says whether a new signature may be captured
     when ``n_compiled`` already are.  Over budget the cache latches: a
     new signature runs eagerly, while every captured one keeps
-    replaying (nothing is evicted)."""
+    replaying (nothing is evicted); ``declines`` counts the refusals."""
 
-    __slots__ = ("limit", "latched")
+    __slots__ = ("limit", "latched", "declines")
 
     def __init__(self, limit: Optional[int] = None):
         self.limit = int(limit) if limit is not None else _MAX_JIT_SIGS
         self.latched = False
+        self.declines = 0
 
     def admit(self, n_compiled: int) -> bool:
         self.latched = n_compiled >= self.limit
+        if self.latched:
+            self.declines += 1
         return not self.latched
 
 

@@ -1,5 +1,5 @@
 """Process-wide metrics registry and per-step records (the part of
-``mxnet_tpu/telemetry.py`` that decode serving, the trainers and the
+``mxnet_tpu/telemetry.py`` that serving, the trainers and the
 checkpoint service call).
 
 Counters, gauges and histograms always accumulate (plain attribute
@@ -8,8 +8,9 @@ the most recent samples).  A step
 funnel brackets its work with ``begin_step``/``end_step``; the record is
 built and fanned out only while a sink is attached, so with no sink the
 per-step cost is one list check.  A sink is any object with
-``emit(record)``.  The reference's JSONL/log/TensorBoard sinks and
-reports come with the telemetry port of a later slice.
+``emit(record)``.  ``record_serving_batch`` is the batch-serving
+plane's one accounting point.  The reference's JSONL/log/TensorBoard
+sinks and reports come with the telemetry port of a later slice.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from typing import Any, Dict, List, Optional
 __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge",
            "histogram", "metrics", "reset", "snapshot", "add_sink",
            "remove_sink", "clear_sinks", "enabled", "begin_step",
-           "end_step", "record_compile", "last_record"]
+           "end_step", "record_compile", "record_serving_batch",
+           "last_record"]
 
 _LOCK = threading.Lock()
 
@@ -180,6 +182,36 @@ def record_compile(seconds: float, kind: str) -> None:
     _C_COMPILE_MS.inc(ms)
     counter(f"compile.{kind}.count").inc()
     counter(f"compile.{kind}.ms").inc(ms)
+
+
+# serving health (``serving/`` writes these; made at import so that a
+# snapshot shows the keys before the first request)
+_C_SRV_REQS = counter("serving.requests")
+_C_SRV_BATCHES = counter("serving.batches")
+_C_SRV_EAGER = counter("serving.eager_batches")
+_C_SRV_REJ_FULL = counter("serving.rejected.queue_full")
+_C_SRV_REJ_SHAPE = counter("serving.rejected.shape")
+_C_SRV_TIMEOUTS = counter("serving.timeouts")
+_G_SRV_QUEUE = gauge("serving.queue_depth")
+_H_SRV_BATCH = histogram("serving.batch_size")
+_H_SRV_WASTE = histogram("serving.padding_waste")
+_H_SRV_REQ_MS = histogram("serving.request_ms")
+
+
+def record_serving_batch(n_requests: int, padded_size: int,
+                         latencies_ms, eager: bool = False) -> None:
+    """Account one coalesced serving dispatch: ``n_requests`` real rows
+    padded to ``padded_size``, with each request's submit-to-response
+    latency (``mxnet_tpu/telemetry.py:484-498``)."""
+    _C_SRV_REQS.inc(int(n_requests))
+    _C_SRV_BATCHES.inc()
+    if eager:
+        _C_SRV_EAGER.inc()
+    _H_SRV_BATCH.observe(float(n_requests))
+    if padded_size:
+        _H_SRV_WASTE.observe((padded_size - n_requests) / padded_size)
+    for ms in latencies_ms:
+        _H_SRV_REQ_MS.observe(ms)
 
 
 # -- sinks -------------------------------------------------------------------

@@ -345,29 +345,49 @@ def test_step_records_reach_a_sink(models):
     assert sum(r["compiles"] for r in records) == 2   # prefill_b8, decode
 
 
-# -- server ------------------------------------------------------------------
+# -- server ----------------------------------------------------------------
+
+def _server(decoder=None):
+    """A server as the reference's decode tests build one
+    (``tests/test_decode.py:342-350``): a small block for ``/predict``
+    beside the decoder for ``/generate``."""
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.Sequential()
+    net.add(nn.Dense(4, in_units=8))
+    net.initialize(device="cpu")
+    return ServingServer(net, engine_args={"example_shape": (8,),
+                                           "dtype": "float32"},
+                         decoder=decoder)
+
 
 def test_server_generate_inprocess(models):
-    srv = ServingServer()
+    from mxnet_tpu_torch import tracing
+    srv = _server()
     with pytest.raises(ServingClosedError):    # no decoder attached
         srv.generate([1, 2, 3])
     sch = DecodeScheduler(DecodeEngine(models[0], **GEOM), start=True)
     srv.attach_decoder(sch)
     p = _prompts(1, seed=13)[0]
-    n_seen = len(slo.recent_requests())
-    assert srv.generate(p, max_new_tokens=5) == \
-        models[0].greedy_reference(p, 5)
-    entry = slo.recent_requests()[n_seen]
-    assert entry["ok"] and entry["ttft_ms"] <= entry["latency_ms"]
+    tracing.enable()                    # the slow ring records while on
+    slo.clear_ring()
+    try:
+        assert srv.generate(p, max_new_tokens=5) == \
+            models[0].greedy_reference(p, 5)
+        entry, = slo.requestz()["slowest"]
+    finally:
+        tracing._env_default()
+        slo.clear_ring()
+    assert entry["ok"] and entry["kind"] == "generate"
+    assert entry["ttft_ms"] <= entry["latency_ms"]
     assert srv.healthz()["status"] == "serving"
-    srv.stop(drain=True)                # stops the decoder
+    srv.stop(drain=True)                # stops the batcher and the decoder
     assert sch.closed
     with pytest.raises(ServingClosedError):
         srv.generate(p)
 
 
 def test_server_generate_http(models):
-    srv = ServingServer(decoder=DecodeScheduler(
+    srv = _server(decoder=DecodeScheduler(
         DecodeEngine(models[0], **GEOM), start=True))
     host, port = srv.start_http()
     base = f"http://{host}:{port}"
@@ -383,9 +403,11 @@ def test_server_generate_http(models):
         p = _prompts(1, seed=14)[0]
         assert post("/generate", {"prompt": p, "max_new_tokens": 4}) == \
             {"tokens": models[0].greedy_reference(p, 4)}
+        # /predict now serves the block: a request of the wrong shape is
+        # an admission reject
         for path, body, code in (("/generate", {"prompt": []}, 400),
                                  ("/generate", {"oops": 1}, 400),
-                                 ("/predict", {"data": [1.0]}, 503)):
+                                 ("/predict", {"data": [1.0]}, 400)):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 post(path, body)
             assert ei.value.code == code

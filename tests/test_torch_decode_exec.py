@@ -27,6 +27,7 @@ from mxnet_tpu.serving.decode import engine as ref
 
 from mxnet_tpu_torch import convert, kernels
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.kernels import registry
 from mxnet_tpu_torch.serving import (DecodeEngine, DecodeModel,
                                      DecodeScheduler, ServingServer)
@@ -201,8 +202,14 @@ def test_cpu_engine_through_static_buffers_generates_reference_tokens(
     nothing more, and generates the reference scheduler's tokens."""
     eng = DecodeEngine(target[1], draft_model=draft[1] if spec else None,
                        spec_k=2, **GEOM)
-    srv = ServingServer(decoder=DecodeScheduler(eng, start=False))
-    keys = srv.warmup((1, 5, 9, 16))
+    net = nn.Sequential()
+    net.add(nn.Dense(4, in_units=8))
+    net.initialize(device="cpu")
+    srv = ServingServer(net, engine_args={"example_shape": (8,),
+                                          "dtype": "float32"},
+                        decoder=DecodeScheduler(eng, start=False),
+                        start=False)
+    keys = srv.decoder.warmup((1, 5, 9, 16))
     inputs = {k: [t.data_ptr() for t in eng._exec[k].inputs] for k in keys}
     sch = srv.decoder
     futs = [sch.submit(p, max_new_tokens=m) for p, m in REQUESTS]

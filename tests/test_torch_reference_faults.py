@@ -33,7 +33,17 @@ against ``mxnet_tpu`` on the same numpy inputs on the CPU:
   ``serving.OutOfPagesError`` / ``PagedKVCache`` exist (``Sequential``'s
   forward at 1e-6);
 * F13: ``MXNET_ZERO`` requests ZeRO for the values the reference's
-  ``zero_enabled`` takes, and only those.
+  ``zero_enabled`` takes, and only those;
+* F14: ``ServingServer`` takes the reference's constructor (a block or
+  an engine, ``engine_args``, ``batcher_args``, ``decoder``, ``start``);
+  ``predict`` at rtol 1e-5, ``healthz`` equal;
+* F15: ``serving.slo`` keeps the reference's ring of the slowest
+  requests, fed only while tracing is on (``requestz`` equal);
+* F16: ``serving.__all__`` holds the reference's names;
+* batch serving's two choices: an id out of range fails its batch with
+  ``MXNetError`` where the reference gives NaN rows, and a bf16 output
+  comes back widened to float32 (exact) where the reference returns
+  ml_dtypes bf16.
 """
 import pathlib
 import subprocess
@@ -690,3 +700,143 @@ def test_mxnet_zero_is_read_as_the_reference_reads_it(value, monkeypatch):
         tr = mt.gluon.Trainer(got.collect_params(), "sgd")
         _backward(mt, got)
         tr.step(4)
+
+
+# -- F14-F16: batch serving's surface ----------------------------------------
+
+SERVE_KW = dict(engine_args={"example_shape": (6,), "dtype": "float32"},
+                batcher_args={"max_batch_size": 4, "max_delay_ms": 0.5})
+
+
+def test_serving_server_takes_the_reference_constructor():
+    """F14: ``ServingServer(block_or_engine, engine_args, batcher_args,
+    decoder, start)`` serves ``predict`` (rows at rtol 1e-5) and its
+    ``healthz`` has the reference's keys and values."""
+    ref, got = _mlp_pair()
+    servers = (mx.serving.ServingServer(ref, **SERVE_KW),
+               mt.serving.ServingServer(got, **SERVE_KW))
+    try:
+        for srv in servers:
+            assert srv.warmup([1, 4]) == ["1x6:float32", "4x6:float32"]
+        for x in MLP_X:
+            onp.testing.assert_allclose(servers[1].predict(x),
+                                        onp.asarray(servers[0].predict(x)),
+                                        rtol=1e-5, atol=1e-6)
+        want, have = (srv.healthz() for srv in servers)
+        assert have == want
+    finally:
+        for srv in servers:
+            srv.stop()
+    assert servers[1].healthz()["status"] == "draining"
+
+
+def test_slow_request_ring_is_the_references():
+    """F15: no port-only ``recent_requests``; ``observe_request`` feeds
+    the ring of the N slowest requests only while tracing is on (no
+    objective can be declared), and ``requestz`` reads it as the
+    reference's does."""
+    from mxnet_tpu import tracing as jax_tracing
+    from mxnet_tpu.serving import slo as jax_slo
+    from mxnet_tpu_torch import tracing
+    from mxnet_tpu_torch.serving import slo
+    assert not hasattr(slo, "recent_requests")
+    entries = [{"id": i, "ok": True, "latency_ms": float((7 * i) % 5)}
+               for i in range(6)]
+    views = []
+    for s, tr in ((jax_slo, jax_tracing), (slo, tracing)):
+        s.clear_ring()
+        try:
+            tr.disable()
+            s.observe_request(dict(entries[0]))
+            assert s.requestz()["tracked"] == 0
+            tr.enable()
+            for e in entries:
+                s.observe_request(dict(e))
+            v = s.requestz(limit=3)
+            views.append({k: v[k] for k in ("ring_capacity", "tracked",
+                                            "slowest")})
+        finally:
+            tr._env_default()
+            s.clear_ring()
+    assert views[1] == views[0]
+    assert [e["id"] for e in views[1]["slowest"]] == [2, 4, 1]
+
+
+def test_serving_exports_the_references_names():
+    """F16: ``serving.__all__`` holds every name of the reference's,
+    ``InferenceEngine``, ``DynamicBatcher``, ``serving_enabled`` and
+    ``decode`` among them."""
+    assert set(mx.serving.__all__) <= set(mt.serving.__all__)
+    for name in ("InferenceEngine", "DynamicBatcher", "serving_enabled",
+                 "decode"):
+        assert getattr(mt.serving, name) is not None
+
+
+# -- batch serving: reference behaviours the port does not copy --------------
+
+def _embedding_pair():
+    ref = jax_nn.HybridSequential()
+    ref.add(jax_nn.Embedding(10, 4), jax_nn.Dense(3, flatten=False))
+    ref.initialize()
+    ref(mx.nd.array(onp.zeros((1, 3), onp.int32)))
+    got = nn.HybridSequential()
+    got.add(nn.Embedding(10, 4), nn.Dense(3, flatten=False, in_units=4))
+    got.initialize(device="cpu")
+    convert.load_collected_params(
+        got, {k: p.data().asnumpy() for k, p in ref.collect_params().items()},
+        device="cpu")
+    return ref, got
+
+
+def test_out_of_range_id_fails_its_batch_only():
+    """A served id out of range fails its own batch with MXNetError and
+    the next batch serves (rows at 1e-6); the reference gives the
+    position of that id a NaN row (``jnp.take``'s fill).  A choice,
+    pinned here."""
+    ref, got = _embedding_pair()
+    ids = onp.asarray([[1, 2, 3], [4, 12, 5]], onp.int32)
+    kw = dict(example_shape=(3,), dtype="int32")
+    jb = mx.serving.DynamicBatcher(mx.serving.InferenceEngine(ref, **kw),
+                                   start=False)
+    pb = mt.serving.DynamicBatcher(mt.serving.InferenceEngine(got, **kw),
+                                   start=False)
+    jfuts = [jb.submit(x) for x in ids]
+    jb.flush()
+    nan_rows = onp.isnan(onp.asarray(jfuts[1].result(0))).all(axis=1)
+    assert nan_rows.tolist() == [False, True, False]
+    pfuts = [pb.submit(x) for x in ids]
+    pb.flush()
+    for f in pfuts:
+        with pytest.raises(mt.MXNetError, match=r"\[0, 10\)"):
+            f.result(0)
+    nxt = pb.submit(ids[0])
+    pb.flush()
+    onp.testing.assert_allclose(nxt.result(0),
+                                onp.asarray(jfuts[0].result(0)),
+                                rtol=1e-6, atol=1e-6)
+
+
+def test_bf16_outputs_are_widened_to_f32():
+    """numpy has no bfloat16: the port returns a bf16 output as float32
+    on the host, exactly the bf16 values; the reference returns
+    ml_dtypes bf16 arrays (equal values at 2e-2)."""
+    ref, got = _mlp_pair()
+    for net in (ref, got):
+        net.cast("bfloat16")
+    rows = [mx.serving.InferenceEngine(ref, example_shape=(6,),
+                                       dtype="bfloat16").infer(
+        onp.asarray(mx.nd.array(x, dtype="bfloat16").asnumpy()))
+        for x in MLP_X[:2]]
+    assert str(rows[0].dtype) == "bfloat16"
+    eng = mt.serving.InferenceEngine(got, example_shape=(6,),
+                                     dtype="bfloat16")
+    batch = torch.from_numpy(MLP_X[:2]).to(torch.bfloat16)
+    results, meta = eng.infer_batch(batch)
+    assert meta["device_committed"] and meta["compiled"]
+    with torch.no_grad():
+        want = got(batch).float().numpy()
+    for r, w, j in zip(results, want, rows):
+        assert r.dtype == onp.float32
+        onp.testing.assert_array_equal(r, w)
+        onp.testing.assert_allclose(r, onp.asarray(j, onp.float32),
+                                    rtol=2e-2, atol=2e-2)
