@@ -258,10 +258,33 @@ exits non-zero and prints no result:
              the eager forward of its input; an id out of range fails
              its batch and the next serves.  req/s, p50/p95 ms, tokens
              scored/s.
+21. input_pipeline — the data layer feeding bench.py's rows, each run
+             beside the same consumer fed from resident batches: (a) the
+             transformer row, 20 steps from ``NDArrayIter`` through
+             ``DevicePrefetcher(trainer)``, losses bitwise equal to 20
+             host-fed steps, K1-K3 8 launches a fed step, no
+             ``input.step_h2d``, tokens/s fed against resident in turns,
+             then ``window=4`` into ``run_steps(4, per_step_data=True)``
+             with no ``input.step_h2d``; (b) the ResNet-50 row from a
+             DataLoader over 2560 seeded uint8 224 x 224 images
+             (ToTensor + ImageNet Normalize in min(8, cpu_count) forked
+             workers, shuffle, ``last_batch="discard"``,
+             ``prefetch_to_device=trainer``, cuDNN deterministic): an
+             epoch fed bitwise equal to the same epoch host-fed
+             (``MXNET_DEVICE_PREFETCH=0``), img/s fed, resident and
+             host-fed in turns, the input wait a step, which side sets
+             the pace, a batch's host parts timed apart, and
+             torch.profiler traces of 3 fed steps (the host-to-device
+             copies must run on a side stream and overlap the step's
+             kernels: their ms, GB/s and share); (d) the captured Gluon
+             step fed by a DataLoader, 11 losses bitwise equal to
+             resident batches, ``compiles`` 1.  (c), ResNet-50 from a
+             JPEG ``ImageRecordIter``, is left out: the card's machine
+             has no libjpeg to build the native pipeline against.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
-carry ``launches_gluon_train`` and ``launches_ckpt``, K1
-``launches_batch_serve``); the last is
+carry ``launches_gluon_train``, ``launches_ckpt`` and
+``launches_input_pipeline``, K1 ``launches_batch_serve``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -915,7 +938,7 @@ def phase_train(torch, fa_mod, smi):
         step_ms.append((time.perf_counter() - s0) * 1e3)
     s0 = time.perf_counter()
     window = trainer.run_steps(data, label, 4)
-    losses += [float(x) for x in window.cpu()]
+    losses += [float(x) for x in window._data.cpu()]
     window_ms = (time.perf_counter() - s0) * 1e3
     counts = {f.__name__: {"launches": f.launches,
                            "plain_calls": f.plain_calls} for f in fns}
@@ -1032,8 +1055,8 @@ def phase_train_replay_check(torch, fa_mod):
     del eager
     gc.collect()
     torch.cuda.empty_cache()
-    first = captured.predict(data)                   # warm + capture
-    replayed = captured.predict(data)
+    first = captured.predict(data)._data             # warm + capture
+    replayed = captured.predict(data)._data
     plain = captured._predict_eager(data)
     if not (torch.equal(replayed, plain) and torch.equal(first, plain)):
         raise AssertionError("predict's replay differs from the eager "
@@ -2666,7 +2689,7 @@ def resnet_rate(torch, trainer, data, label, losses):
     appended to ``losses``."""
     def run(n):
         losses.extend(float(v) for v in trainer.run_steps(data, label,
-                                                          n).cpu())
+                                                          n)._data.cpu())
 
     slope, t1, t2 = marginal(run)
     batch = data.shape[0]
@@ -4031,7 +4054,7 @@ def ckpt_resnet(torch, root):
     try:
         data, label = resnet_batch(torch, RESNET_BATCH)
         r1 = resnet_trainer(torch, resnet_net(torch, DEV), dtype="bfloat16")
-        first = [float(v) for v in r1.run_steps(data, label, 2).cpu()]
+        first = [float(v) for v in r1.run_steps(data, label, 2)._data.cpu()]
         before = telemetry.snapshot("checkpoint.")
         path = os.path.join(root, "resnet")
         torch.cuda.synchronize()
@@ -4039,7 +4062,7 @@ def ckpt_resnet(torch, root):
         r1.save_checkpoint(path)
         block_ms = (time.perf_counter() - s0) * 1e3
         numbers = ckpt_numbers(before)
-        want = [float(v) for v in r1.run_steps(data, label, 2).cpu()]
+        want = [float(v) for v in r1.run_steps(data, label, 2)._data.cpu()]
         state = {k: t.clone() for k, t in resnet_state(r1).items()}
         del r1
         gc.collect()
@@ -4047,7 +4070,7 @@ def ckpt_resnet(torch, root):
         r2 = resnet_trainer(torch, resnet_net(torch, DEV, seed=1),
                             dtype="bfloat16")
         meta, load_ms = timed_load(torch, r2, path)
-        got = [float(v) for v in r2.run_steps(data, label, 2).cpu()]
+        got = [float(v) for v in r2.run_steps(data, label, 2)._data.cpu()]
         now = resnet_state(r2)
         diff = [k for k in state if not torch.equal(state[k], now[k])]
         stats = [k for k in state if k.endswith(("running_mean",
@@ -4447,6 +4470,541 @@ def phase_lm_serve(torch, fa_mod, smi):
     return {"flash_fwd": k1}
 
 
+# the input_pipeline phase: bench.py's rows fed from the port's data layer
+INPUT_STEPS = 20                  # (a) transformer steps fed a run
+INPUT_WINDOW = 4                  # (a) run_steps(per_step_data) windows
+INPUT_IMAGES = 2560               # (b) the image dataset (ten batches)
+INPUT_GLUON_STEPS = 10            # (d) captured Gluon steps fed
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+INPUT_SEED = 14
+
+
+def input_counters(telemetry):
+    return {k: telemetry.counter(k).value
+            for k in ("input.h2d_bytes", "input.step_h2d", "input.wait_ms")}
+
+
+def input_delta(telemetry, before):
+    now = input_counters(telemetry)
+    return {k: now[k] - v for k, v in before.items()}
+
+
+def trace_overlap(path):
+    """From a torch.profiler chrome trace: the step's stream (the one with
+    the most kernel time), the host-to-device copies on other streams,
+    their ms, bytes and GB/s, and the ms of those copies that overlap a
+    kernel of the step's stream, with the share of the copies' ms."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern, copies = {}, []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = str(e.get("cat", "")).lower()
+        stream = (e.get("args") or {}).get("stream")
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))
+        if cat == "kernel":
+            kern.setdefault(stream, []).append((t0, t1))
+        elif "memcpy" in cat and "HtoD" in e.get("name", ""):
+            copies.append((stream, t0, t1,
+                           int((e.get("args") or {}).get("bytes", 0))))
+    step_stream = max(kern, key=lambda s: sum(b - a for a, b in kern[s]))
+    spans = sorted(kern[step_stream])
+    merged = []
+    for a, b in spans:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    side = [c for c in copies if c[0] != step_stream]
+    overlap = 0.0
+    for _, a, b, _ in side:
+        for m0, m1 in merged:
+            if m1 <= a:
+                continue
+            if m0 >= b:
+                break
+            overlap += min(b, m1) - max(a, m0)
+    copy_us = sum(b - a for _, a, b, _ in side)
+    nbytes = sum(c[3] for c in side)
+    return {"step_stream": step_stream,
+            "copy_streams": sorted({c[0] for c in side}),
+            "h2d_copies_on_side_streams": len(side),
+            "h2d_copies_on_step_stream": len(copies) - len(side),
+            "h2d_ms": copy_us / 1e3, "h2d_bytes": nbytes,
+            "h2d_gb_per_s": nbytes / (copy_us * 1e3) if copy_us else None,
+            "overlap_ms": overlap / 1e3,
+            "overlap_share": overlap / copy_us if copy_us else None,
+            "step_stream_busy_ms": sum(b - a for a, b in merged) / 1e3,
+            "trace_span_ms": (max(b for _, b in merged)
+                              - min(a for a, _ in merged)) / 1e3}
+
+
+def input_transformer(torch, fa_mod, telemetry, failures):
+    """(a) bench.py's transformer row from ``NDArrayIter`` through
+    ``DevicePrefetcher(trainer)``: 20 fed steps against 20 host-fed steps
+    of a trainer from the same weights (losses bitwise), K1-K3 8 launches
+    a fed step with no plain call and no ``input.step_h2d``; tokens/s fed
+    against resident device batches in blocks taken in turns; then
+    ``window=4`` into ``run_steps(4, per_step_data=True)``."""
+    from mxnet_tpu_torch import io as mio
+    from mxnet_tpu_torch.data import DevicePrefetcher
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    rng = onp.random.RandomState(INPUT_SEED)
+    ids = rng.randint(0, VOCAB, (INPUT_STEPS * BATCH, SEQ)).astype(onp.int32)
+    labels = rng.randint(0, VOCAB, (INPUT_STEPS * BATCH, SEQ)).astype(
+        onp.int32)
+    host_tr = train_trainer(torch, train_model(torch))
+    host = []
+    c0 = input_counters(telemetry)
+    for i in range(INPUT_STEPS):
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        host.append(float(host_tr.step(ids[sl], labels[sl])))
+    host_counts = input_delta(telemetry, c0)
+    del host_tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    fed_tr = train_trainer(torch, train_model(torch))
+    reset_counts(*fns)
+    c0 = input_counters(telemetry)
+    pf = DevicePrefetcher(mio.NDArrayIter(ids, labels, BATCH), fed_tr)
+    fed = []
+    for batch in pf:
+        x, y = batch.data[0], batch.label[0]
+        if x._data.device != fed_tr.device:
+            failures.append(f"transformer: a batch on {x._data.device}")
+        fed.append(float(fed_tr.step(x, y)))
+    torch.cuda.synchronize()
+    fed_counts = input_delta(telemetry, c0)
+    counts = {f.__name__: {"launches": f.launches,
+                           "plain_calls": f.plain_calls} for f in fns}
+    side = [s for s in pf._stager._streams.values()
+            if s != torch.cuda.current_stream()]
+    if fed != host:
+        failures.append(f"transformer: fed losses {fed} differ from "
+                        f"host-fed {host}")
+    if fed_counts["input.step_h2d"] != 0:
+        failures.append(f"transformer: {fed_counts} step_h2d when fed")
+    if host_counts["input.step_h2d"] != 2 * INPUT_STEPS:
+        failures.append(f"transformer: host-fed counters {host_counts}")
+    for name, c in counts.items():
+        if c != {"launches": LAYERS * INPUT_STEPS, "plain_calls": 0}:
+            failures.append(f"transformer: {name} {c}, want {LAYERS} "
+                            f"launches a fed step")
+    if not side:
+        failures.append("transformer: no side stream made the copies")
+    resident = [(torch.as_tensor(ids[i * BATCH:(i + 1) * BATCH],
+                                 device=DEV),
+                 torch.as_tensor(labels[i * BATCH:(i + 1) * BATCH],
+                                 device=DEV)) for i in range(INPUT_STEPS)]
+
+    def run_fed():
+        pf.reset()
+        last = None
+        for batch in pf:
+            last = fed_tr.step(batch.data[0], batch.label[0])
+        float(last)
+
+    def run_resident():
+        last = None
+        for x, y in resident:
+            last = fed_tr.step(x, y)
+        float(last)
+
+    blocks = host_ms_blocks({"fed": run_fed, "resident": run_resident},
+                            calls=1, rounds=3)
+    tokens = INPUT_STEPS * BATCH * SEQ
+    rate = {k: tokens / (v["median"] / 1e3) for k, v in blocks.items()}
+    # whole windows into run_steps(per_step_data=True)
+    c0 = input_counters(telemetry)
+    wpf = DevicePrefetcher(mio.NDArrayIter(ids, labels, BATCH), fed_tr,
+                           window=INPUT_WINDOW)
+    windows = []
+    for batch in wpf:
+        if tuple(batch.data[0].shape) != (INPUT_WINDOW, BATCH, SEQ):
+            failures.append(f"window shape {batch.data[0].shape}")
+        windows.extend(float(v) for v in fed_tr.run_steps(
+            batch.data[0], batch.label[0], INPUT_WINDOW,
+            per_step_data=True)._data.cpu())
+    window_counts = input_delta(telemetry, c0)
+    if window_counts["input.step_h2d"] != 0 or len(windows) != INPUT_STEPS:
+        failures.append(f"windows: {window_counts}, {len(windows)} steps")
+    if not all(onp.isfinite(fed + windows)):
+        failures.append("transformer: a loss is not finite")
+    if fed_tr.compiles != 1:
+        failures.append(f"transformer: {fed_tr.compiles} captures")
+    out = {"steps": INPUT_STEPS, "batch": BATCH, "seq": SEQ,
+           "source": "NDArrayIter over host int32 ids",
+           "losses_bitwise_host_fed": fed == host,
+           "losses_first_last": [fed[0], fed[-1]],
+           "k1_k3_launches": counts, "fed_counters": fed_counts,
+           "host_fed_counters": host_counts,
+           "side_streams": len(side), "block_ms": blocks,
+           "tokens_per_s": rate,
+           "fed_over_resident": rate["fed"] / rate["resident"],
+           "window": {"n_steps": INPUT_WINDOW, "windows":
+                      INPUT_STEPS // INPUT_WINDOW, "counters": window_counts,
+                      "losses_first_last": [windows[0], windows[-1]]},
+           "captures": fed_tr.compiles}
+    pf.close()
+    wpf.close()
+    del fed_tr, pf, wpf, resident
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def image_dataset(mx, images, labels):
+    """(b)'s dataset: HWC uint8 host images through ToTensor and the
+    ImageNet Normalize, as a user's loader runs them."""
+    from mxnet_tpu_torch.gluon.data import ArrayDataset
+    from mxnet_tpu_torch.gluon.data.vision import transforms
+    return ArrayDataset(mx.io.host_nd(images), labels).transform_first(
+        transforms.Compose([transforms.ToTensor(),
+                            transforms.Normalize(IMAGENET_MEAN,
+                                                 IMAGENET_STD)]))
+
+
+def fed_epoch(torch, trainer, loader, telemetry, seed):
+    """One epoch of ``trainer.step`` over ``loader`` with numpy's
+    generator seeded (the shuffle): losses, the wall s from the first
+    step's start to the last loss, the input wait a step (ms), and
+    the counters' deltas."""
+    onp.random.seed(seed)
+    losses, waits, last = [], [], None
+    c0 = input_counters(telemetry)
+    w0 = telemetry.counter("input.wait_ms").value
+    t_first = None
+    for x, y in loader:
+        w1 = telemetry.counter("input.wait_ms").value
+        waits.append(w1 - w0)
+        if t_first is None:
+            t_first = time.perf_counter()
+        last = trainer.step(x, y)
+        losses.append(last)
+        w0 = telemetry.counter("input.wait_ms").value
+    losses = [float(v) for v in losses]
+    wall = time.perf_counter() - t_first
+    return {"losses": losses, "wall_s": wall, "wait_ms": waits,
+            "counters": input_delta(telemetry, c0)}
+
+
+def host_breakdown(torch, ds, batch):
+    """Host ms of one batch's parts, each alone: the 256 samples'
+    transforms and the workers' batchify in this process on one torch
+    thread; the shared-memory hand-off (a worker's pack, the parent's
+    unpack); ``ImageRecordIter``'s NHWC -> NCHW host copy; the
+    prefetcher's copy into a pinned slot and the copy to the card
+    (synced)."""
+    from mxnet_tpu_torch.data.device_pipeline import _Stager
+    from mxnet_tpu_torch.gluon.data import dataloader as dl
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        host = dl.default_mp_batchify_fn(
+            [ds[i] for i in range(RESNET_BATCH)])
+        t1 = time.perf_counter()
+    finally:
+        torch.set_num_threads(threads)
+    packed = dl._shm_pack(host)
+    t2 = time.perf_counter()
+    dl._shm_unpack(packed)
+    t3 = time.perf_counter()
+    # ImageRecordIter's NHWC -> NCHW host copy of a batch (its native
+    # pipeline fills NHWC float32): numpy alone, as io/native.py runs it
+    nhwc = onp.ones((RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3),
+                    onp.float32)
+    t4 = time.perf_counter()
+    onp.ascontiguousarray(onp.transpose(nhwc, (0, 3, 1, 2)))
+    t5 = time.perf_counter()
+    out = {"transforms_and_batchify_1_thread": (t1 - t0) * 1e3,
+           "shm_pack": (t2 - t1) * 1e3, "shm_unpack": (t3 - t2) * 1e3,
+           "nhwc_to_nchw_host_copy": (t5 - t4) * 1e3,
+           "batch_bytes": batch._data.nbytes}
+    if DEV == "cuda":
+        stager = _Stager(2)
+        t = batch._data
+        work = [(t, torch.device(DEV), False)]
+        stager.stage(work)                   # the slot's allocation
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        slot = stager._slot(torch.device(DEV), [t])
+        slot[0][0].copy_(t)
+        t5 = time.perf_counter()
+        stager.stage(work)
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        out.update(pinned_slot_copy=(t5 - t4) * 1e3,
+                   stage_synced=(t6 - t5) * 1e3)
+    return out
+
+
+def profile_fed(torch, trainer, source):
+    """torch.profiler over 3 steps fed by ``DevicePrefetcher(source,
+    trainer)`` after 3 that fill its ring: ``trace_overlap`` of the
+    trace, the profiled host ms, and the device's idle share (1 - the
+    step stream's busy ms over them)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.data import DevicePrefetcher
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "input_pipeline_trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    pf = DevicePrefetcher(source, trainer)
+    it = iter(pf)
+    for _ in range(3):
+        x, y = next(it)
+        float(trainer.step(x, y))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            x, y = next(it)
+            last = trainer.step(x, y)
+        float(last)
+        wall = (time.perf_counter() - t0) * 1e3
+    pf.close()
+    prof.export_chrome_trace(trace)
+    ov = trace_overlap(trace)
+    os.remove(trace)
+    ov["profiled_wall_ms"] = wall
+    ov["device_idle_share"] = 1 - ov["step_stream_busy_ms"] / wall
+    return ov
+
+
+def input_resnet(torch, mx, telemetry, smi, failures):
+    """(b) bench.py's ResNet-50 row (224 x 224, bf16, batch 256, SGD
+    momentum 0.9, wd 1e-4) fed from ``gluon.data``: 2560 seeded uint8
+    images (385 MB on the host) through ToTensor + Normalize in
+    ``min(8, cpu_count)`` forked workers (shared memory), ``shuffle``,
+    ``last_batch="discard"``, ``prefetch_to_device=trainer``.  An epoch
+    fed through the prefetcher against the same epoch host-fed
+    (``MXNET_DEVICE_PREFETCH=0``) from the same state: losses bitwise
+    (cuDNN deterministic).  Then in turns: fed, resident (one batch on
+    the card, 10 steps) and host-fed epochs; img/s, input wait a step,
+    and a torch.profiler trace of 3 fed steps (the copies' streams,
+    GB/s and overlap with the step's kernels, the device's idle
+    share)."""
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    workers = min(8, os.cpu_count() or 1)
+    g0 = time.perf_counter()
+    rng = onp.random.RandomState(INPUT_SEED)
+    images = rng.randint(0, 256, (INPUT_IMAGES, RESNET_IMAGE, RESNET_IMAGE,
+                                  3), dtype=onp.uint8)
+    labels = rng.randint(0, 1000, INPUT_IMAGES).astype(onp.float32)
+    make_s = time.perf_counter() - g0
+    ds = image_dataset(mx, images, labels)
+    steps = INPUT_IMAGES // RESNET_BATCH
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer = resnet_trainer(torch, resnet_net(torch, DEV),
+                                 dtype="bfloat16")
+        warm_x, warm_y = resnet_batch(torch, RESNET_BATCH)
+        w0 = time.perf_counter()
+        float(trainer.step(warm_x, warm_y))        # the capture
+        warm_s = time.perf_counter() - w0
+        loader = DataLoader(ds, batch_size=RESNET_BATCH, shuffle=True,
+                            num_workers=workers, last_batch="discard",
+                            prefetch_to_device=trainer, timeout=600)
+        state = {k: t.detach().clone()
+                 for k, t in resnet_state(trainer).items()}
+        n0 = trainer.num_update
+        fed = fed_epoch(torch, trainer, loader, telemetry, INPUT_SEED)
+        after = resnet_state(trainer)
+        with torch.no_grad():
+            for k, t in state.items():
+                after[k].copy_(t)
+        trainer.num_update = trainer.optimizer.num_update = n0
+        os.environ["MXNET_DEVICE_PREFETCH"] = "0"
+        try:
+            host = fed_epoch(torch, trainer, loader, telemetry, INPUT_SEED)
+        finally:
+            os.environ.pop("MXNET_DEVICE_PREFETCH")
+        if fed["losses"] != host["losses"]:
+            failures.append(f"resnet: fed losses {fed['losses']} differ "
+                            f"from host-fed {host['losses']}")
+        if fed["counters"]["input.step_h2d"] != 0 or \
+                host["counters"]["input.step_h2d"] != 2 * steps:
+            failures.append(f"resnet: counters fed {fed['counters']} host "
+                            f"{host['counters']}")
+        if len(fed["losses"]) != steps or not all(
+                onp.isfinite(fed["losses"])):
+            failures.append(f"resnet: losses {fed['losses']}")
+
+        def resident():
+            t0 = time.perf_counter()
+            last = None
+            for _ in range(steps):
+                last = trainer.step(warm_x, warm_y)
+            float(last)
+            return {"wall_s": time.perf_counter() - t0}
+
+        def host_fed():
+            os.environ["MXNET_DEVICE_PREFETCH"] = "0"
+            try:
+                return fed_epoch(torch, trainer, loader, telemetry, 1)
+            finally:
+                os.environ.pop("MXNET_DEVICE_PREFETCH")
+
+        modes = {"fed": lambda: fed_epoch(torch, trainer, loader, telemetry,
+                                          1),
+                 "resident": resident, "host_fed": host_fed}
+        runs = {k: [] for k in modes}
+        for _ in range(2):
+            for k, fn in modes.items():
+                runs[k].append(fn())
+        img_s = {k: [steps * RESNET_BATCH / r["wall_s"] for r in v]
+                 for k, v in runs.items()}
+        waits = [w for r in runs["fed"] for w in r["wait_ms"][1:]]
+        host_waits = [w for r in runs["host_fed"] for w in r["wait_ms"][1:]]
+        # torch.profiler over 3 fed steps: from the loader, and from a
+        # prefetcher over host batches already made (a source faster
+        # than the step, so the ring is full and each copy runs beside
+        # the step before it)
+        ov = profile_fed(torch, trainer, loader)
+        os.environ["MXNET_DEVICE_PREFETCH"] = "0"
+        try:
+            made = []
+            for x, y in loader:
+                made.append((x, y))
+                if len(made) == 6:
+                    break
+        finally:
+            os.environ.pop("MXNET_DEVICE_PREFETCH")
+        # twice over: the producer runs ahead of the ring, so the profiled
+        # steps' copies are those of later items
+        ov_made = profile_fed(torch, trainer, made * 2)
+        breakdown = host_breakdown(torch, ds, made[0][0])
+        del made
+        if not ov_made["h2d_copies_on_side_streams"] or \
+                not ov_made["overlap_ms"] > 0:
+            failures.append(f"resnet: host-to-device copies did not overlap "
+                            f"the step on a side stream: {ov_made}")
+        fed_rate = sorted(img_s["fed"])[-1]
+        res_rate = sorted(img_s["resident"])[-1]
+        out = {"images": INPUT_IMAGES, "image_shape": [RESNET_IMAGE,
+                                                       RESNET_IMAGE, 3],
+               "host_dataset_bytes": images.nbytes, "make_data_s": make_s,
+               "workers": workers, "cpu_count": os.cpu_count(),
+               "batch": RESNET_BATCH, "steps_an_epoch": steps,
+               "transforms": "ToTensor, Normalize(ImageNet mean/std)",
+               "cudnn_deterministic": True, "warmup_s": warm_s,
+               "losses_bitwise_host_fed": fed["losses"] == host["losses"],
+               "losses_first_last": [fed["losses"][0], fed["losses"][-1]],
+               "fed_counters": fed["counters"],
+               "host_fed_counters": host["counters"],
+               "img_per_s": img_s,
+               "fed_over_resident": fed_rate / res_rate,
+               "input_wait_ms_a_step": {"p50": pct(waits, 50),
+                                        "p95": pct(waits, 95),
+                                        "max": max(waits)},
+               "host_fed_input_wait_ms_a_step": {
+                   "p50": pct(host_waits, 50), "p95": pct(host_waits, 95)},
+               "host_breakdown_ms_a_batch": breakdown,
+               "profile_3_steps_loader": ov,
+               "profile_3_steps_made_batches": ov_made,
+               "pace_set_by": ("device" if fed_rate >= 0.95 * res_rate
+                               else "input")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del trainer, loader, ds, images, warm_x, warm_y, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def input_gluon_capture(torch, mx, failures):
+    """(d) the captured Gluon transformer step (``amp.init("bfloat16")``,
+    Adam, no ``scale_loss``) fed from ``DataLoader(prefetch_to_device=
+    trainer)``: 1 + 10 steps against 1 + 10 steps on resident batches
+    from the same weights; losses bitwise and ``compiles`` 1 each."""
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.imperative import cached_step
+    n = INPUT_GLUON_STEPS + 1
+    rng = onp.random.RandomState(INPUT_SEED + 1)
+    ids = rng.randint(0, VOCAB, (n * BATCH, SEQ)).astype(onp.int32)
+    labels = rng.randint(0, VOCAB, (n * BATCH, SEQ)).astype(onp.int32)
+    results = {}
+    amp.init("bfloat16")
+    try:
+        for mode in ("resident", "fed"):
+            net = train_model(torch)
+            trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                       {"learning_rate": LR})
+            loss_fn = SoftmaxCrossEntropyLoss()
+            if mode == "fed":
+                batches = DataLoader(ArrayDataset(ids, labels),
+                                     batch_size=BATCH,
+                                     prefetch_to_device=trainer, timeout=600)
+            else:
+                batches = [(mx.nd.array(ids[i * BATCH:(i + 1) * BATCH],
+                                        dtype="int32"),
+                            mx.nd.array(labels[i * BATCH:(i + 1) * BATCH],
+                                        dtype="int32")) for i in range(n)]
+            s0 = cached_step.stats()
+            losses = []
+            for x, y in batches:
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                trainer.step(BATCH)
+                # read after step (a read before it breaks the capture),
+                # and keep no loss alive: its graph would hold the
+                # gradient accumulators across steps
+                losses.append(float(loss.mean().asscalar()))
+                del loss
+            s1 = cached_step.stats()
+            state = cached_step.trainer_state(trainer)
+            results[mode] = {"losses": losses,
+                             "compiles": s1["compiles"] - s0["compiles"],
+                             "hits": s1["hits"] - s0["hits"],
+                             "breaks": state["breaks"],
+                             "last_reason": state["last_reason"]}
+            del net, trainer, batches
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        amp.reset()
+    fed, res = results["fed"], results["resident"]
+    if fed["losses"] != res["losses"] or fed["compiles"] != 1 or \
+            res["compiles"] != 1 or fed["hits"] != n - 2 or \
+            res["hits"] != n - 2:
+        failures.append(f"gluon capture fed {fed} resident {res}")
+    return {"steps": n, "losses_bitwise_resident": fed["losses"] ==
+            res["losses"],
+            "counters": {mode: {k: v for k, v in r.items() if k != "losses"}
+                         for mode, r in results.items()},
+            "losses_first_last": [fed["losses"][0], fed["losses"][-1]]}
+
+
+def phase_input_pipeline(torch, fa_mod, smi):
+    """Phase 21: the input pipeline at bench.py's widths — (a) the
+    transformer row through ``NDArrayIter`` and ``DevicePrefetcher``,
+    (b) the ResNet-50 row through ``gluon.data``'s DataLoader with
+    ``prefetch_to_device``, (d) the captured Gluon step fed by a
+    DataLoader.  (c), ``ImageRecordIter``, is left out: the card's
+    machine has no libjpeg to build the native pipeline against."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    t0 = time.perf_counter()
+    failures = []
+    out = {"phase": "input_pipeline", "gpu": smi,
+           "cpu_count": os.cpu_count()}
+    out["transformer"], counts = input_transformer(torch, fa_mod, telemetry,
+                                                   failures)
+    out["resnet"] = input_resnet(torch, mx, telemetry, smi, failures)
+    out["gluon_capture"] = input_gluon_capture(torch, mx, failures)
+    out["failures"] = failures
+    out["phase_s"] = time.perf_counter() - t0
+    emit(out)
+    if failures:
+        raise AssertionError(f"input_pipeline: {failures}")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4525,6 +5083,11 @@ def main():
         if row["name"] in serve_counts:
             row["launches_batch_serve"] = \
                 serve_counts[row["name"]]["launches"]
+    input_counts = phase_input_pipeline(torch, fa_mod, smi)
+    for row in kernels:                  # K1-K3 on 20 prefetched steps
+        if row["name"] in input_counts:
+            row["launches_input_pipeline"] = \
+                input_counts[row["name"]]["launches"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

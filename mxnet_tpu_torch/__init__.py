@@ -21,7 +21,11 @@ and ``rtc``, which compiles and launches users' CUDA C kernels; the
 ResNet ops and zoo; and the eager Gluon loop — ``gluon.Trainer`` over
 ``autograd.record``/``backward`` with the optimizer family
 (``optimizer``, its fused whole-set step), ``lr_scheduler``, the local
-``kvstore`` and ``amp`` (the policy and the loss scaler)::
+``kvstore`` and ``amp`` (the policy and the loss scaler); and the input
+pipeline — ``recordio``, ``io`` (with the native ``ImageRecordIter``,
+built from ``csrc/io`` by g++ at first use), ``image``, ``gluon.data`` and
+``data.DevicePrefetcher``, which copies batches to the card on a side
+stream ahead of the step::
 
     import mxnet_tpu_torch as mx
     x = mx.nd.array(data, ctx=mx.gpu(0))
@@ -37,9 +41,10 @@ from . import log, telemetry, tracing  # noqa: F401
 from . import amp, kvstore, lr_scheduler  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import gluon, initializer, optimizer, parallel, serving  # noqa: F401
+from . import data, image, io, recordio  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray",
            "gluon", "initializer", "optimizer", "parallel", "serving",
            "tracing", "telemetry", "log", "amp", "kvstore", "kv",
-           "lr_scheduler"]
+           "lr_scheduler", "data", "image", "io", "recordio"]

@@ -131,7 +131,8 @@ def input_spec(a):
     if isinstance(a, torch.Tensor):
         return tuple(a.shape), a.dtype
     a = onp.asarray(a)
-    return a.shape, torch.from_numpy(a).dtype
+    # the dtype of an empty array: ``a`` itself may have negative strides
+    return a.shape, torch.from_numpy(onp.empty((0,), a.dtype)).dtype
 
 
 class Executable:
@@ -172,6 +173,7 @@ class Executable:
         # the last copy out of the host twin (it must end before the twin
         # is written again)
         self._copied = torch.cuda.Event() if cuda else None
+        self._scalars = {}      # input index → (dtype, bytes) last staged
         self._launches = [0] * len(_COUNTED)
         self._capture_with = (graph_pool, stream)
         self._warm_on_call = cuda and warm == "first_call"
@@ -209,15 +211,29 @@ class Executable:
 
     def _stage(self, args):
         """Host inputs into the host twin and over in one copy; device
-        inputs device to device, after it."""
-        if self._copied is not None:
-            self._copied.synchronize()
-        end, on_device = 0, []
+        inputs device to device, after it.  A scalar equal to the one
+        the last call staged is not written again, so a call whose batch
+        is already on the device and whose scalars (a step's lr and wd)
+        have not changed neither writes the twin nor waits for the last
+        copy out of it."""
+        end, on_device, host = 0, [], []
         for i, a in enumerate(args):
-            if isinstance(a, torch.Tensor):
-                if a.device.type != "cpu" and self._dev is not self._host:
-                    on_device.append((self.inputs[i], a))
+            if isinstance(a, torch.Tensor) and a.device.type != "cpu" \
+                    and self._dev is not self._host:
+                on_device.append((self.inputs[i], a))
+                continue
+            if not isinstance(a, (torch.Tensor, Rows)) and onp.ndim(a) == 0:
+                v = onp.asarray(a)
+                key = (v.dtype.str, v.tobytes())
+                if self._scalars.get(i) == key:
+                    end = max(end, self._ends[i])
                     continue
+                self._scalars[i] = key
+            host.append((i, a))
+        if host and self._copied is not None:
+            self._copied.synchronize()
+        for i, a in host:
+            if isinstance(a, torch.Tensor):
                 self._host_views[i].copy_(a)
             elif isinstance(a, Rows) and self._staged[i] is not None:
                 view = self._staged[i]
@@ -231,7 +247,7 @@ class Executable:
             end = max(end, self._ends[i])
         if self._dev is self._host:
             return
-        if end:
+        if host:
             self._dev[:end].copy_(self._host[:end], non_blocking=True)
             self._copied.record()
         for dst, src in on_device:

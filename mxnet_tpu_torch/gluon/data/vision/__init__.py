@@ -1,0 +1,10 @@
+"""gluon.data.vision (counterpart of ``mxnet_tpu/gluon/data/vision/``;
+parity: python/mxnet/gluon/data/vision/)."""
+from .datasets import (MNIST, FashionMNIST, CIFAR10, CIFAR100,
+                       ImageFolderDataset, ImageRecordDataset,
+                       ImageListDataset)
+from . import transforms
+
+__all__ = ["MNIST", "FashionMNIST", "CIFAR10", "CIFAR100",
+           "ImageFolderDataset", "ImageRecordDataset", "ImageListDataset",
+           "transforms"]

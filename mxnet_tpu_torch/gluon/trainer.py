@@ -255,6 +255,15 @@ class Trainer:
                 return p._data.device
         return None
 
+    def _input_placement(self):
+        """The device input batches should be on so the step makes no
+        further copy (``mxnet_tpu/gluon/trainer.py:188-200``): the
+        parameters' device, else ``cuda:0`` (used by
+        ``data.device_pipeline.wrap(loader, trainer)``)."""
+        from ..context import gpu
+        dev = self._device()
+        return dev if dev is not None else gpu(0).torch_device
+
     def save_states(self, fname):
         if not self._kv_initialized:
             self._init_kvstore()

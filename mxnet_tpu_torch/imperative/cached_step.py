@@ -142,6 +142,16 @@ def _gate():
     _GATE = _OBSERVING + _ACTIVE
 
 
+def reset_after_fork() -> None:
+    """Forget every observed or deferred step in a forked child (a
+    DataLoader worker): it inherited the forking thread's state, and
+    none of its calls may enter a step's tape."""
+    global _OBSERVING, _ACTIVE, _PLAIN
+    _OBSERVING = _ACTIVE = _PLAIN = 0
+    _tls.__dict__.clear()
+    _gate()
+
+
 def _set_obs(st, obs) -> None:
     global _OBSERVING
     _OBSERVING += (obs is not None) - (st.obs is not None)

@@ -6,6 +6,9 @@ library with a plain C interface and loads it with ``ctypes``, with
 -Xcompiler -fPIC``, into ``build/torch_kernels/`` beside the package.
 ``build_cubin(source, options)`` compiles a source *string* (a runtime
 kernel of ``rtc.py``) into a cubin under ``build/torch_kernels/rtc/``.
+``build_host_library(name, sources)`` compiles host C++ (the native IO
+runtime under ``csrc/io/``) with ``g++ -O3 -fPIC -std=c++17 -pthread
+-shared ... -ljpeg`` into ``build/torch_kernels/host/``.
 
 Each output's file name carries a hash of the source and the flags, so
 an edited source is never served by a stale build; a compile writes a
@@ -27,8 +30,8 @@ from typing import Dict, Sequence, Tuple
 
 from ..base import MXNetError
 
-__all__ = ["build_library", "build_cubin", "build_dir", "NVCC_FLAGS",
-           "CUBIN_FLAGS"]
+__all__ = ["build_library", "build_cubin", "build_host_library",
+           "build_dir", "NVCC_FLAGS", "CUBIN_FLAGS", "GXX_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -38,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 CUBIN_FLAGS = ("-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                "-std=c++17")
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
 
 _LOCKS: Dict[str, threading.Lock] = {}
 _LOCKS_GUARD = threading.Lock()
@@ -132,3 +136,51 @@ def build_cubin(source: str, options: Sequence[str] = ()
         os.replace(tmp, src)
         log, seconds = _compile(flags, src, cubin)
         return cubin, log, seconds
+
+
+def build_host_library(name: str, sources: Sequence[str],
+                       libs: Sequence[str] = ("-ljpeg",)
+                       ) -> Tuple[ctypes.CDLL, str, float]:
+    """Compile the host C++ ``sources`` (paths under ``csrc/``) into one
+    shared library with ``g++`` (once per process and source hash) and
+    return ``(library, compiler output, build seconds)``.  Raises
+    :class:`MXNetError` when there is no ``g++`` or the build fails."""
+    key = f"host:{name}"
+    with _lock(key):
+        hit = _LIBS.get(key)
+        if hit is not None:
+            return hit
+        paths = [os.path.join(_CSRC, s) for s in sources]
+        blob = b""
+        for path in paths:
+            with open(path, "rb") as f:
+                blob += f.read() + b"\0"
+        flags = (*GXX_FLAGS, *libs)
+        digest = _digest(blob, flags)
+        out_dir = os.path.join(build_dir(), "host")
+        os.makedirs(out_dir, exist_ok=True)
+        so = os.path.join(out_dir, f"lib{name}-{digest}.so")
+        log, seconds = "", 0.0
+        if not os.path.exists(so):
+            gxx = shutil.which("g++") or shutil.which("c++")
+            if gxx is None:
+                raise MXNetError(f"no C++ compiler (g++) to build {name}")
+            tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [gxx, *GXX_FLAGS, *paths, "-o", tmp, *libs],
+                capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise MXNetError(f"building {name} failed (exit "
+                                 f"{proc.returncode}):\n{log}")
+            os.replace(tmp, so)
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError as e:
+            raise MXNetError(f"loading {so} failed: {e}") from e
+        hit = _LIBS[key] = (lib, log, seconds)
+        return hit

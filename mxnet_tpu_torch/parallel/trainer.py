@@ -118,6 +118,8 @@ from ..amp.loss_scaler import (LossScaler, advance_device, all_finite,
                                device_state, enter_device)
 from ..executable import CaptureOwner, Executable, input_spec
 from ..gluon.block import _TraceContext
+from ..imperative.cached_step import ensure_real
+from ..ndarray.ndarray import NDArray
 from ..ops import optimizer_ops
 from ..ops.tensor import IdCheck
 
@@ -137,10 +139,6 @@ def _params_as(params, tensors):
     finally:
         for p in params:
             p._override = None
-
-
-def _batch(x):
-    return x if isinstance(x, torch.Tensor) else onp.asarray(x)
 
 
 def _times(t, mult):
@@ -428,16 +426,33 @@ class SPMDTrainer:
         self.optimizer.num_update = self.num_update
         return lr, wd
 
+    def _stage_input(self, x):
+        """One batch array for a call (``mxnet_tpu/parallel/trainer.py:
+        627-644``): an NDArray's tensor, unwrapped with no host round
+        trip; a tensor as it is; anything else as a numpy array.  A tensor
+        already on the trainer's device is copied device to device into
+        the executable's input (a batch the device prefetcher delivered);
+        anything else is copied from the host inside the call, accounted
+        in ``input.h2d_bytes`` and counted in ``input.step_h2d``."""
+        if isinstance(x, NDArray):
+            ensure_real(x)
+            x = x._data
+        elif not isinstance(x, torch.Tensor):
+            x = onp.asarray(x)
+        if not (isinstance(x, torch.Tensor) and x.device == self.device):
+            telemetry.record_h2d_bytes(x.nbytes, step_path=True)
+        return x
+
     def _step_sig(self, d, l):
         return ("step",) + input_spec(d) + input_spec(l) + (
             _amp_policy.cache_token(),)
 
     # -- entry points ------------------------------------------------------------
     def step(self, data, label, batch_size: Optional[int] = None):
-        """One training step; returns the f32 loss mean (a 0-d tensor on
-        the device, a copy: the next call does not overwrite it)."""
+        """One training step; returns the f32 loss mean as a 0-d NDArray
+        on the device (a copy: the next call does not overwrite it)."""
         self._owner.check_ids()
-        d, l = _batch(data), _batch(label)
+        d, l = self._stage_input(data), self._stage_input(label)
         self._check_split(d, l)
         sig = self._step_sig(d, l)
         tok = telemetry.begin_step()
@@ -458,18 +473,18 @@ class SPMDTrainer:
                 self._owner.defer_ids(bounds, entry[1].vocabs, self.device)
         finally:
             telemetry.end_step(tok, "SPMDTrainer")
-        return loss
+        return NDArray._wrap(loss)
 
     def run_steps(self, data, label, n_steps: int,
                   per_step_data: bool = False):
         """``n_steps`` training steps at one lr/wd, replaying the step's
-        graph; returns their losses as an (n_steps,) tensor.  With
+        graph; returns their losses as an (n_steps,) NDArray.  With
         ``per_step_data``, data and label carry a leading ``n_steps`` axis
         and step i trains on batch i: the window goes to the device in
         one copy each, and batch i is copied device to device into the
         graph's inputs."""
         self._owner.check_ids()
-        d, l = _batch(data), _batch(label)
+        d, l = self._stage_input(data), self._stage_input(label)
         n = int(n_steps)
         if per_step_data:
             if d.shape[0] != n or l.shape[0] != n:
@@ -509,23 +524,26 @@ class SPMDTrainer:
                                           entry[1].vocabs * n, self.device)
         finally:
             telemetry.end_step(tok, "SPMDTrainer", extra={"n_steps": n})
-        return losses
+        return NDArray._wrap(losses)
 
     def predict(self, data):
-        """The forward in eval mode with f32 output (a copy), on CUDA
-        replayed from one graph per input signature that shares the
-        trainer's pool and stream."""
+        """The forward in eval mode with f32 output (an NDArray over a
+        copy), on CUDA replayed from one graph per input signature that
+        shares the trainer's pool and stream."""
         self._owner.check_ids()
-        x = _batch(data)
+        x = self._stage_input(data)
         sig = ("predict",) + input_spec(x) + (_amp_policy.cache_token(),)
         entry, fresh = self._executable(sig, self._predict_body, (x,))
         out, bounds = self._call(sig, entry, fresh, (x,))
         out = out.clone()
         self._owner.defer_ids(bounds, entry[1].vocabs, self.device)
-        return out
+        return NDArray._wrap(out)
 
     # -- eager runs of the same functions, for comparisons -----------------------
     def _on_device(self, x):
+        if isinstance(x, NDArray):
+            ensure_real(x)
+            x = x._data
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
         return torch.as_tensor(onp.asarray(x), device=self.device)
@@ -750,7 +768,7 @@ class SPMDTrainer:
         ``meta["fit_seen"]``), save asynchronously every
         ``checkpoint_every`` steps, and save blocking at the end, so that
         a returned ``fit`` has published its checkpoint.  Returns the
-        losses of the steps it took."""
+        losses of the steps it took, as NDArrays."""
         skip = 0
         if checkpoint_dir and resume:
             meta = self.load_checkpoint(checkpoint_dir)

@@ -9,8 +9,10 @@ funnel brackets its work with ``begin_step``/``end_step``; the record is
 built and fanned out only while a sink is attached, so with no sink the
 per-step cost is one list check.  A sink is any object with
 ``emit(record)``.  ``record_serving_batch`` is the batch-serving
-plane's one accounting point.  The reference's JSONL/log/TensorBoard
-sinks and reports come with the telemetry port of a later slice.
+plane's one accounting point; ``record_input_wait`` and
+``record_h2d_bytes`` are the input pipeline's.  The reference's
+JSONL/log/TensorBoard sinks and reports come with the telemetry port of
+a later slice.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge",
            "histogram", "metrics", "reset", "snapshot", "add_sink",
            "remove_sink", "clear_sinks", "enabled", "begin_step",
            "end_step", "record_compile", "record_serving_batch",
-           "last_record"]
+           "record_input_wait", "record_h2d_bytes", "last_record"]
 
 _LOCK = threading.Lock()
 
@@ -214,6 +216,40 @@ def record_serving_batch(n_requests: int, padded_size: int,
         _H_SRV_REQ_MS.observe(ms)
 
 
+# input-pipeline health (``mxnet_tpu/telemetry.py:271-274, 455-482``)
+_C_INPUT_WAIT_MS = counter("input.wait_ms")    # consumer blocked on a batch
+_C_H2D_BYTES = counter("input.h2d_bytes")      # host-to-device payload bytes
+_C_STEP_H2D = counter("input.step_h2d")        # host copies inside a step
+counter("input.window_dropped")
+counter("input.replayed")
+
+# the wait for step N's batch comes before begin_step(N) (the loop calls
+# next() and then step()), so the consumer deposits it here and the next
+# step record drains it; per thread, as the wait is measured on the
+# consuming thread
+_wait_tls = threading.local()
+
+
+def record_input_wait(seconds: float) -> None:
+    """Account the time a consumer blocked waiting for its next batch
+    (``DevicePrefetcher.__next__``): about 0 while the pipeline keeps
+    ahead of the step."""
+    ms = seconds * 1e3
+    _C_INPUT_WAIT_MS.inc(ms)
+    if _SINKS:
+        _wait_tls.ms = getattr(_wait_tls, "ms", 0.0) + ms
+
+
+def record_h2d_bytes(n: int, step_path: bool = False) -> None:
+    """Account one host-to-device batch copy of ``n`` bytes;
+    ``step_path=True`` marks one made inside a step's call (the copy the
+    device prefetcher exists to take off the step), counted once in
+    ``input.step_h2d``."""
+    _C_H2D_BYTES.inc(int(n))
+    if step_path:
+        _C_STEP_H2D.inc()
+
+
 # -- sinks -------------------------------------------------------------------
 
 _SINKS: List[Any] = []
@@ -255,13 +291,15 @@ _C_DISPATCH = counter("dispatch.count")
 
 
 class _StepToken:
-    __slots__ = ("t0", "compiles", "compile_ms", "dispatches", "cached")
+    __slots__ = ("t0", "compiles", "compile_ms", "dispatches", "cached",
+                 "h2d_bytes")
 
     def __init__(self):
         self.t0 = time.perf_counter()
         self.compiles = _C_COMPILES.value
         self.compile_ms = _C_COMPILE_MS.value
         self.dispatches = _C_DISPATCH.value
+        self.h2d_bytes = _C_H2D_BYTES.value
         self.cached = tuple(c.value for c in _C_CACHED)
 
 
@@ -292,6 +330,8 @@ def end_step(token, source: str, extra: Optional[dict] = None) -> None:
     if token == "nested":
         return
     host_ms = (time.perf_counter() - token.t0) * 1e3
+    wait_ms = getattr(_wait_tls, "ms", 0.0)
+    _wait_tls.ms = 0.0
     _C_STEPS.inc()
     record = {
         "step": _C_STEPS.value,
@@ -301,6 +341,10 @@ def end_step(token, source: str, extra: Optional[dict] = None) -> None:
         "compiles": _C_COMPILES.value - token.compiles,
         "compile_ms": round(_C_COMPILE_MS.value - token.compile_ms, 3),
         "dispatches": _C_DISPATCH.value - token.dispatches,
+        # the consumer's wait for this step's batch, and the host-to-device
+        # bytes accounted while the step ran
+        "input_wait_ms": round(wait_ms, 3),
+        "h2d_bytes": _C_H2D_BYTES.value - token.h2d_bytes,
         "cached_step": {k: c.value - v for k, c, v in
                         zip(_CACHED_STEP, _C_CACHED, token.cached)},
     }

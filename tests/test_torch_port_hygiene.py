@@ -40,6 +40,16 @@ PERSISTENCE_MODULES = ["checkpoint.py", "checkpoint_gc.py", "faultinject.py",
 CAPTURE_MODULES = ["imperative/__init__.py", "imperative/cached_step.py",
                    "ops/registry.py", "autograd.py", "gluon/block.py",
                    "gluon/trainer.py", "executable.py"]
+INPUT_MODULES = ["recordio.py", "engine.py", "io/__init__.py", "io/io.py",
+                 "io/native.py", "gluon/data/__init__.py",
+                 "gluon/data/dataset.py", "gluon/data/sampler.py",
+                 "gluon/data/batchify.py", "gluon/data/dataloader.py",
+                 "gluon/data/vision/__init__.py",
+                 "gluon/data/vision/transforms.py",
+                 "gluon/data/vision/datasets.py", "image/__init__.py",
+                 "image/image.py", "data/__init__.py",
+                 "data/device_pipeline.py", "gluon/metric.py",
+                 "gluon/utils.py", "telemetry.py", "kernels/build.py"]
 
 
 def _module(rel):
@@ -118,7 +128,8 @@ _CHILDREN = textwrap.dedent("""
 def children():
     import json
     mods = sorted({_module(r) for r in
-                   RESNET_MODULES + PERSISTENCE_MODULES + CAPTURE_MODULES})
+                   RESNET_MODULES + PERSISTENCE_MODULES + CAPTURE_MODULES
+                   + INPUT_MODULES})
     out = subprocess.run(
         [sys.executable, "-c", _CHILDREN.format(bad=BAD_TOP, mods=mods)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -256,3 +267,47 @@ def test_no_port_module_imports_ml_dtypes(children):
     assert not [n for n in res["bad"] if n.split(".")[0] == "ml_dtypes"]
     for path in SOURCES:
         assert not ML_DTYPES.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("rel", INPUT_MODULES)
+def test_input_pipeline_modules_are_held_to_the_rules(rel, children):
+    """The input pipeline's modules are among the sources checked above,
+    import no ``ml_dtypes`` and each imports alone (a child process that
+    had imported only torch) without loading JAX, Triton or the
+    reference, and without building the native IO library."""
+    path = PORT / rel
+    assert path in SOURCES
+    assert not ML_DTYPES.search(path.read_text()), rel
+    res = children[_module(rel)]
+    assert res["ok"], res.get("error")
+    assert res["bad"] == [], res["bad"]
+
+
+def test_input_pipeline_entry_points_default_to_cuda(monkeypatch):
+    """``DevicePrefetcher`` / ``wrap`` with no consumer and
+    ``DataLoader(prefetch_to_device=True)`` place on ``cuda:0`` and raise
+    without a card; an explicit CPU device runs on the host."""
+    import numpy as onp
+    from mxnet_tpu_torch.data import DevicePrefetcher, wrap
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        DevicePrefetcher([onp.zeros(2)])
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        wrap([onp.zeros(2)])
+    ds = ArrayDataset(onp.zeros((4, 2), onp.float32))
+    with pytest.raises(MXNetError, match="no CUDA device"):
+        iter(DataLoader(ds, batch_size=2, prefetch_to_device=True))
+    got = list(DataLoader(ds, batch_size=2, prefetch_to_device="cpu"))
+    assert [b._data.device.type for b in got] == ["cpu", "cpu"]
+
+
+def test_native_io_sources_build_outside_the_reference():
+    """The native IO library is built from the port's own copies under
+    ``csrc/io`` into ``build/``, never from ``src_native`` or into the
+    reference's ``lib/``."""
+    from mxnet_tpu_torch.io import native
+    src = (PORT / "io" / "native.py").read_text()
+    assert "src_native" not in src and "Makefile" not in src
+    for rel in native.SOURCES:
+        assert (PORT / "csrc" / rel).is_file(), rel

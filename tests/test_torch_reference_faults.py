@@ -40,6 +40,12 @@ against ``mxnet_tpu`` on the same numpy inputs on the CPU:
 * F15: ``serving.slo`` keeps the reference's ring of the slowest
   requests, fed only while tracing is on (``requestz`` equal);
 * F16: ``serving.__all__`` holds the reference's names;
+* F17: ``SPMDTrainer.step`` / ``run_steps`` / ``predict`` take the
+  port's NDArrays (unwrapped, no host round trip) and account host
+  batches in ``input.h2d_bytes`` / ``input.step_h2d`` as the reference's
+  ``_stage_input`` does (losses at rtol 1e-5, counters exact);
+* F18: ``step`` / ``run_steps`` / ``predict`` / ``fit`` return NDArrays,
+  as the reference's do (values at rtol 1e-5);
 * batch serving's two choices: an id out of range fails its batch with
   ``MXNetError`` where the reference gives NaN rows, and a bf16 output
   comes back widened to float32 (exact) where the reference returns
@@ -840,3 +846,100 @@ def test_bf16_outputs_are_widened_to_f32():
         onp.testing.assert_array_equal(r, w)
         onp.testing.assert_allclose(r, onp.asarray(j, onp.float32),
                                     rtol=2e-2, atol=2e-2)
+
+
+# -- F17 / F18: SPMDTrainer's batches and results are NDArrays --------------
+
+def _dense_pair(seed=17):
+    """A ``Dense(4, in_units=3)`` and its trainer in each package, from the
+    same weights, with (data, label) numpy batches."""
+    from mxnet_tpu.gluon import loss as jax_loss
+    from mxnet_tpu.parallel import SPMDTrainer as JaxTrainer
+    from mxnet_tpu.parallel import make_mesh
+    rng = onp.random.RandomState(seed)
+    w = (rng.randn(4, 3) * 0.5).astype(onp.float32)
+    x = rng.randn(8, 3).astype(onp.float32)
+    y = rng.randint(0, 4, size=(8,)).astype(onp.float32)
+    jd = jax_nn.Dense(4, in_units=3)
+    jd.initialize()
+    jd.weight.set_data(mx.nd.array(w))
+    jt = JaxTrainer(jd, jax_loss.SoftmaxCrossEntropyLoss(),
+                    mesh=make_mesh({"dp": 1}, devices=jax.devices()[:1]))
+    td = nn.Dense(4, in_units=3)
+    td.initialize(device="cpu")
+    td.weight.set_data(torch.from_numpy(w))
+    tr = SPMDTrainer(td, gloss.SoftmaxCrossEntropyLoss(), device="cpu")
+    return jt, tr, x, y
+
+
+def test_spmd_trainer_takes_ndarray_batches_like_the_reference():
+    """F17: the port's ``SPMDTrainer`` once ran ``numpy.asarray`` on an
+    NDArray batch (an object array of NDArray scalars, refused by torch).
+    ``step``, ``run_steps`` (one batch, and a window with
+    ``per_step_data``) and ``predict`` take NDArrays in both packages:
+    losses and outputs at rtol 1e-5.  An NDArray already on the trainer's
+    device is not counted as a host copy; a numpy batch is, as in the
+    reference (``input.step_h2d`` one a staged array, ``input.h2d_bytes``
+    its bytes: exact)."""
+    from mxnet_tpu import telemetry as jax_tel
+    from mxnet_tpu.ndarray import NDArray as JaxND
+    jt, tr, x, y = _dense_pair()
+    want = [float(jt.step(JaxND(x), JaxND(y)).asnumpy()) for _ in range(2)]
+    got = [float(tr.step(_port(x), _port(y))) for _ in range(2)]
+    onp.testing.assert_allclose(got, want, rtol=1e-5)
+    want = jt.run_steps(JaxND(x), JaxND(y), 2).asnumpy()
+    got = tr.run_steps(_port(x), _port(y), 2).asnumpy()
+    onp.testing.assert_allclose(got, want, rtol=1e-5)
+    xw, yw = onp.stack([x, x[::-1]]), onp.stack([y, y[::-1]])
+    want = jt.run_steps(JaxND(xw), JaxND(yw), 2,
+                        per_step_data=True).asnumpy()
+    got = tr.run_steps(_port(xw), _port(yw), 2,
+                       per_step_data=True).asnumpy()
+    onp.testing.assert_allclose(got, want, rtol=1e-5)
+    onp.testing.assert_allclose(tr.predict(_port(x)).asnumpy(),
+                                onp.asarray(jt.predict(JaxND(x))._data),
+                                rtol=1e-5, atol=1e-6)
+    counters = {}
+    for name, tel, trainer in (("ref", jax_tel, jt), ("port", mt.telemetry,
+                                                      tr)):
+        before = {k: tel.counter(k).value
+                  for k in ("input.step_h2d", "input.h2d_bytes")}
+        trainer.step(x, y)
+        counters[name] = {k: tel.counter(k).value - v
+                          for k, v in before.items()}
+    assert counters["port"] == counters["ref"] == {
+        "input.step_h2d": 2, "input.h2d_bytes": x.nbytes + y.nbytes}
+    before = mt.telemetry.counter("input.step_h2d").value
+    tr.step(_port(x), _port(y))          # already on the trainer's device
+    assert mt.telemetry.counter("input.step_h2d").value == before
+
+
+def test_spmd_trainer_returns_ndarrays_like_the_reference():
+    """F18: ``step``, ``run_steps``, ``predict`` and ``fit`` return
+    NDArrays, as the reference's do, where the port returned bare
+    tensors: a reference loop's ``loss.asscalar()`` runs on both (rtol
+    1e-5).  The result wraps the trainer's own copy: the next step does
+    not overwrite it."""
+    from mxnet_tpu.ndarray import NDArray as JaxND
+    jt, tr, x, y = _dense_pair(18)
+    first_ref = jt.step(x, y)
+    first = tr.step(x, y)
+    assert isinstance(first, mt.nd.NDArray)
+    assert isinstance(first_ref, JaxND)
+    kept = first.asscalar()
+    onp.testing.assert_allclose(kept, first_ref.asscalar(), rtol=1e-5)
+    tr.step(x, y)
+    jt.step(x, y)
+    assert first.asscalar() == kept
+    losses = tr.run_steps(x, y, 3)
+    assert isinstance(losses, mt.nd.NDArray) and losses.shape == (3,)
+    onp.testing.assert_allclose(losses.asnumpy(),
+                                jt.run_steps(x, y, 3).asnumpy(), rtol=1e-5)
+    out = tr.predict(x)
+    assert isinstance(out, mt.nd.NDArray) and out.shape == (8, 4)
+    fitted = tr.fit([(x, y), (x[::-1], y[::-1])])
+    fitted_ref = jt.fit([(x, y), (x[::-1], y[::-1])])
+    assert all(isinstance(v, mt.nd.NDArray) for v in fitted)
+    onp.testing.assert_allclose([v.asscalar() for v in fitted],
+                                [v.asscalar() for v in fitted_ref],
+                                rtol=1e-5)

@@ -194,7 +194,7 @@ def test_run_steps_writes_the_statistics_every_step():
     one, two, window = trainers
     one.step(x, y)
     losses = [float(two.step(x, y)), float(two.step(x, y))]
-    assert window.run_steps(x, y, 2).tolist() == losses
+    assert window.run_steps(x, y, 2)._data.tolist() == losses
     assert window.num_update == two.num_update == 2
     for k in two._pkeys:
         a, b = two._params[k]._tensor(), window._params[k]._tensor()

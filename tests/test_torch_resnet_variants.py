@@ -128,7 +128,7 @@ def test_predict_and_cast_to_bf16():
     convert.load_collected_params(net, init, device="cpu")
     ptr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), device="cpu",
                       **SGD)
-    got = ptr.predict(X)
+    got = ptr.predict(X)._data
     assert got.dtype == torch.float32
     close(got, want, 1e-4, "predict")
     assert onp.array_equal(convert.collected_params_to_numpy(net)[
@@ -164,7 +164,7 @@ def test_get_model_and_the_default_optimizer():
     assert isinstance(tr.optimizer, mt.optimizer.SGD)
     assert tr.optimizer.op_name == "sgd_update"
     w0 = net.output.weight._tensor().clone()
-    loss = tr.step(X, Y)
+    loss = tr.step(X, Y)._data
     assert torch.isfinite(loss) and not torch.equal(w0,
                                                     net.output.weight._tensor())
 

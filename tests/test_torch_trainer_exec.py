@@ -237,7 +237,7 @@ def test_predict_matches_reference():
     init = _params(jnet)
     want = _jax_trainer(jnet).predict(NDArray(DATA)).asnumpy()
     tr = _port_trainer(_port_net(init))
-    got = tr.predict(DATA)
+    got = tr.predict(DATA)._data
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, 128,
                                                                VOCAB)
     onp.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
@@ -256,7 +256,7 @@ def test_data_transform_runs_inside_step_and_predict():
     tr = _port_trainer(_port_net(init), data_transform=shift)
     got = [float(tr.step(DATA, LABEL)) for _ in range(2)]
     onp.testing.assert_allclose(got, want, rtol=1e-4)
-    onp.testing.assert_allclose(tr.predict(DATA).numpy(), want_logits,
+    onp.testing.assert_allclose(tr.predict(DATA).asnumpy(), want_logits,
                                 rtol=1e-4, atol=1e-4)
     # the shifted ids are not the raw ones
     plain = _port_trainer(_port_net(init))
@@ -267,7 +267,7 @@ def test_step_returns_losses_that_do_not_alias(remat_ref):
     tr = _port_trainer(_port_net(remat_ref[0]))
     losses = [tr.step(DATA, LABEL) for _ in range(3)]
     values = [float(x) for x in losses]
-    assert len({x.data_ptr() for x in losses}) == 3
+    assert len({x._data.data_ptr() for x in losses}) == 3
     assert values[0] > values[1] > values[2]
     window = tr.run_steps(DATA, LABEL, 2)
     assert [float(x) for x in losses] == values   # untouched by later calls
