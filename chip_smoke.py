@@ -282,9 +282,35 @@ exits non-zero and prints no result:
              JPEG ``ImageRecordIter``, is left out: the card's machine
              has no libjpeg to build the native pipeline against.
 
+22. observability — the port's own account of itself: (a) the
+             training row (bf16, captured ``SPMDTrainer``), 20 steps with
+             ``MXNET_TELEMETRY_JSONL``, ``MXNET_TRACE=1``,
+             ``MXNET_CLUSTER_DIR`` and ``MXNET_WATCHDOG_SEC`` set beside 20
+             steps from the same weights with all of them off: losses
+             bitwise equal, ``compiles`` no higher, every record with the
+             reference's key set, no watchdog dump, no more syncs a step
+             (``torch.cuda.set_sync_debug_mode("warn")``), host ms a step
+             on against off in blocks taken in turns (at most 5% more);
+             (b) ``profiler.start``/``stop`` over 3 replayed steps:
+             ``device_op_table`` lists K1-K3 at 24 launches each (a trace
+             that lost events taken again, at most 3 times), its total
+             within 10% of the device busy time ``profile_train``'s way,
+             the next record's ``device_ms``, ``dumps()``'s table; a cycle
+             around a capture (``trainer.predict``'s first call); (c)
+             ResNet-50 fp32 behind ``ServingServer``, 8 clients x 8 calls
+             under a reachable objective (no incident) and an unreachable
+             one (p95 <= 1 ms: a serving incident, shown at
+             ``GET /incidents``), ``GET /metrics`` parsed, its request
+             count equal to ``/varz``'s, a bucket's rows bitwise equal to
+             the eager forward of their batch; (d) ``tracing.export`` of
+             (a) with its ``step.spmd`` spans and rank metadata, and
+             clustermon's aggregator over (a)'s spool: one rank, no
+             straggler.
+
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
-carry ``launches_gluon_train``, ``launches_ckpt`` and
-``launches_input_pipeline``, K1 ``launches_batch_serve``); the last is
+carry ``launches_gluon_train``, ``launches_ckpt``,
+``launches_input_pipeline`` and ``launches_observability``, K1
+``launches_batch_serve``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -5005,6 +5031,407 @@ def phase_input_pipeline(torch, fa_mod, smi):
     return counts
 
 
+# the observability phase
+OBS_STEPS = 20                    # (a) steps with everything on, and off
+OBS_PROFILED = 3                  # (b) replayed steps in a profiler cycle
+OBS_CLIENTS, OBS_CALLS = 8, 8     # (c) closed-loop serving
+OBS_BUCKETS = (1, 2, 4, 8)
+# the reference's step record (mxnet_tpu/telemetry.py:845-1023), key by
+# key; ``amp``, ``moe`` and ``serving_slo`` join it only when active
+OBS_RECORD_KEYS = {
+    "step": None, "ts": None, "source": None, "rank": None, "world": None,
+    "host_ms": None, "device_ms": None, "compiles": None,
+    "compile_ms": None, "collective_bytes": None,
+    "collective_split": {"reduce_scatter": None, "all_gather": None,
+                         "allreduce": None,
+                         "by_axis": {a: None for a in
+                                     ("dp", "tp", "pp", "sp", "ep")}},
+    "opt_state_bytes": None, "device_mem": None, "dispatches": None,
+    "input_wait_ms": None, "h2d_bytes": None,
+    "cached_step": {k: None for k in ("hits", "compiles", "fallbacks",
+                                      "graph_breaks")},
+    "checkpoint": {k: None for k in ("saves", "failures", "bytes",
+                                     "gc_removed", "verify_passes",
+                                     "verify_failures",
+                                     "barrier_wait_ms")},
+    "kernel": {k: None for k in ("cache_hits", "cache_misses", "tune_ms",
+                                 "tune_measurements", "fallbacks")},
+    "artifact": {k: None for k in ("hits", "misses", "saves", "bytes",
+                                   "load_ms", "deserialize_failures")},
+    "embedding": {k: None for k in ("rows_pulled", "rows_pushed",
+                                    "sparse_bytes", "dense_equiv_bytes",
+                                    "cache_hits", "cache_misses",
+                                    "cache_evictions", "rows_spilled")},
+    "critical_path": {k: None for k in ("input_wait", "h2d", "compile",
+                                        "collective", "optimizer",
+                                        "checkpoint", "compute")}}
+OBS_DEVICE_MEM_KEYS = {"device", "bytes_in_use", "peak_bytes_in_use",
+                       "bytes_limit"}
+OBS_FLASH = ("fa_fwd", "fa_bwd_dkdv", "fa_bwd_dq")
+
+
+def key_mismatch(rec, want, path=""):
+    """The first place where ``rec``'s keys differ from ``want``'s
+    (nested dicts compared key by key), or None."""
+    if set(rec) != set(want):
+        return (path or "record", sorted(set(rec) ^ set(want)))
+    for k, sub in want.items():
+        if sub is not None:
+            bad = key_mismatch(rec[k], sub, f"{path}{k}.")
+            if bad:
+                return bad
+    return None
+
+
+def obs_env(on, root):
+    """Every observability switch on (the JSONL sink, tracing, the
+    cluster spool with rank 0's aggregator, the stall watchdog), or all
+    of them off."""
+    from mxnet_tpu_torch import tracing
+    switches = {"MXNET_TELEMETRY_JSONL": os.path.join(root, "steps.jsonl"),
+                "MXNET_TRACE": "1",
+                "MXNET_CLUSTER_DIR": os.path.join(root, "cluster"),
+                "MXNET_WATCHDOG_SEC": "10"}
+    for k, v in switches.items():
+        if on:
+            os.environ[k] = v
+        else:
+            os.environ.pop(k, None)
+    if not on:
+        tracing.stop_watchdog()
+
+
+def sync_count(torch, fn, n):
+    """Synchronizing CUDA calls ``torch.cuda.set_sync_debug_mode("warn")``
+    reports over ``n`` calls of ``fn``."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(n):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def flash_rows(table):
+    """Launches and device us of K1-K3 in a device-op table, by the
+    kernels' name stems."""
+    return {stem: {"launches": sum(r["count"] for n, r in table.items()
+                                   if stem in n),
+                   "total_us": sum(r["total_us"] for n, r in table.items()
+                                   if stem in n)}
+            for stem in OBS_FLASH}
+
+
+def obs_training(torch, fa_mod, root, failures):
+    """(a): the same 20 steps with every switch on and with all off."""
+    from mxnet_tpu_torch import telemetry, tracing
+    data, label = train_batch(torch)
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    runs, trainers = {}, {}
+    for mode in ("off", "on"):
+        obs_env(mode == "on", root)
+        dumps0 = telemetry.counter("watchdog.stall_dumps").value
+        trainer = train_trainer(torch, train_model(torch))
+        losses = [trainer.step(data, label)]      # the warm step + capture
+        reset_counts(*fns)
+        for _ in range(OBS_STEPS - 1):
+            losses.append(trainer.step(data, label))
+        torch.cuda.synchronize()
+        runs[mode] = {
+            "losses": [float(x) for x in losses],
+            "compiles": trainer.compiles,
+            "counts": {f.__name__: {"launches": f.launches,
+                                    "plain_calls": f.plain_calls}
+                       for f in fns},
+            "watchdog_dumps": telemetry.counter(
+                "watchdog.stall_dumps").value - dumps0}
+        trainers[mode] = trainer
+    on, off = runs["on"], runs["off"]
+    if on["losses"] != off["losses"]:
+        failures.append(f"(a) losses differ on/off: {on['losses']} "
+                        f"{off['losses']}")
+    if on["compiles"] > off["compiles"]:
+        failures.append(f"(a) compiles {on['compiles']} on against "
+                        f"{off['compiles']} off")
+    for name, c in on["counts"].items():
+        if c["launches"] != LAYERS * (OBS_STEPS - 1) or c["plain_calls"]:
+            failures.append(f"(a) {name} {c} over {OBS_STEPS - 1} replays")
+    if on["watchdog_dumps"]:
+        failures.append(f"(a) {on['watchdog_dumps']} watchdog dumps")
+    with open(os.path.join(root, "steps.jsonl")) as f:
+        records = [json.loads(ln) for ln in f if ln.strip()]
+    bad = [(r["step"], key_mismatch(r, OBS_RECORD_KEYS)) for r in records
+           if key_mismatch(r, OBS_RECORD_KEYS)]
+    bad += [(r["step"], "device_mem") for r in records
+            if not r["device_mem"] or any(set(d) != OBS_DEVICE_MEM_KEYS
+                                          for d in r["device_mem"])]
+    if len(records) != OBS_STEPS or bad:
+        failures.append(f"(a) {len(records)} records; key mismatches "
+                        f"{bad[:3]}")
+    # synchronizing calls over 5 replayed steps in each mode
+    syncs = {}
+    for mode in ("off", "on"):
+        obs_env(mode == "on", root + "/sync")
+        tr = trainers[mode]
+        syncs[mode] = sync_count(torch, lambda: tr.step(data, label), 5)
+    if syncs["on"] > syncs["off"]:
+        failures.append(f"(a) syncs over 5 steps: {syncs}")
+    # host ms a step (each ended by float(loss)) in blocks of 10 taken in
+    # turns, the switches flipped between blocks (a spool of its own)
+    blocks = {"off": [], "on": []}
+    for _ in range(3):
+        for mode in ("off", "on"):
+            obs_env(mode == "on", root + "/blocks")
+            tr = trainers[mode]
+            float(tr.step(data, label))
+            t0 = time.perf_counter()
+            for _ in range(10):
+                float(tr.step(data, label))
+            blocks[mode].append((time.perf_counter() - t0) * 1e2)
+    med = {m: sorted(b)[len(b) // 2] for m, b in blocks.items()}
+    overhead = med["on"] / med["off"] - 1
+    if overhead > 0.05:
+        failures.append(f"(a) host ms a step {med}: {overhead:.2%} over")
+    obs_env(False, root)
+    cp = [r["critical_path"] for r in records[1:]]
+    out = {"steps": OBS_STEPS, "losses_bitwise_equal":
+           on["losses"] == off["losses"], "losses": on["losses"],
+           "compiles": {"on": on["compiles"], "off": off["compiles"]},
+           "counts": on["counts"], "records": len(records),
+           "watchdog_dumps": on["watchdog_dumps"],
+           "syncs_over_5_steps": syncs,
+           "host_ms_blocks": blocks, "host_ms_median": med,
+           "host_overhead": overhead,
+           "record_host_ms": [r["host_ms"] for r in records],
+           "record_dispatches": [r["dispatches"] for r in records],
+           "record_compiles": [r["compiles"] for r in records],
+           "record_device_mem": records[-1]["device_mem"],
+           "critical_path_mean_ms": {
+               k: sum(c[k] for c in cp) / len(cp) for k in cp[0]},
+           "spans": tracing.span_count()}
+    return out, trainers["on"], (data, label)
+
+
+def obs_profiler(torch, trainer, batch, root, failures):
+    """(b): a profiler cycle over 3 replayed steps, and one around a
+    capture."""
+    from mxnet_tpu_torch import kineto, profiler, telemetry
+    data, label = batch
+    obs_env(True, root + "/profiled")
+    profiler.set_config(filename=os.path.join(root, "profile.json"))
+    step = lambda: float(trainer.step(data, label))  # noqa: E731
+    step()
+    for attempt in range(1, 4):
+        profiler.start()
+        for _ in range(OBS_PROFILED):
+            step()
+        profiler.stop()
+        table = profiler.device_op_table()
+        flash = flash_rows(table)
+        if all(r["launches"] == LAYERS * OBS_PROFILED
+               for r in flash.values()):
+            break
+    step()                        # the record after the cycle
+    device_ms = telemetry.last_record()["device_ms"]
+    total_ms = kineto.device_total_ms(profiler.trace_dir())
+    obs_env(False, root)
+    if not table:
+        failures.append("(b) the profiler cycle recorded no device event")
+        return {"device_events": 0}
+    if any(r["launches"] != LAYERS * OBS_PROFILED for r in flash.values()):
+        failures.append(f"(b) K1-K3 launches in {attempt} cycles: {flash}")
+    # the device busy ms a step the profile_train way (key_averages of a
+    # torch.profiler run over the same 3 steps)
+    _, busy, _ = profiled(torch, step, OBS_PROFILED)
+    per_step = total_ms / OBS_PROFILED
+    if abs(per_step - busy) > 0.1 * busy:
+        failures.append(f"(b) device_total_ms a step {per_step} against "
+                        f"busy {busy}")
+    if device_ms is None or abs(device_ms - per_step) > 1e-6 * per_step:
+        failures.append(f"(b) the next record's device_ms {device_ms}, "
+                        f"the cycle's {per_step} a step")
+    text = profiler.dumps()
+    if "Device op statistics" not in text:
+        failures.append("(b) dumps() has no device-op table")
+    # a cycle around a capture: predict's first call captures its graph
+    # with the session closed around it
+    x = data[:2]
+    profiler.start()
+    pred = trainer.predict(x)._data.float().cpu()
+    pred2 = trainer.predict(x)._data.float().cpu()
+    profiler.stop()
+    segments = kineto.cycle_files(profiler.trace_dir())
+    eager = trainer._predict_eager(x).float().cpu()
+    capture_ok = (len(segments) == 2 and bool(profiler.device_op_table())
+                  and torch.equal(pred, eager) and torch.equal(pred2, eager))
+    if not capture_ok:
+        failures.append(f"(b) cycle around a capture: {len(segments)} "
+                        f"segments, replays bitwise {torch.equal(pred, eager)}"
+                        f" {torch.equal(pred2, eager)}")
+    print(text.split("Trace spans")[0].rstrip())
+    top = sorted(table.items(), key=lambda kv: -kv[1]["total_us"])[:8]
+    return {"cycles": attempt, "flash": flash,
+            "device_total_ms_per_step": per_step,
+            "busy_ms_per_step_profile_train_way": busy,
+            "record_device_ms": device_ms,
+            "device_events": sum(r["count"] for r in table.values()),
+            "kernel_names": len(table),
+            "top": [{"name": n[:90], **r} for n, r in top],
+            "capture_cycle_segments": len(segments),
+            "capture_cycle_replays_bitwise_eager": capture_ok}
+
+
+def obs_serving(torch, root, failures):
+    """(c): ResNet-50 fp32 behind ServingServer under a reachable and an
+    unreachable objective."""
+    import urllib.request
+    from mxnet_tpu_torch import autograd, clustermon, telemetry
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.serving import ServingServer, slo
+    torch.backends.cudnn.deterministic = True
+    net = resnet_net(torch, DEV)
+    shape = (3, RESNET_IMAGE, RESNET_IMAGE)
+    srv = ServingServer(net, engine_args={"example_shape": shape,
+                                          "dtype": "float32"},
+                        batcher_args={"max_batch_size": OBS_CLIENTS,
+                                      "max_delay_ms": 2,
+                                      "queue_depth": 256})
+    srv.warmup(list(OBS_BUCKETS))
+    host, port = srv.start_http()
+    url = f"http://{host}:{port}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as resp:
+            return resp.read().decode()
+
+    images = list(onp.random.RandomState(0).randn(
+        OBS_CLIENTS, *shape).astype(onp.float32))
+    out = {}
+    try:
+        for name, target in (("reachable", 60000.0), ("unreachable", 1.0)):
+            slo.declare(latency_ms=target, percentile=95.0, window_s=2.4,
+                        min_samples=8)
+            lat, wall = closed_loop(
+                lambda x: srv.predict(x, timeout_ms=120000), images,
+                OBS_CLIENTS, OBS_CALLS)
+            view = srv.sloz()
+            inc = json.loads(get("/incidents"))
+            serving = [i for i in inc["open"] + inc["recent"]
+                       if i["cause"] in clustermon.SERVING_CAUSES]
+            out[name] = {"latency_ms_p50": pct(lat, 50) * 1e3,
+                         "latency_ms_p95": pct(lat, 95) * 1e3,
+                         "req_per_s": len(lat) / wall,
+                         "burning": view["burning"],
+                         "burn_long": view["latency"]["burn_long"],
+                         "burn_short": view["latency"]["burn_short"],
+                         "serving_incidents": serving}
+            if name == "reachable" and (serving or view["burning"]):
+                failures.append(f"(c) reachable objective: {out[name]}")
+            if name == "unreachable" and not serving:
+                failures.append(f"(c) no serving incident under p95 <= 1 "
+                                f"ms: {view}")
+            if name == "unreachable":
+                # a bucket's rows against the eager forward of their
+                # batch, the objective still declared
+                results, meta = srv.engine.infer_batch(images)
+                batch = torch.from_numpy(onp.stack(images)).to(DEV)
+                with autograd.pause():
+                    eager = net(NDArray._wrap(batch))._data.cpu().numpy()
+                bitwise = bool(meta["compiled"]) and onp.array_equal(
+                    onp.stack(results), eager)
+                if not bitwise:
+                    failures.append(f"(c) bucket {meta} rows differ from "
+                                    f"the eager forward")
+            slo.undeclare()
+        text = get("/metrics")
+        parsed = clustermon.parse_prometheus_text(text)
+        varz = json.loads(get("/varz"))
+        metric_reqs = parsed["mxnet_serving_requests"][0][1]
+        if metric_reqs != varz["serving.requests"]:
+            failures.append(f"(c) /metrics requests {metric_reqs}, /varz "
+                            f"{varz['serving.requests']}")
+    finally:
+        slo.undeclare()
+        srv.stop()
+        torch.backends.cudnn.deterministic = False
+    out.update(metrics_samples=sum(len(v) for v in parsed.values()),
+               metrics_requests=metric_reqs,
+               varz_requests=varz["serving.requests"],
+               rows_bitwise_eager=bitwise)
+    del srv, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def obs_export(root, failures):
+    """(d): the trace export of (a) and the aggregator over its spool."""
+    from mxnet_tpu_torch import clustermon, tracing
+    path = tracing.export(os.path.join(root, "trace.json"))
+    with open(path) as f:
+        doc = json.load(f)
+    evs = doc["traceEvents"]
+    steps = [e for e in evs if e.get("name") == "step.spmd"]
+    meta = [e for e in evs if e.get("ph") == "M"
+            and e.get("name") == "rank_world"]
+    if not steps or not meta or meta[0]["args"] != {"rank": 0, "world": 1}:
+        failures.append(f"(d) export: {len(steps)} step.spmd spans, "
+                        f"metadata {meta}")
+    agg = clustermon.ClusterAggregator(os.path.join(root, "cluster"),
+                                       window=OBS_STEPS)
+    view = agg.poll()
+    if sorted(view["ranks"]) != [0] or view["straggler"] is not None \
+            or view["joined_steps"] != OBS_STEPS:
+        failures.append(f"(d) cluster view: ranks {sorted(view['ranks'])},"
+                        f" straggler {view['straggler']}, joined "
+                        f"{view['joined_steps']}")
+    return {"events": len(evs), "step_spmd_spans": len(steps),
+            "rank_world": meta[0]["args"] if meta else None,
+            "cluster": {"ranks": sorted(view["ranks"]),
+                        "joined_steps": view["joined_steps"],
+                        "straggler": view["straggler"],
+                        "host_ms_mean": view["ranks"].get(0, {}).get(
+                            "host_ms_mean")}}
+
+
+def phase_observability(torch, fa_mod, smi):
+    """Phase 22: the port's observability on the card (see the module
+    docstring)."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="obs_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    failures = []
+    try:
+        train, trainer, batch = obs_training(torch, fa_mod, root, failures)
+        emit({"phase": "observability", "gpu": smi, "a_training": train})
+        export = obs_export(root, failures)
+        emit({"phase": "observability", "gpu": smi, "d_export": export})
+        prof = obs_profiler(torch, trainer, batch, root, failures)
+        emit({"phase": "observability", "gpu": smi, "b_profiler": prof})
+        del trainer, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        serving = obs_serving(torch, root, failures)
+        emit({"phase": "observability", "gpu": smi, "c_serving": serving,
+              "phase_s": time.perf_counter() - t0})
+    finally:
+        obs_env(False, root)
+        from mxnet_tpu_torch import clustermon
+        clustermon._on_cluster_dir(None)
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"observability: {failures}")
+    return train["counts"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5088,6 +5515,11 @@ def main():
         if row["name"] in input_counts:
             row["launches_input_pipeline"] = \
                 input_counts[row["name"]]["launches"]
+    obs_counts = phase_observability(torch, fa_mod, smi)
+    for row in kernels:                  # K1-K3 on 19 replays, all on
+        if row["name"] in obs_counts:
+            row["launches_observability"] = \
+                obs_counts[row["name"]]["launches"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,11 @@ ResNet ops and zoo; and the eager Gluon loop — ``gluon.Trainer`` over
 pipeline — ``recordio``, ``io`` (with the native ``ImageRecordIter``,
 built from ``csrc/io`` by g++ at first use), ``image``, ``gluon.data`` and
 ``data.DevicePrefetcher``, which copies batches to the card on a side
-stream ahead of the step::
+stream ahead of the step; and observability — the full step record and
+its sinks (``telemetry``), the span recorder with its export and stall
+watchdog (``tracing``), ``profiler`` over ``torch.profiler`` with the
+card's kernels by name (``kineto``), ``monitor``, and ``clustermon``
+(spools, straggler incidents, Prometheus; imported at first use)::
 
     import mxnet_tpu_torch as mx
     x = mx.nd.array(data, ctx=mx.gpu(0))
@@ -37,14 +41,16 @@ from . import autograd, ops, rtc  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from .ndarray import NDArray  # noqa: F401
-from . import log, telemetry, tracing  # noqa: F401
+from . import log, telemetry, tracing, profiler  # noqa: F401
 from . import amp, kvstore, lr_scheduler  # noqa: F401
 from . import kvstore as kv  # noqa: F401
 from . import gluon, initializer, optimizer, parallel, serving  # noqa: F401
 from . import data, image, io, recordio  # noqa: F401
+from . import monitor  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray",
            "gluon", "initializer", "optimizer", "parallel", "serving",
            "tracing", "telemetry", "log", "amp", "kvstore", "kv",
-           "lr_scheduler", "data", "image", "io", "recordio"]
+           "lr_scheduler", "data", "image", "io", "recordio", "profiler",
+           "monitor"]

@@ -463,6 +463,31 @@ class _BarrierTimeout(MXNetError):
     wait while the training step stalls behind a blocking save."""
 
 
+def _rank_health_hint(missing) -> str:
+    """One clause of clustermon's rank health for a barrier timeout: was
+    a missing rank already degraded or demoted before the barrier gave
+    up on it?  Runs only on the failure path; empty when no aggregator
+    runs in this process."""
+    try:
+        from . import clustermon
+        health = clustermon.rank_health()
+    except Exception:
+        return ""
+    parts = []
+    for r in sorted(missing):
+        h = health.get(r)
+        if h is None:
+            continue
+        status = h.get("status", "?")
+        if h.get("cause"):
+            status += f"({h['cause']})"
+        parts.append(f"rank {r}: {status}, last spool step "
+                     f"{h.get('last_rank_step', 0)} "
+                     f"{h.get('since_s', 0.0):.0f}s ago")
+    return ("; clustermon rank health: " + "; ".join(parts)) if parts \
+        else ""
+
+
 def _collect_markers(tmp: str, world: int, commit: str,
                      timeout: float, rank: int) -> Dict[int, dict]:
     """Rank 0's half of the barrier: bounded wait for every non-zero
@@ -494,7 +519,8 @@ def _collect_markers(tmp: str, world: int, commit: str,
                     f"rank 0 commit barrier timed out after {timeout}s "
                     f"waiting for ready markers from rank(s) "
                     f"{sorted(missing)} (commit {commit!r}) — NOT "
-                    f"publishing; the previous checkpoint stays live")
+                    f"publishing; the previous checkpoint stays live"
+                    + _rank_health_hint(missing))
             time.sleep(0.02)
     _observe_barrier_wait(t0)
     return frags
@@ -760,6 +786,7 @@ _writers: Dict[int, threading.Thread] = {}
 
 
 def _writer_loop(key: int) -> None:
+    tracing.register_thread(f"ckpt-writer-{key}")
     while True:
         with _LOCK:
             while not _QUEUES.get(key):

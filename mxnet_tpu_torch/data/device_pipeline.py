@@ -77,15 +77,17 @@ __all__ = ["DevicePrefetcher", "prefetch_depth", "wrap",
 _DONE = "__done__"
 _ERROR = "__error__"
 
-# remediation advice: a persistently input-bound run may be advised to
-# deepen its ring; applied at the next epoch boundary, and only to a
-# pipeline that is already on
+# remediation advice: clustermon's SpoolSink, under MXNET_REMEDIATE=1,
+# advises a persistently input-bound rank to deepen its ring; applied at
+# the next epoch boundary, and only to a pipeline that is already on
 _ADVICE_LOCK = threading.Lock()
 _advised_depth = 0
 
 
 def note_advice_depth(depth: int) -> None:
-    """Record a prefetch-depth advice (monotonic max)."""
+    """Record a prefetch-depth advice (monotonic max); called by
+    ``clustermon.SpoolSink`` when an ``input_bound`` incident escalates
+    and ``MXNET_REMEDIATE=1``."""
     global _advised_depth
     with _ADVICE_LOCK:
         _advised_depth = max(_advised_depth, int(depth))
@@ -389,6 +391,8 @@ def _produce(src, q, stop, place_fn, stager, skip=0):
                 continue
         return False
 
+    if tracing.enabled():
+        tracing.register_thread()
     try:
         for _ in range(skip):
             if stop.is_set():

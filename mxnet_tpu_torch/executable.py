@@ -194,9 +194,12 @@ class Executable:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [f.launches for f in _COUNTED]
         graph = torch.cuda.CUDAGraph()
+        from . import profiler
         try:
-            with torch.cuda.graph(graph, pool=graph_pool, stream=side,
-                                  capture_error_mode="thread_local"):
+            # a running profiler cycle is closed around the capture
+            with profiler.capture_guard(), torch.cuda.graph(
+                    graph, pool=graph_pool, stream=side,
+                    capture_error_mode="thread_local"):
                 self.outputs = self.fn(*self.inputs)
         except Exception as e:
             err = MXNetError(f"CUDA graph capture failed: {e}")

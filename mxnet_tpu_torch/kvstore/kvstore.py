@@ -77,8 +77,10 @@ class KVStore(KVStoreBase):
     def push(self, key, value, priority=0):
         tok = telemetry.begin_step()
         try:
-            with tracing.span("comm.push"):
+            with tracing.span("comm.push") as sp:
+                b0 = _COMM_BYTES.value
                 self._push(key, value)
+                sp.annotate(payload_nbytes=_COMM_BYTES.value - b0)
         finally:
             telemetry.end_step(tok, "kvstore")
 
@@ -86,7 +88,7 @@ class KVStore(KVStoreBase):
         batch = []
         for k, v in zip(*self._keyed(key, value)):
             reduced = self._reduce(v)
-            _COMM_BYTES.inc(payload_nbytes(reduced))
+            telemetry.record_comm_bytes(payload_nbytes(reduced), "local")
             if self._updater is None:
                 self._data[k] = reduced
             elif k in self._data:
@@ -124,15 +126,18 @@ class KVStore(KVStoreBase):
     def pushpull(self, key, value, out=None, priority=0):
         tok = telemetry.begin_step()
         try:
-            with tracing.span("comm.pushpull"):
+            with tracing.span("comm.pushpull") as sp:
+                b0 = _COMM_BYTES.value
                 if self._updater is not None:
                     self._push(key, value)
                 else:
                     for k, v in zip(*self._keyed(key, value)):
                         self._data[k] = self._reduce(v)
-                        _COMM_BYTES.inc(payload_nbytes(self._data[k]))
+                        telemetry.record_comm_bytes(
+                            payload_nbytes(self._data[k]), "local")
                 if out is not None:
                     self.pull(key, out, priority)
+                sp.annotate(payload_nbytes=_COMM_BYTES.value - b0)
             return out
         finally:
             telemetry.end_step(tok, "kvstore")

@@ -110,7 +110,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import autograd as ag
 from .. import optimizer as opt_mod
-from .. import telemetry, tracing
+from .. import profiler, telemetry, tracing
 from ..base import MXNetError, numpy_bits, tensor_from_bits
 from ..context import resolve_device
 from ..amp import policy as _amp_policy
@@ -463,17 +463,32 @@ class SPMDTrainer:
                 entry, fresh = self._executable(sig, self._train_body,
                                                 (lr, wd, d, l))
                 self._amp_enter()
+                t_op = profiler.op_timer()
                 with tracing.span("compile.spmd_step" if fresh
                                   else "step.dispatch"):
                     loss, bounds = self._call(sig, entry, fresh,
                                               (lr, wd, d, l))
+                    telemetry.record_dispatch()
                 self._amp_leave()
                 sp.annotate(fresh_compile=fresh)
                 loss = loss.clone()
                 self._owner.defer_ids(bounds, entry[1].vocabs, self.device)
+                if tok is not None:
+                    telemetry.record_opt_state_bytes(
+                        self.opt_state_bytes_per_device())
+            profiler.op_record("SPMDTrainer::step", t_op)
         finally:
             telemetry.end_step(tok, "SPMDTrainer")
         return NDArray._wrap(loss)
+
+    def opt_state_bytes_per_device(self) -> int:
+        """Optimizer-state bytes on the trainer's device (the one device
+        holds all of it; a step that emits a record refreshes the
+        ``opt_state.bytes_per_device`` gauge with it).  One device moves
+        no collective bytes: the reference's collective split is 0
+        here."""
+        return sum(int(t.nbytes) for k in self._pkeys
+                   for t in self._opt_state[k])
 
     def run_steps(self, data, label, n_steps: int,
                   per_step_data: bool = False):
@@ -514,6 +529,8 @@ class SPMDTrainer:
                                       else "step.dispatch"):
                         loss, b = self._call(sig, entry, fresh,
                                              (lr, wd, di, li))
+                        # a window of n steps is n replays of the graph
+                        telemetry.record_dispatch()
                     fresh = False
                     losses[i] = loss
                     if b is not None:
@@ -522,6 +539,9 @@ class SPMDTrainer:
                 if bounds:
                     self._owner.defer_ids(torch.cat(bounds),
                                           entry[1].vocabs * n, self.device)
+                if tok is not None:
+                    telemetry.record_opt_state_bytes(
+                        self.opt_state_bytes_per_device())
         finally:
             telemetry.end_step(tok, "SPMDTrainer", extra={"n_steps": n})
         return NDArray._wrap(losses)

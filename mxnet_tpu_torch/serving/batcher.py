@@ -29,8 +29,13 @@ stamped into its ``serving.enqueue`` span, its cross-thread
 ``serving.request`` span (admission to reply, with the validate /
 queue-wait / hold / dispatch / pad-share decomposition) and the
 ``request_ids`` of the ``serving.coalesce`` / ``serving.dispatch``
-spans and the step record.  While tracing is on, each finished request
-also enters the slowest-request ring (``slo.observe_request``).
+spans and the step record.  While tracing is on or objectives are
+declared, each finished request enters the slowest-request ring and
+feeds the burn-rate evaluation inline (``slo.observe_request``); an
+escalated ``queue_saturation`` incident's advice (double
+``max_batch_size``, halve ``max_delay_ms``) is applied to the live
+batchers under ``MXNET_REMEDIATE=1`` and logged and counted either
+way.
 
 Tests drive the batcher without a thread: ``start=False`` + ``flush()``.
 """
@@ -156,9 +161,8 @@ class DynamicBatcher:
             + telemetry.counter("serving.rejected.shape").value,
             "timeouts": telemetry.counter("serving.timeouts").value,
         }
-        # a set MXNET_SLO_LATENCY_MS raises here (objectives are not
-        # ported yet), not later on the dispatcher's thread
-        slo.active()
+        # the target of an escalated queue_saturation incident's
+        # batcher-tuning advice (applied under MXNET_REMEDIATE=1)
         slo.note_batcher(self)
         if start:
             self.start()
@@ -309,6 +313,7 @@ class DynamicBatcher:
         return batch
 
     def _loop(self):
+        tracing.register_thread("serving-dispatcher")
         while True:
             with self._cv:
                 while not self._q and not self._closed:

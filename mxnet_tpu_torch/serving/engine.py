@@ -38,7 +38,7 @@ import numpy as onp
 import torch
 
 from .. import autograd as ag
-from .. import telemetry, tracing
+from .. import profiler, telemetry, tracing
 from ..base import MXNetError, getenv, torch_dtype
 from ..log import get_logger
 from ..ndarray.ndarray import NDArray
@@ -476,8 +476,7 @@ class InferenceEngine:
             entry = self._get_runner(key)
             compile_ms = round(
                 telemetry.counter("compile.serving.ms").value - c_ms0, 3)
-            # (the reference's profiler.op_record of each dispatch waits
-            # for profiler.py, queue 1 item 10)
+            t0 = profiler.op_timer()
             if entry is not None:
                 if isinstance(batch, list):
                     # rows straight into the pinned staging buffer, the
@@ -507,6 +506,7 @@ class InferenceEngine:
                 host = [_to_host(t) for t in leaves]
                 bounds = None
                 compiled = False
+            profiler.op_record(f"Serving::{self._name}", t0)
         telemetry.counter(
             f"serving.bucket.{self._bucket_tag(key)}.dispatches").inc()
         if bounds is not None:

@@ -19,12 +19,16 @@ the same calls:
 - ``GET /varz`` → the live telemetry registry (``telemetry.snapshot()``).
 - ``GET /tracez?limit=`` → the flight recorder's recent completed spans
   and the open ones (empty lists while tracing is off).
-- ``GET /slo`` → the serving SLO view (``slo.slo_view()``: no objective
-  is declared in the port).
+- ``GET /metrics`` → the registry in Prometheus text exposition format
+  (``clustermon.prometheus_text``: ``# TYPE`` lines, a ``rank`` label
+  on every sample), the same numbers as ``/varz``.
+- ``GET /incidents`` → the incident history (``clustermon.
+  incident_view``): open and recent closed straggler and serving
+  incidents with per-cause counts.
+- ``GET /slo`` → the serving SLO view (``slo.slo_view()``): declared
+  objectives, window percentiles, burn rates, saturation attribution
+  and the burning incident, if any.
 - ``GET /requestz?limit=`` → the ring of the N slowest requests served.
-- ``GET /metrics`` and ``GET /incidents`` need clustermon's Prometheus
-  text and incident store (queue 1 item 10): 503 with a "not ported
-  yet" body.
 
 Error mapping: admission reject → 400, queue full (load shed) → 429,
 request deadline → 504, draining/closed → 503, another error of the
@@ -116,12 +120,13 @@ class ServingServer:
         depth = self.batcher.pending()
         limit = self.batcher.queue_depth
         buckets = self.engine.buckets()
-        # no objective can be declared yet (queue 1 item 10), so no
-        # serving incident is open; slo.get() raises while
-        # MXNET_SLO_LATENCY_MS asks for one
-        slo.get()
         open_serving = 0
-        return {
+        burning = None
+        s = slo.get()
+        if s is not None:
+            open_serving = len(s.snapshot(1)["open"])
+            burning = slo.burning_cause()
+        h = {
             "status": "draining" if self.batcher.closed else "serving",
             "queue_depth": depth,
             "buckets": buckets,
@@ -134,6 +139,9 @@ class ServingServer:
             "ready": (not self.batcher.closed and depth < limit
                       and open_serving == 0),
         }
+        if burning:
+            h["slo_burning"] = burning
+        return h
 
     def varz(self) -> dict:
         """Live telemetry registry snapshot (what ``GET /varz``
@@ -150,21 +158,25 @@ class ServingServer:
                 "open": tracing.open_spans()}
 
     def metricz(self) -> str:
-        """The registry as Prometheus text (``GET /metrics``): not ported
-        yet."""
-        raise MXNetError("GET /metrics needs clustermon.prometheus_text, "
-                         "which is not ported yet (queue 1 item 10)")
+        """The registry as Prometheus text (what ``GET /metrics``
+        serves): the numbers of ``/varz``, scrapeable."""
+        from .. import clustermon
+        return clustermon.prometheus_text()
 
     def incidentz(self) -> dict:
-        """The cluster incident history (``GET /incidents``): not ported
-        yet."""
-        raise MXNetError("GET /incidents needs clustermon.incident_view, "
-                         "which is not ported yet (queue 1 item 10)")
+        """The incident history (what ``GET /incidents`` serves): open
+        and recent closed incidents and per-cause counts from the rank-0
+        aggregator's store and the serving objectives' store; the empty
+        shape when neither runs in this process."""
+        from .. import clustermon
+        return clustermon.incident_view()
 
     def sloz(self) -> dict:
-        """Serving SLO view (what ``GET /slo`` serves): the
-        ``{"declared": false}`` shape, since no objective can be
-        declared yet."""
+        """Serving SLO view (what ``GET /slo`` serves): declared
+        objectives, window percentiles, burn rates, saturation
+        attribution and any burning incident; the ``{"declared":
+        false}`` shape when none is declared.  Evaluates afresh, so that
+        a burn clears after traffic stops."""
         from . import slo
         return slo.slo_view()
 
@@ -222,21 +234,13 @@ class ServingServer:
                 if self.path == "/healthz":
                     self._reply(200, server.healthz())
                 elif self.path.split("?", 1)[0] == "/metrics":
-                    try:
-                        text = server.metricz()
-                    except MXNetError as e:
-                        self._reply(503, {"error": str(e)})
-                    else:
-                        self._reply_text(
-                            200, text,
-                            "text/plain; version=0.0.4; charset=utf-8")
+                    self._reply_text(
+                        200, server.metricz(),
+                        "text/plain; version=0.0.4; charset=utf-8")
                 elif self.path == "/varz":
                     self._reply(200, server.varz())
                 elif self.path.split("?", 1)[0] == "/incidents":
-                    try:
-                        self._reply(200, server.incidentz())
-                    except MXNetError as e:
-                        self._reply(503, {"error": str(e)})
+                    self._reply(200, server.incidentz())
                 elif self.path.split("?", 1)[0] == "/slo":
                     self._reply(200, server.sloz())
                 elif self.path.split("?", 1)[0] == "/requestz":

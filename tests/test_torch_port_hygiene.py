@@ -50,6 +50,14 @@ INPUT_MODULES = ["recordio.py", "engine.py", "io/__init__.py", "io/io.py",
                  "image/image.py", "data/__init__.py",
                  "data/device_pipeline.py", "gluon/metric.py",
                  "gluon/utils.py", "telemetry.py", "kernels/build.py"]
+OBSERVABILITY_MODULES = ["telemetry.py", "tracing.py", "profiler.py",
+                         "kineto.py", "monitor.py", "clustermon.py",
+                         "serving/slo.py", "serving/server.py",
+                         "serving/engine.py", "serving/batcher.py",
+                         "contrib/__init__.py", "contrib/tensorboard.py",
+                         "checkpoint.py", "data/device_pipeline.py",
+                         "executable.py", "parallel/trainer.py",
+                         "kvstore/kvstore.py"]
 
 
 def _module(rel):
@@ -97,8 +105,10 @@ _CHILDREN = textwrap.dedent("""
                 "libs": sorted(build._LIBS)}}
 
     def alone(mod):
+        import threading
         importlib.import_module(mod)
-        return {{"bad": bad()}}
+        return {{"bad": bad(),
+                "threads": [t.name for t in threading.enumerate()]}}
 
     checks = [("whole", whole), ("bare", bare)] + [
         (m, lambda m=m: alone(m)) for m in {mods!r}]
@@ -129,7 +139,7 @@ def children():
     import json
     mods = sorted({_module(r) for r in
                    RESNET_MODULES + PERSISTENCE_MODULES + CAPTURE_MODULES
-                   + INPUT_MODULES})
+                   + INPUT_MODULES + OBSERVABILITY_MODULES})
     out = subprocess.run(
         [sys.executable, "-c", _CHILDREN.format(bad=BAD_TOP, mods=mods)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -311,3 +321,19 @@ def test_native_io_sources_build_outside_the_reference():
     assert "src_native" not in src and "Makefile" not in src
     for rel in native.SOURCES:
         assert (PORT / "csrc" / rel).is_file(), rel
+
+
+@pytest.mark.parametrize("rel", OBSERVABILITY_MODULES)
+def test_observability_modules_are_held_to_the_rules(rel, children):
+    """The observability slice's modules are among the sources checked
+    above, import no ``ml_dtypes``, and each imports alone (a child
+    process that had imported only torch) without loading JAX, Triton or
+    the reference and without starting a thread (no aggregator, exporter
+    or watchdog while their switches are unset)."""
+    path = PORT / rel
+    assert path in SOURCES
+    assert not ML_DTYPES.search(path.read_text()), rel
+    res = children[_module(rel)]
+    assert res["ok"], res.get("error")
+    assert res["bad"] == [], res["bad"]
+    assert res["threads"] == ["MainThread"], res["threads"]

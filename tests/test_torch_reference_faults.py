@@ -46,6 +46,10 @@ against ``mxnet_tpu`` on the same numpy inputs on the CPU:
   ``_stage_input`` does (losses at rtol 1e-5, counters exact);
 * F18: ``step`` / ``run_steps`` / ``predict`` / ``fit`` return NDArrays,
   as the reference's do (values at rtol 1e-5);
+* F19: the step record after a profiler cycle carries the cycle's
+  device ms over the records emitted while the cycle ran; the
+  reference also counts the record that carries it (3 steps in a cycle
+  of 30 device ms give 7.5 ms there, 10 ms in the port; exact);
 * batch serving's two choices: an id out of range fails its batch with
   ``MXNetError`` where the reference gives NaN rows, and a bf16 output
   comes back widened to float32 (exact) where the reference returns
@@ -943,3 +947,38 @@ def test_spmd_trainer_returns_ndarrays_like_the_reference():
     onp.testing.assert_allclose([v.asscalar() for v in fitted],
                                 [v.asscalar() for v in fitted_ref],
                                 rtol=1e-5)
+
+
+# -- F19: device ms a step after a profiler cycle ------------------------------
+
+def test_device_ms_averages_the_records_of_the_cycle(monkeypatch):
+    """F19: three records emitted while a profiler cycle of 30 device ms
+    ran, then the record that carries its device time: 10 ms a step.
+    The reference divides by the carrying record too (7.5 ms); the
+    device totals are faked in both, so the test runs on the CPU."""
+    from mxnet_tpu import telemetry as jtel
+    from mxnet_tpu import xplane
+    from mxnet_tpu_torch import kineto, telemetry
+    monkeypatch.setattr(kineto, "device_total_ms", lambda d: 30.0)
+    monkeypatch.setattr(xplane, "device_total_ms", lambda d: 30.0)
+    got = {}
+    for name, tel in (("port", telemetry), ("ref", jtel)):
+        records = []
+
+        class Sink:
+            def emit(self, r):
+                records.append(r)
+
+        sink = Sink()
+        tel.add_sink(sink)
+        try:
+            tel._note_trace_start()
+            for _ in range(3):
+                tel.end_step(tel.begin_step(), "test")
+            tel._note_trace_stop("trace-dir")
+            tel.end_step(tel.begin_step(), "test")
+        finally:
+            tel.remove_sink(sink)
+        got[name] = [r["device_ms"] for r in records]
+    assert got["port"] == [None, None, None, 10.0]
+    assert got["ref"] == [None, None, None, 7.5]
