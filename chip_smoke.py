@@ -306,10 +306,34 @@ exits non-zero and prints no result:
              (a) with its ``step.spmd`` spans and rank metadata, and
              clustermon's aggregator over (a)'s spool: one rank, no
              straggler.
+23. distributed — SPMD distribution on the card, one rank: a process
+             group of one over NCCL (``parallel._dist``), then the
+             training row (bf16, Adam 3e-4, batch 8 x 2048, 8 layers)
+             through ``SPMDTrainer(mesh=make_mesh({"dp": -1, "sp": 1}),
+             seq_axis=1)`` with ``TransformerLM(ring_mesh=mesh,
+             sp_mode="ring_flash")`` at ZeRO stages 0, 1 and 3, each
+             against the unmeshed trainer from the same weights in the
+             same process: a warm step and 10 replays, losses within
+             rtol 1e-2 (and whether bitwise equal), K1-K3 8 launches a
+             replayed step through the ring path with no plain call, host
+             ms replayed meshed against unmeshed in blocks taken in turns,
+             peak memory, ``opt_state.bytes_per_device``, and the NCCL
+             kernels a step by torch.profiler (the port elides a
+             collective over one rank, as XLA does).  First, the
+             ring-flash body of a 4-rank ring folded onto the card
+             (``ring_flash_fold``, the rotation a local index) at the
+             training row's attention shape (64 x 2048 x 64, bf16,
+             causal): 10 launches each of K1-K3 (counts zeroed just
+             before), output, LSE, dQ, dK and dV against unsharded
+             flash attention and the plain version at parity_flash's
+             bf16 tolerance, and its device ms beside the unsharded
+             kernels'.  More than one rank on the one card is not run
+             (``DIST_MULTI_RANK_ON_ONE_CARD``).
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
 carry ``launches_gluon_train``, ``launches_ckpt``,
-``launches_input_pipeline`` and ``launches_observability``, K1
+``launches_input_pipeline``, ``launches_observability`` and
+``launches_distributed`` and ``launches_ring_fold``, K1
 ``launches_batch_serve``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
@@ -5432,6 +5456,226 @@ def phase_observability(torch, fa_mod, smi):
     return train["counts"]
 
 
+DIST_STAGES = (0, 1, 3)     # ZeRO stages of the meshed transformer row
+DIST_STEPS = 10             # replayed steps a trainer, after its warm one
+# Two ranks on the one card (tools/gloo_cuda_probe.py on the H100,
+# PERF.md section 7): NCCL refuses every collective of a communicator
+# that holds the device twice ("invalid usage"); gloo gives the right
+# numbers for all_reduce, reduce_scatter_tensor, all_gather_into_tensor
+# and all_to_all_single on CUDA tensors, but batch_isend_irecv, the
+# ring's rotation, aborts a rank (its TCP pair writes from device
+# memory: "writev ... Bad address").  So the phase runs one rank, and
+# checks the multi-rank ring body folded onto the card instead.
+DIST_MULTI_RANK_ON_ONE_CARD = False
+
+
+def dist_lm(torch, mesh=None):
+    """The training row's model (``train_model``'s weights, seed 0), with
+    ring-flash attention over ``mesh``'s sp axis when given."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import TransformerLM
+    kw = {} if mesh is None else {"ring_mesh": mesh,
+                                  "sp_mode": "ring_flash"}
+    net = TransformerLM(VOCAB, units=DIM, num_layers=LAYERS,
+                        num_heads=HEADS, max_len=SEQ, tie_weights=True,
+                        **kw)
+    net.initialize(init=initializer.Xavier(), device=DEV,
+                   generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        net(torch.zeros((1, 8), dtype=torch.int32, device=DEV))
+    return net
+
+
+def dist_run(torch, fns, trainer, data, label, base):
+    """A warm step (the capture), then DIST_STEPS replays with K1-K3's
+    counts zeroed just before and read just after: the losses, the
+    counts, and the peak memory of the replays above ``base`` (the bytes
+    allocated before the trainer's model was built)."""
+    losses = [float(trainer.step(data, label))]
+    step_graph(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*fns)
+    losses += [float(trainer.step(data, label)) for _ in range(DIST_STEPS)]
+    counts = {f.__name__: {"launches": f.launches,
+                           "plain_calls": f.plain_calls} for f in fns}
+    return losses, counts, torch.cuda.max_memory_allocated() - base
+
+
+DIST_FOLD = 4               # sequence shards of the folded ring check
+
+
+def dist_ring_fold(torch, fa_mod, fns, smi):
+    """The ring-flash body of a DIST_FOLD-rank ring on the one card
+    (``ring_attention.ring_flash_fold``: every rank in this process, the
+    rotation a local index), at the training row's attention shape (BH
+    64, S 2048, D 64, bf16, causal): K1 causal on the diagonal blocks
+    and non-causal below, the LSE merge, K2/K3 per block with the global
+    LSE and delta, dK/dV accumulated in f32 riding with their shards.
+    K1-K3's counts are zeroed just before the call and read just after
+    (10 launches each: 4 + 3 + 2 + 1 blocks).  Output, LSE, dQ, dK and
+    dV are held against ``flash_attention`` (unsharded K1-K3) and the
+    plain version on the same inputs, at the bf16 tolerance of
+    ``parity_flash``."""
+    from mxnet_tpu_torch.parallel.ring_attention import ring_flash_fold
+    n = DIST_FOLD
+    q, k, v, do = flash_case(torch, TRAIN_BH, SEQ, SEQ, HEAD_DIM,
+                             torch.bfloat16, seed=16)
+    scale = 1.0 / HEAD_DIM ** 0.5
+    reset_counts(*fns)
+    got = ring_flash_fold(q, k, v, n, causal=True, do=do)
+    torch.cuda.synchronize()
+    counts = {f.__name__: {"launches": f.launches,
+                           "plain_calls": f.plain_calls} for f in fns}
+    blocks = n * (n + 1) // 2
+    failures = [f"ring fold: {name} launched {c['launches']} times "
+                f"({c['plain_calls']} plain), expected {blocks}"
+                for name, c in counts.items()
+                if c["launches"] != blocks or c["plain_calls"]]
+    # unsharded: K1 for out and LSE, K2/K3 on their residuals
+    w_out, w_lse = fa_mod.flash_fwd(q, k, v, causal=True)
+    w_delta = fa_mod._delta(do, w_out)
+    w_dk, w_dv = fa_mod.flash_bwd_dkdv(q, k, v, do, w_lse, w_delta,
+                                       causal=True)
+    w_dq = fa_mod.flash_bwd_dq(q, k, v, do, w_lse, w_delta, causal=True)
+    p_out, p_lse = fa_mod.flash_forward_reference(q, k, v, True, scale)
+    p_dq, p_dk, p_dv = fa_mod.flash_backward_reference(
+        q, k, v, p_out, p_lse, do, True, scale)
+    torch.cuda.synchronize()
+    names = ("out", "lse", "dq", "dk", "dv")
+    tols = {"out": 2e-2, "lse": 1e-4, "dq": 2e-2, "dk": 2e-2, "dv": 2e-2}
+    errs = {}
+    for ref_name, refs in (("flash_attention", (w_out, w_lse, w_dq, w_dk,
+                                                w_dv)),
+                           ("plain", (p_out, p_lse, p_dq, p_dk, p_dv))):
+        errs[ref_name] = {}
+        for name, a, b in zip(names, got, refs):
+            try:
+                errs[ref_name][name] = max_err(a, b, tols[name], tols[name])
+            except AssertionError as e:
+                failures.append(f"ring fold {name} vs {ref_name}: {e}")
+    fold_ms = device_ms(torch, lambda: ring_flash_fold(q, k, v, n,
+                                                       causal=True, do=do),
+                        runs=10)
+
+    def whole():
+        o, lse = fa_mod.flash_fwd(q, k, v, causal=True)
+        delta = fa_mod._delta(do, o)
+        fa_mod.flash_bwd_dkdv(q, k, v, do, lse, delta, causal=True)
+        fa_mod.flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
+
+    whole_ms = device_ms(torch, whole, runs=10)
+    row = {"phase": "distributed", "gpu": smi, "part": "ring_fold",
+           "shards": n, "bh_s_d": [TRAIN_BH, SEQ, HEAD_DIM],
+           "dtype": "bfloat16", "causal": True, "counts": counts,
+           "blocks_expected": blocks, "tolerance": tols,
+           "max_abs_err": errs, "fwd_bwd_ms": {"fold": fold_ms,
+                                               "flash_attention": whole_ms}}
+    emit(row)
+    del q, k, v, do, got, p_out, p_lse, p_dq, p_dk, p_dv
+    torch.cuda.empty_cache()
+    return counts, failures
+
+
+def phase_distributed(torch, fa_mod, smi):
+    """Phase 23: SPMD distribution on the card (see the module docstring):
+    the transformer row through ``SPMDTrainer(mesh=make_mesh({"dp": -1,
+    "sp": 1}), seq_axis=1)`` with ring-flash attention, at each ZeRO
+    stage, against the unmeshed trainer in the same process."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.parallel import _dist, make_mesh
+    t0 = time.perf_counter()
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    data, label = train_batch(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    plain = train_trainer(torch, dist_lm(torch))
+    plain_losses, plain_counts, plain_peak = dist_run(torch, fns, plain,
+                                                      data, label, base)
+    plain_fn = lambda: float(plain.step(data, label))  # noqa: E731
+    plain_prof = profiled(torch, plain_fn, 5, count=("nccl",))
+    mesh = make_mesh({"dp": -1, "sp": 1})
+    group = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+             "device": str(_dist.device()), "mesh": dict(mesh.shape)}
+    if group["backend"] != "nccl" or group["world"] != 1:
+        raise AssertionError(f"distributed: expected a group of one over "
+                             f"NCCL, got {group}")
+    fold_counts, failures = dist_ring_fold(torch, fa_mod, fns, smi)
+    rows = []
+    for stage in DIST_STAGES:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        trainer = train_trainer(torch, dist_lm(torch, mesh), mesh=mesh,
+                                seq_axis=1, zero_stage=stage)
+        losses, counts, peak = dist_run(torch, fns, trainer, data, label,
+                                        base)
+        for name, c in counts.items():
+            if c["launches"] != LAYERS * DIST_STEPS or c["plain_calls"]:
+                failures.append(f"zero {stage}: {name} launched "
+                                f"{c['launches']} times in {DIST_STEPS} "
+                                f"replayed steps ({c['plain_calls']} plain)")
+        got, want = onp.asarray(losses), onp.asarray(plain_losses)
+        if not onp.allclose(got, want, rtol=1e-2, atol=0):
+            failures.append(f"zero {stage}: losses {losses} not within "
+                            f"rtol 1e-2 of the unmeshed {plain_losses}")
+        modes = {"meshed": lambda: float(trainer.step(data, label)),
+                 "unmeshed": plain_fn}
+        host = host_ms_blocks(modes, calls=10, rounds=2)
+        _, busy, _, nccl = profiled(torch, modes["meshed"], 5,
+                                    count=("nccl",))
+        rows.append({
+            "zero_stage": stage, "losses": losses,
+            "bitwise_equal_to_unmeshed": bool(onp.array_equal(got, want)),
+            "max_rel_diff": float(onp.max(onp.abs(got - want)
+                                          / onp.abs(want))),
+            "launches_per_step": {k: v["launches"] / DIST_STEPS
+                                  for k, v in counts.items()},
+            "host_ms": host, "device_busy_ms": busy,
+            "peak_bytes_replays_over_base": peak,
+            "opt_state_bytes_per_device":
+                telemetry.gauge("opt_state.bytes_per_device").value,
+            "nccl_kernels_per_step": nccl["nccl"],
+            "kernels_per_step": nccl["kernels"]})
+        del trainer, modes
+        gc.collect()
+        torch.cuda.empty_cache()
+        # what the trainer left allocated after it went
+        rows[-1]["left_allocated_bytes"] = \
+            torch.cuda.memory_allocated() - base
+        emit({"phase": "distributed", "gpu": smi, "part": "a",
+              **rows[-1]})
+    emit({"phase": "distributed", "gpu": smi, "part": "a_summary",
+          "group": group, "model": {"vocab": VOCAB, "units": DIM,
+                                    "layers": LAYERS, "heads": HEADS,
+                                    "batch": BATCH, "seq": SEQ,
+                                    "dtype": "bfloat16", "optimizer": "adam",
+                                    "lr": LR, "sp_mode": "ring_flash",
+                                    "seq_axis": 1},
+          "unmeshed_losses": plain_losses,
+          "unmeshed_launches_per_step": {
+              k: v["launches"] / DIST_STEPS for k, v in plain_counts.items()},
+          "unmeshed_peak_bytes_replays_over_base": plain_peak,
+          "unmeshed_device_busy_ms": plain_prof[1],
+          "unmeshed_kernels_per_step": plain_prof[3]["kernels"],
+          "unmeshed_nccl_kernels_per_step": plain_prof[3]["nccl"],
+          "size_one_collectives": "elided (no NCCL kernel a step)"
+          if all(r["nccl_kernels_per_step"] == 0 for r in rows)
+          else "launched",
+          "multi_rank_on_one_card": DIST_MULTI_RANK_ON_ONE_CARD,
+          "phase_s": time.perf_counter() - t0})
+    del plain, plain_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    if failures:
+        raise AssertionError(f"distributed: {failures}")
+    return {k: {"launches": sum(r["launches_per_step"][k] for r in rows)
+                * DIST_STEPS, "plain_calls": 0,
+                "fold_launches": fold_counts[k]["launches"]} for k in
+            ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5520,6 +5764,13 @@ def main():
         if row["name"] in obs_counts:
             row["launches_observability"] = \
                 obs_counts[row["name"]]["launches"]
+    dist_counts = phase_distributed(torch, fa_mod, smi)
+    for row in kernels:                  # K1-K3 through ring-flash, meshed
+        if row["name"] in dist_counts:
+            row["launches_distributed"] = \
+                dist_counts[row["name"]]["launches"]
+            row["launches_ring_fold"] = \
+                dist_counts[row["name"]]["fold_launches"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

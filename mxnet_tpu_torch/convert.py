@@ -38,12 +38,17 @@ def decode_params_from_numpy(tree: Dict[str, Any], device=None) -> dict:
             "lnf": _tensor(tree["lnf"], dev)}
 
 
-def load_collected_params(net, arrays: Dict[str, Any], device=None) -> None:
+def load_collected_params(net, arrays: Dict[str, Any], device=None,
+                          trainer=None) -> None:
     """Load the reference net's ``collect_params()`` (hierarchical name →
     array) into the port's ``net`` by name, on ``device`` (default
     ``cuda``).  The two name sets must be equal, and each array's shape
     must match the parameter's declared shape (a dim still unknown to a
-    deferred parameter is filled in)."""
+    deferred parameter is filled in).  Into the net of a meshed
+    ``SPMDTrainer``, pass it as ``trainer``: the arrays are the
+    reference's full values, and each rank keeps its shard of a
+    parameter the trainer shards (by its spec and the ZeRO stage;
+    ``SPMDTrainer.set_full_value``)."""
     dev = resolve_device(device)
     params = net.collect_params()
     missing = sorted(set(params) - set(arrays))
@@ -58,7 +63,10 @@ def load_collected_params(net, arrays: Dict[str, Any], device=None) -> None:
                                       for w, s in zip(want, a.shape)):
             raise MXNetError(f"{name}: shape {a.shape} does not match "
                              f"{tuple(want)}")
-        p.set_data(_tensor(a, dev))
+        if trainer is not None:
+            trainer.set_full_value(p, _tensor(a, dev))
+        else:
+            p.set_data(_tensor(a, dev))
 
 
 def collected_params_to_numpy(net) -> Dict[str, onp.ndarray]:

@@ -5,8 +5,20 @@
 Attention runs through ``ops.attention.multi_head_attention``: with
 ``use_flash=True`` (the default) the flash-attention kernels K1 in the
 forward and K2, K3 in the backward; with ``use_flash=False`` the dense
-reference.  Sequence parallelism (the reference's ring / Ulysses
-branches), ``generate`` and the ViT are not ported yet.
+reference.
+
+Sequence parallelism (``transformer.py:35-100``): given ``ring_mesh`` (a
+mesh with an ``sp`` axis), attention runs context parallel over that
+axis by ``sp_mode``: ``"ring"`` (K/V blocks rotate,
+``parallel.ring_attention``), ``"ring_flash"`` (the same ring with K1–K3
+as the block engine) or ``"ulysses"`` (two all-to-alls re-shard
+sequence and heads, ``parallel.ulysses``; ``use_flash`` runs its local
+attention on K1–K3).  Inside ``SPMDTrainer(seq_axis=1)`` the layer gets
+this rank's sequence shard and runs the per-shard body; called on whole
+sequences it shards them itself and gathers the output.
+``TransformerBlock`` and ``TransformerLM`` pass ``ring_mesh`` and
+``sp_mode`` to their attention layers, and the LM offsets its positions
+by the rank's shard.  ``generate`` and the ViT are not ported yet.
 """
 from __future__ import annotations
 
@@ -14,6 +26,7 @@ from ... import initializer
 from ...base import MXNetError
 from ...ops import attention as attn_ops
 from ...ops import tensor as tensor_ops
+from ...parallel import tensor_parallel as _tp
 from .. import nn
 from ..block import HybridBlock
 from ..parameter import Parameter
@@ -27,7 +40,8 @@ class MultiHeadAttention(HybridBlock):
     and v), attention, and the output projection."""
 
     def __init__(self, units, num_heads, causal=False, use_flash=True,
-                 num_kv_heads=None, **kwargs):
+                 num_kv_heads=None, ring_mesh=None, sp_mode="ring",
+                 **kwargs):
         super().__init__(**kwargs)
         if units % num_heads:
             raise MXNetError(f"units {units} not divisible by num_heads "
@@ -35,11 +49,17 @@ class MultiHeadAttention(HybridBlock):
         if num_kv_heads is not None and num_heads % num_kv_heads:
             raise MXNetError(f"num_heads {num_heads} not divisible by "
                              f"num_kv_heads {num_kv_heads}")
+        if sp_mode not in ("ring", "ring_flash", "ulysses"):
+            raise MXNetError(
+                f"sp_mode {sp_mode!r}: 'ring', 'ring_flash' or "
+                f"'ulysses'")
         self._units = units
         self._heads = num_heads
         self._kv_heads = num_kv_heads
         self._causal = causal
         self._flash = use_flash
+        self._ring_mesh = ring_mesh
+        self._sp_mode = sp_mode
         hkv = num_kv_heads if num_kv_heads is not None else num_heads
         self._kv_units = (units // num_heads) * hkv
         self.qkv = nn.Dense(units + 2 * self._kv_units, use_bias=True,
@@ -52,10 +72,39 @@ class MultiHeadAttention(HybridBlock):
         q = qkv[..., :u]
         k = qkv[..., u:u + kvu]
         v = qkv[..., u + kvu:u + 2 * kvu]
-        attn = attn_ops.multi_head_attention(
-            q, k, v, num_heads=self._heads, causal=self._causal,
-            use_flash=self._flash, num_kv_heads=self._kv_heads)
+        if self._ring_mesh is not None:
+            attn = self._ring_forward(q, k, v)
+        else:
+            attn = attn_ops.multi_head_attention(
+                q, k, v, num_heads=self._heads, causal=self._causal,
+                use_flash=self._flash, num_kv_heads=self._kv_heads)
         return self.out_proj(attn)
+
+    def _ring_forward(self, q, k, v):
+        """Context-parallel attention over ``ring_mesh``'s sp axis: the
+        small (hkv-head) K/V enter the ring or the all-to-all."""
+        from ... import parallel as par
+        heads, mesh = self._heads, self._ring_mesh
+        hkv = self._kv_heads if self._kv_heads is not None else heads
+        kw = {}
+        if self._sp_mode == "ulysses" and self._flash:
+            kw["use_flash"] = True
+        qh, kh, vh = (attn_ops.split_heads(q, heads),
+                      attn_ops.split_heads(k, hkv),
+                      attn_ops.split_heads(v, hkv))
+        scope = _tp.active()
+        if scope is not None and scope.seq_sharded:
+            # the trainer sharded the sequence: the per-shard body
+            body = {"ring": par.ring_attention,
+                    "ring_flash": par.ring_flash_attention,
+                    "ulysses": par.ulysses_attention}[self._sp_mode]
+            out = body(qh, kh, vh, "sp", self._causal, mesh=mesh, **kw)
+        else:
+            whole = {"ring": par.ring_self_attention,
+                     "ring_flash": par.ring_flash_self_attention,
+                     "ulysses": par.ulysses_self_attention}[self._sp_mode]
+            out = whole(qh, kh, vh, mesh, causal=self._causal, **kw)
+        return attn_ops.merge_heads(out)
 
 
 class TransformerBlock(HybridBlock):
@@ -63,12 +112,14 @@ class TransformerBlock(HybridBlock):
     residual."""
 
     def __init__(self, units, num_heads, ffn_ratio=4, causal=True,
-                 dropout=0.0, use_flash=True, num_kv_heads=None, **kwargs):
+                 dropout=0.0, use_flash=True, num_kv_heads=None,
+                 ring_mesh=None, sp_mode="ring", **kwargs):
         super().__init__(**kwargs)
         self.ln1 = nn.LayerNorm()
         self.attn = MultiHeadAttention(units, num_heads, causal=causal,
                                        use_flash=use_flash,
-                                       num_kv_heads=num_kv_heads)
+                                       num_kv_heads=num_kv_heads,
+                                       ring_mesh=ring_mesh, sp_mode=sp_mode)
         self.ln2 = nn.LayerNorm()
         self.ffn1 = nn.Dense(ffn_ratio * units, flatten=False)
         self.act = nn.GELU()
@@ -93,7 +144,8 @@ class TransformerLM(HybridBlock):
 
     def __init__(self, vocab_size, units=256, num_layers=4, num_heads=4,
                  max_len=1024, ffn_ratio=4, dropout=0.0, tie_weights=False,
-                 use_flash=True, num_kv_heads=None, **kwargs):
+                 use_flash=True, num_kv_heads=None, ring_mesh=None,
+                 sp_mode="ring", **kwargs):
         super().__init__(**kwargs)
         self._max_len = max_len
         self.embed = nn.Embedding(vocab_size, units)
@@ -104,7 +156,8 @@ class TransformerLM(HybridBlock):
             self.blocks.add(TransformerBlock(
                 units, num_heads, ffn_ratio=ffn_ratio, causal=True,
                 dropout=dropout, use_flash=use_flash,
-                num_kv_heads=num_kv_heads))
+                num_kv_heads=num_kv_heads, ring_mesh=ring_mesh,
+                sp_mode=sp_mode))
         self.ln_f = nn.LayerNorm()
         self._tied = tie_weights
         if not tie_weights:
@@ -112,11 +165,13 @@ class TransformerLM(HybridBlock):
 
     def forward(self, tokens):
         s_ = tokens.shape[-1]
-        if s_ > self._max_len:
-            raise MXNetError(f"sequence length {s_} exceeds max_len "
+        # this rank's shard of a sequence sharded over sp
+        off, total = _tp.seq_offset(s_)
+        if total > self._max_len:
+            raise MXNetError(f"sequence length {total} exceeds max_len "
                              f"{self._max_len}")
         x = self.embed(tokens)
-        x = x + self.pos_embed._tensor()[:s_].reshape(1, s_, -1)
+        x = x + self.pos_embed._tensor()[off:off + s_].reshape(1, s_, -1)
         x = self.ln_f(self.blocks(x))
         if self._tied:
             w = self.embed.weight._tensor()

@@ -14,6 +14,7 @@ from ...base import MXNetError
 from ...imperative import cached_step as _cs
 from ...ops import nn as nn_ops
 from ...ops import tensor as tensor_ops
+from ...parallel import tensor_parallel as _tp
 from ..block import Block, HybridBlock, current_trace
 from ..parameter import Parameter
 
@@ -55,6 +56,10 @@ class HybridSequential(_SequentialMixin, HybridBlock):
     """The hybridizable container; here it runs eagerly too."""
 
 
+def _fc(x, w, b, flatten):
+    return nn_ops.fully_connected(x, w, b, flatten=flatten)
+
+
 class Dense(HybridBlock):
     """Fully-connected layer: weight ``(units, in_units)``, ``in_units``
     deferred to the first forward when 0; ``activation`` (an
@@ -85,10 +90,15 @@ class Dense(HybridBlock):
 
     def forward(self, x):
         self._finish_deferred(x)
-        out = nn_ops.fully_connected(
-            x, self.weight._tensor(),
-            self.bias._tensor() if self.bias is not None else None,
-            flatten=self._flatten)
+        w = self.weight._tensor()
+        b = self.bias._tensor() if self.bias is not None else None
+        ax = _tp.local_axis(self.weight)
+        if ax is not None:
+            # a meshed trainer's step reads the weight's tp shard
+            out = _tp.dense(_fc, x, w, b, self.weight, self.bias, ax,
+                            self._flatten)
+        else:
+            out = nn_ops.fully_connected(x, w, b, flatten=self._flatten)
         if self._activation:
             out = nn_ops.activation(out, act_type=self._activation)
         return out
@@ -188,6 +198,8 @@ class BatchNorm(HybridBlock):
     def forward(self, x):
         self._finish_deferred(x)
         training = ag.is_training() and not self._use_global_stats
+        if training:
+            _tp.refuse_split_batch_stats("BatchNorm")
         out, mean, var = nn_ops.batch_norm(
             x, self.gamma._tensor(), self.beta._tensor(), self.running_mean._tensor(),
             self.running_var._tensor(), eps=self._epsilon,

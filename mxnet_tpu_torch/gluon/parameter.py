@@ -91,6 +91,11 @@ class Parameter:
         # a stand-in tensor that _tensor() returns while set (the trainer's
         # low-precision copy inside a step)
         self._override: Optional[torch.Tensor] = None
+        # the mesh PartitionSpec (``shard``), and whether a meshed
+        # SPMDTrainer holds the value as shards: None (it does not),
+        # "stale" (the full tensor is out of date) or "gathered"
+        self._sharding = None
+        self._shard_state: Optional[str] = None
 
     @property
     def name(self) -> str:
@@ -198,6 +203,8 @@ class Parameter:
         if self._override is not None:
             return self._override
         self._check_initialized()
+        if self._shard_state == "stale":
+            self._refuse_stale()
         return self._data
 
     def data(self, ctx=None):
@@ -213,7 +220,23 @@ class Parameter:
         """The value as an NDArray (the autograd variable) over the
         parameter's tensor."""
         self._check_initialized()
+        if self._shard_state == "stale":
+            self._refuse_stale()
         return self._nd
+
+    def _refuse_stale(self):
+        raise MXNetError(
+            f"parameter {self.name} is sharded over the mesh by an "
+            f"SPMDTrainer and its full value is stale: call "
+            f"trainer.gather_params() (collective: every rank) first")
+
+    def shard(self, partition_spec):
+        """Annotate the parameter with a mesh ``PartitionSpec``
+        (``mxnet_tpu_torch.parallel.PartitionSpec``), which a meshed
+        ``SPMDTrainer`` reads: each rank then holds its shard of the
+        value.  Returns the parameter."""
+        self._sharding = partition_spec
+        return self
 
     def list_data(self):
         return [self.data()]
@@ -259,6 +282,12 @@ class Parameter:
         if tuple(data.shape) != tuple(self._data.shape):
             raise MXNetError(f"set_data: shape {tuple(data.shape)} != "
                              f"{tuple(self._data.shape)} of {self.name}")
+        if self._shard_state is not None:
+            raise MXNetError(
+                f"set_data: parameter {self.name} is held as shards by a "
+                f"meshed SPMDTrainer: load its full value with "
+                f"trainer.set_full_value(param, value) (or "
+                f"convert.load_collected_params(..., trainer=))")
         with torch.no_grad():
             self._data.copy_(data.to(self._data.device, self._data.dtype))
 

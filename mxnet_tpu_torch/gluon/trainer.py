@@ -27,8 +27,12 @@ the reduction of one value per key is an identity and is folded away
 the optimizer on its copy of each weight and the parameters pull the
 result.
 
-ZeRO (``zero=1``) and the distributed stores are not ported yet
-(distribution, queue 1 item 11).
+``zero=1`` (default ``MXNET_ZERO``, read at each step) shards the
+fused update over the dp width of ``parallel.default_mesh``
+(``optimizer.fused_step``: ZeRO-1; every rank runs the same step on the
+same batch and updates its chunk of the flattened weights and states);
+with no process group of more than one rank the width is 1 and nothing
+changes.  The distributed stores are not ported yet (queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -42,13 +46,6 @@ from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
-
-
-def _zero_requested(zero) -> bool:
-    if zero is None:
-        return os.environ.get("MXNET_ZERO", "0").lower() in (
-            "1", "true", "on")
-    return bool(zero)
 
 
 class Trainer:
@@ -68,7 +65,7 @@ class Trainer:
             self._params.append(param)
         if compression_params:
             raise MXNetError("gradient compression is not ported yet "
-                             "(distribution, queue 1 item 11)")
+                             "(distribution, queue 1 item 11b)")
         self._scale = 1.0
         self._init_optimizer(optimizer, optimizer_params or {})
         self._kvstore_params = {"kvstore": kvstore,
@@ -77,14 +74,15 @@ class Trainer:
         self._kvstore = None
         self._update_on_kvstore = None
         self._zero = zero
-        self._check_zero()
         cached_step.register_trainer(self)
 
-    def _check_zero(self):
-        if _zero_requested(self._zero):
-            raise MXNetError("Trainer(zero=1) (ZeRO-1 sharding of the "
-                             "update) is not ported yet (distribution, "
-                             "queue 1 item 11)")
+    def _zero_active(self):
+        """ZeRO-1 requested: ``zero`` when given, else ``MXNET_ZERO``
+        (read at each step)."""
+        if self._zero is None:
+            from ..optimizer import fused_step
+            return fused_step.zero_enabled()
+        return bool(self._zero)
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: p for i, p in enumerate(self._params)}
@@ -154,7 +152,6 @@ class Trainer:
         try:
             with tracing.span("step.gluon",
                               step=self._optimizer.num_update + 1):
-                self._check_zero()
                 if not self._kv_initialized:
                     self._init_kvstore()
                 self._set_rescale(batch_size)
@@ -211,7 +208,6 @@ class Trainer:
                 # only step() owns the whole-step capture: materialize
                 # any deferral
                 cached_step.break_if_deferring("Trainer.update")
-                self._check_zero()
                 if not self._kv_initialized:
                     self._init_kvstore()
                 self._set_rescale(batch_size)
@@ -235,7 +231,8 @@ class Trainer:
             live.append((i, param))
         from ..optimizer import fused_step
         if fused_step.step(updater, [(i, p._data_nd(), p.grad())
-                                     for i, p in live]):
+                                     for i, p in live],
+                           zero=self._zero_active()):
             return
         agg = getattr(self._optimizer, "aggregate_num", 0)
         if agg and agg > 1:
@@ -267,6 +264,9 @@ class Trainer:
     def save_states(self, fname):
         if not self._kv_initialized:
             self._init_kvstore()
+        from ..optimizer import fused_step
+        # weight-shaped states (collective under ZeRO)
+        fused_step.unshard_states(self._updaters[0])
         with open(fname, "wb") as f:
             f.write(self._updaters[0].get_states(dump_optimizer=False))
 
@@ -275,3 +275,5 @@ class Trainer:
             self._init_kvstore()
         with open(fname, "rb") as f:
             self._updaters[0].set_states(f.read(), device=self._device())
+        # weight-shaped states now: a sharded step cuts them again
+        getattr(self._updaters[0], "_zero_states", {}).clear()

@@ -59,6 +59,14 @@ scale, all in the same graph.  The scale and the clean-step count are
 device tensors the graph updates in place, handed to the scaler with
 ``adopt_traced`` as ``SPMDTrainer`` does.
 
+Under ZeRO-1 (``Trainer(zero=1)`` / ``MXNET_ZERO``, over the dp width of
+``parallel.default_mesh``; ``cached_step.py:948-1016, 1113-1250``) the
+structure keys on the width, the optimizer states are this rank's flat
+chunks (``fused_step.shard_states`` before the capture) and the update
+in the graph is ``fused_step.make_sharded_update_fn``'s: the chunks
+update and all-gather back.  A width that changed since the capture
+("zero sharding toggled since capture") is a graph break.
+
 Two reference behaviours differ on purpose.  A host read of a gradient
 placeholder after the break (``amp.scale_loss``'s overflow check reads
 the gradients inside ``record()``) gets the gradient the break's
@@ -475,7 +483,8 @@ class _Structure:
     __slots__ = ("steps", "out_specs", "ext_specs", "diff_idx", "frozen_idx",
                  "param_specs", "frozen_specs", "heads", "head_specs",
                  "head_seed_ext", "statics_key", "dyn_names", "op_name",
-                 "opt_type", "training", "bwd_train", "amp", "key")
+                 "opt_type", "training", "bwd_train", "amp", "zero_ndev",
+                 "key")
 
 
 class _Pending:
@@ -1265,15 +1274,25 @@ def _build_structure(obs, trainer, ignore_stale_grad):
         amp_cfg = (_amp_policy.compute_dtype_str(),
                    float(scaler._scale_factor), int(scaler._scale_window))
     stt.amp = amp_cfg
+    stt.zero_ndev = _zero_ndev(trainer)
     stt.key = (tuple(key_steps),
                tuple(zip(heads, head_seed_ext)),
                stt.ext_specs,
                tuple(zip(diff_idx, param_specs)),
                tuple(zip(frozen_idx, frozen_specs)),
                (stt.opt_type, stt.op_name, statics_key, dyn_names, amp_cfg),
-               obs.training, obs.bwd_train,
+               stt.zero_ndev, obs.training, obs.bwd_train,
                _reg._env_numerics_key())
     return stt, None
+
+
+def _zero_ndev(trainer) -> int:
+    """The dp width a ZeRO-1 trainer's update shards over (1: none)."""
+    from ..optimizer import fused_step
+    active = getattr(trainer, "_zero_active", None)
+    if active is None or not active():
+        return 1
+    return fused_step.zero_degree()
 
 
 def _trainer_scaler(trainer):
@@ -1321,6 +1340,14 @@ def _build_step_fn(stt, trainer, state, groups, ids, n_ext):
     amp = state.amp if stt.amp is not None else None
     factor = stt.amp[1] if amp is not None else None
     window = stt.amp[2] if amp is not None else None
+    # ZeRO-1: each rank updates its chunk of the flattened weights and
+    # states (flat chunks already, shard_states), then all-gathers
+    sharded = None
+    if stt.zero_ndev > 1:
+        from ..optimizer import fused_step
+        sharded = fused_step.make_sharded_update_fn(
+            stt.op_name, stt.statics_key, dyn_names,
+            fused_step._zero_axis())
 
     def step_fn(*inputs):
         ext, dyn = inputs[:n_ext], dict(zip(dyn_names, inputs[n_ext:]))
@@ -1369,19 +1396,32 @@ def _build_step_fn(stt, trainer, state, groups, ids, n_ext):
                 rescale = rescale * inv
                 finite = all_finite(grads)
             for gi, members in enumerate(groups):
-                kw = dict(statics)
-                kw["wds"] = dyn["wd"][gi]
-                kw["rescale_grad"] = rescale[gi]
-                if uses_lr:
-                    kw["lrs"] = dyn["lr"][gi]
-                n_state = len(states[members[0]])
-                state_lists = [[states[n][j] for n in members]
-                               for j in range(n_state)]
-                out = update([weights[n] for n in members],
-                             [grads[n] for n in members], *state_lists, **kw)
-                dests = [weights[n] for n in members] + \
-                    [s for col in state_lists for s in col]
-                news = [t for col in out for t in col]
+                if sharded is not None:
+                    dv = {"wd": dyn["wd"][gi], "rescale_grad": rescale[gi]}
+                    if uses_lr:
+                        dv["lr"] = dyn["lr"][gi]
+                    new_w, new_s = sharded(
+                        dv, [weights[n] for n in members],
+                        [grads[n] for n in members],
+                        [tuple(states[n]) for n in members])
+                    dests = [weights[n] for n in members] + \
+                        [s for n in members for s in states[n]]
+                    news = list(new_w) + [t for st in new_s for t in st]
+                else:
+                    kw = dict(statics)
+                    kw["wds"] = dyn["wd"][gi]
+                    kw["rescale_grad"] = rescale[gi]
+                    if uses_lr:
+                        kw["lrs"] = dyn["lr"][gi]
+                    n_state = len(states[members[0]])
+                    state_lists = [[states[n][j] for n in members]
+                                   for j in range(n_state)]
+                    out = update([weights[n] for n in members],
+                                 [grads[n] for n in members], *state_lists,
+                                 **kw)
+                    dests = [weights[n] for n in members] + \
+                        [s for col in state_lists for s in col]
+                    news = [t for col in out for t in col]
                 if finite is None:
                     write_back(dests, news)
                     continue
@@ -1466,6 +1506,11 @@ def _execute(trainer, ctx, ignore_stale_grad) -> bool:
                        int(scaler._scale_window)):
             _break(ctx, "amp scaler config changed since capture")
             return False
+    if stt.zero_ndev != _zero_ndev(trainer):
+        # the eager fused step (or its gather of the states) takes the
+        # new layout
+        _break(ctx, "zero sharding toggled since capture")
+        return False
     if any(v is None for v in ctx.ext_vals):
         _break(ctx, "unresolved external input")
         return False
@@ -1481,6 +1526,21 @@ def _execute(trainer, ctx, ignore_stale_grad) -> bool:
     # the states, made as the eager Updater makes them
     for i in stt.diff_idx:
         updater._ensure_state(i, params[i]._data_nd())
+    if stt.zero_ndev > 1:
+        # as fused_step's sharded path: weight-shaped slots only, kept
+        # as this rank's flat chunks
+        meta = fused_step._zero_meta(updater)
+        for i in stt.diff_idx:
+            if i not in meta and any(
+                    tuple(_tensor(s).shape) != tuple(params[i]._data.shape)
+                    for s in updater.states[i]):
+                _break(ctx, "optimizer state not weight-shaped "
+                            "(sharded update)")
+                return False
+        fused_step.shard_states(updater, stt.diff_idx,
+                                fused_step._zero_axis())
+    elif getattr(updater, "_zero_states", None):
+        fused_step.unshard_states(updater)
     tensors = [params[i]._data for i in stt.diff_idx] + \
         [_tensor(s) for i in stt.diff_idx for s in updater.states[i]] + \
         [params[i]._data for i in stt.frozen_idx]

@@ -93,7 +93,21 @@ saves its global PRNG chain (``rng_key``); the port has no ``mx.random``
 yet and no step of it draws randomness, so it writes a chain through
 unchanged when a loaded checkpoint carried one and otherwise none.
 
-A mesh, ZeRO and ``seq_axis`` are not ported yet and raise.
+With a mesh (``mesh=make_mesh(...)`` or a ``MeshPlan``; with none,
+``MXNET_MESH``, else every rank of a started process group over dp) the
+trainer is one rank of an SPMD job over ``torch.distributed``
+(``parallel/spmd.py``): each rank trains on its shard of the batch
+(``batch_axis`` over dp, ``seq_axis`` over sp), holds its shards of the
+parameters sharded over tp (``Parameter.shard``) and, under ZeRO
+(``zero_stage`` / ``zero`` 1–3, default ``MXNET_ZERO``), its dp chunk of
+the optimizer state (stage 3: of the master too), and makes the step's
+collectives inside the step.  Every rank passes the same whole batch, as
+to the reference.  A sharded parameter's full value is stale while the
+trainer holds its shards: :meth:`gather_params` (collective) writes it
+back.  On one rank (a plain ``python`` run: a group of one) nothing is
+sharded and no collective runs, so the step is the unmeshed one.
+Persistence of a trainer whose state is sharded over more than one rank
+is not ported yet (queue 1 item 11b) and raises.
 """
 from __future__ import annotations
 
@@ -122,6 +136,8 @@ from ..imperative.cached_step import ensure_real
 from ..ndarray.ndarray import NDArray
 from ..ops import optimizer_ops
 from ..ops.tensor import IdCheck
+from . import collectives as comm
+from . import tensor_parallel as _tp
 
 __all__ = ["SPMDTrainer"]
 
@@ -155,14 +171,26 @@ class SPMDTrainer:
                  zero_stage: Optional[int] = None,
                  data_transform: Optional[Callable] = None,
                  zero: Optional[int] = None, device=None):
-        unported = [name for name, on in (
-            ("mesh", mesh is not None), ("seq_axis", seq_axis is not None),
-            ("zero_stage", bool(zero_stage) or bool(zero))) if on]
-        if unported:
-            raise MXNetError(f"SPMDTrainer: {', '.join(unported)} not "
-                             f"ported yet; the port trains on one device")
         if micro_batches < 1:
             raise MXNetError("micro_batches must be >= 1")
+        if zero_stage is None:
+            zero_stage = zero
+        if zero_stage is None:
+            from ..optimizer.fused_step import zero_enabled
+            zero_stage = 1 if zero_enabled() else 0
+        if zero_stage not in (0, 1, 2, 3):
+            raise MXNetError("zero_stage must be 0, 1, 2 or 3")
+        self.zero_stage = int(zero_stage)
+        self.seq_axis = seq_axis
+        self.plan = None
+        mesh = self._resolve_mesh(mesh)
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise MXNetError(f"SPMDTrainer: device {device} differs "
+                                 f"from this rank's mesh device "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.net = net
         self.loss_fn = loss_fn
@@ -195,8 +223,16 @@ class SPMDTrainer:
             if p._tensor().device != self.device:
                 raise MXNetError(f"parameter {k} is on {p._tensor().device}, "
                                  f"the trainer on {self.device}")
+        self._mesh_run = None
+        if mesh is not None:
+            from .spmd import MeshRun
+            self._mesh_run = MeshRun(mesh, self.plan, self.net, self._plist,
+                                     self._pkeys, self.batch_axis, seq_axis,
+                                     self.zero_stage)
+            self._mesh_run.take()
+        views = self._state_views(self._masters())
         self._opt_state = {
-            k: tuple(self.optimizer.create_state(i, self._params[k]._tensor()))
+            k: tuple(self.optimizer.create_state(i, views[i]))
             for i, k in enumerate(self._pkeys)}
         self.num_update = 0
         # the reference's PRNG chain, kept from a loaded checkpoint or
@@ -211,6 +247,111 @@ class SPMDTrainer:
         # stream), and the last call's deferred id check
         self._owner = CaptureOwner()
 
+    # -- the mesh ----------------------------------------------------------------
+    def _resolve_mesh(self, mesh):
+        """The trainer's Mesh, or None for the single-device trainer: a
+        ``MeshPlan``'s mesh; with none given, ``MXNET_MESH``'s plan, else
+        every rank of a started group of more than one over dp (the
+        reference's ``default_mesh``)."""
+        from . import _dist
+        from .mesh import Mesh, default_mesh
+        from .mesh4d import MeshPlan, mesh_plan_from_env
+        if isinstance(mesh, MeshPlan):
+            self.plan = mesh
+            return mesh.mesh
+        if mesh is None:
+            self.plan = mesh_plan_from_env()
+            if self.plan is not None:
+                return self.plan.mesh
+            if _dist.world_size() > 1:
+                return default_mesh()
+            return None
+        if not isinstance(mesh, Mesh):
+            raise MXNetError(f"SPMDTrainer: mesh must be a parallel.Mesh "
+                             f"or MeshPlan, got {type(mesh).__name__}")
+        return mesh
+
+    def _masters(self):
+        """The tensors the step differentiates and updates: this rank's
+        masters (each parameter's own tensor unless the mesh shards
+        it)."""
+        if self._mesh_run is None:
+            return [p._tensor() for p in self._plist]
+        return self._mesh_run.master_list()
+
+    def _state_views(self, masters):
+        """What the optimizer updates of each master (ZeRO-1/2: this
+        rank's chunk, a view)."""
+        if self._mesh_run is None:
+            return list(masters)
+        return [lay.state_view(m) for lay, m in
+                zip(self._mesh_run.layouts, masters)]
+
+    @torch.no_grad()
+    def gather_params(self):
+        """Write every sharded parameter's full value back into it, from
+        the ranks' shards (collective: every rank of the mesh calls it).
+        The parameters read as usual until the next step."""
+        run = self._mesh_run
+        if run is None:
+            return
+        for i, lay in enumerate(run.layouts):
+            if not lay.sharded:
+                continue
+            p = lay.param
+            full = run.full_value(i, run.masters[i])
+            st = p._data.untyped_storage()
+            if st.nbytes() == 0:
+                st.resize_(p._data.numel() * p._data.element_size())
+            p._data.copy_(full)
+            p._shard_state = "gathered"
+
+    def _stale_after_step(self):
+        """A step leaves every sharded parameter's full value stale."""
+        run = self._mesh_run
+        if run is not None:
+            for lay in run.layouts:
+                if lay.sharded:
+                    lay.param._shard_state = "stale"
+
+    @torch.no_grad()
+    def set_full_value(self, param, data):
+        """Load the whole value of one of the trainer's parameters (e.g.
+        the reference's weights, ``convert.load_collected_params(...,
+        trainer=)``): a parameter the mesh shards keeps this rank's shard
+        of it in its master, its full tensor stale until
+        ``gather_params``; any other takes ``set_data``."""
+        if param._shard_state is None:
+            param.set_data(data)
+            return
+        run = self._mesh_run
+        i = next(j for j, p in enumerate(self._plist) if p is param)
+        data = torch.as_tensor(data).to(self.device, run.masters[i].dtype)
+        if tuple(data.shape) != run.layouts[i].shape:
+            raise MXNetError(f"set_full_value: shape {tuple(data.shape)} "
+                             f"!= {run.layouts[i].shape} of {param.name}")
+        run.masters[i].copy_(run.layouts[i].local_of(data))
+        param._shard_state = "stale"
+
+    def gather_states(self):
+        """``{key: (full state tensors)}``: the optimizer state of every
+        parameter as one device would hold it (collective on a mesh)."""
+        run = self._mesh_run
+        out = {}
+        for i, k in enumerate(self._pkeys):
+            st = self._opt_state[k]
+            out[k] = tuple(st) if run is None else tuple(
+                run.full_value(i, t) for t in st)
+        return out
+
+    def _check_unsharded(self, what):
+        run = self._mesh_run
+        if run is not None and (any(lay.sharded or lay.kind != "plain"
+                                    for lay in run.layouts)):
+            raise MXNetError(f"SPMDTrainer.{what} of a trainer whose state "
+                             f"is sharded over its mesh is not ported yet "
+                             f"(queue 1 item 11b)")
+
     # -- the functions a graph holds -----------------------------------------
     def _loss(self, masters, ids, aux, data, label):
         """The f32 loss mean of one batch (times the loss scale under
@@ -224,12 +365,29 @@ class SPMDTrainer:
                    else w for w in masters]
         if amp is not None and data.is_floating_point():
             data = data.to(amp)
-        with _params_as(self._plist, compute), ag.train_mode(), ids, aux:
-            out = self.net(data)
-            loss = self.loss_fn(out, label).float().mean()
+        run = self._mesh_run
+        with self._mesh_scope(step=True):
+            if run is not None:
+                compute = run.compute(compute)
+            with _params_as(self._plist, compute), ag.train_mode(), ids, \
+                    aux:
+                out = self.net(data)
+                loss = self.loss_fn(out, label).float().mean()
+        if run is not None:
+            loss = run.scale_loss(loss)
         if self._amp_scaler is not None:
             loss = loss * self._amp_state[0]
         return loss
+
+    def _mesh_scope(self, step):
+        """The scope the layers read inside a meshed forward: the step's
+        (its batch is this rank's shard) or ``predict``'s (the whole batch
+        on every rank)."""
+        run = self._mesh_run
+        if run is None:
+            return contextlib.nullcontext()
+        return _tp.scope(run.mesh, step and run.sp is not None, run.tp_local,
+                         batch_split=step and run.n_data > 1)
 
     def _loss_and_grads(self, masters, live, ids, data, label):
         """``(loss, grads, aux)``: the gradients of the live masters, and
@@ -264,7 +422,7 @@ class SPMDTrainer:
     def _train_body(self, ids, lr, wd, data, label):
         """One step on the (static) inputs: ``(loss, id bounds)``."""
         ids.reset()
-        masters = [p._tensor() for p in self._plist]
+        masters = self._masters()
         live = [i for i, p in enumerate(self._plist)
                 if p.grad_req != "null"]
         if self._data_transform is not None:
@@ -284,10 +442,21 @@ class SPMDTrainer:
                         torch._foreach_add(grads, g)
                 grads = torch._foreach_div(grads, float(k))
                 loss = torch.stack(losses).mean()
+        run = self._mesh_run
+        if run is not None:
+            with torch.no_grad():
+                grads = run.reduce_grads(grads, live)
+                loss = run.global_loss(loss)
         finite = None
         if self._amp_scaler is not None:
             loss, grads, finite = self._amp_unscale(loss, grads)
-        self._apply_updates(lr, wd, masters, live, grads, finite)
+            if run is not None:
+                finite = run.agree(finite)
+        self._apply_updates(lr, wd, self._state_views(masters), live, grads,
+                            finite)
+        if run is not None:
+            with torch.no_grad():
+                run.gather_updated(masters)
         self._write_aux(aux)
         if finite is not None:
             sc = self._amp_scaler
@@ -370,9 +539,11 @@ class SPMDTrainer:
         if self._data_transform is not None:
             x = self._data_transform(x)
         amp = self.amp_dtype
-        with ag.pause():
+        with ag.pause(), self._mesh_scope(step=False):
             compute = [w.to(amp) if amp is not None and w.is_floating_point()
-                       else w for w in (p._tensor() for p in self._plist)]
+                       else w for w in self._masters()]
+            if self._mesh_run is not None:
+                compute = self._mesh_run.compute(compute)
             if amp is not None and x.is_floating_point():
                 x = x.to(amp)
             with _params_as(self._plist, compute), ids:
@@ -381,8 +552,9 @@ class SPMDTrainer:
 
     # -- executables -----------------------------------------------------------
     def _state_ptrs(self):
-        return tuple(t.data_ptr() for k, p in zip(self._pkeys, self._plist)
-                     for t in (p._tensor(), *self._opt_state[k]))
+        return tuple(t.data_ptr() for k, m in zip(self._pkeys,
+                                                  self._masters())
+                     for t in (m, *self._opt_state[k]))
 
     def _executable(self, sig, body, args):
         """``(entry, fresh)``: the signature's executable and id check,
@@ -410,10 +582,13 @@ class SPMDTrainer:
             return entry[0](*args)
         t0 = time.perf_counter()
         try:
-            out = entry[0](*args)
+            with comm.tally() as moved:
+                out = entry[0](*args)
         except BaseException:
             self._exec.pop(sig, None)
             raise
+        if self._mesh_run is not None and sig[0] == "step":
+            self._mesh_run.step_bytes = moved
         telemetry.record_compile(time.perf_counter() - t0, "spmd_step")
         return out
 
@@ -426,19 +601,24 @@ class SPMDTrainer:
         self.optimizer.num_update = self.num_update
         return lr, wd
 
-    def _stage_input(self, x):
+    def _stage_input(self, x, lead=0):
         """One batch array for a call (``mxnet_tpu/parallel/trainer.py:
         627-644``): an NDArray's tensor, unwrapped with no host round
         trip; a tensor as it is; anything else as a numpy array.  A tensor
         already on the trainer's device is copied device to device into
         the executable's input (a batch the device prefetcher delivered);
         anything else is copied from the host inside the call, accounted
-        in ``input.h2d_bytes`` and counted in ``input.step_h2d``."""
+        in ``input.h2d_bytes`` and counted in ``input.step_h2d``.  On a
+        mesh, this rank's shard of the batch (``lead`` leading window
+        axes first)."""
         if isinstance(x, NDArray):
             ensure_real(x)
             x = x._data
         elif not isinstance(x, torch.Tensor):
             x = onp.asarray(x)
+        if self._mesh_run is not None:
+            self._last_tokens = _token_count(x, lead)
+            x = self._mesh_run.local_batch(x, lead)
         if not (isinstance(x, torch.Tensor) and x.device == self.device):
             telemetry.record_h2d_bytes(x.nbytes, step_path=True)
         return x
@@ -473,22 +653,54 @@ class SPMDTrainer:
                 sp.annotate(fresh_compile=fresh)
                 loss = loss.clone()
                 self._owner.defer_ids(bounds, entry[1].vocabs, self.device)
-                if tok is not None:
-                    telemetry.record_opt_state_bytes(
-                        self.opt_state_bytes_per_device())
+                self._stale_after_step()
+                self._account_step_telemetry(tok, 1)
             profiler.op_record("SPMDTrainer::step", t_op)
         finally:
             telemetry.end_step(tok, "SPMDTrainer")
         return NDArray._wrap(loss)
 
     def opt_state_bytes_per_device(self) -> int:
-        """Optimizer-state bytes on the trainer's device (the one device
-        holds all of it; a step that emits a record refreshes the
-        ``opt_state.bytes_per_device`` gauge with it).  One device moves
-        no collective bytes: the reference's collective split is 0
-        here."""
+        """Optimizer-state bytes on this rank's device: all of it on one
+        device, ~1/dp of it under ZeRO (a step that emits a record
+        refreshes the ``opt_state.bytes_per_device`` gauge with it)."""
         return sum(int(t.nbytes) for k in self._pkeys
                    for t in self._opt_state[k])
+
+    def _account_step_telemetry(self, tok, n_steps):
+        """The reference's per-step producers (``trainer.py:746-813``):
+        on a mesh, the analytic collective bytes over dp (reduce-scatter
+        + all-gather under ZeRO, else all-reduce) and tp, and the bytes
+        the step's sequence-parallel collectives moved over sp (counted
+        on its first run); every step on a mesh, else when a record is
+        open, the optimizer-state gauge.  One device moves no collective
+        bytes."""
+        run = self._mesh_run
+        if run is not None:
+            tokens = getattr(self, "_last_tokens", 1)
+            model = getattr(self, "_comm_model", None)
+            if model is None or model[4] != tokens:
+                model = self._comm_model = run.comm_model(
+                    self._amp_scaler is not None, tokens) + (tokens,)
+            rs, ag_, ar, tpb, _ = model
+            if rs or ag_:
+                telemetry.record_comm_bytes(rs * n_steps, "reduce_scatter")
+                telemetry.record_comm_bytes(ag_ * n_steps, "all_gather")
+            if ar:
+                telemetry.record_comm_bytes(ar * n_steps, "allreduce")
+            if rs or ag_ or ar:
+                telemetry.record_axis_comm_bytes((rs + ag_ + ar) * n_steps,
+                                                 "dp")
+            if tpb:
+                telemetry.record_comm_bytes(tpb * n_steps, "allreduce")
+                telemetry.record_axis_comm_bytes(tpb * n_steps, "tp")
+            spb = (run.step_bytes or {}).get("sp", 0)
+            if spb:
+                telemetry.record_comm_bytes(spb * n_steps, "ppermute")
+                telemetry.record_axis_comm_bytes(spb * n_steps, "sp")
+        if run is not None or tok is not None:
+            telemetry.record_opt_state_bytes(
+                self.opt_state_bytes_per_device())
 
     def run_steps(self, data, label, n_steps: int,
                   per_step_data: bool = False):
@@ -499,7 +711,8 @@ class SPMDTrainer:
         one copy each, and batch i is copied device to device into the
         graph's inputs."""
         self._owner.check_ids()
-        d, l = self._stage_input(data), self._stage_input(label)
+        lead = 1 if per_step_data else 0
+        d, l = self._stage_input(data, lead), self._stage_input(label, lead)
         n = int(n_steps)
         if per_step_data:
             if d.shape[0] != n or l.shape[0] != n:
@@ -539,9 +752,8 @@ class SPMDTrainer:
                 if bounds:
                     self._owner.defer_ids(torch.cat(bounds),
                                           entry[1].vocabs * n, self.device)
-                if tok is not None:
-                    telemetry.record_opt_state_bytes(
-                        self.opt_state_bytes_per_device())
+                self._stale_after_step()
+                self._account_step_telemetry(tok, n)
         finally:
             telemetry.end_step(tok, "SPMDTrainer", extra={"n_steps": n})
         return NDArray._wrap(losses)
@@ -573,6 +785,8 @@ class SPMDTrainer:
         step's graph holds; an id out of range raises at once."""
         self._owner.check_ids()
         d, l = self._on_device(data), self._on_device(label)
+        if self._mesh_run is not None:
+            d, l = (self._mesh_run.local_batch(x) for x in (d, l))
         self._check_split(d, l)
         lr, wd = (torch.tensor(v, device=self.device)
                   for v in self._schedule(1))
@@ -601,6 +815,7 @@ class SPMDTrainer:
         header under ``__header__`` and one entry ``<param>::<slot>`` a
         state (bfloat16 and fp8 as their bit patterns, named in the
         header's ``dtypes``); no pickle."""
+        self._check_unsharded("save_states")
         arrays, slots, dtypes = {}, {}, {}
         for k in self._pkeys:
             st = self._opt_state[k]
@@ -623,6 +838,7 @@ class SPMDTrainer:
         """Restore :meth:`save_states` (of either package) into the
         optimizer state in place.  Only that npz is read
         (``allow_pickle=False``: loading never runs code)."""
+        self._check_unsharded("load_states")
         try:
             z = onp.load(fname, allow_pickle=False)
         except (OSError, ValueError) as e:
@@ -687,6 +903,7 @@ class SPMDTrainer:
         once, and a failed save logs and counts ``checkpoint.failures``
         without raising into the step."""
         from .. import checkpoint as _ckpt
+        self._check_unsharded("save_checkpoint")
         tree = {f"param/{k}": self._params[k]._data for k in self._pkeys}
         for k in self._pkeys:
             for i, t in enumerate(self._opt_state[k]):
@@ -695,9 +912,10 @@ class SPMDTrainer:
                   "slots": {k: len(self._opt_state[k])
                             for k in self._pkeys},
                   "meta": dict(meta or {}),
-                  # one device: a dp axis of 1 (the loader re-places
-                  # global arrays whatever mesh wrote them)
-                  "mesh_axes": {"dp": 1}}
+                  # the loader re-places global arrays whatever mesh
+                  # wrote them
+                  "mesh_axes": (dict(self.mesh.shape) if self.mesh
+                                is not None else {"dp": 1})}
         if self._rng_key:
             header["rng_key"] = self._rng_key
         if self._amp_scaler is not None:
@@ -721,6 +939,7 @@ class SPMDTrainer:
         the checkpoint's meta with ``num_update``, or None when there is
         no checkpoint."""
         from .. import checkpoint as _ckpt
+        self._check_unsharded("load_checkpoint")
         loaded = _ckpt.load(directory, tag)
         if loaded is None:
             return self._load_checkpoint_v1(directory, tag)
@@ -830,6 +1049,21 @@ class SPMDTrainer:
                 meta={"fit_seen": seen,
                       "cursor": {"epoch": epochs - 1, "batch": seen}})
         return losses
+
+
+def _token_count(d, lead=0) -> int:
+    """Tokens of one batch for the tp volume model (the reference's
+    ``_token_count``): an integer (B, T, ...) array is B·T tokens,
+    anything else its batch rows."""
+    shape = tuple(d.shape)[lead:]
+    if not shape:
+        return 1
+    dt = d.dtype
+    is_int = (not dt.is_floating_point if isinstance(d, torch.Tensor)
+              else onp.issubdtype(dt, onp.integer))
+    if is_int and len(shape) >= 2:
+        return int(shape[0]) * int(shape[1])
+    return int(shape[0])
 
 
 def _check_leaf(what, new, old, source):

@@ -58,6 +58,12 @@ OBSERVABILITY_MODULES = ["telemetry.py", "tracing.py", "profiler.py",
                          "checkpoint.py", "data/device_pipeline.py",
                          "executable.py", "parallel/trainer.py",
                          "kvstore/kvstore.py"]
+DISTRIBUTION_MODULES = ["parallel/__init__.py", "parallel/_dist.py",
+                        "parallel/mesh.py", "parallel/mesh4d.py",
+                        "parallel/collectives.py", "parallel/spmd.py",
+                        "parallel/tensor_parallel.py",
+                        "parallel/ring_attention.py", "parallel/ulysses.py",
+                        "parallel/moe.py", "optimizer/fused_step.py"]
 
 
 def _module(rel):
@@ -106,9 +112,11 @@ _CHILDREN = textwrap.dedent("""
 
     def alone(mod):
         import threading
+        import torch.distributed as dist
         importlib.import_module(mod)
         return {{"bad": bad(),
-                "threads": [t.name for t in threading.enumerate()]}}
+                "threads": [t.name for t in threading.enumerate()],
+                "process_group": dist.is_initialized()}}
 
     checks = [("whole", whole), ("bare", bare)] + [
         (m, lambda m=m: alone(m)) for m in {mods!r}]
@@ -139,7 +147,8 @@ def children():
     import json
     mods = sorted({_module(r) for r in
                    RESNET_MODULES + PERSISTENCE_MODULES + CAPTURE_MODULES
-                   + INPUT_MODULES + OBSERVABILITY_MODULES})
+                   + INPUT_MODULES + OBSERVABILITY_MODULES
+                   + DISTRIBUTION_MODULES})
     out = subprocess.run(
         [sys.executable, "-c", _CHILDREN.format(bad=BAD_TOP, mods=mods)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -337,3 +346,31 @@ def test_observability_modules_are_held_to_the_rules(rel, children):
     assert res["ok"], res.get("error")
     assert res["bad"] == [], res["bad"]
     assert res["threads"] == ["MainThread"], res["threads"]
+
+
+@pytest.mark.parametrize("rel", DISTRIBUTION_MODULES)
+def test_distribution_modules_are_held_to_the_rules(rel, children):
+    """The distribution slice's modules are among the sources checked
+    above, import no ``ml_dtypes``, and each imports alone without
+    loading JAX, Triton or the reference, without starting a thread, and
+    without starting a process group (the group starts at the first
+    mesh)."""
+    path = PORT / rel
+    assert path in SOURCES
+    assert not ML_DTYPES.search(path.read_text()), rel
+    res = children[_module(rel)]
+    assert res["ok"], res.get("error")
+    assert res["bad"] == [], res["bad"]
+    assert res["threads"] == ["MainThread"], res["threads"]
+    assert res["process_group"] is False
+
+
+def test_a_mesh_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """``make_mesh`` runs on the card unless asked for the CPU: without a
+    card it raises before it starts any process group."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch.parallel import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="device='cpu'"):
+        make_mesh({"dp": -1})
+    assert not dist.is_initialized()

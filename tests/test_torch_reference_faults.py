@@ -696,20 +696,19 @@ def test_sequential_is_the_eager_container():
                                    "off", "false", ""])
 def test_mxnet_zero_is_read_as_the_reference_reads_it(value, monkeypatch):
     """F13: the port took every value but 0/""/false/off as a request for
-    ZeRO (which is not ported, so ``MXNET_ZERO=yes`` made ``step`` raise);
-    both now request it for 1, true and on only."""
+    ZeRO (``MXNET_ZERO=yes`` made ``step`` raise while ZeRO was not
+    ported); both request it for 1, true and on only.  ZeRO is ported
+    since: a requested one at a dp width of 1 (no process group) steps
+    as the reference's does."""
     from mxnet_tpu.optimizer import fused_step as jax_fused
-    from mxnet_tpu_torch.gluon import trainer as port_trainer
+    from mxnet_tpu_torch.optimizer import fused_step as port_fused
     monkeypatch.setenv("MXNET_ZERO", value)
-    assert port_trainer._zero_requested(None) == jax_fused.zero_enabled()
+    assert port_fused.zero_enabled() == jax_fused.zero_enabled()
     _, got = _mlp_pair()
-    if jax_fused.zero_enabled():
-        with pytest.raises(mt.MXNetError, match="not ported yet"):
-            mt.gluon.Trainer(got.collect_params(), "sgd")
-    else:
-        tr = mt.gluon.Trainer(got.collect_params(), "sgd")
-        _backward(mt, got)
-        tr.step(4)
+    tr = mt.gluon.Trainer(got.collect_params(), "sgd")
+    assert tr._zero_active() == jax_fused.zero_enabled()
+    _backward(mt, got)
+    tr.step(4)
 
 
 # -- F14-F16: batch serving's surface ----------------------------------------

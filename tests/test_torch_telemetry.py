@@ -55,21 +55,34 @@ W = {"weight": RNG.randn(4, 3).astype("float32") * 0.5,
 TIMES = ("ts", "host_ms", "compile_ms")
 
 
-@pytest.fixture(autouse=True)
-def _clean(monkeypatch):
-    for k in ("MXNET_TELEMETRY_JSONL", "MXNET_TELEMETRY_LOG_EVERY",
-              "MXNET_CLUSTER_DIR", "MXNET_METRICS_PORT", "MXNET_TRACE",
-              "MXNET_WATCHDOG_SEC", "MXNET_TRACE_JSONL"):
-        monkeypatch.delenv(k, raising=False)
-    monkeypatch.setenv("MXNET_CACHED_STEP", "0")
-    for tel in (telemetry, jtel):
-        tel.clear_sinks()
-        tel.enabled()
-    yield
+def _same_state():
+    """Both packages' process-wide state that adds a record section back
+    to its default: the MoE drop counter (``moe``), the SLO provider
+    (``serving_slo``) and the AMP policy (``amp``).  Another test in the
+    same process (the reference's MoE tests drop tokens) must not decide
+    which sections a record here carries."""
+    from mxnet_tpu.amp import policy as jpolicy
+    from mxnet_tpu_torch.amp import policy
     for tel in (telemetry, jtel):
         tel.clear_sinks()
         tel.set_slo_provider(None)
         tel.reset("moe.")          # a dropped token adds a record section
+    for pol in (policy, jpolicy):
+        pol.deactivate()
+
+
+@pytest.fixture(autouse=True)
+def _clean(monkeypatch):
+    for k in ("MXNET_TELEMETRY_JSONL", "MXNET_TELEMETRY_LOG_EVERY",
+              "MXNET_CLUSTER_DIR", "MXNET_METRICS_PORT", "MXNET_TRACE",
+              "MXNET_WATCHDOG_SEC", "MXNET_TRACE_JSONL", "MXNET_AMP"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("MXNET_CACHED_STEP", "0")
+    _same_state()
+    for tel in (telemetry, jtel):
+        tel.enabled()
+    yield
+    _same_state()
 
 
 class Sink:
@@ -178,6 +191,27 @@ def test_step_record_matches_the_reference(runs):
     assert (got[-1]["compiles"], got[-1]["dispatches"]) == \
         (ref[-1]["compiles"], ref[-1]["dispatches"])
     assert [g["step"] - got[0]["step"] for g in got] == [0, 1, 2]
+
+
+@pytest.fixture(scope="module")
+def reference_dropped_a_token():
+    """A token dropped by the reference's MoE producer before the test
+    begins, as an earlier test in the same process leaves it (the
+    reference's ``test_switch_moe_capacity_drops_tokens``).  Module scope:
+    it is set up before the function-scoped ``_clean``."""
+    jtel.record_moe_dropped(3)
+    return jtel.counter("moe.dropped_tokens").value
+
+
+@pytest.mark.parametrize("runs", [_spmd_runs, _gluon_runs],
+                         ids=["SPMDTrainer", "gluon.Trainer"])
+def test_step_record_matches_after_a_reference_token_drop(
+        reference_dropped_a_token, runs):
+    """The records agree whatever an earlier test left in either
+    package's process-wide state: ``_clean`` resets it before each
+    test."""
+    assert reference_dropped_a_token > 0
+    test_step_record_matches_the_reference(runs)
 
 
 def test_step_record_sections_when_active():

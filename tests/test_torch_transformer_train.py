@@ -186,7 +186,20 @@ def test_run_steps_reads_the_schedule_once(fp32):
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"zero_stage": 1}])
 def test_unported_trainer_options_raise(fp32, kw):
+    """The options the one-device trainer refused before meshes and ZeRO
+    were ported: a mesh that is neither a ``parallel.Mesh`` nor a
+    ``MeshPlan`` still raises; ``zero_stage`` at a dp width of 1 trains
+    as stage 0, as the reference's does."""
     net = _port_net(fp32["init"])
-    with pytest.raises(MXNetError, match="not ported yet"):
-        SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), optimizer="adam",
-                    device="cpu", **kw)
+    if "mesh" in kw:
+        with pytest.raises(MXNetError, match="mesh must be"):
+            SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(),
+                        optimizer="adam", device="cpu", **kw)
+        return
+    tr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), optimizer="adam",
+                     optimizer_params={"learning_rate": LR}, device="cpu",
+                     **kw)
+    assert tr.zero_stage == 1
+    got = [float(tr.step(DATA, LABEL)) for _ in range(2)]
+    onp.testing.assert_array_equal(got, _port_run(fp32["init"],
+                                                  None)[1][:2])
