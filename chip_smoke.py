@@ -329,12 +329,35 @@ exits non-zero and prints no result:
              bf16 tolerance, and its device ms beside the unsharded
              kernels'.  More than one rank on the one card is not run
              (``DIST_MULTI_RANK_ON_ONE_CARD``).
+24. pipeline — the pipeline schedules and Mesh4DTrainer at the training
+             row's widths (bf16 compute, f32 masters), the stage hop
+             folded (every stage in this process, ``fold=True``): (a)
+             1F1B, the 8 blocks as 4 stages of 2, 8 microbatches of 1 x
+             2048, the embedding chained in front through the input
+             gradient and a row scatter, MSE against a seeded f32 target,
+             held against the same blocks in sequence under autograd (loss
+             rtol 1e-2, every gradient and the input gradient within
+             relative L2 1e-2), a second run bitwise equal, K1-K3's
+             launches against the schedule's prediction (bubble slots
+             compute nothing) with no plain call; (b) GPipe (4 stages,
+             M 4) and the interleaved schedule (4 stages x 2 one-block
+             virtual stages, M 4), forward then autograd's backward, at
+             (a)'s tolerances; (c) peak memory over base of 1F1B and
+             GPipe at M 8 and 16 (1F1B grows < 10% beyond its batch's
+             own bytes, GPipe >= 1.6x); (d) Mesh4DTrainer on one rank over
+             NCCL (``MeshPlan()``) with the training row as its stage
+             function, SGD momentum 0.9 lr 0.05 under
+             ``amp.init("bfloat16")``, against SPMDTrainer: 10 replayed
+             steps within rtol 1e-2 (and whether bitwise), K1-K3 8
+             launches a step, ``run_steps(4)`` one compile and one
+             dispatch, no comm bytes on any axis, host ms in blocks taken
+             in turns, and a checkpoint round trip bitwise.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
 carry ``launches_gluon_train``, ``launches_ckpt``,
-``launches_input_pipeline``, ``launches_observability`` and
-``launches_distributed`` and ``launches_ring_fold``, K1
-``launches_batch_serve``); the last is
+``launches_input_pipeline``, ``launches_observability``,
+``launches_distributed``, ``launches_ring_fold``, ``launches_pipeline``
+and ``launches_mesh4d``, K1 ``launches_batch_serve``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -5676,6 +5699,419 @@ def phase_distributed(torch, fa_mod, smi):
             ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
 
 
+PIPE_STAGES = 4             # (a)-(c): the 8 blocks as 4 stages of 2
+PIPE_M = 8                  # (a): microbatches of 1 x SEQ
+PIPE_FILL_M = 4             # (b): GPipe's and the interleaved microbatches
+PIPE_VIRTUAL = 2            # (b): virtual stages a rank (8 one-block stages)
+PIPE_MEM_M = (8, 16)        # (c): 1F1B and GPipe at M 8 and 16, 1 x SEQ each
+PIPE_TOL = 1e-2             # loss rtol; each gradient's relative L2
+M4D_STEPS = 10              # (d): replayed steps a trainer, after its warm one
+M4D_WINDOW = 4              # (d): run_steps window
+M4D_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+
+
+def pipe_blocks(torch, net):
+    """The training row's blocks as stacked leaves: each of a block's 12
+    parameters stacked over the LAYERS blocks (f32 clones of the
+    masters), and the two template blocks whose parameters a stage
+    function overrides with a stage's (cast to bf16)."""
+    plists = [list(b.collect_params().values()) for b in net.blocks]
+    leaves = [torch.stack([pl[k]._tensor().detach() for pl in plists])
+              .clone() for k in range(len(plists[0]))]
+    return leaves, [net.blocks[0], net.blocks[1]], plists[:2]
+
+
+def pipe_stage(torch, blocks, plists, n):
+    """A stage of ``n`` blocks: ``stage(p, h)`` with each leaf of ``p``
+    (n, ...) (``n`` = 1: a leaf is one block's), run through the template
+    blocks in bf16."""
+    from mxnet_tpu_torch.parallel.trainer import _params_as
+
+    def stage(p, h):
+        for j in range(n):
+            ws = [(lf[j] if n > 1 else lf).to(torch.bfloat16) for lf in p]
+            with _params_as(plists[j % 2], ws):
+                h = blocks[j % 2](h)
+        return h
+    return stage
+
+
+def pipe_mse(y, t):
+    return ((y.float() - t) ** 2).mean()
+
+
+def pipe_inputs(torch, net, batch, seed):
+    """``batch`` x SEQ seeded ids, the (batch, SEQ, DIM) f32 target, and
+    the bf16 embedded input (token rows plus positions) from ``net``'s
+    masters."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, VOCAB, (batch, SEQ), generator=g).to(DEV)
+    tgt = torch.randn((batch, SEQ, DIM), generator=g).to(DEV)
+    emb = net.embed.weight._tensor().detach()
+    pos = net.pos_embed._tensor().detach()[:SEQ]
+    x = emb.to(torch.bfloat16)[ids] + pos.to(torch.bfloat16)
+    return ids, tgt, x
+
+
+def pipe_sequential(torch, net, leaves, blocks, plists, ids, tgt):
+    """The same blocks in sequence over the whole batch under autograd:
+    the loss and the gradients of the stacked leaves, the embedding, the
+    positions and the embedded input."""
+    ws = [lf.clone().requires_grad_() for lf in leaves]
+    emb = net.embed.weight._tensor().detach().clone().requires_grad_()
+    pos = net.pos_embed._tensor().detach().clone().requires_grad_()
+    x = emb.to(torch.bfloat16)[ids] + pos[:SEQ].to(torch.bfloat16)
+    x.retain_grad()
+    stage = pipe_stage(torch, blocks, plists, 1)
+    h = x
+    for layer in range(LAYERS):
+        h = stage([w[layer] for w in ws], h)
+    loss = pipe_mse(h, tgt)
+    loss.backward()
+    return (float(loss.detach()), [w.grad for w in ws], emb.grad,
+            pos.grad[:SEQ], x.grad)
+
+
+def pipe_compare(name, got, want, failures):
+    """Loss within rtol PIPE_TOL, each gradient within relative L2
+    PIPE_TOL: the errors by name."""
+    loss, grads, g_emb, g_pos, dx = got
+    w_loss, w_grads, w_emb, w_pos, w_dx = want
+    errs = {"loss_rel": abs(loss - w_loss) / abs(w_loss),
+            "leaves_rel_l2": [rel_l2(g.reshape(w.shape), w)
+                              for g, w in zip(grads, w_grads)],
+            "embedding_rel_l2": rel_l2(g_emb, w_emb),
+            "positions_rel_l2": rel_l2(g_pos, w_pos),
+            "input_grad_rel_l2": rel_l2(dx, w_dx)}
+    worst = max([errs["embedding_rel_l2"], errs["positions_rel_l2"],
+                 errs["input_grad_rel_l2"]] + errs["leaves_rel_l2"])
+    if errs["loss_rel"] > PIPE_TOL or not worst <= PIPE_TOL:
+        failures.append(f"pipeline {name}: loss rel {errs['loss_rel']}, "
+                        f"worst gradient rel L2 {worst} (tolerance "
+                        f"{PIPE_TOL})")
+    errs["worst_grad_rel_l2"] = worst
+    return errs
+
+
+def pipe_1f1b(torch, leaves, blocks, plists, ids, tgt, x, M):
+    """One folded 1F1B step (S = PIPE_STAGES) with the embedding chained
+    through the input gradient (rows scattered into the embedding's
+    gradient, summed into the positions')."""
+    from mxnet_tpu_torch.parallel import pipeline_value_and_grad_1f1b
+    S = PIPE_STAGES
+    per = LAYERS // S
+    stacked = [lf.reshape((S, per) + tuple(lf.shape[1:])) for lf in leaves]
+    loss, grads, dx = pipeline_value_and_grad_1f1b(
+        pipe_stage(torch, blocks, plists, per), pipe_mse, stacked, x, tgt,
+        None, M, batch_axis_name=None, return_input_grad=True, fold=True)
+    # the row scatter a microbatch at a time: no f32 copy of the whole
+    # batch's input gradient
+    g_emb = torch.zeros((VOCAB, DIM), dtype=torch.float32, device=x.device)
+    g_pos = torch.zeros((SEQ, DIM), dtype=torch.float32, device=x.device)
+    for m in range(dx.shape[0]):
+        g_emb.index_add_(0, ids[m], dx[m].float())
+        g_pos += dx[m].float()
+    return float(loss), list(grads), g_emb, g_pos, dx
+
+
+def pipe_fill_drain(torch, net, leaves, blocks, plists, ids, tgt, kind):
+    """GPipe (S = PIPE_STAGES, stages of 2 blocks) or the interleaved
+    schedule (S = PIPE_STAGES, V = PIPE_VIRTUAL one-block virtual
+    stages), folded, M = PIPE_FILL_M: forward, then backward by
+    autograd from the embedding on."""
+    from mxnet_tpu_torch import parallel as par
+    S = PIPE_STAGES
+    ws = [lf.clone().requires_grad_() for lf in leaves]
+    emb = net.embed.weight._tensor().detach().clone().requires_grad_()
+    pos = net.pos_embed._tensor().detach().clone().requires_grad_()
+    x = emb.to(torch.bfloat16)[ids] + pos[:SEQ].to(torch.bfloat16)
+    x.retain_grad()
+    if kind == "gpipe":
+        per = LAYERS // S
+        out = par.pipeline_forward(
+            pipe_stage(torch, blocks, plists, per),
+            [w.reshape((S, per) + tuple(w.shape[1:])) for w in ws], x, None,
+            PIPE_FILL_M, batch_axis_name=None, fold=True)
+    else:
+        out = par.pipeline_forward_interleaved(
+            pipe_stage(torch, blocks, plists, 1), ws, x, None, PIPE_FILL_M,
+            batch_axis_name=None, fold=True, n_stages=S)
+    loss = pipe_mse(out, tgt)
+    loss.backward()
+    return (float(loss.detach()), [w.grad for w in ws], emb.grad,
+            pos.grad[:SEQ], x.grad)
+
+
+def pipe_peak(torch, fn):
+    """Peak bytes allocated over the bytes allocated before ``fn()``
+    (which makes its own batch)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    io = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, io
+
+
+def pipe_memory(torch, net, leaves, blocks, plists, failures):
+    """(c) peak memory over base of 1F1B and GPipe at M in PIPE_MEM_M,
+    microbatches of 1 x SEQ."""
+    rows = {}
+    for M in PIPE_MEM_M:
+        def one_f_one_b():
+            ids, tgt, x = pipe_inputs(torch, net, M, seed=24)
+            out = pipe_1f1b(torch, leaves, blocks, plists, ids, tgt, x, M)
+            return x.nbytes + tgt.nbytes + out[4].nbytes
+
+        def gpipe():
+            from mxnet_tpu_torch import parallel as par
+            ids, tgt, x = pipe_inputs(torch, net, M, seed=24)
+            ws = [lf.clone().requires_grad_() for lf in leaves]
+            S, per = PIPE_STAGES, LAYERS // PIPE_STAGES
+            x.requires_grad_()
+            out = par.pipeline_forward(
+                pipe_stage(torch, blocks, plists, per),
+                [w.reshape((S, per) + tuple(w.shape[1:])) for w in ws], x,
+                None, M, batch_axis_name=None, fold=True)
+            pipe_mse(out, tgt).backward()
+            return x.nbytes + tgt.nbytes + x.grad.nbytes
+
+        p1, io1 = pipe_peak(torch, one_f_one_b)
+        pg, iog = pipe_peak(torch, gpipe)
+        rows[M] = {"1f1b_peak_bytes": p1, "1f1b_batch_bytes": io1,
+                   "gpipe_peak_bytes": pg, "gpipe_batch_bytes": iog}
+    lo, hi = (rows[m] for m in PIPE_MEM_M)
+    f_growth = (hi["1f1b_peak_bytes"] - hi["1f1b_batch_bytes"]) / (
+        lo["1f1b_peak_bytes"] - lo["1f1b_batch_bytes"])
+    g_growth = hi["gpipe_peak_bytes"] / lo["gpipe_peak_bytes"]
+    if not f_growth < 1.1:
+        failures.append(f"pipeline memory: 1F1B's peak beyond its batch "
+                        f"grew {f_growth}x from M={PIPE_MEM_M[0]} to "
+                        f"{PIPE_MEM_M[1]} (limit 1.1)")
+    if not g_growth >= 1.6:
+        failures.append(f"pipeline memory: GPipe's peak grew only "
+                        f"{g_growth}x (expected >= 1.6)")
+    return {"by_m": rows, "1f1b_growth_beyond_batch": f_growth,
+            "gpipe_growth": g_growth}
+
+
+def m4d_stage(torch, net):
+    """The training row as a Mesh4DTrainer stage function: its
+    parameters (in ``collect_params`` order) overridden by the step's."""
+    from mxnet_tpu_torch.parallel.trainer import _params_as
+    plist = list(net.collect_params().values())
+
+    def stage(p, x):
+        with _params_as(plist, p):
+            return net(x)
+    return stage, plist
+
+
+def phase_mesh4d(torch, fns, smi, failures):
+    """(d) Mesh4DTrainer on one rank over NCCL (``MeshPlan()``, the
+    pp == 1 path) against SPMDTrainer, both SGD momentum 0.9 lr 0.05
+    under ``amp.init("bfloat16")``, from the same weights and batch."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from mxnet_tpu_torch import amp, telemetry
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import (MeshPlan, Mesh4DTrainer,
+                                          SPMDTrainer)
+    data, label = train_batch(torch)
+    amp.init("bfloat16")
+    try:
+        plan = MeshPlan()
+        group = {"backend": dist.get_backend(),
+                 "world": dist.get_world_size(), "plan": plan.describe()}
+        if group["backend"] != "nccl" or group["world"] != 1:
+            raise AssertionError(f"mesh4d: expected a group of one over "
+                                 f"NCCL, got {group}")
+        spmd = SPMDTrainer(train_model(torch), SoftmaxCrossEntropyLoss(),
+                           optimizer="sgd", optimizer_params=M4D_SGD,
+                           device=DEV)
+        net = train_model(torch)
+        stage, plist = m4d_stage(torch, net)
+        ce = SoftmaxCrossEntropyLoss()
+
+        def lm_loss(out, y):
+            return ce(out, y).float().mean()
+
+        tr = Mesh4DTrainer(plan, stage, lm_loss,
+                           [p._tensor().detach() for p in plist],
+                           learning_rate=M4D_SGD["learning_rate"],
+                           momentum=M4D_SGD["momentum"])
+        telemetry.reset("comm.")
+        spmd_losses = [float(spmd.step(data, label))]
+        losses = [float(tr.step(data, label))]
+        spmd_losses += [float(spmd.step(data, label))
+                        for _ in range(M4D_STEPS)]
+        torch.cuda.synchronize()
+        reset_counts(*fns)
+        losses += [float(tr.step(data, label)) for _ in range(M4D_STEPS)]
+        torch.cuda.synchronize()
+        counts = {f.__name__: {"launches": f.launches,
+                               "plain_calls": f.plain_calls} for f in fns}
+        for name, c in counts.items():
+            if c["launches"] != LAYERS * M4D_STEPS or c["plain_calls"]:
+                failures.append(f"mesh4d: {name} launched {c['launches']} "
+                                f"times in {M4D_STEPS} replayed steps "
+                                f"({c['plain_calls']} plain)")
+        got, want = onp.asarray(losses), onp.asarray(spmd_losses)
+        if not (onp.isfinite(got).all()
+                and onp.allclose(got, want, rtol=1e-2, atol=0)):
+            failures.append(f"mesh4d: losses {losses} not within rtol 1e-2 "
+                            f"of SPMDTrainer's {spmd_losses}")
+        compiles_steps = tr.compiles
+        tr.run_steps(data, label, M4D_WINDOW)        # warm run + capture
+        compiles_window = tr.compiles
+        d0 = telemetry.counter("dispatch.count").value
+        window_counts = counted_call(
+            torch, fns, lambda: tr.run_steps(data, label, M4D_WINDOW))
+        dispatches = telemetry.counter("dispatch.count").value - d0
+        if (compiles_steps, compiles_window, tr.compiles) != (1, 2, 2) \
+                or dispatches != 1:
+            failures.append(f"mesh4d: compiles {compiles_steps}/"
+                            f"{compiles_window}/{tr.compiles}, dispatches "
+                            f"{dispatches} for a replayed window")
+        for name, c in window_counts.items():
+            if c["launches"] != LAYERS * M4D_WINDOW or c["plain_calls"]:
+                failures.append(f"mesh4d: {name} launched {c['launches']} "
+                                f"times in a window of {M4D_WINDOW}")
+        comm_bytes = {ax: telemetry.counter(f"comm.{ax}.bytes").value
+                      for ax in ("pp", "dp", "ep", "sp", "tp")}
+        if any(comm_bytes.values()):
+            failures.append(f"mesh4d: comm bytes on one rank {comm_bytes}")
+        modes = {"mesh4d": lambda: float(tr.step(data, label)),
+                 "spmd": lambda: float(spmd.step(data, label))}
+        host = host_ms_blocks(modes, calls=10, rounds=2)
+        root = tempfile.mkdtemp(prefix="pipe_", dir=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "build"))
+        try:
+            tr.save_checkpoint(root)
+            back = Mesh4DTrainer(plan, stage, lm_loss,
+                                 [p._tensor().detach() for p in plist],
+                                 learning_rate=M4D_SGD["learning_rate"],
+                                 momentum=M4D_SGD["momentum"])
+            header = back.load_checkpoint(root)
+            same = all(torch.equal(a, b) for a, b in zip(
+                tr.gather_params() + tr.gather_momentum(),
+                back.gather_params() + back.gather_momentum()))
+            if not same or header["num_update"] != tr.num_update:
+                failures.append("mesh4d: the checkpoint round trip is not "
+                                "bitwise")
+            del back
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        row = {"phase": "pipeline", "gpu": smi, "part": "d_mesh4d",
+               "group": group, "losses": losses,
+               "spmd_losses": spmd_losses,
+               "bitwise_equal_to_spmd": bool(onp.array_equal(got, want)),
+               "max_rel_diff": float(onp.max(onp.abs(got - want)
+                                             / onp.abs(want))),
+               "launches_per_step": {k: v["launches"] / M4D_STEPS
+                                     for k, v in counts.items()},
+               "window": {"n_steps": M4D_WINDOW, "compiles":
+                          [compiles_steps, compiles_window, tr.compiles],
+                          "dispatches": dispatches,
+                          "launches": {k: v["launches"] for k, v in
+                                       window_counts.items()}},
+               "comm_bytes": comm_bytes, "host_ms": host,
+               "state_bytes_per_device": tr.state_bytes_per_device(),
+               "checkpoint_bitwise": same}
+        emit(row)
+        del tr, spmd, modes
+    finally:
+        amp.reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return counts
+
+
+def phase_pipeline(torch, fa_mod, smi):
+    """Phase 24: the pipeline schedules and Mesh4DTrainer on the card (see
+    the module docstring)."""
+    t0 = time.perf_counter()
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    failures = []
+    net = train_model(torch)
+    leaves, blocks, plists = pipe_blocks(torch, net)
+    ids, tgt, x = pipe_inputs(torch, net, BATCH, seed=24)
+    want = pipe_sequential(torch, net, leaves, blocks, plists, ids, tgt)
+    # (a) 1F1B, folded: counts zeroed just before the step, read just after
+    torch.cuda.synchronize()
+    reset_counts(*fns)
+    got = pipe_1f1b(torch, leaves, blocks, plists, ids, tgt, x, PIPE_M)
+    torch.cuda.synchronize()
+    counts = {f.__name__: {"launches": f.launches,
+                           "plain_calls": f.plain_calls} for f in fns}
+    S, per = PIPE_STAGES, LAYERS // PIPE_STAGES
+    expect = {"flash_fwd": ((S - 1) + S) * PIPE_M * per,
+              "flash_bwd_dkdv": S * PIPE_M * per,
+              "flash_bwd_dq": S * PIPE_M * per}
+    for name, c in counts.items():
+        if c["launches"] != expect[name] or c["plain_calls"]:
+            failures.append(f"pipeline 1f1b: {name} launched "
+                            f"{c['launches']} times ({c['plain_calls']} "
+                            f"plain), predicted {expect[name]}")
+    errs = {"1f1b": pipe_compare("1f1b", got, want, failures)}
+    # the second runs, timed (host ms of a synced step)
+    t1 = time.perf_counter()
+    again = pipe_1f1b(torch, leaves, blocks, plists, ids, tgt, x, PIPE_M)
+    torch.cuda.synchronize()
+    f_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    pipe_sequential(torch, net, leaves, blocks, plists, ids, tgt)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t1) * 1e3
+    bitwise = (got[0] == again[0] and all(
+        torch.equal(a, b) for a, b in zip(
+            got[1] + [got[2], got[3], got[4]],
+            again[1] + [again[2], again[3], again[4]])))
+    if not bitwise:
+        failures.append("pipeline 1f1b: a second run is not bitwise equal "
+                        "to the first")
+    del again, got
+    # (b) GPipe and the interleaved schedule, folded
+    fill = {}
+    for kind in ("gpipe", "interleaved"):
+        c = counted_call(torch, fns, lambda: fill.__setitem__(
+            kind, pipe_fill_drain(torch, net, leaves, blocks, plists, ids,
+                                  tgt, kind)))
+        errs[kind] = pipe_compare(kind, fill.pop(kind), want, failures)
+        errs[kind]["launches"] = {k: v["launches"] for k, v in c.items()}
+        n = PIPE_FILL_M * LAYERS
+        if any(v["launches"] != n or v["plain_calls"] for v in c.values()):
+            failures.append(f"pipeline {kind}: launches {c}, predicted {n}"
+                            f" each")
+    del want
+    # (c) the 1F1B memory property
+    memory = pipe_memory(torch, net, leaves, blocks, plists, failures)
+    emit({"phase": "pipeline", "gpu": smi, "part": "abc",
+          "stages": S, "blocks_per_stage": per, "microbatches": PIPE_M,
+          "microbatch": [1, SEQ], "dtype": "bfloat16 compute, f32 masters",
+          "launches_1f1b": counts, "launches_predicted": expect,
+          "bubble_slots_compute": False,
+          "errors": errs, "tolerance": PIPE_TOL,
+          "second_run_bitwise": bitwise,
+          "host_ms": {"1f1b_step": f_ms, "sequential_step": seq_ms},
+          "memory": memory})
+    del net, leaves, blocks, plists, ids, tgt, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) Mesh4DTrainer
+    m4d_counts = phase_mesh4d(torch, fns, smi, failures)
+    emit({"phase": "pipeline", "gpu": smi, "part": "summary",
+          "failures": failures, "phase_s": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError(f"pipeline: {failures}")
+    return {k: {"pipeline": counts[k]["launches"],
+                "mesh4d": m4d_counts[k]["launches"]} for k in counts}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5771,6 +6207,11 @@ def main():
                 dist_counts[row["name"]]["launches"]
             row["launches_ring_fold"] = \
                 dist_counts[row["name"]]["fold_launches"]
+    pipe_counts = phase_pipeline(torch, fa_mod, smi)
+    for row in kernels:                  # K1-K3 in 1F1B and Mesh4DTrainer
+        if row["name"] in pipe_counts:
+            row["launches_pipeline"] = pipe_counts[row["name"]]["pipeline"]
+            row["launches_mesh4d"] = pipe_counts[row["name"]]["mesh4d"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

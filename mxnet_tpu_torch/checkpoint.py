@@ -55,6 +55,14 @@ Rank/world resolve per save: explicit arguments >
 ``MXNET_CKPT_RANK``/``MXNET_CKPT_WORLD`` > :func:`set_rank` >
 ``torch.distributed`` when it is initialized > (0, 1).
 
+**State sharded over ranks**: a tree value may be a :class:`Pieces`,
+the boxes of a global array this rank holds (a tp shard, a ZeRO chunk of
+a flattened value, cut into boxes by :func:`flat_boxes`).  Each rank
+snapshots and writes only its own pieces, so no rank ever holds the
+whole state, and rank 0 merges the fragments into one manifest.
+:func:`load_boxes` reads back only the box of each leaf a rank asks for,
+from whichever shard files overlap it, whatever layout wrote them.
+
 Failure semantics: transient IO errors retry ``MXNET_CKPT_RETRIES``
 times with ``MXNET_CKPT_BACKOFF_MS`` exponential backoff (a barrier
 expiry does not retry); a save that still fails increments
@@ -89,9 +97,10 @@ from . import tracing
 from .base import (MXNetError, getenv, getenv_bool, numpy_bits,
                    tensor_from_bits)
 
-__all__ = ["snapshot", "save", "load", "wait_pending", "Snapshot",
-           "PendingSave", "FORMAT", "MANIFEST", "set_rank", "rank_world",
-           "step_history"]
+__all__ = ["snapshot", "save", "load", "load_boxes", "wait_pending",
+           "Snapshot", "PendingSave", "Pieces", "flat_boxes", "box_pieces",
+           "FORMAT",
+           "MANIFEST", "set_rank", "rank_world", "step_history"]
 
 FORMAT = "mxnet_tpu-checkpoint-v2"
 MANIFEST = "manifest.json"
@@ -196,6 +205,72 @@ class _LeafSnap:
         self.shards = shards
 
 
+class Pieces:
+    """This rank's part of one leaf of a save: the leaf's global
+    ``shape`` and ``pieces``, ``[(start, tensor)]``, each tensor the box
+    of the global array that begins at ``start`` (its shape gives the
+    box's extent).  A rank holding nothing of a leaf that another rank
+    writes leaves the leaf out of its tree."""
+
+    __slots__ = ("shape", "pieces")
+
+    def __init__(self, shape, pieces):
+        self.shape = tuple(int(n) for n in shape)
+        self.pieces = [(tuple(int(i) for i in start), t)
+                       for start, t in pieces]
+
+
+def flat_boxes(shape, lo: int, hi: int):
+    """The boxes ``[(start, stop)]`` that cover the flat (C-order) index
+    range ``[lo, hi)`` of an array of ``shape``, in flat order: each box
+    is a contiguous run of that range (a partial row, whole rows, a
+    partial row, recursively), so a flat chunk of the array is those
+    boxes' elements back to back."""
+    shape = tuple(int(n) for n in shape)
+    if lo >= hi:
+        return []
+    if not shape:
+        return [((), ())]
+    inner = 1
+    for n in shape[1:]:
+        inner *= n
+    out = []
+    r0, c0 = divmod(lo, inner)
+    if c0:
+        end = min(hi, (r0 + 1) * inner) - r0 * inner
+        out += [((r0,) + a, (r0 + 1,) + b)
+                for a, b in flat_boxes(shape[1:], c0, end)]
+        r0 += 1
+        if r0 * inner >= hi:
+            return out
+    r1, c1 = divmod(hi, inner)
+    if r1 > r0:
+        out.append(((r0,) + (0,) * (len(shape) - 1), (r1,) + shape[1:]))
+    if c1:
+        out += [((r1,) + a, (r1 + 1,) + b)
+                for a, b in flat_boxes(shape[1:], 0, c1)]
+    return out
+
+
+def box_pieces(shape, start, box_shape, t, lo=None) -> Pieces:
+    """The :class:`Pieces` of a leaf of global ``shape`` from this rank's
+    part of the box at ``start`` of extent ``box_shape``: ``t`` the whole
+    box, or (``lo`` given) its flat chunk ``[lo, lo + t.numel())`` in C
+    order (a ZeRO chunk), cut into :func:`flat_boxes`."""
+    if lo is None:
+        return Pieces(shape, [(start, t.view(box_shape))])
+    flat, out = t.reshape(-1), []
+    for a, b in flat_boxes(box_shape, lo, lo + flat.numel()):
+        ext = tuple(y - x for x, y in zip(a, b))
+        n = 1
+        for k in ext:
+            n *= k
+        out.append((tuple(x + s for x, s in zip(a, start)),
+                    flat[:n].view(ext)))
+        flat = flat[n:]
+    return Pieces(shape, out)
+
+
 class _Staging:
     """A device's snapshot buffers: one flat device buffer, its pinned
     host twin and the side stream that copies one into the other.
@@ -277,24 +352,23 @@ class Snapshot:
             pass
 
 
-def _host_leaf(t) -> _LeafSnap:
-    """A host tensor or array (a copy: the owner may update it)."""
+def _host_array(t):
+    """``(stored host array, dtype name)`` of a host tensor or array (a
+    copy: the owner may update it)."""
     if isinstance(t, torch.Tensor):
-        host, name = numpy_bits(t.detach().clone())
-    else:
-        host = onp.array(t)
-        name = host.dtype.name
-    shape = tuple(host.shape)
-    return _LeafSnap(shape, name, [((0,) * len(shape), shape, 0, host)])
+        return numpy_bits(t.detach().clone())
+    host = onp.array(t)
+    return host, host.dtype.name
 
 
-def _device_copy(named: List[Tuple[str, torch.Tensor]], leaves: dict):
-    """Every CUDA leaf of one device into the staging buffers (one fused
-    device copy, one D2H launch); fills ``leaves`` with host views of the
-    pinned buffer and returns ``(staging, completion event)``."""
-    dev = named[0][1].device
+def _device_copy(parts: List[Tuple[Any, torch.Tensor]], hosts: dict):
+    """Every CUDA tensor of one device into the staging buffers (one
+    fused device copy, one D2H launch); fills ``hosts`` (key → (host
+    view of the pinned buffer, dtype name)) and returns ``(staging,
+    completion event)``."""
+    dev = parts[0][1].device
     offsets, total = [], 0
-    for _, t in named:
+    for _, t in parts:
         offsets.append(total)
         total += _align(t.numel() * t.element_size())
     stg = _acquire_staging(dev, max(total, 16))
@@ -305,8 +379,8 @@ def _device_copy(named: List[Tuple[str, torch.Tensor]], leaves: dict):
 
     with torch.cuda.device(dev):
         torch._foreach_copy_([view(stg.dev, o, t)
-                              for o, (_, t) in zip(offsets, named)],
-                             [t.detach() for _, t in named])
+                              for o, (_, t) in zip(offsets, parts)],
+                             [t.detach() for _, t in parts])
         ready = torch.cuda.Event()
         ready.record()
         with torch.cuda.stream(stg.stream):
@@ -314,32 +388,50 @@ def _device_copy(named: List[Tuple[str, torch.Tensor]], leaves: dict):
             stg.host[:total].copy_(stg.dev[:total], non_blocking=True)
             done = torch.cuda.Event()
             done.record(stg.stream)
-    for o, (name, t) in zip(offsets, named):
-        host, dtype = numpy_bits(view(stg.host, o, t))
-        shape = tuple(t.shape)
-        leaves[name] = _LeafSnap(shape, dtype, [
-            ((0,) * len(shape), shape, dev.index or 0, host)])
+    for o, (key, t) in zip(offsets, parts):
+        hosts[key] = numpy_bits(view(stg.host, o, t))
     return stg, done
 
 
 def snapshot(tree: Dict[str, Any], header: Optional[dict] = None) -> Snapshot:
-    """Capture ``tree`` (flat name → tensor, NDArray or array) for a
-    save without waiting for the device: CUDA leaves go through one
-    device copy and one asynchronous copy to pinned memory per device
-    (see the module doc), ordered after the work already queued on the
-    current stream; host leaves are copied at once."""
+    """Capture ``tree`` (flat name → tensor, NDArray, array or
+    :class:`Pieces`) for a save without waiting for the device: CUDA
+    tensors go through one device copy and one asynchronous copy to
+    pinned memory per device (see the module doc), ordered after the
+    work already queued on the current stream; host values are copied
+    at once."""
     t0 = time.perf_counter()
     with tracing.span("ckpt.snapshot", leaves=len(tree)):
-        leaves: Dict[str, _LeafSnap] = {}
-        by_dev: Dict[torch.device, List[Tuple[str, torch.Tensor]]] = {}
+        # (name, start, global shape or None) of each part, in tree order
+        layout, hosts, devs = [], {}, {}
+        by_dev: Dict[torch.device, List[Tuple[Any, torch.Tensor]]] = {}
         for name, arr in tree.items():
             arr = getattr(arr, "_data", arr)        # NDArray → tensor
-            if isinstance(arr, torch.Tensor) and arr.is_cuda:
-                by_dev.setdefault(arr.device, []).append((name, arr))
-            else:
-                leaves[name] = _host_leaf(arr)
-        pending = [_device_copy(named, leaves) for named in by_dev.values()]
-        leaves = {name: leaves[name] for name in tree}      # tree order
+            parts = (arr.pieces if isinstance(arr, Pieces)
+                     else [(None, arr)])
+            for k, (start, t) in enumerate(parts):
+                key = (name, k)
+                layout.append((name, key, start,
+                               arr.shape if isinstance(arr, Pieces)
+                               else None))
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    by_dev.setdefault(t.device, []).append((key, t))
+                    devs[key] = t.device.index or 0
+                else:
+                    hosts[key] = _host_array(t)
+        pending = [_device_copy(parts, hosts) for parts in by_dev.values()]
+        leaves: Dict[str, _LeafSnap] = {}
+        for name, key, start, gshape in layout:
+            host, dtype = hosts[key]
+            shape = tuple(host.shape)
+            if start is None:
+                start, gshape = (0,) * len(shape), shape
+            stop = tuple(a + n for a, n in zip(start, shape))
+            leaf = leaves.get(name)
+            if leaf is None:
+                leaf = leaves[name] = _LeafSnap(tuple(gshape), dtype, [])
+            leaf.shards.append((tuple(start), stop, devs.get(key, 0),
+                                host))
     _H_SNAP_MS.observe((time.perf_counter() - t0) * 1e3)
     return Snapshot(leaves, header, pending)
 
@@ -924,19 +1016,34 @@ def _open_shard_file(path: str, fname: str, files_meta: Dict[str, dict]):
             f"shard file ({type(e).__name__}: {e})") from e
 
 
-def _assemble(path: str, doc: dict) -> Dict[str, torch.Tensor]:
-    """Every leaf's global array on the host, placed from its shards'
-    ``start``/``stop`` slices whatever the number of shard files (or of
-    devices and hosts that wrote them), each file digest-checked before
-    it is parsed."""
+def _assemble(path: str, doc: dict, boxes=None) -> Dict[str, torch.Tensor]:
+    """Every leaf's global array on the host (``boxes``: only the named
+    leaves, each only the box ``(start, stop)`` asked for, when the leaf
+    holds it), placed from its shards' ``start``/``stop`` slices whatever
+    the number of shard files (or of devices and hosts that wrote them),
+    each file digest-checked before it is parsed."""
     files_meta = doc.get("files") or {}
     cache: Dict[str, Any] = {}
     out: Dict[str, torch.Tensor] = {}
     try:
         for name, leaf in doc["leaves"].items():
-            arr = torch.empty(tuple(leaf["shape"]),
+            shape = tuple(leaf["shape"])
+            if boxes is None:
+                b0, b1 = (0,) * len(shape), shape
+            elif name not in boxes:
+                continue
+            else:
+                b0, b1 = (tuple(v) for v in boxes[name])
+                if len(b0) != len(shape) or any(
+                        e > n for e, n in zip(b1, shape)):
+                    continue            # the caller sees the shape differ
+            arr = torch.empty(tuple(e - a for a, e in zip(b0, b1)),
                               dtype=_torch_dtype(leaf["dtype"]))
             for shd in leaf["shards"]:
+                lo = [max(a, s) for a, s in zip(b0, shd["start"])]
+                hi = [min(e, s) for e, s in zip(b1, shd["stop"])]
+                if any(x >= y for x, y in zip(lo, hi)):
+                    continue
                 z = cache.get(shd["file"])
                 if z is None:
                     z = _open_shard_file(path, shd["file"], files_meta)
@@ -948,9 +1055,11 @@ def _assemble(path: str, doc: dict) -> Dict[str, torch.Tensor]:
                         f"{os.path.join(path, shd['file'])}: missing or "
                         f"unreadable shard entry {shd['key']!r} for leaf "
                         f"{name!r} ({type(e).__name__}: {e})") from e
-                sl = tuple(slice(a, b)
-                           for a, b in zip(shd["start"], shd["stop"]))
-                arr[sl] = tensor_from_bits(raw, leaf["dtype"], "cpu")
+                src = tuple(slice(x - s, y - s) for x, y, s in
+                            zip(lo, hi, shd["start"]))
+                dst = tuple(slice(x - a, y - a) for x, y, a in
+                            zip(lo, hi, b0))
+                arr[dst] = tensor_from_bits(raw, leaf["dtype"], "cpu")[src]
             out[name] = arr
     finally:
         for z in cache.values():
@@ -985,42 +1094,49 @@ def load(directory: str, tag: str = "latest"
     ``(leaves, header)`` with every leaf a global host tensor, or None
     when no checkpoint exists.  Corruption with no intact fallback
     raises ``MXNetError``."""
+    got = _load(directory, tag, None)
+    return None if got is None else got[:2]
+
+
+def load_boxes(directory: str, tag: str = "latest", boxes=None
+               ) -> Optional[Tuple[Dict[str, torch.Tensor], dict, dict]]:
+    """:func:`load` of only the part of each leaf this rank asks for:
+    ``boxes`` maps a leaf's name to ``(start, stop)`` in its global
+    array.  Returns ``(leaves, header, shapes)``: ``leaves[name]`` the
+    box (left out when the leaf's global shape cannot hold it), and
+    ``shapes[name]`` every stored leaf's ``(global shape, dtype name)``,
+    for the caller's checks.  Leaves not named are not read."""
+    return _load(directory, tag, dict(boxes or {}))
+
+
+def _load(directory, tag, boxes):
     primary = os.path.join(str(directory), tag)
     cands = [(primary, None),
              (os.path.join(str(directory), f"{tag}.old"),
               f"publish of {tag!r} was interrupted; restored the "
               f"{tag}.old backup")]
+    cands += [(cand, f"checkpoint {primary} and its backup are missing "
+                     f"or unreadable; fell back to retained history "
+                     f"{cand} (step {step})")
+              for step, cand in step_history(directory)]
     first_err: Optional[MXNetError] = None
-    for cand, note in cands:
+    for i, (cand, note) in enumerate(cands):
         if not os.path.isfile(os.path.join(cand, MANIFEST)):
             continue
         try:
             doc = _read_manifest(cand)
-            leaves = _assemble(cand, doc)
+            leaves = _assemble(cand, doc, boxes)
         except MXNetError as e:
             if first_err is None:
                 first_err = e
-            _logger().warning("checkpoint %s unreadable (%s); trying "
-                              "fallbacks", cand, e)
+            _logger().warning("checkpoint %s unreadable (%s); trying %s",
+                              cand, e, "fallbacks" if i < 2 else "older")
             continue
         if note:
             _logger().warning("%s (%s)", note, cand)
-        return leaves, dict(doc.get("header") or {})
-    for step, cand in step_history(directory):
-        try:
-            doc = _read_manifest(cand)
-            leaves = _assemble(cand, doc)
-        except MXNetError as e:
-            if first_err is None:
-                first_err = e
-            _logger().warning("checkpoint history %s unreadable (%s); "
-                              "trying older", cand, e)
-            continue
-        _logger().warning(
-            "checkpoint %s and its backup are missing or unreadable; "
-            "fell back to retained history %s (step %d)",
-            primary, cand, step)
-        return leaves, dict(doc.get("header") or {})
+        shapes = {name: (tuple(leaf["shape"]), leaf["dtype"])
+                  for name, leaf in doc["leaves"].items()}
+        return leaves, dict(doc.get("header") or {}), shapes
     if first_err is not None:
         raise first_err
     return None

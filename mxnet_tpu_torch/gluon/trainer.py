@@ -32,7 +32,7 @@ fused update over the dp width of ``parallel.default_mesh``
 (``optimizer.fused_step``: ZeRO-1; every rank runs the same step on the
 same batch and updates its chunk of the flattened weights and states);
 with no process group of more than one rank the width is 1 and nothing
-changes.  The distributed stores are not ported yet (queue 1 item 11b).
+changes.  The distributed stores are not ported yet (queue 1 item 11c).
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ class Trainer:
             self._params.append(param)
         if compression_params:
             raise MXNetError("gradient compression is not ported yet "
-                             "(distribution, queue 1 item 11b)")
+                             "(distribution, queue 1 item 11c)")
         self._scale = 1.0
         self._init_optimizer(optimizer, optimizer_params or {})
         self._kvstore_params = {"kvstore": kvstore,

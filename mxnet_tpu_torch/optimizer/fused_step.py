@@ -311,6 +311,7 @@ def _step_impl(updater, items, axis) -> bool:
                     [s for n in members for s in states[n]]
                 write_back(dests, list(new_w) + [t for st in new_s
                                                  for t in st])
+        _record_state_bytes(states)
         _STATS["steps"] += 1
         _STATS["zero_steps"] += 1
         return True
@@ -331,5 +332,14 @@ def _step_impl(updater, items, axis) -> bool:
             dests = [weights[n] for n in members] + \
                 [s for col in state_lists for s in col]
             write_back(dests, [t for col in out for t in col])
+    _record_state_bytes(states)
     _STATS["steps"] += 1
     return True
+
+
+def _record_state_bytes(states):
+    """The optimizer-state gauge after a fused step, as the reference's
+    ``fused_step.step`` refreshes it (``opt_state.bytes_per_device``)."""
+    from .. import telemetry
+    telemetry.record_opt_state_bytes(opt_state_bytes_per_device(
+        s for sts in states for s in sts))

@@ -27,7 +27,8 @@ import torch.distributed as dist
 from . import _dist
 
 __all__ = ["make_mesh", "default_mesh", "data_parallel_spec", "replicated",
-           "Mesh", "PartitionSpec", "NamedSharding", "spec_axes"]
+           "Mesh", "PartitionSpec", "NamedSharding", "spec_axes",
+           "spec_box", "spec_gather"]
 
 
 class PartitionSpec(tuple):
@@ -132,11 +133,65 @@ class Mesh:
             ax = self._axes[name] = _Axis(name, size, index, group, ranks)
         return ax
 
+    def writes(self, own=()) -> bool:
+        """Whether this rank writes a value sharded over the axes in
+        ``own`` (and replicated over the others) in a save: it is at
+        coordinate 0 of every other axis."""
+        return not any(self.coordinate(ax) for ax in self.axis_names
+                       if ax not in own)
+
+    def save_rank(self):
+        """``(rank, world)`` of this rank in a save every rank of the mesh
+        makes (the checkpoint service's commit barrier): its place in the
+        mesh's grid order and the mesh's size."""
+        flat = [int(r) for r in self.devices.reshape(-1)]
+        return flat.index(dist.get_rank()) if self.size > 1 else 0, \
+            self.size
+
     @property
     def all_group(self):
         """The process group over every rank of the mesh (None at size
         1)."""
         return self._all
+
+
+def _spec_names(entry):
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def spec_box(shape, spec, mesh, skip=()):
+    """``(start, local shape)`` of this rank's part of a value of global
+    ``shape`` under ``spec``: each named dim cut over its axes, outer
+    first; the axes in ``skip`` and those of size 1 leave it whole."""
+    start, local = [0] * len(shape), list(shape)
+    for dim, entry in enumerate(spec or ()):
+        for name in _spec_names(entry):
+            ax = mesh.axis(name)
+            if name in skip or ax is None or ax.size == 1:
+                continue
+            if local[dim] % ax.size:
+                raise ValueError(f"dim {dim} ({shape[dim]}) is not "
+                                 f"divisible by the {name!r} axis size "
+                                 f"{ax.size}")
+            local[dim] //= ax.size
+            start[dim] += ax.index * local[dim]
+    return tuple(start), tuple(local)
+
+
+def spec_gather(t, spec, mesh, skip=()):
+    """The whole value from this rank's part ``t`` of it under ``spec``
+    (an all-gather over each axis of ``spec``, inner first; collective:
+    every rank of those axes calls it)."""
+    from . import collectives as comm
+    spec = tuple(spec or ())
+    for dim in range(len(spec) - 1, -1, -1):
+        for name in reversed(_spec_names(spec[dim])):
+            ax = mesh.axis(name)
+            if name not in skip and comm.live(ax):
+                t = comm._gather(t, ax, dim)
+    return t
 
 
 def make_mesh(axes: Dict[str, int] | None = None,

@@ -17,6 +17,12 @@ shuffle is an ``all_to_all_single`` of the (E, C, H) dispatch buffers
 token holds one slot, so the sum places it); the combine sends every
 rank the experts' outputs with a second all-to-all.  The load-balancing
 loss and the dropped count are global (all-reduces over the axis).
+
+Called with no mesh inside ``Mesh4DTrainer``'s step, it takes the step's
+mesh: the tokens are split over dp and ep (dp outer), the routing is the
+single-device one over every rank's tokens (the counts all-gathered over
+both axes, the capacity of all N), and the shuffle runs over ep, where
+the experts' shards are; each dp group's expert copies take its tokens.
 """
 from __future__ import annotations
 
@@ -50,10 +56,20 @@ def switch_moe(x, gate_w, w1, b1, w2, b2, capacity_factor: float = 1.25,
     ``return_stats=True``: ``dropped_tokens`` (int32 0-d tensor),
     ``capacity`` (int) and ``expert_load`` ((E,) tokens routed per
     expert, before the drop)."""
+    route = []
+    if mesh is None:
+        from . import tensor_parallel as _tp
+        sc = _tp.active()
+        if sc is not None and sc.moe_axes:
+            mesh = sc.mesh
+            route = [a for a in (mesh.axis(n) for n in sc.moe_axes)
+                     if comm.live(a)]
     ax = mesh.axis(axis_name) if mesh is not None else None
+    if not route and comm.live(ax):
+        route = [ax]
     p = ax.size if comm.live(ax) else 1
     n_loc, h = x.shape
-    n = n_loc * p
+    n = n_loc * math.prod(a.size for a in route)
     e = gate_w.shape[1]
     cap = max(1, math.ceil(n / e * capacity_factor))
 
@@ -65,9 +81,15 @@ def switch_moe(x, gate_w, w1, b1, w2, b2, capacity_factor: float = 1.25,
     counts = onehot.sum(dim=0)
     # the tokens of the lower ranks come first in every expert's queue
     below = torch.zeros_like(counts)
-    if p > 1:
-        every = comm.all_gather_flat(counts.detach(), ax).reshape(p, e)
-        below = every[:ax.index].sum(dim=0)
+    if route:
+        every, me = counts.detach(), 0
+        for a in reversed(route):               # inner axis first
+            every = comm.all_gather_flat(every.reshape(-1), a).reshape(
+                (a.size,) + tuple(every.shape))
+        for a in route:
+            me = me * a.size + a.index
+        every = every.reshape(-1, e)
+        below = every[:me].sum(dim=0)
         total = every.sum(dim=0)
     else:
         total = counts
@@ -92,13 +114,15 @@ def switch_moe(x, gate_w, w1, b1, w2, b2, capacity_factor: float = 1.25,
     y = torch.einsum("nec,ech->nh", combine, ye)          # (n, H)
 
     # load-balancing loss (Switch Transformer eq. 4) over all N tokens
-    frac_tokens = comm.all_reduce(onehot.sum(dim=0), ax) / n
-    frac_probs = comm.all_reduce(probs.sum(dim=0), ax) / n
-    aux = e * torch.sum(frac_tokens * frac_probs)
+    frac_tokens, frac_probs = onehot.sum(dim=0), probs.sum(dim=0)
+    for a in route:
+        frac_tokens = comm.all_reduce(frac_tokens, a)
+        frac_probs = comm.all_reduce(frac_probs, a)
+    aux = e * torch.sum((frac_tokens / n) * (frac_probs / n))
 
     dropped = (n_loc - keep.sum()).to(torch.int32)
-    if p > 1:
-        dropped = comm.all_reduce_(dropped.detach().clone(), ax)
+    for a in route:
+        dropped = comm.all_reduce_(dropped.detach().clone(), a)
     if return_stats:
         return y, aux, {"dropped_tokens": dropped, "capacity": cap,
                         "expert_load": total.detach()}

@@ -77,7 +77,7 @@ class _Layout:
                 raise MXNetError(
                     f"parameter {key}: PartitionSpec {param._sharding!r}; "
                     f"the port shards parameters over 'tp' only (other "
-                    f"axes: queue 1 item 11b)")
+                    f"axes: queue 1 item 11c)")
             if self.tp_dim is not None:
                 raise MXNetError(f"parameter {key}: 'tp' named twice in "
                                  f"{param._sharding!r}")
@@ -293,6 +293,45 @@ class MeshRun:
         if lay.tp is not None:
             t = comm._gather(t, lay.tp, lay.tp_dim)
         return t
+
+    # -- persistence -----------------------------------------------------------
+    def box(self, i):
+        """``(start, stop)`` of this rank's tp-local part of parameter
+        ``i`` in the whole value (the whole value off tp)."""
+        lay = self.layouts[i]
+        start = [0] * len(lay.shape)
+        if lay.tp is not None:
+            start[lay.tp_dim] = lay.tp.index * lay.local_shape[lay.tp_dim]
+        return tuple(start), tuple(a + n for a, n in
+                                   zip(start, lay.local_shape))
+
+    def _chunked(self, i, t):
+        lay = self.layouts[i]
+        return lay.dp is not None and t.numel() == lay.chunk
+
+    def pieces(self, i, t):
+        """What this rank writes of ``t`` (parameter ``i``'s master, or a
+        state of its layout) in a save: a ``checkpoint.Pieces`` of its
+        boxes of the whole value, or None when another rank writes the
+        same bytes."""
+        from ..checkpoint import box_pieces
+        lay = self.layouts[i]
+        chunked = self._chunked(i, t)
+        own = ({"tp"} if lay.tp is not None else set()) | \
+            ({"dp"} if chunked else set())
+        if not self.mesh.writes(own):
+            return None
+        start, _ = self.box(i)
+        return box_pieces(lay.shape, start, lay.local_shape, t,
+                          lay.dp.index * lay.chunk if chunked else None)
+
+    def from_box(self, i, box, like):
+        """This rank's tensor, shaped as ``like``, from its tp-local box
+        of the whole value (a ZeRO chunk cut from it when ``like`` is
+        one)."""
+        if self._chunked(i, like):
+            return comm.flat_chunk(box.contiguous(), self.layouts[i].dp)
+        return box.reshape(like.shape)
 
     # -- telemetry -------------------------------------------------------------
     def comm_model(self, amp, tokens):

@@ -48,21 +48,29 @@ _local = threading.local()
 
 
 class _Scope:
-    __slots__ = ("mesh", "seq_sharded", "tp_local", "batch_split")
+    __slots__ = ("mesh", "seq_sharded", "tp_local", "batch_split",
+                 "moe_axes", "tp_rows")
 
-    def __init__(self, mesh, seq_sharded, tp_local, batch_split):
+    def __init__(self, mesh, seq_sharded, tp_local, batch_split, moe_axes):
         self.mesh = mesh
         self.seq_sharded = bool(seq_sharded)
         # the rank holds a part of the batch (a live dp or sp axis)
         self.batch_split = bool(batch_split)
         # id(parameter) -> the tp axis, for parameters read as local shards
         self.tp_local: Dict[int, object] = tp_local
+        # the axes the tokens of a switch_moe called without a mesh are
+        # split over (Mesh4DTrainer's step: dp and ep), outer first
+        self.moe_axes = tuple(moe_axes or ())
+        # MeshPlan.tp_row calls in the scope
+        self.tp_rows = 0
 
 
 @contextlib.contextmanager
-def scope(mesh, seq_sharded=False, tp_local=None, batch_split=False):
+def scope(mesh, seq_sharded=False, tp_local=None, batch_split=False,
+          moe_axes=None):
     prev = getattr(_local, "scope", None)
-    _local.scope = _Scope(mesh, seq_sharded, tp_local or {}, batch_split)
+    _local.scope = _Scope(mesh, seq_sharded, tp_local or {}, batch_split,
+                          moe_axes)
     try:
         yield _local.scope
     finally:
@@ -99,7 +107,7 @@ def refuse_split_batch_stats(layer):
         raise MXNetError(
             f"{layer} in training mode on a batch split over the mesh "
             f"needs the whole batch's statistics (cross-rank BatchNorm): "
-            f"not ported yet (queue 1 item 11b)")
+            f"not ported yet (queue 1 item 11c)")
 
 
 def _tp_dim(spec):

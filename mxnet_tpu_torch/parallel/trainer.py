@@ -105,9 +105,14 @@ collectives inside the step.  Every rank passes the same whole batch, as
 to the reference.  A sharded parameter's full value is stale while the
 trainer holds its shards: :meth:`gather_params` (collective) writes it
 back.  On one rank (a plain ``python`` run: a group of one) nothing is
-sharded and no collective runs, so the step is the unmeshed one.
-Persistence of a trainer whose state is sharded over more than one rank
-is not ported yet (queue 1 item 11b) and raises.
+sharded and no collective runs, so the step is the unmeshed one.  A
+trainer sharded over ranks persists on every rank (the calls are
+collective): ``save_checkpoint`` has each rank write its own boxes of the
+whole values through the checkpoint service's commit barrier and
+``load_checkpoint`` has each read back only its boxes, so neither
+gathers the state anywhere, and a save restores onto any mesh shape;
+``save_states`` gathers one state at a time and rank 0 streams it into
+the npz, and ``load_states`` has each rank cut its part from the file.
 """
 from __future__ import annotations
 
@@ -343,14 +348,6 @@ class SPMDTrainer:
             out[k] = tuple(st) if run is None else tuple(
                 run.full_value(i, t) for t in st)
         return out
-
-    def _check_unsharded(self, what):
-        run = self._mesh_run
-        if run is not None and (any(lay.sharded or lay.kind != "plain"
-                                    for lay in run.layouts)):
-            raise MXNetError(f"SPMDTrainer.{what} of a trainer whose state "
-                             f"is sharded over its mesh is not ported yet "
-                             f"(queue 1 item 11b)")
 
     # -- the functions a graph holds -----------------------------------------
     def _loss(self, masters, ids, aux, data, label):
@@ -814,31 +811,38 @@ class SPMDTrainer:
         """The optimizer state and step counter as an npz with a JSON
         header under ``__header__`` and one entry ``<param>::<slot>`` a
         state (bfloat16 and fp8 as their bit patterns, named in the
-        header's ``dtypes``); no pickle."""
-        self._check_unsharded("save_states")
-        arrays, slots, dtypes = {}, {}, {}
-        for k in self._pkeys:
-            st = self._opt_state[k]
-            slots[k] = len(st)
-            dtypes[k] = []
-            for i, t in enumerate(st):
-                arrays[f"{k}::{i}"], name = numpy_bits(t)
-                dtypes[k].append(name)
+        header's ``dtypes``); no pickle.  On a mesh every rank calls it:
+        each state is gathered whole (one at a time) and rank 0 writes
+        it."""
+        run = self._mesh_run
+        slots = {k: len(self._opt_state[k]) for k in self._pkeys}
+        dtypes = {k: [str(t.dtype).replace("torch.", "")
+                      for t in self._opt_state[k]] for k in self._pkeys}
         header = {"format": self._STATES_FORMAT,
                   "num_update": self.num_update,
                   "slots": slots, "dtypes": dtypes}
         if self._rng_key:
             header["rng_key"] = self._rng_key
-        arrays["__header__"] = onp.frombuffer(
-            json.dumps(header).encode("utf-8"), dtype=onp.uint8)
-        with open(fname, "wb") as f:
-            onp.savez(f, **arrays)
+
+        def arrays():
+            for i, k in enumerate(self._pkeys):
+                for j, t in enumerate(self._opt_state[k]):
+                    full = t if run is None else run.full_value(i, t)
+                    yield f"{k}::{j}", numpy_bits(full)[0]
+            yield "__header__", onp.frombuffer(
+                json.dumps(header).encode("utf-8"), dtype=onp.uint8)
+
+        if run is not None and not run.mesh.writes():
+            for _ in arrays():          # the gathers are collective
+                pass
+            return
+        _write_npz(fname, arrays())
 
     def load_states(self, fname):
         """Restore :meth:`save_states` (of either package) into the
-        optimizer state in place.  Only that npz is read
-        (``allow_pickle=False``: loading never runs code)."""
-        self._check_unsharded("load_states")
+        optimizer state in place; on a mesh each rank keeps its part.
+        Only that npz is read (``allow_pickle=False``: loading never runs
+        code)."""
         try:
             z = onp.load(fname, allow_pickle=False)
         except (OSError, ValueError) as e:
@@ -863,14 +867,31 @@ class SPMDTrainer:
                 if k not in self._opt_state:
                     raise MXNetError(f"unknown optimizer-state key {k!r}")
                 names = dtypes.get(k) or []
-                states[k] = [tensor_from_bits(
-                    z[f"{k}::{i}"], names[i] if i < len(names) else None,
-                    "cpu") for i in range(int(n))]
+                states[k] = [self._local_part(k, j, tensor_from_bits(
+                    z[f"{k}::{j}"], names[j] if j < len(names) else None,
+                    "cpu"), fname) for j in range(int(n))]
         self._restore_states(states, fname)
         self.num_update = int(header["num_update"])
         self.optimizer.num_update = self.num_update
         if header.get("rng_key"):
             self._rng_key = header["rng_key"]
+
+    def _local_part(self, k, j, full, source):
+        """This rank's part of state slot ``j`` of parameter ``k`` from
+        its whole value (the whole value off a mesh)."""
+        run = self._mesh_run
+        old = self._opt_state[k]
+        if run is None or j >= len(old):
+            return full
+        i = self._pkeys.index(k)
+        lay = run.layouts[i]
+        if tuple(full.shape) != lay.shape:
+            raise MXNetError(f"{source}: optimizer state {k!r} slot {j} has "
+                             f"shape {tuple(full.shape)}, the trainer "
+                             f"expects {lay.shape}")
+        start, stop = run.box(i)
+        box = full[tuple(slice(a, b) for a, b in zip(start, stop))]
+        return run.from_box(i, box, old[j])
 
     def _restore_states(self, states, source):
         """Copy ``{key: [state tensors]}`` into the optimizer state in
@@ -903,11 +924,15 @@ class SPMDTrainer:
         once, and a failed save logs and counts ``checkpoint.failures``
         without raising into the step."""
         from .. import checkpoint as _ckpt
-        self._check_unsharded("save_checkpoint")
-        tree = {f"param/{k}": self._params[k]._data for k in self._pkeys}
-        for k in self._pkeys:
-            for i, t in enumerate(self._opt_state[k]):
-                tree[f"opt/{k}/{i}"] = t
+        run = self._mesh_run
+        tree = {}
+        for i, (k, m) in enumerate(zip(self._pkeys, self._masters())):
+            for name, t in [(f"param/{k}", m)] + [
+                    (f"opt/{k}/{j}", st)
+                    for j, st in enumerate(self._opt_state[k])]:
+                part = t if run is None else run.pieces(i, t)
+                if part is not None:
+                    tree[name] = part
         header = {"num_update": int(self.num_update),
                   "slots": {k: len(self._opt_state[k])
                             for k in self._pkeys},
@@ -925,7 +950,8 @@ class SPMDTrainer:
                              "compute_dtype":
                                  _amp_policy.compute_dtype_str(),
                              "scaler": self._amp_scaler.state()}
-        rank, world = _ckpt.rank_world()
+        rank, world = (self.mesh.save_rank() if self.mesh is not None
+                       else _ckpt.rank_world())
         job = _ckpt.save(directory, tree, header, tag=tag, block=block,
                          rank=rank, world=world)
         return job.result() if block else job
@@ -939,33 +965,59 @@ class SPMDTrainer:
         the checkpoint's meta with ``num_update``, or None when there is
         no checkpoint."""
         from .. import checkpoint as _ckpt
-        self._check_unsharded("load_checkpoint")
-        loaded = _ckpt.load(directory, tag)
+        run = self._mesh_run
+        masters = self._masters()
+        names, boxes = {}, {}
+        for i, k in enumerate(self._pkeys):
+            box = (run.box(i) if run is not None else
+                   ((0,) * len(masters[i].shape), tuple(masters[i].shape)))
+            for name, t in [(f"param/{k}", masters[i])] + [
+                    (f"opt/{k}/{j}", st)
+                    for j, st in enumerate(self._opt_state[k])]:
+                names[name] = (i, t)
+                boxes[name] = box
+        loaded = _ckpt.load_boxes(directory, tag, boxes)
         if loaded is None:
             return self._load_checkpoint_v1(directory, tag)
-        leaves, header = loaded
+        leaves, header, shapes = loaded
+        source = f"checkpoint {directory!r}"
+
+        def local(name, what):
+            i, t = names[name]
+            if name not in shapes:
+                raise MXNetError(f"checkpoint {directory!r} has no entry "
+                                 f"for {what}")
+            shape, dtype = shapes[name]
+            want = (run.layouts[i].shape if run is not None
+                    else tuple(t.shape))
+            if shape != want:
+                raise MXNetError(f"{source}: {what} has shape {shape}, "
+                                 f"the trainer expects {want}")
+            if _ckpt._torch_dtype(dtype) != t.dtype:
+                raise MXNetError(f"{source}: {what} has dtype "
+                                 f"torch.{dtype}, the trainer expects "
+                                 f"{t.dtype}")
+            box = leaves[name]
+            return box if run is None else run.from_box(i, box, t)
+
         slots = header.get("slots") or {}
         dst, src = [], []
-        for k in self._pkeys:
-            name = f"param/{k}"
-            if name not in leaves:
-                raise MXNetError(f"checkpoint {directory!r} has no entry "
-                                 f"for parameter {k!r}")
-            _check_leaf(f"parameter {k!r}", leaves[name],
-                        self._params[k]._data, f"checkpoint {directory!r}")
-            dst.append(self._params[k]._data)
-            src.append(leaves[name])
+        for i, k in enumerate(self._pkeys):
+            dst.append(masters[i])
+            src.append(local(f"param/{k}", f"parameter {k!r}"))
         states = {}
         for k in self._pkeys:
             n = int(slots.get(k, len(self._opt_state[k])))
-            names = [f"opt/{k}/{i}" for i in range(n)]
-            missing = [nm for nm in names if nm not in leaves]
-            if missing:
-                raise MXNetError(f"checkpoint {directory!r} has no entry "
-                                 f"for optimizer state {missing[0]!r}")
-            states[k] = [leaves[nm] for nm in names]
-        self._restore_states(states, f"checkpoint {directory!r}")
+            if n != len(self._opt_state[k]):
+                raise MXNetError(f"{source}: optimizer state {k!r} has {n} "
+                                 f"slots, the trainer's optimizer "
+                                 f"{len(self._opt_state[k])}")
+            states[k] = [local(f"opt/{k}/{j}", f"optimizer state "
+                                               f"{f'opt/{k}/{j}'!r}")
+                         for j in range(n)]
+        self._restore_states(states, source)
         _copy_in_place(dst, src)
+        self._stale_after_step()
         self.num_update = int(header.get("num_update", self.num_update))
         self.optimizer.num_update = self.num_update
         if header.get("rng_key"):
@@ -1081,3 +1133,15 @@ def _copy_in_place(dst, src):
     captured graph holds keeps its address."""
     for d, s in zip(dst, src):
         d.copy_(s)
+
+
+def _write_npz(fname, items):
+    """``numpy.savez``'s file from ``(name, array)`` pairs written one at
+    a time: only the array being written is held."""
+    import zipfile
+    with open(fname, "wb") as f, zipfile.ZipFile(
+            f, "w", zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for name, arr in items:
+            with zf.open(name + ".npy", "w", force_zip64=True) as fh:
+                onp.lib.format.write_array(fh, onp.asanyarray(arr),
+                                           allow_pickle=False)

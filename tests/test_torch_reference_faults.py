@@ -981,3 +981,41 @@ def test_device_ms_averages_the_records_of_the_cycle(monkeypatch):
         got[name] = [r["device_ms"] for r in records]
     assert got["port"] == [None, None, None, 10.0]
     assert got["ref"] == [None, None, None, 7.5]
+
+
+def test_fused_step_refreshes_the_opt_state_gauge():
+    """F22: the reference's fused ``gluon.Trainer`` step refreshes
+    ``opt_state.bytes_per_device`` (``optimizer/fused_step.py:697``); the
+    port's did not, so a step record's ``opt_state_bytes`` was whatever
+    an earlier trainer in the process had left (None in a fresh one)."""
+    from mxnet_tpu import telemetry as jtel
+    from mxnet_tpu_torch import telemetry
+    rng = onp.random.RandomState(0)
+    w = rng.randn(4, 3).astype("float32")
+    x = rng.randn(5, 3).astype("float32")
+    y = rng.randint(0, 4, 5).astype("float32")
+    got = {}
+    for name, pkg, tel, layers, lossmod in (
+            ("reference", mx, jtel, jax_nn, None),
+            ("port", mt, telemetry, nn, gloss)):
+        tel.gauge("opt_state.bytes_per_device").set(None)
+        net = layers.Dense(4, in_units=3, use_bias=False)
+        if pkg is mt:
+            net.initialize(device="cpu")
+            net.weight.set_data(torch.tensor(w))
+            data, label = _port(x), _port(y)
+            lf = gloss.SoftmaxCrossEntropyLoss()
+        else:
+            from mxnet_tpu.gluon import loss as jax_loss
+            net.initialize()
+            net.weight.set_data(mx.nd.array(w))
+            data, label = mx.nd.array(x), mx.nd.array(y)
+            lf = jax_loss.SoftmaxCrossEntropyLoss()
+        tr = pkg.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+        with pkg.autograd.record():
+            loss = lf(net(data), label)
+        loss.backward()
+        tr.step(5)
+        got[name] = tel.gauge("opt_state.bytes_per_device").value
+    assert got["port"] == got["reference"] == w.nbytes

@@ -427,3 +427,312 @@ def case_shard_guards(weights, batches):
     tr.gather_params()
     out.append(_np(head._tensor()))
     return out
+
+
+# -- the pipeline schedules and Mesh4DTrainer ---------------------------------------
+
+def relu_stage(params, x):
+    """One pipeline stage (a layer): relu(x @ w + b)."""
+    import torch
+    w, b = params
+    return torch.relu(x @ w + b)
+
+
+def relu_stages(n):
+    """A stage of ``n`` relu layers (params stacked on a leading axis)."""
+    def stage(params, x):
+        w, b = params
+        for j in range(n):
+            x = relu_stage((w[j], b[j]), x)
+        return x
+    return stage
+
+
+def mse(y, t):
+    return ((y.float() - t) ** 2).mean()
+
+
+def _tensors(arrays, grad=False):
+    import torch
+    return tuple(torch.tensor(a, requires_grad=grad) for a in arrays)
+
+
+def case_pipeline(kind, params, x, t, axes, M, batch_axis="dp",
+                  layers_per_stage=1, fold=False):
+    """One schedule on a mesh (or folded) from whole numpy values:
+    ``gpipe`` / ``interleaved``: the forward's output, then the loss
+    ``mse(out, t)`` and its gradients by autograd; ``1f1b``: the loss,
+    the gradients and the input gradient of
+    ``pipeline_value_and_grad_1f1b``.  Non-members return None."""
+    import torch
+    from mxnet_tpu_torch import parallel as par
+    mesh = par.make_mesh(axes) if axes else None
+    if mesh is not None and not mesh.is_member:
+        return None
+    ps = _tensors(params, grad=kind != "1f1b")
+    xt, tt = torch.tensor(x), torch.tensor(t)
+    stage = relu_stages(layers_per_stage) if layers_per_stage > 1 \
+        else relu_stage
+    kw = {"batch_axis_name": batch_axis, "fold": fold}
+    if kind == "1f1b":
+        loss, grads, dx = par.pipeline_value_and_grad_1f1b(
+            stage, mse, ps, xt, tt, mesh, M, return_input_grad=True, **kw)
+        return float(loss), [_np(g) for g in grads], _np(dx)
+    if kind == "gpipe":
+        out = par.pipeline_forward(stage, ps, xt, mesh, M, **kw)
+    else:
+        if fold:
+            kw["n_stages"] = 4
+        out = par.pipeline_forward_interleaved(stage, ps, xt, mesh, M, **kw)
+    loss = mse(out, tt)
+    grads = torch.autograd.grad(loss, ps)
+    return _np(out), float(loss.detach()), [_np(g) for g in grads]
+
+
+def case_pipeline_errors(params, x):
+    """The validation errors of the whole-tensor entry points, as
+    ``(type name, message)``."""
+    import torch
+    from mxnet_tpu_torch import parallel as par
+    mesh = par.make_mesh({"pp": 4})
+    if not mesh.is_member:
+        return None
+    ps = _tensors(params)
+    out = []
+    for fn in (lambda: par.pipeline_forward(
+                   relu_stage, ps, torch.tensor(x), mesh, 2,
+                   batch_axis_name=None),
+               lambda: par.pipeline_forward(
+                   relu_stage, tuple(p[:4] for p in ps),
+                   torch.ones(10, 4), mesh, 4, batch_axis_name=None),
+               lambda: par.pipeline_value_and_grad_1f1b(
+                   relu_stage, mse, tuple(p[:4] for p in ps),
+                   torch.ones(8, 4), torch.ones(4, 4), mesh, 2,
+                   batch_axis_name=None),
+               lambda: par.pipeline_forward_interleaved(
+                   relu_stage, ps, torch.ones(16, 4), mesh, 8,
+                   batch_axis_name=None)):
+        try:
+            fn()
+            out.append(None)
+        except Exception as e:      # the message is the result
+            out.append((type(e).__name__, str(e)))
+    return out
+
+
+def _m4d_fns(name, plan):
+    import torch
+    from mxnet_tpu_torch.parallel import switch_moe
+
+    def mlp(p, h):
+        a, b = p
+        return plan.tp_row(torch.relu(plan.tp_column(h @ a)) @ b)
+
+    def mlp_bias(p, h):
+        a, ab, b, c = p
+        return plan.tp_row(torch.relu(plan.tp_column(h @ a + ab)) @ b) + c
+
+    def moe(p, x):
+        y, aux, stats = switch_moe(x, *p, capacity_factor=1.0,
+                                   return_stats=True)
+        return y, 0.01 * aux, stats["dropped_tokens"]
+
+    def psum(p, h):
+        from mxnet_tpu_torch.parallel import collectives as comm
+        a, b = p
+        return comm.all_reduce(torch.relu(h @ a) @ b, plan.mesh.axis("tp"))
+
+    return {"mlp": mlp, "mlp_bias": mlp_bias, "moe": moe,
+            "psum": psum}[name]
+
+
+def _spec_tree(specs):
+    return None if specs is None else tuple(_spec(s) for s in specs)
+
+
+def case_mesh4d(plan_kw, fn, params, specs, x, y, windows, opts,
+                jsonl=None):
+    """``Mesh4DTrainer`` over ``MeshPlan(**plan_kw)``: the losses of each
+    ``run_steps`` window in ``windows`` (step counts), then the whole
+    masters and momentum, the per-axis and per-kind comm bytes, the
+    dropped-token count, the state bytes on this rank and the trainer's
+    compiles.  ``jsonl``: a telemetry sink's path (this rank's file has
+    the rank appended)."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.parallel import MeshPlan, Mesh4DTrainer
+    telemetry.reset("comm.")
+    telemetry.reset("moe.")
+    plan = MeshPlan(**plan_kw)
+    if not plan.mesh.is_member:
+        return None
+    tr = Mesh4DTrainer(plan, _m4d_fns(fn, plan), mse, tuple(params),
+                       param_specs=_spec_tree(specs), **opts)
+    sink = None
+    if jsonl:
+        import torch.distributed as dist
+        sink = telemetry.JSONLSink(f"{jsonl}.{dist.get_rank()}")
+        telemetry.add_sink(sink)
+    try:
+        losses = [_np(tr.run_steps(x, y, n_steps=n)) for n in windows]
+    finally:
+        if sink is not None:
+            telemetry.remove_sink(sink)
+    comm_bytes = {k: telemetry.counter(f"comm.{k}.bytes").value
+                  for k in ("dp", "tp", "pp", "ep", "reduce_scatter",
+                            "all_gather", "allreduce", "ppermute",
+                            "all_to_all")}
+    return (losses, [_np(p) for p in tr.gather_params()],
+            [_np(m) for m in tr.gather_momentum()], comm_bytes,
+            telemetry.counter("moe.dropped_tokens").value,
+            tr.state_bytes_per_device(), tr.compiles)
+
+
+def case_mesh4d_refusals(params):
+    """Mesh4DTrainer's refusals: ep in a spec under pp, and a tp-sharded
+    stage function that never calls tp_row."""
+    import torch
+    from mxnet_tpu_torch.parallel import MeshPlan, Mesh4DTrainer
+    out = []
+    plan = MeshPlan(dp=2, pp=2, ep=2)
+    if plan.mesh.is_member:
+        try:
+            Mesh4DTrainer(plan, lambda p, h: h, mse,
+                          (onp.zeros((2, 4, 4), "float32"),),
+                          param_specs=(_spec(("pp", "ep", None)),))
+            out.append(None)
+        except Exception as e:      # the message is the result
+            out.append(f"{type(e).__name__}: {e}")
+    plan = MeshPlan(dp=2, tp=2)
+    if plan.mesh.is_member:
+        def mlp(p, h):
+            a, b = p
+            return torch.relu(h @ a) @ b
+        tr = Mesh4DTrainer(plan, mlp, mse, tuple(params),
+                           param_specs=(_spec((None, "tp")),
+                                        _spec(("tp", None))))
+        try:
+            tr.run_steps(onp.ones((8, 16), "float32"),
+                         onp.ones((8, 16), "float32"))
+            out.append(None)
+        except Exception as e:      # the message is the result
+            out.append(f"{type(e).__name__}: {e}")
+    return out or None
+
+
+def case_mesh4d_restore(params, specs, x, y, directory):
+    """dp2×tp2 → dp4×tp1: train 2 steps on the first plan, save, load
+    into a trainer on the second and step once.  Returns (the first
+    trainer's whole masters and momentum, the loaded trainer's, the
+    header, the loaded trainer's loss)."""
+    from mxnet_tpu_torch.parallel import MeshPlan, Mesh4DTrainer
+    pa, pb = MeshPlan(dp=2, tp=2), MeshPlan(dp=4, tp=1)
+    out = [None, None, None, None]
+    if pa.mesh.is_member:
+        ta = Mesh4DTrainer(pa, _m4d_fns("mlp", pa), mse, tuple(params),
+                           param_specs=_spec_tree(specs),
+                           learning_rate=0.05)
+        ta.run_steps(x, y, n_steps=2)
+        ta.save_checkpoint(directory)
+        out[0] = ([_np(p) for p in ta.gather_params()],
+                  [_np(m) for m in ta.gather_momentum()])
+    import torch.distributed as dist
+    dist.barrier()
+    if pb.mesh.is_member:
+        tb = Mesh4DTrainer(pb, _m4d_fns("mlp", pb), mse, tuple(params),
+                           param_specs=_spec_tree(specs),
+                           learning_rate=0.05)
+        out[2] = tb.load_checkpoint(directory)
+        out[1] = ([_np(p) for p in tb.gather_params()],
+                  [_np(m) for m in tb.gather_momentum()])
+        out[3] = _np(tb.run_steps(x, y, n_steps=1))
+    return out
+
+
+def case_capstone(emb, w1, w2, toks, tgt, M, lr, lr_e, mu):
+    """The reference's 3-D capstone (``__graft_entry__._capstone_3d``) at
+    pp2×dp2×tp2: a bf16 embedding in front of a 1F1B pipeline whose
+    stages are tp-sharded (Megatron's f, then ``lax.psum``), chained
+    through the input gradient into a row scatter, and SGD with momentum
+    on the stacked weights.  Returns the loss and the updated
+    (embedding, W1, W2, m1, m2)."""
+    import torch
+    from mxnet_tpu_torch.parallel import collectives as comm
+    from mxnet_tpu_torch.parallel import (PartitionSpec, make_mesh,
+                                          pipeline_value_and_grad_1f1b)
+    mesh = make_mesh({"pp": 2, "dp": 2, "tp": 2})
+    if not mesh.is_member:
+        return None
+    tp = mesh.axis("tp")
+
+    def stage(p, x):
+        a, b = p
+        xb = comm.copy_to(x, tp)
+        h = torch.relu(xb @ a.to(torch.bfloat16))
+        return x + comm.all_reduce(h @ b.to(torch.bfloat16), tp)
+
+    def loss3(y, t):
+        return ((y.float() - t) ** 2).mean()
+
+    E, W1, W2 = (torch.tensor(a) for a in (emb, w1, w2))
+    ids = torch.tensor(toks).long()
+    xemb = E.to(torch.bfloat16)[ids]
+    specs = (PartitionSpec("pp", None, "tp"), PartitionSpec("pp", "tp", None))
+    loss, (g1, g2), dxe = pipeline_value_and_grad_1f1b(
+        stage, loss3, (W1, W2), xemb, torch.tensor(tgt), mesh, M,
+        param_specs=specs, return_input_grad=True)
+    vals = dxe.reshape(-1, E.shape[1]).float()
+    new_e = E.index_add(0, ids.reshape(-1), -lr_e * vals)
+    m1, m2 = g1.float(), g2.float()        # momentum from zero
+    return (float(loss), _np(new_e), _np(W1 - lr * m1), _np(W2 - lr * m2),
+            _np(m1), _np(m2))
+
+
+def case_spmd_persist(weights, batches, directory, opt_params):
+    """SPMDTrainer persistence sharded over ranks: a Dense net at dp4
+    (ZeRO-3) trains 2 steps, saves a checkpoint and a states file; a
+    trainer at dp2×tp2 (the head row-parallel, ZeRO-1) and one at dp4
+    (ZeRO-3) load them.  Returns, per trainer, (gathered params, gathered
+    states) after the load, and the losses of one more step each."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    import torch.distributed as dist
+    ma = make_mesh({"dp": 4})
+    mb = make_mesh({"dp": 2, "tp": 2})
+
+    def build(mesh, specs, stage, w):
+        net = dense_net(w, specs=specs)
+        return SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(),
+                           optimizer="adam", optimizer_params=opt_params,
+                           mesh=mesh, zero_stage=stage)
+
+    def state(tr):
+        tr.gather_params()
+        return ({k: _np(p._tensor()) for k, p in tr._params.items()},
+                {k: [_np(t) for t in st]
+                 for k, st in tr.gather_states().items()})
+
+    zeros = {k: onp.zeros_like(v) for k, v in weights.items()}
+    out = {}
+    if ma.is_member:
+        ta = build(ma, None, 3, weights)
+        for d, l in batches[:2]:
+            ta.step(d, l)
+        ta.save_checkpoint(directory)
+        ta.save_states(f"{directory}/states.npz")
+        out["saved"] = state(ta)
+        out["saved_next"] = float(ta.step(*batches[2]).asnumpy())
+    dist.barrier()
+    if mb.is_member:
+        tb = build(mb, {"1.weight": (None, "tp")}, 1, zeros)
+        tb.load_checkpoint(directory)
+        out["tp"] = state(tb)
+        out["tp_next"] = float(tb.step(*batches[2]).asnumpy())
+    if ma.is_member:
+        tc = build(ma, None, 3, zeros)
+        tc.load_checkpoint(directory)
+        out["dp"] = state(tc)
+        td = build(ma, None, 3, weights)
+        td.load_states(f"{directory}/states.npz")
+        out["states"] = state(td)[1]
+        out["num_update"] = td.num_update
+    return out or None
