@@ -352,12 +352,47 @@ exits non-zero and prints no result:
              launches a step, ``run_steps(4)`` one compile and one
              dispatch, no comm bytes on any axis, host ms in blocks taken
              in turns, and a checkpoint round trip bitwise.
+25. kvstore — the distributed stores and the row-sparse path at the
+             training row's widths, one rank over NCCL
+             (``kvstore.dist.init_distributed``), the eager Gluon loop
+             (``MXNET_CACHED_STEP=0``): (a) ``amp.init("bfloat16")``,
+             Adam 3e-4, ``gluon.Trainer(kvstore="dist_sync")`` (the
+             store's ZeRO-1 Adam, ``update_on_kvstore`` by default)
+             against ``kvstore="device"`` from the same weights, a warm
+             step and 10 steps each taken in turns: losses within rtol
+             1e-3 (and whether bitwise), K1-K3 8 launches a dist_sync
+             step (counts zeroed just before each, read just after) with
+             no plain call, host ms of a synced step in blocks taken in
+             turns, kernels and NCCL kernels a step (torch.profiler), and
+             with ``MXNET_CACHED_STEP=1`` no capture (the store declines
+             it); (b) 2-bit compression (threshold 0.5,
+             ``update_on_kvstore=False``), 3 steps: every reduced gradient
+             bitwise equal to the quantiser's torch ops on CPU copies of
+             the gradient and the residual, the packed bytes against f32;
+             (c) ``p3store_dist``: every write-grad parameter pushed from
+             the grad-ready hook before ``backward`` returns, losses
+             bitwise equal to (b)'s store without compression; (d) fp32,
+             the row untied with its ``embed`` an
+             ``nn.Embedding(32000, 512, sparse_grad=True)`` holding the
+             tied table (the head a copy), one ``dist_sync`` step: the
+             gradient row-sparse with nnz the batch's unique ids, the
+             lazy Adam's touched rows within rtol 1e-5 (atol 1e-8) of the
+             dense embedding's Adam step, untouched rows bitwise unchanged, a
+             second run bitwise equal, and the update's device ms (lazy
+             rows) against the dense Adam of the whole table; (e)
+             ``ShardedEmbedding(32000, 512)`` over 2 in-process parameter
+             servers: the batch's rows pulled onto the card, (d)'s
+             gradient pushed (server-side lazy SGD), host ms of each, the
+             sparse wire against the dense equivalent, a repeated batch
+             served from the hot-row cache, and a checkpoint saved at 2
+             shards restored bitwise at 3.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
 carry ``launches_gluon_train``, ``launches_ckpt``,
 ``launches_input_pipeline``, ``launches_observability``,
-``launches_distributed``, ``launches_ring_fold``, ``launches_pipeline``
-and ``launches_mesh4d``, K1 ``launches_batch_serve``); the last is
+``launches_distributed``, ``launches_ring_fold``, ``launches_pipeline``,
+``launches_mesh4d`` and ``launches_kvstore``, K1
+``launches_batch_serve``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -6112,6 +6147,400 @@ def phase_pipeline(torch, fa_mod, smi):
                 "mesh4d": m4d_counts[k]["launches"]} for k in counts}
 
 
+KV_STEPS = 10               # (a) eager steps a store, taken in turns
+KV_CHECK_STEPS = 3          # (b), (c) steps a run
+KV_TOL = 1e-3               # (a) loss rtol, dist_sync against device
+KV_SPARSE_TOL = 1e-5        # (d) touched rows, lazy against dense Adam
+KV_SPARSE_ATOL = 1e-8       # (d) beside it: weights of ~1e-2, steps ~3e-4
+KV_SHARDS = 2               # (e) in-process parameter servers
+
+
+def kv_step(mx, net, loss_fn, trainer, x, y, after_backward=None):
+    """One eager Gluon step (forward and loss recorded, ``backward``,
+    ``trainer.step``), the loss's mean read back (a synced step);
+    ``after_backward(net)`` runs between the backward and the step."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    if after_backward is not None:
+        after_backward(net)
+    trainer.step(BATCH)
+    return float(loss.mean().asscalar())
+
+
+def kv_model(torch, sparse_grad=None, seed=0):
+    """The training row's model (``train_model``'s weights); with
+    ``sparse_grad`` set, untied: its ``embed`` an ``nn.Embedding(VOCAB,
+    DIM, sparse_grad=...)`` holding the tied table and its head a copy
+    of it, so the function is the tied row's."""
+    tied = train_model(torch, seed=seed)
+    if sparse_grad is None:
+        return tied
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo import TransformerLM
+    net = TransformerLM(VOCAB, units=DIM, num_layers=LAYERS,
+                        num_heads=HEADS, max_len=SEQ, tie_weights=False)
+    net.embed = nn.Embedding(VOCAB, DIM, sparse_grad=sparse_grad)
+    net.initialize(init=initializer.Xavier(), device=DEV)
+    with torch.no_grad():
+        net(torch.zeros((1, 8), dtype=torch.int32, device=DEV))
+    src = tied.collect_params()
+    for k, p in net.collect_params().items():
+        p.set_data(src["embed.weight" if k == "head.weight" else k]
+                   ._tensor())
+    del tied
+    return net
+
+
+def kv_dense_runs(torch, mx, loss_fn, x, y, kvstore, **kw):
+    """KV_CHECK_STEPS eager steps of the row through ``gluon.Trainer
+    (kvstore, update_on_kvstore=False, **kw)``: the losses, and for each
+    step the gradients before ``step`` (CPU copies), the store's
+    residuals before it (CPU copies) and the gradients after it (the
+    reduced ones the update read)."""
+    net = kv_model(torch)
+    tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                          {"learning_rate": LR}, kvstore=kvstore,
+                          update_on_kvstore=False, **kw)
+    # (store key, parameter): the trainer's keys are its parameters' places
+    live = [(str(i), p) for i, p in enumerate(tr._params)
+            if p._grad is not None]
+    snaps, losses = [], []
+
+    def before(n):
+        comp = getattr(tr._kvstore, "_compression", None)
+        res = {} if comp is None else {
+            k: v.cpu() for k, v in comp._residuals.items()}
+        snaps.append(([(k, p.grad()._data.cpu()) for k, p in live], res))
+
+    for _ in range(KV_CHECK_STEPS):
+        losses.append(kv_step(mx, net, loss_fn, tr, x, y, before))
+        snaps[-1] += ([p.grad()._data.cpu() for _, p in live],)
+    return net, tr, live, losses, snaps
+
+
+def phase_kvstore(torch, fa_mod, smi):
+    """Phase 25: the distributed stores and the row-sparse path on the
+    card, on one rank over NCCL (see the module docstring)."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, telemetry
+    from mxnet_tpu_torch.embedding import ShardedEmbedding
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.imperative import cached_step
+    from mxnet_tpu_torch.kvstore import gradient_compression as gc2
+    from mxnet_tpu_torch.kvstore.dist import init_distributed
+    from mxnet_tpu_torch.kvstore.p3store import P3StoreDist
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    from mxnet_tpu_torch.ops import optimizer_ops
+    t0 = time.perf_counter()
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    failures = []
+    init_distributed()                 # a group of one over NCCL
+    group = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    if group != {"backend": "nccl", "world": 1}:
+        raise AssertionError(f"kvstore: expected a group of one over NCCL, "
+                             f"got {group}")
+    loss_fn = SoftmaxCrossEntropyLoss()
+    ids, labels = train_batch(torch)
+    x, y = mx.nd.array(ids), mx.nd.array(labels)
+    os.environ["MXNET_CACHED_STEP"] = "0"          # the eager loop
+    amp.init("bfloat16")
+    try:
+        # (a) dist_sync (ZeRO Adam on the store) against device, in turns
+        nets = {s: kv_model(torch) for s in ("dist_sync", "device")}
+        trs = {s: mx.gluon.Trainer(nets[s].collect_params(), "adam",
+                                   {"learning_rate": LR}, kvstore=s)
+               for s in nets}
+        steps = {s: (lambda s=s: kv_step(mx, nets[s], loss_fn, trs[s], x,
+                                         y)) for s in nets}
+        losses = {s: [steps[s]()] for s in nets}           # warm steps
+        counts = {f.__name__: {"launches": 0, "plain_calls": 0}
+                  for f in fns}
+        torch.cuda.synchronize()
+        for _ in range(KV_STEPS):
+            c = counted_call(torch, fns, lambda: losses["dist_sync"].append(
+                steps["dist_sync"]()))
+            for k, v in c.items():
+                counts[k]["launches"] += v["launches"]
+                counts[k]["plain_calls"] += v["plain_calls"]
+            losses["device"].append(steps["device"]())
+        for name, c in counts.items():
+            if c["launches"] != LAYERS * KV_STEPS or c["plain_calls"]:
+                failures.append(f"kvstore (a): {name} launched "
+                                f"{c['launches']} times in {KV_STEPS} "
+                                f"steps ({c['plain_calls']} plain)")
+        got, want = onp.asarray(losses["dist_sync"]), \
+            onp.asarray(losses["device"])
+        if not (onp.isfinite(got).all()
+                and onp.allclose(got, want, rtol=KV_TOL, atol=0)):
+            failures.append(f"kvstore (a): dist_sync losses {list(got)} "
+                            f"not within rtol {KV_TOL} of device "
+                            f"{list(want)}")
+        host = host_ms_blocks(steps, calls=5, rounds=2)
+        _, busy, _, per = profiled(torch, steps["dist_sync"], 3,
+                                   count=("nccl",))
+        os.environ["MXNET_CACHED_STEP"] = "1"
+        for _ in range(2):
+            steps["dist_sync"]()
+        capture = cached_step.trainer_state(trs["dist_sync"])
+        os.environ["MXNET_CACHED_STEP"] = "0"
+        if capture["captures"] or capture["last_reason"] != \
+                "kvstore configuration not capturable":
+            failures.append(f"kvstore (a): dist_sync step captured or "
+                            f"declined for another reason: {capture}")
+        part_a = {
+            "update_on_kvstore": trs["dist_sync"]._update_on_kvstore,
+            "losses": losses, "bitwise_equal": bool(
+                onp.array_equal(got, want)),
+            "max_rel_diff": float(onp.max(onp.abs(got - want)
+                                          / onp.abs(want))),
+            "launches": counts,
+            "launches_per_step": {k: v["launches"] / KV_STEPS
+                                  for k, v in counts.items()},
+            "host_ms": host, "device_busy_ms_dist_sync": busy,
+            "kernels_per_step_dist_sync": per["kernels"],
+            "nccl_kernels_per_step": per["nccl"],
+            "capture": {"captures": capture["captures"],
+                        "last_reason": capture["last_reason"]}}
+        emit({"phase": "kvstore", "gpu": smi, "part": "a", **part_a})
+        del nets, trs, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) 2-bit compression, update_on_kvstore=False; and without
+        thr = 0.5
+        _, ctr, live, closs, csnaps = kv_dense_runs(
+            torch, mx, loss_fn, x, y, "dist_sync",
+            compression_params={"type": "2bit", "threshold": thr})
+        bad = 0
+        for grads, res, reduced in csnaps:
+            for (k, g), r in zip(grads, reduced):
+                prev = res.get(k, torch.zeros_like(g))
+                q, _ = gc2._quantize_2bit(g, prev, torch.tensor(
+                    thr, dtype=g.dtype))
+                bad += int(not torch.equal(q, r))
+        if bad:
+            failures.append(f"kvstore (b): {bad} reduced gradients differ "
+                            f"from the quantiser on CPU copies")
+        sizes = dict(ctr._kvstore.last_compressed)
+        del ctr, live, csnaps
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, ptr, plive, ploss, _ = kv_dense_runs(torch, mx, loss_fn, x, y,
+                                                "dist_sync")
+        del ptr, plive
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) p3store_dist: pushes from the grad-ready hook
+        events = []
+        orig = P3StoreDist.pushpull
+
+        def spy(self, *a, **k):
+            events.append("push")
+            return orig(self, *a, **k)
+
+        def backward_returned(n):
+            events.append("backward returned")
+        P3StoreDist.pushpull = spy
+        try:
+            net3 = kv_model(torch)
+            tr3 = mx.gluon.Trainer(net3.collect_params(), "adam",
+                                   {"learning_rate": LR},
+                                   kvstore="p3store_dist")
+            n_write = sum(1 for p in net3.collect_params().values()
+                          if p._grad is not None and p.grad_req == "write")
+            p3loss, early = [], []
+            for i in range(KV_CHECK_STEPS):
+                events.clear()
+                p3loss.append(kv_step(mx, net3, loss_fn, tr3, x, y,
+                                      backward_returned))
+                early.append(events.index("backward returned"))
+                # the hook is installed with the store, at the first step
+                if i and (early[-1] != n_write
+                          or len(events) != n_write + 1):
+                    failures.append(
+                        f"kvstore (c): {early[-1]} of {n_write} pushes "
+                        f"before backward returned, {len(events) - 1} in "
+                        f"all")
+        finally:
+            P3StoreDist.pushpull = orig
+            mx.autograd.set_grad_ready_hook(None)
+        if p3loss != ploss:
+            failures.append(f"kvstore (c): p3 losses {p3loss} != dist_sync "
+                            f"{ploss}")
+        part_bc = {
+            "compressed_losses": closs, "plain_losses": ploss,
+            "p3_losses": p3loss, "p3_bitwise_plain": p3loss == ploss,
+            "quantiser_mismatches": bad, "threshold": thr,
+            "bytes_last_push": sizes,
+            "packed_over_f32": sizes["packed_bytes"] / sizes["dense_bytes"],
+            "p3_pushes_before_backward_returned": early,
+            "write_grad_params": n_write,
+            "p3_slice_threshold": tr3._kvstore._slice_threshold}
+        emit({"phase": "kvstore", "gpu": smi, "part": "bc", **part_bc})
+        del net3, tr3
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        amp.reset()
+        os.environ.pop("MXNET_CACHED_STEP", None)
+    # (d) fp32, the row's embed row-sparse, lazy Adam through dist_sync
+    os.environ["MXNET_CACHED_STEP"] = "0"
+    try:
+        uniq = int(torch.unique(ids).numel())
+        runs = {}
+        for name, sg in (("sparse", True), ("sparse_again", True),
+                         ("dense", False)):
+            net = kv_model(torch, sparse_grad=sg)
+            w0 = net.embed.weight._tensor().detach().clone()
+            tr = mx.gluon.Trainer(net.collect_params(), "adam",
+                                  {"learning_rate": LR},
+                                  kvstore="dist_sync")
+            grab = {}
+
+            def keep(n, grab=grab):
+                g = n.embed.weight.grad()
+                grab["grad"] = g if not sg else sp.RowSparseNDArray(
+                    g.data.clone(), g.indices.clone(), g.shape)
+            loss = kv_step(mx, net, loss_fn, tr, x, y, keep)
+            runs[name] = {"loss": loss, "w0": w0, "grad": grab["grad"],
+                          "w1": net.embed.weight._tensor().detach().clone()}
+            del net, tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        g = runs["sparse"]["grad"]
+        touched = g.indices.long()
+        mask = torch.ones(VOCAB, dtype=torch.bool, device=DEV)
+        mask[touched] = False
+        w1s, w1d, w0 = runs["sparse"]["w1"], runs["dense"]["w1"], \
+            runs["sparse"]["w0"]
+        # elementwise relative error is meaningless where a step brings a
+        # weight near 0 (cancellation): held as allclose, rtol KV_SPARSE_TOL
+        # and atol KV_SPARSE_ATOL (~10 f32 ulps of the table's entries)
+        diff = (w1s[touched] - w1d[touched]).abs()
+        rows_err = float((diff / w1d[touched].abs().clamp_min(1e-30)).max())
+        rows_abs = float(diff.max())
+        rows_ok = bool(torch.allclose(w1s[touched], w1d[touched],
+                                      rtol=KV_SPARSE_TOL,
+                                      atol=KV_SPARSE_ATOL))
+        step_max = float((w1d[touched] - w0[touched]).abs().max())
+        untouched_same = bool(torch.equal(w1s[mask], w0[mask]))
+        again = runs["sparse_again"]
+        second_bitwise = bool(
+            torch.equal(again["w1"], w1s)
+            and torch.equal(again["grad"].data, g.data)
+            and torch.equal(again["grad"].indices, g.indices))
+        dense_rows = runs["dense"]["grad"]._data[touched]
+        grad_rel = float(((g.data - dense_rows).abs().max()
+                          / dense_rows.abs().max()))
+        checks = {"nnz_is_unique_ids": g.nnz == uniq,
+                  "touched_rows_within_tol": rows_ok,
+                  "untouched_rows_bitwise": untouched_same,
+                  "second_run_bitwise": second_bitwise,
+                  "row_sparse_grad": isinstance(g, sp.RowSparseNDArray)}
+        for k, ok in checks.items():
+            if not ok:
+                failures.append(f"kvstore (d): {k} failed (nnz {g.nnz}, "
+                                f"unique {uniq}, touched rel {rows_err})")
+        # the update alone: lazy rows against the dense table
+        w = w0.clone()
+        m, v = torch.zeros_like(w), torch.zeros_like(w)
+        wn, mn, vn = (mx.nd.NDArray._wrap(t) for t in (w, m, v))
+        statics = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+                   "rescale_grad": 1.0 / BATCH}
+        lazy_ms = device_ms(torch, lambda: sp.lazy_apply(
+            "adam_update", LR, 0.0, wn, g, [mn, vn], statics))
+        gd = g.todense()._data
+        dense_ms = device_ms(torch, lambda: optimizer_ops.adam_update(
+            w, gd, m, v, lr=LR, rescale_grad=1.0 / BATCH))
+        part_d = {"dtype": "float32", "unique_ids": uniq, "nnz": g.nnz,
+                  "vocab": VOCAB, "losses": {k: r["loss"]
+                                             for k, r in runs.items()},
+                  "touched_rows_max_rel_diff": rows_err,
+                  "touched_rows_max_abs_diff": rows_abs,
+                  "dense_step_max_abs": step_max,
+                  "sparse_grad_vs_dense_rows_max_rel": grad_rel,
+                  "checks": checks, "tolerance": {"rtol": KV_SPARSE_TOL,
+                                                  "atol": KV_SPARSE_ATOL},
+                  "update_device_ms": {"lazy_adam_rows": lazy_ms,
+                                       "dense_adam_table": dense_ms}}
+        emit({"phase": "kvstore", "gpu": smi, "part": "d", **part_d})
+    finally:
+        os.environ.pop("MXNET_CACHED_STEP", None)
+    # (e) ShardedEmbedding over KV_SHARDS in-process servers
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "kv_ckpt")
+    names = ("embedding.rows_pulled", "embedding.rows_pushed",
+             "embedding.sparse_bytes", "embedding.dense_equiv_bytes",
+             "embedding.cache_hits", "comm.sparse.bytes")
+    before = {n: telemetry.counter(n).value for n in names}
+    t1 = time.perf_counter()
+    table = ShardedEmbedding("row", VOCAB, DIM, num_shards=KV_SHARDS,
+                             seed=0, hot_rows=VOCAB)
+    init_s = time.perf_counter() - t1
+    try:
+        table.set_optimizer(mx.optimizer.SGD(learning_rate=LR))
+        flat = ids.reshape(-1)
+        t1 = time.perf_counter()
+        rows = table.pull_rows(flat, device=DEV)
+        torch.cuda.synchronize()
+        pull_ms = (time.perf_counter() - t1) * 1e3
+        hits0 = telemetry.counter("embedding.cache_hits").value
+        t1 = time.perf_counter()
+        again = table.pull_rows(flat, device=DEV)
+        torch.cuda.synchronize()
+        hot_pull_ms = (time.perf_counter() - t1) * 1e3
+        hits = telemetry.counter("embedding.cache_hits").value - hits0
+        t1 = time.perf_counter()
+        table.push_grad(g.indices, g.data)
+        push_ms = (time.perf_counter() - t1) * 1e3
+        if not (rows.is_cuda and torch.equal(rows, again)
+                and rows.shape == (BATCH * SEQ, DIM) and hits == uniq):
+            failures.append(f"kvstore (e): rows on {rows.device}, hits "
+                            f"{hits} of {uniq}")
+        moved = {n: telemetry.counter(n).value - before[n] for n in names}
+        full = table.dump()
+        t1 = time.perf_counter()
+        table.save_checkpoint(root, block=True)
+        save_s = time.perf_counter() - t1
+        with ShardedEmbedding("row", VOCAB, DIM, num_shards=KV_SHARDS + 1,
+                              seed=1) as other:
+            t1 = time.perf_counter()
+            other.load_checkpoint(root)
+            load_s = time.perf_counter() - t1
+            restored = bool(onp.array_equal(other.dump(), full))
+        if not restored:
+            failures.append("kvstore (e): the table saved at 2 shards did "
+                            "not restore bitwise at 3")
+    finally:
+        table.close()
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    part_e = {"shards": KV_SHARDS, "table": [VOCAB, DIM],
+              "init_s": init_s, "host_ms": {"pull_to_card": pull_ms,
+                                            "pull_hot": hot_pull_ms,
+                                            "push_rows": push_ms},
+              "counters": moved,
+              "wire_ratio": moved["embedding.sparse_bytes"]
+              / moved["embedding.dense_equiv_bytes"],
+              "cache_hits_repeated_batch": hits, "unique_ids": uniq,
+              "checkpoint_s": {"save_2_shards": save_s,
+                               "load_3_shards": load_s},
+              "restored_bitwise_at_3": restored}
+    emit({"phase": "kvstore", "gpu": smi, "part": "e", **part_e})
+    emit({"phase": "kvstore", "gpu": smi, "part": "summary",
+          "group": group, "failures": failures,
+          "phase_s": time.perf_counter() - t0})
+    del g, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    if failures:
+        raise AssertionError(f"kvstore: {failures}")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6212,6 +6641,10 @@ def main():
         if row["name"] in pipe_counts:
             row["launches_pipeline"] = pipe_counts[row["name"]]["pipeline"]
             row["launches_mesh4d"] = pipe_counts[row["name"]]["mesh4d"]
+    kv_counts = phase_kvstore(torch, fa_mod, smi)
+    for row in kernels:                  # K1-K3 in the dist_sync steps
+        if row["name"] in kv_counts:
+            row["launches_kvstore"] = kv_counts[row["name"]]["launches"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

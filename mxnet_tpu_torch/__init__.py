@@ -20,8 +20,12 @@ fused ``ops.layernorm_residual`` kernel (``mx.nd.layer_norm_residual``)
 and ``rtc``, which compiles and launches users' CUDA C kernels; the
 ResNet ops and zoo; and the eager Gluon loop — ``gluon.Trainer`` over
 ``autograd.record``/``backward`` with the optimizer family
-(``optimizer``, its fused whole-set step), ``lr_scheduler``, the local
-``kvstore`` and ``amp`` (the policy and the loss scaler); and the input
+(``optimizer``, its fused whole-set step), ``lr_scheduler``, the kvstores
+(``kvstore``: local, ``dist_*`` over ``torch.distributed``, P3, the
+parameter server) with row-sparse gradients (``nd.sparse``,
+``Embedding(sparse_grad=True)``, the lazy updates) and the sharded
+embedding tables (``embedding``), and ``amp`` (the policy and the loss
+scaler); and the input
 pipeline — ``recordio``, ``io`` (with the native ``ImageRecordIter``,
 built from ``csrc/io`` by g++ at first use), ``image``, ``gluon.data`` and
 ``data.DevicePrefetcher``, which copies batches to the card on a side
@@ -47,10 +51,11 @@ from . import kvstore as kv  # noqa: F401
 from . import gluon, initializer, optimizer, parallel, serving  # noqa: F401
 from . import data, image, io, recordio  # noqa: F401
 from . import monitor  # noqa: F401
+from . import embedding  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray",
            "gluon", "initializer", "optimizer", "parallel", "serving",
            "tracing", "telemetry", "log", "amp", "kvstore", "kv",
            "lr_scheduler", "data", "image", "io", "recordio", "profiler",
-           "monitor"]
+           "monitor", "embedding"]

@@ -30,6 +30,18 @@ layers' ``is_training()`` — keeps MXNet's semantics on top of
   recorded raise :class:`MXNetError`.
 - ``grad`` returns gradients without touching the buffers;
   ``create_graph=True`` makes them differentiable again.
+- Row-sparse gradients: an op with a sparse backward
+  (``Embedding(sparse_grad=True)``) hands ``torch.autograd`` a sparse
+  COO gradient; a variable whose buffer is a ``RowSparseNDArray``
+  (``grad_stype="row_sparse"``) receives it as rows (``add`` merges
+  them with the buffer's), a dense buffer receives it densified, and a
+  dense gradient flowing into a row-sparse buffer raises, as in the
+  reference.
+- ``set_grad_ready_hook(hook)``: ``hook(grad_buffer)`` runs *during*
+  ``backward``, the moment a variable's gradient is final (a hook on
+  its leaf, fired by ``torch.autograd`` before the earlier layers'
+  gradients are computed), with recording off — P3's overlap of the
+  gradient's push with the rest of the backward.
 - ``Function`` is MXNet's custom differentiable function, with
   ``forward``/``backward`` on NDArrays, over ``torch.autograd.Function``.
 """
@@ -45,7 +57,8 @@ from .imperative import cached_step as _cached_step
 
 __all__ = ["is_training", "set_training", "is_recording", "set_recording",
            "record", "train_mode", "predict_mode", "pause",
-           "mark_variables", "backward", "grad", "Function"]
+           "mark_variables", "backward", "grad", "Function",
+           "set_grad_ready_hook"]
 
 _state = threading.local()
 
@@ -59,6 +72,14 @@ _GRAD_REQS = ("write", "add", "null")
 
 def is_training() -> bool:
     return getattr(_state, "training", False)
+
+
+def set_grad_ready_hook(hook) -> None:
+    """Install (or clear, with None) the grad-ready hook of this thread's
+    ``backward``: ``hook(grad_buffer)`` runs during the backward, as soon
+    as a variable's gradient is final and in its buffer (parity:
+    ``mxnet_tpu/autograd.py:57``)."""
+    _state.grad_ready_hook = hook
 
 
 def set_training(flag: bool) -> bool:
@@ -197,21 +218,33 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
                  if v._grad_req != "null" and v._leaf.requires_grad]
     if not variables:
         return
-    with _Scope(train_mode):
-        grads = torch.autograd.grad(
-            outs, [v._leaf for v in variables], seeds,
-            retain_graph=retain_graph, create_graph=create_graph,
-            allow_unused=True)
+    for v in variables:
+        if not _is_rsp(v._grad):
+            _cached_step.ensure_real(v._grad)
+    hook = getattr(_state, "grad_ready_hook", None)
+    early, handles = set(), []
+    if hook is not None and not create_graph:
+        # each leaf's hook fires once its gradient is summed, while the
+        # backward of earlier layers is still to run
+        for v in variables:
+            handles.append(v._leaf.register_hook(
+                _early_delivery(v, hook, early)))
+    try:
+        with _Scope(train_mode):
+            grads = torch.autograd.grad(
+                outs, [v._leaf for v in variables], seeds,
+                retain_graph=retain_graph, create_graph=create_graph,
+                allow_unused=True)
+    finally:
+        for h in handles:
+            h.remove()
     delivered = []
     for v, g in zip(variables, grads):
         if g is None:                   # not reachable from the heads
             continue
-        if not create_graph:
-            g = g.detach()
-        buf = v._grad
-        _cached_step.ensure_real(buf)
-        buf._data = buf._data + g if v._grad_req == "add" else g
         delivered.append(v)
+        if id(v) not in early:
+            _deliver(v, g if create_graph else g.detach())
     if not retain_graph:                # the recorded graph is spent
         for v in variables:
             if v._data is not v._leaf:
@@ -219,6 +252,45 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
     if not create_graph:
         _cached_step.note_backward(heads, head_grads, train_mode,
                                    retain_graph, delivered)
+
+
+def _is_rsp(buf) -> bool:
+    from .ndarray.sparse import RowSparseNDArray
+    return isinstance(buf, RowSparseNDArray)
+
+
+def _deliver(v, g: torch.Tensor) -> None:
+    """Write gradient ``g`` into variable ``v``'s buffer under its
+    ``grad_req``: rows into a row-sparse buffer (``add`` merges), the
+    dense value into a dense one."""
+    from .ndarray import sparse
+    buf = v._grad
+    if _is_rsp(buf):
+        if not g.is_sparse:
+            raise MXNetError(
+                "parameter has grad_stype='row_sparse' but a dense "
+                "gradient flowed into it; only ops with a sparse "
+                "backward (Embedding(sparse_grad=True)) may feed a "
+                "row_sparse grad buffer")
+        rsp = sparse.rsp_from_coo(g)
+        if v._grad_req == "add" and buf.nnz:
+            rsp = sparse.merge(buf, rsp)
+        buf.data, buf.indices = rsp.data, rsp.indices
+        return
+    if g.is_sparse:
+        g = sparse.rsp_from_coo(g).todense()._data
+    buf._data = buf._data + g if v._grad_req == "add" else g
+
+
+def _early_delivery(v, hook, early):
+    """The leaf hook of :func:`set_grad_ready_hook`: deliver ``v``'s
+    gradient and run the user's hook on its buffer, recording off."""
+    def fire(g):
+        _deliver(v, g.detach())
+        early.add(id(v))
+        with _Scope(recording=False):
+            hook(v._grad)
+    return fire
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -249,6 +321,10 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
         if g is None:
             raise MXNetError("one of the variables is not differentiably "
                              "connected to the heads")
+        if g.is_sparse:                 # a row-sparse cotangent
+            from .ndarray.sparse import rsp_from_coo
+            results.append(rsp_from_coo(g.detach()))
+            continue
         results.append(NDArray._wrap(g if create_graph else g.detach()))
     return results[0] if single else results
 

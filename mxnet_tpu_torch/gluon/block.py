@@ -298,7 +298,7 @@ class Block(torch.nn.Module):
         """Every parameter under its ``collect_params()`` name, through
         ``nd.save`` (its codec: ``MXNET_NDARRAY_SAVE_FORMAT``)."""
         from ..ndarray import save as nd_save
-        nd_save(filename, {k: p.data()
+        nd_save(filename, {k: p._reduce()
                            for k, p in self.collect_params().items()})
 
     def load_parameters(self, filename: str, ctx=None, allow_missing=False,
@@ -437,7 +437,21 @@ class HybridBlock(Block):
                   **kwargs):
         """Capture the forward from the next call on (``active``), or stop;
         drops every captured signature.  ``static_alloc`` and
-        ``static_shape`` are the reference's; a CUDA graph is both."""
+        ``static_shape`` are the reference's; a CUDA graph is both.  A
+        block holding ``grad_stype='row_sparse'`` parameters refuses to
+        hybridize (its sparse gradients need the eager backward): it
+        raises here, at configuration time."""
+        if active:
+            sparse = [name for name, p in self.collect_params().items()
+                      if getattr(p, "_grad_stype", "default")
+                      == "row_sparse"]
+            if sparse:
+                raise MXNetError(
+                    f"cannot hybridize a block holding "
+                    f"grad_stype='row_sparse' parameters {sparse}: "
+                    "sparse gradients need the eager (non-hybridized) "
+                    "backward; keep the embedding un-hybridized or use "
+                    "sparse_grad=False")
         self._active = bool(active)
         self._cached_graphs.clear()
         self._sig_budget = None

@@ -124,21 +124,27 @@ class Dropout(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """Rows of a ``(input_dim, output_dim)`` table at integer ids."""
+    """Rows of a ``(input_dim, output_dim)`` table at integer ids.  With
+    ``sparse_grad=True`` the weight's gradient is row-sparse (its buffer
+    a ``RowSparseNDArray`` of the batch's unique ids, no dense (vocab,
+    dim) gradient built), and the optimizers update only those rows
+    (their lazy updates); such a block cannot be hybridized."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
-        if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True) is not ported "
-                             "yet")
         self._input_dim = input_dim
         self._output_dim = output_dim
-        self.weight = Parameter(shape=(input_dim, output_dim), dtype=dtype,
-                                init=weight_initializer)
+        self._sparse_grad = bool(sparse_grad)
+        self.weight = Parameter(
+            shape=(input_dim, output_dim), dtype=dtype,
+            init=weight_initializer,
+            grad_stype="row_sparse" if sparse_grad else "default")
 
     def forward(self, x):
-        return tensor_ops.embedding(x, self.weight._tensor())
+        fn = tensor_ops.sparse_embedding if self._sparse_grad \
+            else tensor_ops.embedding
+        return fn(x, self.weight._tensor())
 
     def __repr__(self):
         return f"Embedding({self._input_dim} -> {self._output_dim})"

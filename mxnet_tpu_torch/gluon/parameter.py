@@ -18,12 +18,21 @@ same tensor, and ``grad()`` its gradient buffer, an NDArray that
 ``set_data`` keep the variable and its buffer in step with the value.
 The captured trainer (``SPMDTrainer``) takes its gradients from
 ``torch.autograd`` itself and never reads the buffer.
+
+``grad_stype="row_sparse"`` makes the buffer a ``RowSparseNDArray``
+(``nn.Embedding(sparse_grad=True)`` sets it), which ``backward`` fills
+with the batch's rows.  ``stype="row_sparse"`` guards the access
+pattern of a table kept in a store: ``data()`` raises and
+``row_sparse_data(row_ids)`` returns the rows asked for, pulled from
+the kvstore of a trainer with a distributed store
+(``Trainer._row_sparse_pull``), else read from the local value.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Optional
 
+import numpy as onp
 import torch
 
 from .. import autograd as ag
@@ -67,10 +76,19 @@ class Parameter:
     def __init__(self, name: str = "weight", grad_req: str = "write",
                  shape=None, dtype="float32", lr_mult: float = 1.0,
                  wd_mult: float = 1.0, init=None, allow_deferred_init=False,
-                 aux_state: bool = False):
+                 differentiable=True, stype="default",
+                 grad_stype="default", aux_state: bool = False):
         if grad_req not in _GRAD_REQS:
             raise MXNetError(f"grad_req must be one of {_GRAD_REQS}, got "
                              f"{grad_req!r}")
+        if stype not in ("default", "row_sparse", "csr"):
+            raise MXNetError(f"invalid parameter stype {stype!r}")
+        if grad_stype not in ("default", "row_sparse", "csr"):
+            raise MXNetError(f"invalid parameter grad_stype {grad_stype!r}")
+        if not differentiable:
+            grad_req = "null"
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._name = name
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = torch_dtype(dtype)
@@ -182,7 +200,16 @@ class Parameter:
         if self.grad_req == "null":
             self._grad = None
             return
-        self._grad = NDArray._wrap(torch.zeros_like(self._data.detach()))
+        if self._grad_stype == "row_sparse":
+            # filled by ops with a sparse backward: starts with no row
+            from ..ndarray.sparse import RowSparseNDArray
+            t = self._data.detach()
+            self._grad = RowSparseNDArray(
+                t.new_zeros((0,) + tuple(t.shape[1:])),
+                torch.zeros((0,), dtype=torch.int32, device=t.device),
+                tuple(t.shape))
+        else:
+            self._grad = NDArray._wrap(torch.zeros_like(self._data.detach()))
         ag.mark_variables([self._nd], [self._grad], self.grad_req)
 
     # -- access ------------------------------------------------------------
@@ -210,7 +237,14 @@ class Parameter:
     def data(self, ctx=None):
         """The value as an NDArray over :meth:`_tensor` (the autograd
         variable).  A parameter lives on one device, so ``ctx`` selects
-        nothing, as in the reference."""
+        nothing, as in the reference.  A ``row_sparse`` parameter raises:
+        read it through :meth:`row_sparse_data`."""
+        if self._stype == "row_sparse":
+            self._check_initialized()
+            raise MXNetError(
+                f"cannot return a copy of parameter '{self.name}' via "
+                "data() because its storage type is 'row_sparse'; use "
+                "row_sparse_data(row_id) instead")
         if self._override is not None:
             from ..ndarray.ndarray import NDArray
             return NDArray._wrap(self._override)
@@ -241,6 +275,49 @@ class Parameter:
     def list_data(self):
         return [self.data()]
 
+    def row_sparse_data(self, row_id):
+        """The rows ``row_id`` of a ``row_sparse`` parameter, as a
+        ``RowSparseNDArray`` (duplicates dropped, sorted).  With a
+        trainer whose kvstore is distributed, only those rows are pulled
+        from the store (which holds the weights) and written into the
+        local value; otherwise they are read from the local value."""
+        from ..ndarray.sparse import RowSparseNDArray
+        if self._stype != "row_sparse":
+            raise MXNetError(
+                f"cannot return parameter '{self.name}' via "
+                f"row_sparse_data() because its storage type is "
+                f"'{self._stype}'; use data() instead")
+        self._check_initialized()
+        rid = row_id.asnumpy() if hasattr(row_id, "asnumpy") else row_id
+        rows = onp.unique(onp.asarray(rid, onp.int64).reshape(-1))
+        n = self._data.shape[0]
+        if len(rows) and (rows[0] < 0 or rows[-1] >= n):
+            raise MXNetError(
+                f"row_sparse_data: row ids out of range for parameter "
+                f"'{self.name}' with {n} rows")
+        tr = self._trainer
+        if tr is not None:
+            # the trainer's configuration, not its store: before the
+            # first step the store is not made yet, and the local value
+            # would be stale rows
+            kvconf = tr._kvstore_params.get("kvstore")
+            want_dist = tr._distributed or \
+                (isinstance(kvconf, str) and kvconf.startswith("dist")) \
+                or "dist" in getattr(kvconf, "type", "")
+            if want_dist:
+                return tr._row_sparse_pull(self, rows)
+        idx = torch.as_tensor(rows, device=self._data.device)
+        return RowSparseNDArray(self._data.detach().index_select(0, idx),
+                                idx, tuple(self._data.shape))
+
+    def list_row_sparse_data(self, row_id):
+        return [self.row_sparse_data(row_id)]
+
+    def _reduce(self):
+        """The whole value whatever the stype (what saving reads)."""
+        self._check_initialized()
+        return self._nd
+
     def list_ctx(self):
         """The contexts holding the value: the one device's."""
         self._check_initialized()
@@ -259,8 +336,13 @@ class Parameter:
 
     def zero_grad(self):
         """Set the gradient buffer to zeros (a new tensor, as the
-        reference rebinds its buffer)."""
-        if self._grad is not None:
+        reference rebinds its buffer); a row-sparse buffer keeps no
+        row."""
+        from ..ndarray.sparse import RowSparseNDArray
+        if isinstance(self._grad, RowSparseNDArray):
+            self._grad.data = self._grad.data[:0]
+            self._grad.indices = self._grad.indices[:0]
+        elif self._grad is not None:
             self._grad._data = torch.zeros_like(self._grad._data)
 
     def set_data(self, data):
@@ -355,7 +437,7 @@ class ParameterDict(OrderedDict):
         from ..ndarray import save as nd_save
         nd_save(filename, {
             (k[len(strip_prefix):] if k.startswith(strip_prefix) else k):
-                p.data() for k, p in self.items()})
+                p._reduce() for k, p in self.items()})
 
     def load(self, filename, ctx=None, allow_missing=False,
              ignore_extra=False, restore_prefix=""):

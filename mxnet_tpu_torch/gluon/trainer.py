@@ -32,12 +32,27 @@ fused update over the dp width of ``parallel.default_mesh``
 (``optimizer.fused_step``: ZeRO-1; every rank runs the same step on the
 same batch and updates its chunk of the flattened weights and states);
 with no process group of more than one rank the width is 1 and nothing
-changes.  The distributed stores are not ported yet (queue 1 item 11c).
+changes.
+
+With a distributed store (``"dist_sync"``, ``"dist_device_sync"``,
+``"dist_async"``: ``kvstore/dist.py``) ``update_on_kvstore`` defaults
+to true (``MXNET_UPDATE_ON_KVSTORE`` overrides it): one pushpull a step
+carries every gradient and the store's optimizer (ZeRO-1 over the
+ranks) returns the weights.  ``compression_params`` (``{"type":
+"2bit", "threshold": t}``) go to the store.  ``"p3store_dist"`` takes
+no server-side optimizer; its pushpulls are dispatched during the
+backward by a grad-ready hook (``autograd.set_grad_ready_hook``), one a
+``write`` parameter, and ``step`` pushes only the rest.  A parameter
+with ``stype="row_sparse"`` reads its rows through
+``_row_sparse_pull``.  A step through any store but a single-process
+one is not captured.
 """
 from __future__ import annotations
 
 import os
 from typing import List
+
+import torch
 
 from .. import optimizer as opt_mod
 from .. import telemetry, tracing
@@ -63,9 +78,7 @@ class Trainer:
                                  f"got {type(param)}")
             param._trainer = self
             self._params.append(param)
-        if compression_params:
-            raise MXNetError("gradient compression is not ported yet "
-                             "(distribution, queue 1 item 11c)")
+        self._compression_params = compression_params
         self._scale = 1.0
         self._init_optimizer(optimizer, optimizer_params or {})
         self._kvstore_params = {"kvstore": kvstore,
@@ -73,6 +86,7 @@ class Trainer:
         self._kv_initialized = False
         self._kvstore = None
         self._update_on_kvstore = None
+        self._distributed = False
         self._zero = zero
         cached_step.register_trainer(self)
 
@@ -106,6 +120,7 @@ class Trainer:
         else:
             from .. import kvstore as kv_mod
             self._kvstore = kv_mod.create(kv) if isinstance(kv, str) else kv
+            self._distributed = "dist" in getattr(self._kvstore, "type", "")
             uok = config["update_on_kvstore"]
             if uok is None:
                 env = os.environ.get("MXNET_UPDATE_ON_KVSTORE")
@@ -117,16 +132,70 @@ class Trainer:
                             f"invalid MXNET_UPDATE_ON_KVSTORE={env!r}; "
                             f"expected an integer") from None
                 else:
-                    uok = False        # single process: update locally
+                    # the distributed stores run the optimizer; a single
+                    # process updates locally
+                    uok = self._distributed and \
+                        self._kvstore.has_capability("optimizer")
             if uok and not self._kvstore.has_capability("optimizer"):
                 uok = False
+            if getattr(self._kvstore, "type", "") == "p3store_dist":
+                # P3 propagates gradients only: updates stay here
+                if config["update_on_kvstore"]:
+                    raise MXNetError(
+                        "p3store_dist has no server-side optimizer "
+                        "path; use update_on_kvstore=False")
+                uok = False
             self._update_on_kvstore = uok
+            if self._compression_params:
+                self._kvstore.set_gradient_compression(
+                    self._compression_params)
             for i, p in enumerate(self._params):
                 if p._data is not None:
                     self._kvstore.init(str(i), p._data_nd())
             if self._update_on_kvstore:
                 self._kvstore.set_optimizer(self._optimizer)
+            self._maybe_install_p3_hook()
         self._kv_initialized = True
+
+    def _maybe_install_p3_hook(self):
+        """With a P3 store, a grad-ready hook dispatches each ``write``
+        parameter's sliced pushpull the moment its gradient is final,
+        during the backward (``mxnet_tpu/gluon/trainer.py:137-186``);
+        ``step`` then skips those parameters.  A parameter with
+        ``grad_req="add"`` keeps its one push in ``step`` (a push a
+        backward would reduce earlier micro-batches again)."""
+        from ..kvstore.p3store import P3StoreDist
+        if not isinstance(self._kvstore, P3StoreDist) or \
+                self._update_on_kvstore:
+            return
+        import weakref
+
+        from .. import autograd as ag
+        self._p3_pushed = set()
+        buf2idx = {id(p._grad): (i, p) for i, p in enumerate(self._params)
+                   if p._grad is not None and p.grad_req == "write"}
+        self_ref = weakref.ref(self)
+
+        def _p3_hook(buf):
+            trainer = self_ref()
+            if trainer is None:
+                ag.set_grad_ready_hook(None)      # the owner is gone
+                return
+            ent = buf2idx.get(id(buf))
+            if ent is None:
+                return
+            i, p = ent
+            if p._grad is not buf:
+                return        # a new buffer: the id may be another's
+            if p._trainer is not trainer:
+                ag.set_grad_ready_hook(None)      # a newer trainer owns it
+                return
+            # priority -i: the layers the next forward needs first
+            trainer._kvstore.pushpull(str(i), p.grad(), out=p.grad(),
+                                      priority=-i)
+            trainer._p3_pushed.add(i)
+
+        ag.set_grad_ready_hook(_p3_hook)
 
     @property
     def learning_rate(self):
@@ -138,11 +207,20 @@ class Trainer:
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
+        self._reship_server_optimizer()
+
+    def _reship_server_optimizer(self):
+        """The uncoordinated parameter server holds its own copy of the
+        optimizer: send it again when a host-side setting changes."""
+        if self._kv_initialized and self._update_on_kvstore and \
+                getattr(self._kvstore, "_uncoordinated", False):
+            self._kvstore.set_optimizer(self._optimizer)
 
     def _set_rescale(self, batch_size):
         new_rescale = self._scale / batch_size
         if new_rescale != self._optimizer.rescale_grad:
             self._optimizer.rescale_grad = new_rescale
+            self._reship_server_optimizer()
 
     # -- the step (``mxnet_tpu/gluon/trainer.py:214-267``) -------------------
     def step(self, batch_size, ignore_stale_grad=False):
@@ -172,7 +250,8 @@ class Trainer:
         """True when the reduction folds into the update: a
         single-process store reduces each key over one pushed value, an
         identity, so the fused update reads ``param.grad()`` itself."""
-        if self._kvstore is None or self._update_on_kvstore:
+        if self._kvstore is None or self._update_on_kvstore or \
+                self._compression_params:
             return False
         from ..kvstore.kvstore import KVStore
         from ..optimizer import fused_step
@@ -186,8 +265,28 @@ class Trainer:
     def _allreduce_grads(self):
         """One pushpull for every live parameter: the reduced gradient
         back into its buffer, or, updating on the store, the updated
-        weight into the parameter."""
+        weight into the parameter.  P3 and the adapters take one key a
+        call (P3 schedules its own slices; an adapter reads a list as
+        one key's replicas), skipping what the grad-ready hook pushed."""
         if self._kvstore is None:
+            return
+        from ..kvstore.dist import DistKVStore
+        from ..kvstore.kvstore import KVStore
+        from ..kvstore.p3store import P3StoreDist
+        if isinstance(self._kvstore, P3StoreDist) or \
+                not isinstance(self._kvstore, (KVStore, DistKVStore)):
+            pushed = getattr(self, "_p3_pushed", None)
+            for i, param in enumerate(self._params):
+                if param.grad_req == "null" or param._grad is None:
+                    continue
+                if pushed is not None and i in pushed:
+                    continue
+                out = (param._data_nd() if self._update_on_kvstore
+                       else param.grad())
+                self._kvstore.pushpull(str(i), param.grad(), out=out,
+                                       priority=-i)
+            if pushed is not None:
+                pushed.clear()
             return
         keys, grads, outs = [], [], []
         for i, param in enumerate(self._params):
@@ -244,6 +343,37 @@ class Trainer:
         else:
             for i, param in live:
                 updater(i, param.grad(), param._data_nd())
+
+    # -- row-sparse parameters (``mxnet_tpu/gluon/trainer.py:378-410``) -----
+    def _row_sparse_pull(self, param, row_ids):
+        """Pull only ``row_ids`` rows of ``param`` from the store (which
+        holds the weights: ``update_on_kvstore`` is required) and write
+        them into the parameter's value; returns the
+        ``RowSparseNDArray``."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if not self._update_on_kvstore:
+            raise MXNetError(
+                "sparse parameters need update_on_kvstore=True (the "
+                "store must hold the authoritative weights to pull "
+                "rows from)")
+        if not hasattr(self._kvstore, "row_sparse_pull"):
+            raise MXNetError(
+                f"kvstore {getattr(self._kvstore, 'type', '?')!r} has "
+                "no row_sparse_pull")
+        try:
+            i = self._params.index(param)
+        except ValueError:
+            raise MXNetError("parameter is not managed by this "
+                             "trainer") from None
+        rsp = self._kvstore.row_sparse_pull(str(i), row_ids=row_ids)
+        if isinstance(rsp, list):
+            rsp = rsp[0]
+        t = param._data
+        with torch.no_grad():
+            t.index_copy_(0, rsp.indices.long().to(t.device),
+                          rsp.data.to(t.device, t.dtype))
+        return rsp
 
     # -- optimizer state (the reference's npz blob) --------------------------
     def _device(self):

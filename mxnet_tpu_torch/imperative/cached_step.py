@@ -1177,6 +1177,8 @@ def _build_structure(obs, trainer, ignore_stale_grad):
             continue
         if p.grad_req != "write":
             return None, "grad_req != 'write'"
+        if getattr(p._grad, "stype", "default") == "row_sparse":
+            return None, "row_sparse gradient"
         if id(t) in leaf_src:
             return None, "parameters share one graph node"
         if id(p._nd) not in delivered:

@@ -7,7 +7,13 @@ reference's update on the store) a push to a key that holds a weight
 updates that weight instead, through the fused whole-set step for a
 push of several keys, else one key at a time.  ``pull`` copies a key's
 value into each ``out`` in place, so a Gluon parameter pulled into keeps
-the tensor its layers read.  ``init`` keeps a copy of each value."""
+the tensor its layers read.  ``init`` keeps a copy of each value.
+
+Row-sparse values (``RowSparseNDArray``) stay sparse: a list of them is
+summed by ``ndarray.sparse.reduce_list`` at nnz cost, the store's
+optimizer applies its lazy update, and each push ticks the
+``embedding.*`` counters.  ``row_sparse_pull`` returns only the rows
+asked for."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -35,6 +41,38 @@ def _as_list(v):
     return list(v) if isinstance(v, (list, tuple)) else [v]
 
 
+def _is_rsp(v) -> bool:
+    return getattr(v, "stype", "default") == "row_sparse"
+
+
+def _dense(v):
+    """A row-sparse value made dense; any other value as it is."""
+    return v.todense() if _is_rsp(v) else v
+
+
+def _dense_bytes(rsp) -> int:
+    import numpy as onp
+    return int(onp.prod(rsp.shape)) * rsp.data.element_size()
+
+
+def _row_ids(r):
+    """Row ids (an NDArray, tensor, array or list) sorted, each once, as
+    int64 numpy."""
+    import numpy as onp
+    if hasattr(r, "asnumpy"):
+        r = r.asnumpy()
+    elif isinstance(r, torch.Tensor):
+        r = r.cpu().numpy()
+    return onp.unique(onp.asarray(r, onp.int64).reshape(-1))
+
+
+def _count_rows(rows_counter, rows, sparse_bytes, dense_bytes) -> None:
+    """The ``embedding.*`` counters of one row-sparse store exchange."""
+    telemetry.counter(rows_counter).inc(int(rows))
+    telemetry.counter("embedding.sparse_bytes").inc(int(sparse_bytes))
+    telemetry.counter("embedding.dense_equiv_bytes").inc(int(dense_bytes))
+
+
 @KVStoreBase.register
 class KVStore(KVStoreBase):
     """The store of ``create("local" | "device")``."""
@@ -44,6 +82,7 @@ class KVStore(KVStoreBase):
         self._data: Dict[Any, Any] = {}
         self._updater = None
         self._optimizer = None
+        self._compression = None
 
     @staticmethod
     def is_capable(capability: str) -> bool:
@@ -51,12 +90,17 @@ class KVStore(KVStoreBase):
 
     @staticmethod
     def _reduce(value):
-        """The sum of a list of values (a new NDArray), or the value."""
+        """The sum of a list of values (a new NDArray, or a row-sparse
+        array when every value is one), or the value."""
         from ..ndarray.ndarray import NDArray
         if isinstance(value, (list, tuple)):
+            if all(_is_rsp(v) for v in value):
+                from ..ndarray.sparse import reduce_list
+                return reduce_list(list(value))
             with torch.no_grad():
-                acc = value[0]._data
-                for v in value[1:]:
+                dense = [_dense(v) for v in value]
+                acc = dense[0]._data
+                for v in dense[1:]:
                     acc = acc + v._data.to(acc.device)
             return NDArray._wrap(acc)
         return value
@@ -64,7 +108,8 @@ class KVStore(KVStoreBase):
     def init(self, key, value):
         from ..ndarray.ndarray import NDArray
         for k, v in zip(_as_list(key), _as_list(value)):
-            self._data[k] = NDArray._wrap(v._data.detach().clone())
+            self._data[k] = v.copy() if _is_rsp(v) else \
+                NDArray._wrap(v._data.detach().clone())
 
     @staticmethod
     def _keyed(key, value):
@@ -89,12 +134,16 @@ class KVStore(KVStoreBase):
         for k, v in zip(*self._keyed(key, value)):
             reduced = self._reduce(v)
             telemetry.record_comm_bytes(payload_nbytes(reduced), "local")
+            if _is_rsp(reduced):
+                # row-sparse store traffic is the sparse-embedding path
+                _count_rows("embedding.rows_pushed", reduced.nnz,
+                            payload_nbytes(reduced), _dense_bytes(reduced))
             if self._updater is None:
                 self._data[k] = reduced
             elif k in self._data:
                 batch.append((k, reduced))
             else:                      # the first push of a key: a weight
-                self.init(k, reduced)
+                self.init(k, _dense(reduced))
         if batch:
             self._apply_updates(batch)
 
@@ -117,10 +166,56 @@ class KVStore(KVStoreBase):
         for k, o in zip(keys, outs):
             if k not in self._data:
                 raise MXNetError(f"kvstore: key {k!r} was never initialized")
-            val = self._data[k]._data
+            val = self._data[k]
             for t in _as_list(o):
-                if t is not None:
-                    t._data.copy_(val)
+                if t is None:
+                    continue
+                if _is_rsp(t):          # a row-sparse out takes the rows
+                    val.copyto(t)
+                else:
+                    t._data.copy_(_dense(val)._data)
+        return out
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """The rows ``row_ids`` of each key as a ``RowSparseNDArray``
+        (``mxnet_tpu/kvstore/kvstore.py:164-207``): into each ``out``
+        (filled in place) or returned.  Each out slot may take its own
+        row ids."""
+        from ..ndarray.sparse import RowSparseNDArray
+        if row_ids is None:
+            raise MXNetError("row_sparse_pull requires row_ids")
+        keys = _as_list(key)
+        if out is not None and not isinstance(out, (list, tuple)) \
+                and len(keys) > 1:
+            raise MXNetError("row_sparse_pull: multiple keys need one "
+                             "out buffer per key")
+        outs = (out if isinstance(out, (list, tuple))
+                else [out] * len(keys))
+        rids = row_ids if isinstance(row_ids, (list, tuple)) else [row_ids]
+        if len(rids) == 1 and len(keys) > 1:
+            rids = rids * len(keys)
+        if not (len(keys) == len(outs) == len(rids)):
+            raise MXNetError("row_sparse_pull: keys/out/row_ids length "
+                             "mismatch")
+        results = []
+        for k, o, r in zip(keys, outs, rids):
+            dense = _dense(self._data[k])._data
+            ridx = _row_ids(r)
+            if len(ridx) and (ridx[0] < 0 or ridx[-1] >= dense.shape[0]):
+                raise MXNetError(
+                    f"row_sparse_pull: row_ids out of range for key "
+                    f"{k!r} with {dense.shape[0]} rows")
+            idx = torch.as_tensor(ridx, device=dense.device)
+            rsp = RowSparseNDArray(dense.index_select(0, idx), idx,
+                                   tuple(dense.shape))
+            _count_rows("embedding.rows_pulled", len(ridx),
+                        payload_nbytes(rsp),
+                        dense.numel() * dense.element_size())
+            if o is not None:
+                rsp.copyto(o)
+            results.append(rsp)
+        if out is None:
+            return results[0] if len(results) == 1 else results
         return out
 
     def pushpull(self, key, value, out=None, priority=0):
@@ -151,6 +246,12 @@ class KVStore(KVStoreBase):
         from .. import optimizer as opt_mod
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
+
+    def set_gradient_compression(self, compression_params):
+        """Kept for the distributed stores' protocol: one process moves
+        nothing over a wire, so the local store compresses nothing."""
+        from .gradient_compression import GradientCompression
+        self._compression = GradientCompression(**compression_params)
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._updater is None:

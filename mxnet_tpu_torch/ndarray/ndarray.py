@@ -93,6 +93,8 @@ class NDArray:
 
     __slots__ = ("_data", "_grad", "_grad_req", "_leaf", "__weakref__")
 
+    stype = "default"
+
     def __init__(self, data, ctx: Optional[Context] = None, dtype=None):
         self._data = _as_torch(data, ctx, dtype)
         self._grad, self._grad_req, self._leaf = None, "null", None
@@ -157,8 +159,9 @@ class NDArray:
     def grad(self) -> Optional["NDArray"]:
         return self._grad
 
-    def attach_grad(self, grad_req: str = "write"):
-        """Allocate a zero gradient buffer and make this a variable."""
+    def attach_grad(self, grad_req: str = "write", stype=None):
+        """Allocate a zero gradient buffer and make this a variable
+        (``stype`` is accepted and, as in the reference, unused)."""
         buf = NDArray._wrap(torch.zeros_like(self._data.detach()))
         ag.mark_variables([self], [buf], grad_req)
 
@@ -214,6 +217,12 @@ class NDArray:
         if not copy and self._data.dtype == torch_dtype(dtype):
             return self
         return invoke("cast", [self], dtype=dtype_name(dtype))
+
+    def tostype(self, stype: str):
+        """This array in storage ``stype`` (``"default"``,
+        ``"row_sparse"`` or ``"csr"``: ``ndarray.sparse.cast_storage``)."""
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     def copy(self) -> "NDArray":
         ensure_real(self)

@@ -1,9 +1,16 @@
 """Tensor ops (counterpart of part of ``mxnet_tpu/ops/tensor.py`` and
 of the scalar ops of ``mxnet_tpu/ops/legacy.py``).  Plain PyTorch.
 
-``dot``, ``pick`` and ``embedding`` are functions on tensors that the
-Gluon training path calls.  The registered ops below are what ``mx.nd``
-and the NDArray operators reach through the registry: the binary ops
+``dot``, ``pick``, ``embedding`` and ``sparse_embedding`` are functions
+on tensors that the Gluon training path calls.  ``sparse_embedding``
+(``Embedding(sparse_grad=True)``, the registered ``Embedding`` op with
+``sparse_grad``) hands ``torch.autograd`` the weight's gradient as a
+coalesced sparse COO tensor — the batch's unique ids, sorted, and their
+rows of the output gradient summed in a fixed order
+(``ndarray.sparse.segment_sum``) — so no dense (vocab, dim) gradient is
+built; ``autograd.backward`` turns it into a ``RowSparseNDArray``.
+The registered ops below are what ``mx.nd`` and the NDArray operators
+reach through the registry: the binary ops
 with their ``broadcast_*`` aliases, the ``*_scalar`` ops of the operator
 sugar, the unary ops, the reductions, ``cast``, ``flatten``,
 ``reshape`` and ``zeros_like``/``ones_like``.
@@ -17,8 +24,8 @@ import torch
 from ..base import MXNetError, dtype_name, torch_dtype
 from .registry import register
 
-__all__ = ["dot", "pick", "embedding", "IdCheck", "cast", "flatten",
-           "float_only"]
+__all__ = ["dot", "pick", "embedding", "sparse_embedding", "IdCheck",
+           "cast", "flatten", "float_only"]
 
 
 @register("dot")
@@ -126,6 +133,46 @@ def embedding(data, weight):
             if lo < 0 or hi >= vocab:
                 _raise_out_of_range(lo, hi, vocab)
     return weight[idx]
+
+
+class _SparseEmbedding(torch.autograd.Function):
+    """:func:`embedding` whose weight gradient is row-sparse
+    (``mxnet_tpu/ops/tensor.py:570-600``): the cotangent's rows summed
+    by id, as a coalesced sparse COO tensor of the weight's shape."""
+
+    @staticmethod
+    def forward(ctx, data, weight):
+        ctx.save_for_backward(data)
+        ctx.weight_shape = tuple(weight.shape)
+        return embedding(data, weight)
+
+    @staticmethod
+    def backward(ctx, ct):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        from ..ndarray.sparse import segment_sum
+        (data,) = ctx.saved_tensors
+        shape = ctx.weight_shape
+        ids = data.reshape(-1).long().clamp(0, shape[0] - 1)
+        rows, vals = segment_sum(ct.reshape(ids.numel(), *shape[1:]), ids)
+        return None, torch.sparse_coo_tensor(
+            rows[None], vals, shape, is_coalesced=True,
+            check_invariants=False)
+
+
+def sparse_embedding(data, weight):
+    """:func:`embedding` with a row-sparse weight gradient."""
+    if not (torch.is_grad_enabled() and weight.requires_grad):
+        return embedding(data, weight)
+    return _SparseEmbedding.apply(data, weight)
+
+
+@register("Embedding")
+def _embedding_op(data, weight, *, input_dim=None, output_dim=None,
+                  dtype=None, sparse_grad=False):
+    """``mx.nd.Embedding``: rows of ``weight`` at ``data``; with
+    ``sparse_grad`` the weight's gradient is row-sparse."""
+    return (sparse_embedding if sparse_grad else embedding)(data, weight)
 
 
 # --------------------------------------------------------------------------

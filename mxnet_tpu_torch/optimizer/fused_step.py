@@ -242,6 +242,11 @@ def _step_impl(updater, items, axis) -> bool:
     indices = [it[0] for it in items]
     weights = [it[1] for it in items]
     grads = [it[2] for it in items]
+    if any(getattr(a, "stype", "default") == "row_sparse"
+           for a in grads + weights):
+        # row-sparse gradients take the optimizer's lazy update, one
+        # parameter at a time
+        return _decline()
     if multi is None or (opt.multi_precision and any(
             _tensor(w).dtype == torch.float16 for w in weights)):
         return _decline()

@@ -16,6 +16,12 @@ Two kinds of caller use it:
   Gluon parameter keeps the tensor its layers read.  Adam folds its bias
   correction into lr here, as the reference does.
 
+A row-sparse gradient (``Embedding(sparse_grad=True)``) takes the
+optimizer's lazy update (``ndarray.sparse.lazy_apply``: SGD, SGD with
+momentum, AdaGrad and Adam touch only the gradient's rows), unless
+``lazy_update=False`` or the optimizer has no lazy form: then it is
+made dense (with the storage-fallback log) and takes the dense update.
+
 ``multi_precision`` keeps an f32 master for float16 weights only, as
 the reference does.  ``Updater.get_states`` / ``set_states`` read and
 write the reference's ``mxnet_tpu-updater-states-v1`` npz blob (a JSON
@@ -98,6 +104,11 @@ def write_back(dests, news) -> None:
     ids = {id(d) for d in dests}
     news = [n.clone() if id(n) in ids else n for n in news]
     torch._foreach_copy_(dests, news)
+
+
+def _is_rsp(a) -> bool:
+    """A row-sparse gradient (``ndarray.sparse.RowSparseNDArray``)."""
+    return getattr(a, "stype", "default") == "row_sparse"
 
 
 def _clip_value(clip):
@@ -246,17 +257,60 @@ class Optimizer:
     def update(self, index, weight, grad, state):
         """One update of ``weight`` (and its ``state``) from ``grad``, in
         place."""
+        if _is_rsp(grad):
+            return self._update_rsp(index, weight, grad, state)
         params = self._op_params(index)   # before the count moves: t
         self._update_count(index)
         self._apply(weight, grad, state, params, self._get_lr(index),
                     self._get_wd(index))
 
+    def _update_rsp(self, index, weight, grad, state):
+        """A row-sparse gradient (``mxnet_tpu/optimizer/optimizer.py:
+        299-333``): the lazy update of its rows, or, without a lazy form
+        or with ``lazy_update=False``, the dense update of the densified
+        gradient (logged as a storage fallback)."""
+        from ..ndarray.sparse import (_LAZY_SUPPORTED,
+                                      _log_storage_fallback, lazy_apply)
+        kind = self.op_name
+        if getattr(self, "lazy_update", True) and kind in _LAZY_SUPPORTED:
+            statics = dict(self.static_params(index))
+            statics["rescale_grad"] = float(self.rescale_grad)
+            if self.clip_gradient is not None:
+                statics["clip_gradient"] = float(self.clip_gradient)
+            lr, wd = self._get_lr(index), self._get_wd(index)
+            if kind == "adam_update":
+                # the bias correction folded into lr, as the dense path
+                t = self._index_update_count.get(index, 0) + 1
+                lr = lr * (1.0 - self.beta2 ** t) ** 0.5 \
+                    / (1.0 - self.beta1 ** t)
+            self._update_count(index)
+            from ..ndarray.ndarray import NDArray
+            lazy_apply(kind, lr, wd, NDArray._wrap(_tensor(weight)), grad,
+                       [NDArray._wrap(_tensor(s)) for s in state], statics)
+            _note_dispatch()
+            return
+        _log_storage_fallback(f"{kind} has no lazy row_sparse kernel"
+                              if kind not in _LAZY_SUPPORTED
+                              else f"{kind} with lazy_update=False")
+        self.update(index, weight, _like(weight, grad.todense()._data),
+                    state)
+
     def update_multi_precision(self, index, weight, grad, state):
         if self.multi_precision and _tensor(weight).dtype == torch.float16:
             master, sub_state = state[0], state[1:]
-            grad32 = _like(grad, _tensor(grad).float())
-            self.update(index, master, grad32, sub_state)
+            if _is_rsp(grad):
+                from ..ndarray.sparse import RowSparseNDArray
+                grad32 = RowSparseNDArray(grad.data.float(), grad.indices,
+                                          grad.shape)
+                self._update_rsp(index, master, grad32, sub_state)
+            else:
+                grad32 = _like(grad, _tensor(grad).float())
+                self.update(index, master, grad32, sub_state)
             write_back([weight], [_tensor(master).to(torch.float16)])
+        elif _is_rsp(grad):
+            # an optimizer that overrides update() still reaches the lazy
+            # update or the densified fallback
+            self._update_rsp(index, weight, grad, state)
         else:
             self.update(index, weight, grad, state)
 
@@ -267,7 +321,8 @@ class Optimizer:
         and wd (``aggregate_num``); else one update each."""
         multi = getattr(optimizer_ops, f"{self.op_name}_multi", None) \
             if self.op_name else None
-        if type(self).update is not Optimizer.update or multi is None or (
+        if any(_is_rsp(g) for g in grads) or \
+                type(self).update is not Optimizer.update or multi is None or (
                 self.multi_precision
                 and any(_tensor(w).dtype == torch.float16 for w in weights)):
             for i, w, g, s in zip(indices, weights, grads, states):
@@ -309,8 +364,9 @@ class Optimizer:
 class SGD(Optimizer):
     """SGD, with momentum unless ``momentum`` is 0: the op is
     ``sgd_mom_update`` with one momentum state a weight, else
-    ``sgd_update`` with none.  ``lazy_update`` is accepted (it matters
-    only for sparse gradients, which the port does not have)."""
+    ``sgd_update`` with none.  ``lazy_update`` (default True) updates
+    only a row-sparse gradient's rows; False makes the gradient dense,
+    so momentum decays on every row."""
 
     def __init__(self, learning_rate=0.01, momentum=0.0, lazy_update=True,
                  **kwargs):
@@ -378,6 +434,8 @@ class Adam(Optimizer):
                 "rescale_grad": float(self.rescale_grad)}
 
     def update(self, index, weight, grad, state):
+        if _is_rsp(grad):
+            return self._update_rsp(index, weight, grad, state)
         t = self._index_update_count.get(index, 0) + 1
         coef1 = 1.0 - self.beta1 ** t
         coef2 = 1.0 - self.beta2 ** t

@@ -10,6 +10,11 @@ group this module starts.
 * under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
   ``MASTER_ADDR`` and ``MASTER_PORT`` set) it joins the job's group
   through ``env://``; each rank takes ``cuda:<LOCAL_RANK>``;
+* under the repo's launcher, ``tools/launch.py`` (``MXNET_COORDINATOR_ADDR``
+  ``host:port``, ``DMLC_NUM_WORKER``, ``DMLC_WORKER_ID``), it joins
+  through a ``TCPStore`` that rank 0 serves at that address; each rank
+  takes ``cuda:<LOCAL_RANK>``, else ``cuda:<rank>`` where the host has
+  that many cards;
 * with none of those set it makes a group of one over this process's
   device (an in-process store, no network), so ``make_mesh({"dp": -1})``
   works in a plain ``python`` run as ``jax.devices()`` does for the
@@ -71,10 +76,15 @@ def init(device=None, *, store=None, rank: Optional[int] = None,
         raise MXNetError("torch.distributed is not available in this "
                          "PyTorch build")
     env = {k: os.environ.get(k) for k in _ENV}
+    coord = os.environ.get("MXNET_COORDINATOR_ADDR")
     if store is None and env["WORLD_SIZE"] is not None:
         rank = int(env["RANK"] or 0)
         world_size = int(env["WORLD_SIZE"])
         local = int(env["LOCAL_RANK"] or rank)
+    elif store is None and coord and os.environ.get("DMLC_NUM_WORKER"):
+        store, rank, world_size = _launcher_store(coord)
+        local = int(env["LOCAL_RANK"]) if env["LOCAL_RANK"] else (
+            rank if rank < max(torch.cuda.device_count(), 1) else 0)
     else:
         local = int(env["LOCAL_RANK"] or 0) if store is None else 0
         if store is None:
@@ -96,6 +106,18 @@ def init(device=None, *, store=None, rank: Optional[int] = None,
         dist.init_process_group(store=store, **kw)
     _device = dev
     return dev
+
+
+def _launcher_store(coord: str):
+    """``(store, rank, world size)`` of a ``tools/launch.py`` worker: a
+    ``TCPStore`` at ``MXNET_COORDINATOR_ADDR``, served by rank 0."""
+    from datetime import timedelta
+    world = int(os.environ["DMLC_NUM_WORKER"])
+    rank = int(os.environ.get("DMLC_WORKER_ID", "0"))
+    host, port = coord.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), world, is_master=rank == 0,
+                          timeout=timedelta(seconds=300))
+    return store, rank, world
 
 
 def world_size() -> int:

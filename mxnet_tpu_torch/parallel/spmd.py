@@ -77,7 +77,7 @@ class _Layout:
                 raise MXNetError(
                     f"parameter {key}: PartitionSpec {param._sharding!r}; "
                     f"the port shards parameters over 'tp' only (other "
-                    f"axes: queue 1 item 11c)")
+                    f"axes: queue 1 item 11d)")
             if self.tp_dim is not None:
                 raise MXNetError(f"parameter {key}: 'tp' named twice in "
                                  f"{param._sharding!r}")

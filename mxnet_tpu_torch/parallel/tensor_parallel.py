@@ -107,7 +107,7 @@ def refuse_split_batch_stats(layer):
         raise MXNetError(
             f"{layer} in training mode on a batch split over the mesh "
             f"needs the whole batch's statistics (cross-rank BatchNorm): "
-            f"not ported yet (queue 1 item 11c)")
+            f"not ported yet (queue 1 item 11d)")
 
 
 def _tp_dim(spec):

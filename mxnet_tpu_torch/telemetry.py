@@ -276,7 +276,7 @@ _C_ART_SAVES = counter("artifact.saves")
 _C_ART_BYTES = counter("artifact.bytes")
 _C_ART_LOAD_MS = counter("artifact.load_ms")
 _C_ART_DESER_FAIL = counter("artifact.deserialize_failures")
-# the sharded embedding tables (not ported: these stay 0)
+# the sharded embedding tables (embedding/, the row-sparse kvstore paths)
 _C_EMB_PULL_ROWS = counter("embedding.rows_pulled")
 _C_EMB_PUSH_ROWS = counter("embedding.rows_pushed")
 _C_EMB_SPARSE_BYTES = counter("embedding.sparse_bytes")

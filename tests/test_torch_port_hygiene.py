@@ -66,6 +66,17 @@ DISTRIBUTION_MODULES = ["parallel/__init__.py", "parallel/_dist.py",
                         "parallel/moe.py", "optimizer/fused_step.py"]
 
 
+KVSTORE_MODULES = ["ndarray/sparse.py", "kvstore/__init__.py",
+                   "kvstore/base.py", "kvstore/kvstore.py",
+                   "kvstore/dist.py", "kvstore/gradient_compression.py",
+                   "kvstore/ps_server.py", "kvstore/p3store.py",
+                   "kvstore/adapters.py", "kvstore/_hvd_torch.py",
+                   "embedding/__init__.py", "embedding/sharded.py",
+                   "embedding/cache.py", "ops/tensor.py", "autograd.py",
+                   "gluon/trainer.py"]
+CASE_BODIES = ROOT / "tests" / "torch_dist_cases.py"
+
+
 def _module(rel):
     return "mxnet_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(
         ".__init__")
@@ -148,7 +159,7 @@ def children():
     mods = sorted({_module(r) for r in
                    RESNET_MODULES + PERSISTENCE_MODULES + CAPTURE_MODULES
                    + INPUT_MODULES + OBSERVABILITY_MODULES
-                   + DISTRIBUTION_MODULES})
+                   + DISTRIBUTION_MODULES + KVSTORE_MODULES})
     out = subprocess.run(
         [sys.executable, "-c", _CHILDREN.format(bad=BAD_TOP, mods=mods)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -363,6 +374,32 @@ def test_distribution_modules_are_held_to_the_rules(rel, children):
     assert res["bad"] == [], res["bad"]
     assert res["threads"] == ["MainThread"], res["threads"]
     assert res["process_group"] is False
+
+
+@pytest.mark.parametrize("rel", KVSTORE_MODULES)
+def test_kvstore_modules_are_held_to_the_rules(rel, children):
+    """The kvstore slice's modules are among the sources checked above,
+    import no ``ml_dtypes``, and each imports alone without loading JAX,
+    Triton or the reference, without starting a thread (no parameter
+    server) and without starting a process group (a store starts it)."""
+    path = PORT / rel
+    assert path in SOURCES
+    assert not ML_DTYPES.search(path.read_text()), rel
+    res = children[_module(rel)]
+    assert res["ok"], res.get("error")
+    assert res["bad"] == [], res["bad"]
+    assert res["threads"] == ["MainThread"], res["threads"]
+    assert res["process_group"] is False
+
+
+def test_case_bodies_import_no_reference_or_jax():
+    """The spawned ranks' case bodies import neither JAX nor the
+    reference: they run the port alone."""
+    code = CASE_BODIES.read_text()
+    ref_import = re.compile(r"\b(?:import|from) mxnet_tpu\b(?!_torch)")
+    assert not ref_import.search(code), ref_import.search(code)
+    assert not JAX_IMPORT.search(code), JAX_IMPORT.search(code)
+    assert not ML_DTYPES.search(code)
 
 
 def test_a_mesh_defaults_to_cuda_and_raises_without_it(monkeypatch):

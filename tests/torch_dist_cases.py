@@ -736,3 +736,375 @@ def case_spmd_persist(weights, batches, directory, opt_params):
         out["states"] = state(td)[1]
         out["num_update"] = td.num_update
     return out or None
+
+
+# -- the distributed kvstore --------------------------------------------------
+
+def _rsp(idx, vals, shape):
+    import torch
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+    return RowSparseNDArray(torch.as_tensor(vals), torch.as_tensor(idx),
+                            shape)
+
+
+def _count_calls(name):
+    """Wrap ``torch.distributed.<name>`` to count its calls; returns
+    (counter list, undo)."""
+    import torch.distributed as dist
+    calls, orig = [], getattr(dist, name)
+
+    def counted(*a, **k):
+        calls.append(name)
+        return orig(*a, **k)
+    setattr(dist, name, counted)
+    return calls, lambda: setattr(dist, name, orig)
+
+
+def case_kv_pushpull(values, bcast):
+    """``dist_sync`` without an optimizer: one pushpull of every key of
+    this rank's values (keys over float32 and float64: one all-reduce a
+    dtype), a broadcast of rank 0's array, a barrier, and the store's
+    identity as the checkpoint layer and the store report it."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import checkpoint
+    rank = dist.get_rank()
+    kv = mt.kv.create("dist_sync")
+    mine = values[rank]
+    keys = sorted(mine)
+    with mt.cpu():
+        grads = [mt.nd.array(mine[k], dtype=mine[k].dtype) for k in keys]
+        outs = [mt.nd.zeros(mine[k].shape, dtype=mine[k].dtype)
+                for k in keys]
+        for k, g in zip(keys, grads):
+            kv.init(k, g)
+        calls, undo = _count_calls("all_reduce")
+        try:
+            kv.pushpull(keys, grads, out=outs)
+        finally:
+            undo()
+        b_out = mt.nd.zeros(bcast[rank].shape)
+        kv.broadcast("b", mt.nd.array(bcast[rank]), out=b_out)
+    kv.barrier()
+    return {"out": {k: o.asnumpy() for k, o in zip(keys, outs)},
+            "allreduce_calls": len(calls), "bcast": b_out.asnumpy(),
+            "rank_world": (kv.rank, kv.num_workers),
+            "ckpt_rank_world": checkpoint.rank_world(),
+            "dead": kv.get_num_dead_node(), "type": kv.type}
+
+
+def case_kv_zero(w0, grads, opt, opt_params):
+    """``update_on_kvstore``: the store's optimizer on this rank's ZeRO
+    slice of every key, three pushes of this rank's gradients; the
+    weights after each push, the slice bounds and the slice states."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mt
+    rank = dist.get_rank()
+    kv = mt.kv.create("dist_sync")
+    kv.set_optimizer(mt.optimizer.create(opt, **opt_params))
+    keys = sorted(w0)
+    with mt.cpu():
+        for k in keys:
+            kv.init(k, mt.nd.array(w0[k]))
+        seen = []
+        for step in grads[rank]:
+            outs = [mt.nd.zeros(w0[k].shape) for k in keys]
+            kv.pushpull(keys, [mt.nd.array(step[k]) for k in keys],
+                        out=outs)
+            seen.append({k: o.asnumpy() for k, o in zip(keys, outs)})
+    bounds = {k: kv._slice_bounds(w0[k].size) for k in keys}
+    states = {k: [s.asnumpy() for s in kv._opt_states[k]] for k in keys}
+    return seen, bounds, states
+
+
+def case_kv_compressed(grads, threshold):
+    """2-bit compression on ``dist_sync`` with no optimizer: each push's
+    reduced gradients, the residuals, and the packed bytes against the
+    dense ones."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mt
+    rank = dist.get_rank()
+    kv = mt.kv.create("dist_sync")
+    kv.set_gradient_compression({"type": "2bit", "threshold": threshold})
+    keys = sorted(grads[rank][0])
+    out = []
+    with mt.cpu():
+        for k in keys:
+            kv.init(k, mt.nd.zeros(grads[rank][0][k].shape))
+        for step in grads[rank]:
+            outs = [mt.nd.zeros(step[k].shape) for k in keys]
+            kv.pushpull(keys, [mt.nd.array(step[k]) for k in keys],
+                        out=outs)
+            out.append({k: o.asnumpy() for k, o in zip(keys, outs)})
+    res = {k: _np(v) for k, v in kv._compression._residuals.items()}
+    return out, res, dict(kv.last_compressed)
+
+
+def case_kv_rowsparse(pushes, shape, opt_params):
+    """Row-sparse pushes on ``dist_sync``: the pure reduce (the stored
+    value stays row-sparse), its payload bytes, and then the store's
+    optimizer (lazy SGD) on a weight."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mt
+    rank = dist.get_rank()
+    mine = pushes[rank]
+    kv = mt.kv.create("dist_sync")
+    with mt.cpu():
+        kv.pushpull(["a", "b"], [_rsp(*mine["a"], shape),
+                                 _rsp(*mine["b"], shape)])
+        a, b = kv._data["a"], kv._data["b"]
+        reduced = {n: (_np(v.indices), _np(v.data)) for n, v in
+                   (("a", a), ("b", b))}
+        comm = dict(kv.last_sparse_comm)
+        upd = mt.kv.create("dist_sync")
+        upd.set_optimizer(mt.optimizer.SGD(**opt_params))
+        upd.init("w", mt.nd.zeros(shape))
+        upd.push("w", _rsp(*mine["a"], shape))
+        upd.push("w", [_rsp(*mine["b"], shape), _rsp(*mine["a"], shape)])
+        w = mt.nd.zeros(shape)
+        upd.pull("w", out=w)
+        rows = upd.row_sparse_pull("w", row_ids=mine["a"][0])
+    return reduced, comm, w.asnumpy(), (_np(rows.indices), _np(rows.data))
+
+
+def case_kv_async(w0, grads, lr, bound):
+    """``dist_async`` (stale-synchronous) with SGD: after each push the
+    replica this rank reads; then ``reconcile``."""
+    import os
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mt
+    os.environ["MXNET_ASYNC_STALENESS_BOUND"] = str(bound)
+    try:
+        kv = mt.kv.create("dist_async")
+    finally:
+        del os.environ["MXNET_ASYNC_STALENESS_BOUND"]
+    rank = dist.get_rank()
+    kv.set_optimizer(mt.optimizer.SGD(learning_rate=lr))
+    views = []
+    with mt.cpu():
+        kv.init("w", mt.nd.array(w0))
+        for g in grads[rank]:
+            kv.push("w", mt.nd.array(g))
+            out = mt.nd.zeros(w0.shape)
+            kv.pull("w", out=out)
+            views.append(out.asnumpy())
+        kv.reconcile()
+        out = mt.nd.zeros(w0.shape)
+        kv.pull("w", out=out)
+    return views, out.asnumpy(), kv._slice_bounds(w0.size)
+
+
+def case_kv_states_files(w0, grads, directory, ref_file):
+    """ZeRO optimizer states (Adam) through files: this rank saves its
+    slices' states; then loads the file the reference wrote."""
+    import os
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mt
+    rank = dist.get_rank()
+    kv = mt.kv.create("dist_sync")
+    kv.set_optimizer(mt.optimizer.Adam(learning_rate=0.01))
+    with mt.cpu():
+        kv.init("0", mt.nd.array(w0))
+        for g in grads[rank]:
+            kv.push("0", mt.nd.array(g))
+    path = os.path.join(directory, f"states{rank}")
+    kv.save_optimizer_states(path)
+    saved = [s.asnumpy() for s in kv._opt_states["0"]]
+    kv.load_optimizer_states(ref_file)
+    loaded = {k: [s.asnumpy() for s in v]
+              for k, v in kv._opt_states.items()}
+    return path, saved, loaded
+
+
+def case_kv_trainer_lm(weights, cfg, batches, opt_params, kvstore="dist_sync",
+                       uok=None):
+    """The eager Gluon loop on a small TransformerLM with
+    ``gluon.Trainer(kvstore=...)``, each rank its half of every batch and
+    ``step(whole batch)``: losses of the halves, the parameters, whether
+    the store updated them, and why the cached step declined."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.imperative import cached_step
+    rank, world = dist.get_rank(), dist.get_world_size()
+    net = lm_net(weights, cfg["vocab"], cfg["units"], cfg["layers"],
+                 cfg["heads"], cfg["max_len"])
+    tr = Trainer(net.collect_params(), "sgd", dict(opt_params),
+                 kvstore=kvstore, update_on_kvstore=uok)
+    lf = gloss.SoftmaxCrossEntropyLoss()
+    losses = []
+    for d, l in batches:
+        n = d.shape[0] // world
+        x = mt.nd.array(d[rank * n:(rank + 1) * n], ctx=mt.cpu(),
+                        dtype="int32")
+        y = mt.nd.array(l[rank * n:(rank + 1) * n], ctx=mt.cpu(),
+                        dtype="int32")
+        with mt.autograd.record():
+            loss = lf(net(x), y)
+        loss.backward()
+        tr.step(d.shape[0])
+        losses.append(loss.asnumpy())
+    return (losses, convert.collected_params_to_numpy(net),
+            tr._update_on_kvstore, cached_step.trainer_state(tr)[
+                "last_reason"])
+
+
+def case_kv_p3(weights, x, threshold, kvstore="p3store_dist"):
+    """``p3store_dist`` (or ``kvstore`` with ``update_on_kvstore=False``)
+    under ``gluon.Trainer`` on a 6-layer Dense net: the order of the
+    backward's layer gradients ("bwd") and the pushes ("push") of a
+    steady step, the all-reduces it makes, the parameters after three
+    steps, and the refusal of ``update_on_kvstore``."""
+    import os
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import autograd as ag
+    from mxnet_tpu_torch.gluon import Trainer, nn
+    from mxnet_tpu_torch.kvstore.p3store import P3StoreDist
+    os.environ["MXNET_KVSTORE_SLICE_THRESHOLD"] = str(threshold)
+    try:
+        net = nn.HybridSequential()
+        for _ in range(6):
+            net.add(nn.Dense(16, in_units=16, activation="relu"))
+        net.add(nn.Dense(2, in_units=16))
+        net.initialize(device="cpu")
+        for k, p in net.collect_params().items():
+            p.set_data(torch.as_tensor(weights[k]))
+        tr = Trainer(net.collect_params(), "sgd", {"learning_rate": 0.01},
+                     kvstore=kvstore, update_on_kvstore=False)
+        events = []
+        orig_pp = P3StoreDist.pushpull
+
+        def spy_pp(self, *a, **kw):
+            events.append("push")
+            return orig_pp(self, *a, **kw)
+
+        def mark(block, inputs, output):
+            output._data.register_hook(lambda g: events.append("bwd"))
+        for blk in net._children.values():
+            blk.register_forward_hook(mark)
+        xs = mt.nd.array(x, ctx=mt.cpu())
+        P3StoreDist.pushpull = spy_pp
+        calls, undo = _count_calls("all_reduce")
+        try:
+            for i in range(3):
+                if i == 2:
+                    events.clear()
+                    calls.clear()
+                with mt.autograd.record():
+                    out = net(xs).sum()
+                out.backward()
+                tr.step(1)
+        finally:
+            P3StoreDist.pushpull = orig_pp
+            undo()
+            ag.set_grad_ready_hook(None)
+        params = {k: _np(p._tensor()) for k, p in
+                  net.collect_params().items()}
+        try:
+            Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1},
+                    kvstore="p3store_dist", update_on_kvstore=True
+                    )._init_kvstore()
+            refused = None
+        except Exception as e:
+            refused = str(e)
+    finally:
+        del os.environ["MXNET_KVSTORE_SLICE_THRESHOLD"]
+    return events, len(calls), params, refused
+
+
+def case_kv_horovod(x):
+    """``horovod`` over ``MXNET_HOROVOD_BACKEND=torch``: pushpull sums,
+    broadcast ships rank 0's value, rank and size."""
+    import os
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mt
+    os.environ["MXNET_HOROVOD_BACKEND"] = "torch"
+    try:
+        kv = mt.kv.create("horovod")
+    finally:
+        del os.environ["MXNET_HOROVOD_BACKEND"]
+    rank = dist.get_rank()
+    with mt.cpu():
+        v = mt.nd.array(x[rank])
+        kv.pushpull("g", v)
+        out = mt.nd.zeros(x[rank].shape)
+        kv.broadcast("b", mt.nd.array(x[rank]), out=out)
+    return v.asnumpy(), out.asnumpy(), (kv.rank, kv.num_workers,
+                                        kv.local_rank)
+
+
+def case_uncoordinated_async(addr, w0, grads, rsp):
+    """``dist_async`` with ``MXNET_ASYNC_UNCOORDINATED=1``: every push to
+    rank 0's parameter server at ``addr``, applied on arrival (unequal
+    counts), then each rank's read; rank 1 then closes its connection
+    and rank 0 counts a dead worker."""
+    import os
+    import time
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mt
+    os.environ["MXNET_ASYNC_UNCOORDINATED"] = "1"
+    os.environ["MXNET_PS_ADDR"] = addr
+    try:
+        rank = dist.get_rank()
+        with mt.cpu():
+            kv = mt.kv.create("dist_async")
+            kv.set_optimizer(mt.optimizer.SGD(learning_rate=0.1))
+            kv.init("0", mt.nd.array(w0))
+            kv.init("s", mt.nd.zeros((6, 3)))
+            dist.barrier()
+            res = {"dead_before": kv.get_num_dead_node()}
+            for g in grads[rank]:
+                kv.push("0", mt.nd.array(g))
+            kv.push("s", _rsp(rsp[0], rsp[1], (6, 3)))
+            dist.barrier()
+            out = mt.nd.zeros(w0.shape)
+            kv.pull("0", out=out)
+            s = mt.nd.zeros((6, 3))
+            kv.pull("s", out=s)
+            rows = kv.row_sparse_pull("s", row_ids=onp.array([4]))
+            res.update(weight=out.asnumpy(), sparse=s.asnumpy(),
+                       rows=_np(rows.data))
+            if rank == 0:
+                res["counts"] = kv._ps_client.push_count("0")
+            dist.barrier()
+            if rank == 1:
+                kv._ps_client.close()
+            dist.barrier()
+            if rank == 0:
+                for _ in range(100):
+                    if kv.get_num_dead_node() == 1:
+                        break
+                    time.sleep(0.05)
+                res["dead_after"] = kv.get_num_dead_node()
+        return res
+    finally:
+        del os.environ["MXNET_ASYNC_UNCOORDINATED"]
+        del os.environ["MXNET_PS_ADDR"]
+
+
+def launch_worker(outdir):
+    """A worker started by ``tools/launch.py``: joins the group from the
+    launcher's variables (gloo), pushes its rank + 1 through
+    ``dist_sync`` and writes what it read."""
+    import json
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.kvstore.dist import init_distributed
+    init_distributed(device="cpu")
+    kv = mt.kv.create("dist_sync")
+    with mt.cpu():
+        g = mt.nd.array(onp.full((3,), kv.rank + 1.0, "float32"))
+        kv.init("g", g)
+        out = mt.nd.zeros((3,))
+        kv.pushpull("g", g, out=out)
+    with open(os.path.join(outdir, f"rank{kv.rank}.json"), "w") as f:
+        json.dump({"rank": kv.rank, "world": kv.num_workers,
+                   "out": out.asnumpy().tolist()}, f)
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:2] == ["launch_worker"]:
+        launch_worker(sys.argv[2])
