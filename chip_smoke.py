@@ -386,12 +386,41 @@ exits non-zero and prints no result:
              sparse wire against the dense equivalent, a repeated batch
              served from the hot-row cache, and a checkpoint saved at 2
              shards restored bitwise at 3.
+26. dp_resnet — the rest of distribution, one rank over NCCL
+             (``make_mesh``): (a) bench.py's headline row as bench.py
+             builds it, ``SPMDTrainer(..., mesh=make_mesh({"dp": -1}),
+             dtype="bfloat16")`` on ResNet-50 v1 (1000 classes, 224²,
+             batch 256, SGD lr 0.05 momentum 0.9 wd 1e-4, the weights of
+             ``resnet_train``'s), against the unmeshed trainer from the
+             same weights, cuDNN deterministic: a warm step and 10
+             replays each, losses, masters, running statistics and
+             momenta bitwise equal; img/s by bench.py's slope between
+             ``run_steps`` windows of 4 and 24, the two trainers' windows
+             taken in turns; NCCL kernels a step (torch.profiler) and
+             peak memory; (b) the cross-rank BatchNorm body folded onto
+             the card, ``ops.nn.sync_batch_norm`` with
+             ``FoldedReducer(4)`` over 4 shards of the 256-image batch at
+             ResNet-50's stem (256, 64, 112, 112) and last stage (256,
+             2048, 7, 7), fp32 and bf16: the output, both running
+             statistics' updates, dx, dγ and dβ against the unsplit
+             ``batch_norm`` and a plain version in f64 (fp32: relative
+             L2 1e-5, TF32 off; bf16: 1e-2 against the plain version in
+             f32 on the same bf16 inputs), and the device ms of forward
+             and backward folded against unsplit (torch.profiler's busy
+             ms and kernels a call, and CUDA events with a cold L2); (c)
+             the training row on ``make_mesh({"dp": -1, "tp": 1})`` with
+             the embedding spec'd ``P("dp", None)`` and the FFN weights
+             ``P(("dp", "tp"), None)``, at ZeRO 0 and 3, against the
+             unmeshed trainer: a warm step and 10 replays, losses
+             bitwise equal, K1-K3 8 launches a replayed step (counts
+             zeroed just before, read just after) with no plain call.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
 carry ``launches_gluon_train``, ``launches_ckpt``,
 ``launches_input_pipeline``, ``launches_observability``,
 ``launches_distributed``, ``launches_ring_fold``, ``launches_pipeline``,
-``launches_mesh4d`` and ``launches_kvstore``, K1
+``launches_mesh4d``, ``launches_kvstore`` and ``launches_dp_resnet``,
+K1
 ``launches_batch_serve``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
@@ -6541,6 +6570,314 @@ def phase_kvstore(torch, fa_mod, smi):
     return counts
 
 
+DPR_STEPS = 10              # (a), (c): replays a trainer, after its warm step
+DPR_SHARDS = 4              # (b): folded shards of the 256-image batch
+DPR_BN_SHAPES = ((64, 112, 112), (2048, 7, 7))   # ResNet-50's stem, last
+DPR_BN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}    # relative L2
+DPR_STAGES = (0, 3)         # (c): ZeRO stages
+DPR_REPS = 2                # (a): timed runs of each window, in turns
+
+
+def dpr_rel_l2(torch, a, b):
+    """||a - b|| / ||b|| in f64 on the card (``rel_l2`` without the host
+    copies of the stem's 205M-element tensors)."""
+    a, b = a.detach().double(), b.detach().double()
+    nb = float(b.norm())
+    return float((a - b).norm()) / nb if nb else float((a - b).norm())
+
+
+def dpr_headline(torch, mesh, smi, failures):
+    """Phase 26 (a): bench.py's meshed ResNet-50 row at one rank against
+    the unmeshed trainer from the same weights, cuDNN deterministic (an
+    algorithm that adds with atomics would part two runs of one
+    trainer): bitwise state after a warm step and 10 replays, img/s by
+    the slope in turns, NCCL kernels a step, peak memory."""
+    t0 = time.perf_counter()
+    data, label = resnet_batch(torch, RESNET_BATCH)
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainers = {
+            "unmeshed": resnet_trainer(torch, resnet_net(torch, DEV),
+                                       dtype="bfloat16"),
+            "meshed": resnet_trainer(torch, resnet_net(torch, DEV),
+                                     dtype="bfloat16", mesh=mesh)}
+        losses, peak = {}, {}
+        for name, tr in trainers.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            losses[name] = [float(tr.step(data, label))
+                            for _ in range(1 + DPR_STEPS)]
+            step_graph(tr)
+            peak[name] = torch.cuda.max_memory_allocated() - base
+        a, b = (resnet_state(trainers[k]) for k in ("unmeshed", "meshed"))
+        diff = [k for k in a if not torch.equal(a[k], b[k])]
+        stats = [k for k in a if k.endswith(("running_mean", "running_var"))]
+        bitwise = losses["unmeshed"] == losses["meshed"] and not diff
+        if not bitwise:
+            failures.append(f"(a) meshed ResNet-50 differs from the "
+                            f"unmeshed: losses {losses}; state {diff[:6]} "
+                            f"({len(diff)} tensors)")
+        if not all(onp.isfinite(losses["meshed"])) or \
+                not losses["meshed"][-1] < losses["meshed"][0]:
+            failures.append(f"(a) losses not finite and falling: "
+                            f"{losses['meshed']}")
+
+        def window(tr):
+            def run(n):
+                tr.run_steps(data, label, n)._data.cpu()
+            return run
+
+        runs = {k: window(tr) for k, tr in trainers.items()}
+        n1, n2, reps = WINDOWS[0], WINDOWS[1], DPR_REPS
+        for run in runs.values():
+            run(n1)
+            run(n2)
+        took = {k: {n1: [], n2: []} for k in runs}
+        for _ in range(reps):
+            for k, run in runs.items():
+                for n in (n1, n2):
+                    w0 = time.perf_counter()
+                    run(n)
+                    took[k][n].append(time.perf_counter() - w0)
+        rate = {}
+        for k, t in took.items():
+            slope = max((min(t[n2]) - min(t[n1])) / (n2 - n1), 1e-9)
+            rate[k] = {"img_per_s": RESNET_BATCH / slope,
+                       "step_ms": slope * 1e3,
+                       "window_s": {str(n1): min(t[n1]),
+                                    str(n2): min(t[n2])}}
+        prof = {}
+        for k, tr in trainers.items():
+            _, busy, _, per = profiled(
+                torch, lambda tr=tr: float(tr.step(data, label)), 3,
+                count=("nccl",))
+            prof[k] = {"device_busy_ms": busy, "nccl_kernels_per_step":
+                       per["nccl"], "kernels_per_step": per["kernels"]}
+        if prof["meshed"]["nccl_kernels_per_step"]:
+            failures.append(f"(a) {prof['meshed']['nccl_kernels_per_step']}"
+                            f" NCCL kernels a step at one rank")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    row = {"phase": "dp_resnet", "gpu": smi, "part": "a",
+           "model": {"net": "resnet50_v1", "classes": 1000,
+                     "image": RESNET_IMAGE, "batch": RESNET_BATCH,
+                     "dtype": "bfloat16", "optimizer": "sgd", **RESNET_SGD,
+                     "mesh": dict(mesh.shape), "cudnn_deterministic": True},
+           "steps": f"1 warm + {DPR_STEPS} replays each",
+           "losses_first_last": {k: [v[0], v[-1]] for k, v in losses.items()},
+           "bitwise_equal_to_unmeshed": bitwise,
+           "state_tensors": len(a), "running_statistics": len(stats),
+           "rate": rate, "meshed_over_unmeshed_img_per_s":
+               rate["meshed"]["img_per_s"] / rate["unmeshed"]["img_per_s"],
+           "profile": prof, "peak_bytes_over_base": peak,
+           "phase_s": time.perf_counter() - t0}
+    emit(row)
+    del trainers, runs, a, b, data, label
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def dpr_bn_plain(torch, x, gamma, beta, dy, eps, acc):
+    """BatchNorm's forward and backward in ``acc`` by autograd over torch
+    ops: (out, mean, var, dx, dgamma, dbeta)."""
+    x = x.to(acc).requires_grad_()
+    g = gamma.to(acc).requires_grad_()
+    b = beta.to(acc).requires_grad_()
+    dims = [0, 2, 3]
+    mean = x.mean(dim=dims)
+    var = ((x - mean.view(1, -1, 1, 1)) ** 2).mean(dim=dims)
+    out = (x - mean.view(1, -1, 1, 1)) * torch.rsqrt(
+        var + eps).view(1, -1, 1, 1) * g.view(1, -1, 1, 1) + \
+        b.view(1, -1, 1, 1)
+    dx, dg, db = torch.autograd.grad(out, [x, g, b], dy.to(acc))
+    return out, mean, var, dx, dg, db
+
+
+def dpr_folded_bn(torch, smi, failures):
+    """Phase 26 (b): ``sync_batch_norm`` folded over DPR_SHARDS shards of
+    the 256-image batch against the unsplit ``batch_norm`` and the plain
+    version, at ResNet-50's stem and last stage, fp32 and bf16."""
+    from mxnet_tpu_torch.ops.nn import batch_norm, sync_batch_norm
+    from mxnet_tpu_torch.parallel.collectives import FoldedReducer
+    t0 = time.perf_counter()
+    k, eps, m = DPR_SHARDS, 1e-5, 0.9
+    rows = []
+    for c, h, w in DPR_BN_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            g = torch.Generator(device=DEV).manual_seed(c)
+            shape = (RESNET_BATCH, c, h, w)
+            x = (torch.randn(shape, generator=g, device=DEV) * 1.5 + 0.3).to(dt)
+            dy = torch.randn(shape, generator=g, device=DEV).to(dt)
+            gamma = (torch.rand(c, generator=g, device=DEV) + 0.5).to(dt)
+            beta = torch.randn(c, generator=g, device=DEV).to(dt)
+
+            def folded():
+                xs = x.view((k, RESNET_BATCH // k) + shape[1:]) \
+                    .detach().requires_grad_()
+                ga = gamma.detach().requires_grad_()
+                be = beta.detach().requires_grad_()
+                out, mean, var = sync_batch_norm(
+                    xs, ga, be, FoldedReducer(k), eps=eps, fix_gamma=False)
+                dx, dg, db = torch.autograd.grad(out, [xs, ga, be],
+                                                 dy.view(xs.shape))
+                return out.reshape(shape), mean, var, dx.reshape(shape), \
+                    dg, db
+
+            def unsplit():
+                xs = x.detach().requires_grad_()
+                ga = gamma.detach().requires_grad_()
+                be = beta.detach().requires_grad_()
+                out, mean, var = batch_norm(
+                    xs, ga, be, None, None, eps=eps, fix_gamma=False,
+                    use_batch_stats=True)
+                dx, dg, db = torch.autograd.grad(out, [xs, ga, be], dy)
+                return out, mean, var, dx, dg, db
+
+            def with_updates(res):
+                # both running statistics' updates from (0, 1)
+                out, mean, var, dx, dg, db = res
+                return {"out": out, "running_mean": mean * (1 - m),
+                        "running_var": m + var * (1 - m), "dx": dx,
+                        "dgamma": dg, "dbeta": db}
+
+            got = with_updates(folded())
+            refs = {"unsplit": with_updates(unsplit()),
+                    "plain": with_updates(dpr_bn_plain(
+                        torch, x, gamma, beta, dy, eps,
+                        torch.float64 if dtype == "float32"
+                        else torch.float32))}
+            tol = DPR_BN_TOL[dtype]
+            errs = {}
+            for ref_name, ref in refs.items():
+                errs[ref_name] = {}
+                for name, t in got.items():
+                    e = dpr_rel_l2(torch, t, ref[name])
+                    errs[ref_name][name] = e
+                    if not e <= tol:
+                        failures.append(f"(b) {shape} {dtype} {name} vs "
+                                        f"{ref_name}: relative L2 {e} > "
+                                        f"{tol}")
+            del got, refs
+            ms, events, kernels = {}, {}, {}
+            for name, fn in (("folded", folded), ("unsplit", unsplit)):
+                def call(fn=fn):
+                    fn()
+                    torch.cuda.synchronize()
+                _, ms[name], _, per = profiled(torch, call, 5, count=())
+                kernels[name] = per["kernels"]
+                # CUDA events beside the profile: a trace that loses
+                # kernel events reads short
+                events[name] = device_ms(torch, fn, runs=10)
+            rows.append({"shape": list(shape), "dtype": dtype, "shards": k,
+                         "tolerance_rel_l2": tol, "rel_l2": errs,
+                         "fwd_bwd_device_ms": ms,
+                         "fwd_bwd_event_ms": events,
+                         "kernels_per_call": kernels})
+            del x, dy, gamma, beta
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit({"phase": "dp_resnet", "gpu": smi, "part": "b",
+          "tf32": torch.backends.cudnn.allow_tf32
+          or torch.backends.cuda.matmul.allow_tf32,
+          "plain_version": "torch ops under autograd, f64 (fp32 inputs) "
+                           "or f32 (bf16 inputs)", "cases": rows,
+          "phase_s": time.perf_counter() - t0})
+    return rows
+
+
+def dpr_specs(torch, fa_mod, mesh, smi, failures):
+    """Phase 26 (c): the training row with the embedding spec'd P("dp",
+    None) and the FFN weights P(("dp", "tp"), None) at ZeRO 0 and 3,
+    against the unmeshed trainer: losses bitwise, K1-K3 8 launches a
+    replayed step, no plain call."""
+    from mxnet_tpu_torch.parallel import PartitionSpec as P
+    t0 = time.perf_counter()
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    data, label = train_batch(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    plain = train_trainer(torch, dist_lm(torch))
+    plain_losses, _, _ = dist_run(torch, fns, plain, data, label, base)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, launched = [], {f.__name__: 0 for f in fns}
+    for stage in DPR_STAGES:
+        net = dist_lm(torch)
+        specs = {}
+        for key, p in net.collect_params().items():
+            if key == "embed.weight":
+                p.shard(P("dp", None))
+            elif key.endswith(("ffn1.weight", "ffn2.weight")):
+                p.shard(P(("dp", "tp"), None))
+            else:
+                continue
+            specs[key] = repr(p._sharding)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        trainer = train_trainer(torch, net, mesh=mesh, zero_stage=stage)
+        losses, counts, peak = dist_run(torch, fns, trainer, data, label,
+                                        base)
+        for name, c in counts.items():
+            launched[name] += c["launches"]
+            if c["launches"] != LAYERS * DPR_STEPS or c["plain_calls"]:
+                failures.append(f"(c) zero {stage}: {name} launched "
+                                f"{c['launches']} times in {DPR_STEPS} "
+                                f"replayed steps ({c['plain_calls']} plain)")
+        if losses != plain_losses:
+            failures.append(f"(c) zero {stage}: losses {losses} differ from "
+                            f"the unmeshed {plain_losses}")
+        rows.append({"zero_stage": stage, "specs": len(specs),
+                     "spec_examples": sorted(set(specs.values())),
+                     "losses_first_last": [losses[0], losses[-1]],
+                     "bitwise_equal_to_unmeshed": losses == plain_losses,
+                     "launches_per_step": {k: v["launches"] / DPR_STEPS
+                                           for k, v in counts.items()},
+                     "peak_bytes_replays_over_base": peak})
+        del trainer, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "dp_resnet", "gpu": smi, "part": "c",
+          "mesh": dict(mesh.shape), "model": {"vocab": VOCAB, "units": DIM,
+                                              "layers": LAYERS,
+                                              "batch": BATCH, "seq": SEQ,
+                                              "dtype": "bfloat16",
+                                              "optimizer": "adam", "lr": LR},
+          "unmeshed_losses_first_last": [plain_losses[0], plain_losses[-1]],
+          "stages": rows, "phase_s": time.perf_counter() - t0})
+    return launched
+
+
+def phase_dp_resnet(torch, fa_mod, smi):
+    """Phase 26: whole-batch BatchNorm over dp, parameter specs over
+    every mesh axis (see the module docstring), on one rank over NCCL."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch.parallel import make_mesh
+    t0 = time.perf_counter()
+    failures = []
+    mesh = make_mesh({"dp": -1})           # a group of one over NCCL
+    group = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    if group != {"backend": "nccl", "world": 1}:
+        raise AssertionError(f"dp_resnet: expected a group of one over "
+                             f"NCCL, got {group}")
+    try:
+        dpr_headline(torch, mesh, smi, failures)
+        dpr_folded_bn(torch, smi, failures)
+        launched = dpr_specs(torch, fa_mod,
+                             make_mesh({"dp": -1, "tp": 1}), smi, failures)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "dp_resnet", "gpu": smi, "part": "summary",
+          "group": group, "failures": failures,
+          "phase_s": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError(f"dp_resnet: {failures}")
+    return {k: {"launches": v} for k, v in launched.items()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6645,6 +6982,10 @@ def main():
     for row in kernels:                  # K1-K3 in the dist_sync steps
         if row["name"] in kv_counts:
             row["launches_kvstore"] = kv_counts[row["name"]]["launches"]
+    dpr_counts = phase_dp_resnet(torch, fa_mod, smi)
+    for row in kernels:                  # K1-K3 with specs off tp, (c)
+        if row["name"] in dpr_counts:
+            row["launches_dp_resnet"] = dpr_counts[row["name"]]["launches"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

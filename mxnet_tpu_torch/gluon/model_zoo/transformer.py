@@ -109,7 +109,9 @@ class MultiHeadAttention(HybridBlock):
 
 class TransformerBlock(HybridBlock):
     """Pre-LN block: LN → attention → residual, LN → FFN (erf GELU) →
-    residual."""
+    residual.  In a meshed step with ``ffn1`` column and ``ffn2`` row
+    parallel over tp the FFN runs as Megatron's pair
+    (``tensor_parallel.paired``): the hidden activation stays sharded."""
 
     def __init__(self, units, num_heads, ffn_ratio=4, causal=True,
                  dropout=0.0, use_flash=True, num_kv_heads=None,
@@ -131,7 +133,9 @@ class TransformerBlock(HybridBlock):
         if self.drop is not None:
             h = self.drop(h)
         x = x + h
-        h = self.ffn2(self.act(self.ffn1(self.ln2(x))))
+        h = self.ln2(x)
+        with _tp.paired(self.ffn1, self.ffn2):
+            h = self.ffn2(self.act(self.ffn1(h)))
         if self.drop is not None:
             h = self.drop(h)
         return x + h

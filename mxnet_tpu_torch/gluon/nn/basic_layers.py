@@ -2,7 +2,8 @@
 ``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
 ``HybridSequential``,
 ``Dense``, ``Dropout``, ``Embedding``, ``BatchNorm``, ``BatchNormReLU``,
-``LayerNorm``, ``Flatten``, ``Identity``, ``Activation`` and ``GELU``."""
+``SyncBatchNorm``, ``LayerNorm``, ``Flatten``, ``Identity``,
+``Activation`` and ``GELU``."""
 from __future__ import annotations
 
 import torch
@@ -19,11 +20,15 @@ from ..block import Block, HybridBlock, current_trace
 from ..parameter import Parameter
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
-           "BatchNorm", "BatchNormReLU", "LayerNorm", "Flatten", "Identity",
-           "Activation", "GELU"]
+           "BatchNorm", "BatchNormReLU", "SyncBatchNorm", "LayerNorm",
+           "Flatten", "Identity", "Activation", "GELU"]
+
 
 class _SequentialMixin:
-    """Children run in order; ``add`` names them ``0``, ``1``, ..."""
+    """Children run in order; ``add`` names them ``0``, ``1``, ...  In a
+    meshed step a column-parallel ``Dense`` followed by a row-parallel
+    one (at most an ``Activation`` or ``GELU`` between them) runs as
+    Megatron's pair (``tensor_parallel.paired``)."""
 
     def add(self, *blocks):
         for b in blocks:
@@ -31,8 +36,18 @@ class _SequentialMixin:
         return self
 
     def forward(self, x, *args):
-        for block in self._children.values():
-            x = block(x)
+        blocks = list(self._children.values())
+        i = 0
+        while i < len(blocks):
+            j = _pair_end(blocks, i)
+            if j is None:
+                x = blocks[i](x)
+                i += 1
+                continue
+            with _tp.paired(blocks[i], blocks[j]):
+                for block in blocks[i:j + 1]:
+                    x = block(x)
+            i = j + 1
         return x
 
     def __getitem__(self, key):
@@ -46,6 +61,20 @@ class _SequentialMixin:
 
     def __iter__(self):
         return iter(self._children.values())
+
+
+def _pair_end(blocks, i):
+    """The index of the row-parallel ``Dense`` that the column-parallel
+    ``Dense`` at ``i`` feeds alone in this step, else None."""
+    if _tp.active() is None or not isinstance(blocks[i], Dense):
+        return None
+    j = i + 1
+    if j < len(blocks) and isinstance(blocks[j], (Activation, GELU)):
+        j += 1
+    if j < len(blocks) and isinstance(blocks[j], Dense) and \
+            _tp.pair_axis(blocks[i], blocks[j]) is not None:
+        return j
+    return None
 
 
 class Sequential(_SequentialMixin, Block):
@@ -165,7 +194,14 @@ class BatchNorm(HybridBlock):
     type inside a bf16 trainer step).  Inside a trace context the new
     values go to its aux channel, for the trainer to write back once a
     step; outside one they are written in place, under no-grad.  In eval
-    mode the running statistics normalise and nothing is written."""
+    mode the running statistics normalise and nothing is written.
+
+    In a meshed trainer's step whose batch is split over live axes (dp,
+    and sp over the sequence) the statistics are the whole batch's, as
+    the reference's under GSPMD: ``ops.nn.sync_batch_norm`` sums them
+    over those axes (``tensor_parallel.batch_reducer``), so the running
+    statistics are the same on every rank.  At one rank, or outside a
+    mesh, the single-device path runs unchanged."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -204,14 +240,20 @@ class BatchNorm(HybridBlock):
     def forward(self, x):
         self._finish_deferred(x)
         training = ag.is_training() and not self._use_global_stats
-        if training:
-            _tp.refuse_split_batch_stats("BatchNorm")
-        out, mean, var = nn_ops.batch_norm(
-            x, self.gamma._tensor(), self.beta._tensor(), self.running_mean._tensor(),
-            self.running_var._tensor(), eps=self._epsilon,
-            fix_gamma=not self._scale,
-            use_global_stats=self._use_global_stats, axis=self._axis,
-            use_batch_stats=training)
+        reducer = (_tp.batch_reducer(self._axis, x.dim()) if training
+                   else None)
+        if reducer is not None:
+            out, mean, var = nn_ops.sync_batch_norm(
+                x, self.gamma._tensor(), self.beta._tensor(), reducer,
+                eps=self._epsilon, fix_gamma=not self._scale,
+                axis=self._axis)
+        else:
+            out, mean, var = nn_ops.batch_norm(
+                x, self.gamma._tensor(), self.beta._tensor(),
+                self.running_mean._tensor(), self.running_var._tensor(),
+                eps=self._epsilon, fix_gamma=not self._scale,
+                use_global_stats=self._use_global_stats, axis=self._axis,
+                use_batch_stats=training)
         if training:
             m = self._momentum
             with torch.no_grad():
@@ -242,6 +284,16 @@ class BatchNormReLU(BatchNorm):
 
     def forward(self, x):
         return torch.relu(super().forward(x))
+
+
+class SyncBatchNorm(BatchNorm):
+    """Cross-device BatchNorm, with the reference's signature
+    (``mxnet_tpu/gluon/nn/basic_layers.py:235-242``): ``BatchNorm``
+    already takes the whole batch's statistics when a meshed step splits
+    the batch over ranks, so ``num_devices`` is accepted and unused."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
 
 
 class Flatten(HybridBlock):

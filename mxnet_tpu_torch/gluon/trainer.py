@@ -32,7 +32,11 @@ fused update over the dp width of ``parallel.default_mesh``
 (``optimizer.fused_step``: ZeRO-1; every rank runs the same step on the
 same batch and updates its chunk of the flattened weights and states);
 with no process group of more than one rank the width is 1 and nothing
-changes.
+changes.  It splits no batch over the ranks, so a BatchNorm in the loop
+takes the statistics of the batch it is given, the whole one, and needs
+no cross-rank reducer.  The workers of a distributed store (below) each
+train on their own batches and keep their BatchNorm statistics local,
+as the reference's do.
 
 With a distributed store (``"dist_sync"``, ``"dist_device_sync"``,
 ``"dist_async"``: ``kvstore/dist.py``) ``update_on_kvstore`` defaults

@@ -65,7 +65,10 @@ structure keys on the width, the optimizer states are this rank's flat
 chunks (``fused_step.shard_states`` before the capture) and the update
 in the graph is ``fused_step.make_sharded_update_fn``'s: the chunks
 update and all-gather back.  A width that changed since the capture
-("zero sharding toggled since capture") is a graph break.
+("zero sharding toggled since capture") is a graph break.  The ranks
+run the same step on the same batch: nothing is split over them, so a
+BatchNorm in the captured step takes the whole batch's statistics as it
+is.
 
 Two reference behaviours differ on purpose.  A host read of a gradient
 placeholder after the break (``amp.scale_loss``'s overflow check reads

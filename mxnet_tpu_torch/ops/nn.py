@@ -2,7 +2,8 @@
 ``mxnet_tpu/ops/nn.py`` the transformer LM and ResNet call):
 ``FullyConnected``, ``Convolution``, ``Pooling``, ``BatchNorm``,
 ``Activation``, the GELU cases of ``LeakyReLU``, the softmax family and
-``LayerNorm``.  The registered ones (``FullyConnected``,
+``LayerNorm``, and ``sync_batch_norm``, BatchNorm over a batch split
+over ranks.  The registered ones (``FullyConnected``,
 ``Convolution``, ``Pooling``, ``BatchNorm``, ``Activation``, ``softmax``,
 ``log_softmax``, ``softmax_cross_entropy``, ``SoftmaxOutput``,
 ``LayerNorm``) are what ``mx.nd`` reaches; those on the AMP lists cast
@@ -23,6 +24,7 @@ from .registry import register
 from .tensor import float_only
 
 __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
+           "sync_batch_norm",
            "activation", "leaky_relu", "softmax", "log_softmax",
            "softmax_cross_entropy", "softmax_output", "layer_norm",
            "safe_accumulation_enabled"]
@@ -217,6 +219,84 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
     out = F.batch_norm(x, moving_mean, moving_var, g, beta, training=False,
                        eps=eps)
     return out, moving_mean, moving_var
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """The normalisation of ``sync_batch_norm`` on ``x`` of shape
+    ``(shards, ...)``, the channels on dim ``c``; f32 inside (f64 for
+    f64 input), ``x``'s type out.  Three calls of the reducer: the sums
+    of x and of (x - mean)² in the forward, those of dy and dy·x̂ (one
+    call) in the backward.  dγ and dβ are this process's sums (the trainer reduces a
+    replicated parameter's gradient over the data axes itself); dx reads
+    the global ones."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, reducer, c, eps):
+        red = [d for d in range(1, x.dim()) if d != c]
+        shape = [1] * x.dim()
+        shape[c] = -1
+        count = x.numel() // (x.shape[0] * x.shape[c]) * reducer.shards
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(acc)
+        mean = reducer.sum(xf.sum(red)) / count
+        d = xf - mean.view(shape)
+        var = reducer.sum((d * d).sum(red)) / count
+        invstd = torch.rsqrt(var + eps)
+        scale = invstd * gamma.to(acc)
+        out = (d * scale.view(shape) + beta.to(acc).view(shape)).to(x.dtype)
+        ctx.save_for_backward(x, gamma, mean, invstd)
+        ctx.reducer, ctx.c, ctx.red, ctx.count = reducer, c, red, count
+        ctx.beta_dtype = beta.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, gamma, mean, invstd = ctx.saved_tensors
+        red, count = ctx.red, ctx.count
+        shape = [1] * x.dim()
+        shape[ctx.c] = -1
+        acc = mean.dtype
+        xhat = (x.to(acc) - mean.view(shape)) * invstd.view(shape)
+        dyf = dy.to(acc)
+        sdy = dyf.sum(red)
+        sdyx = (dyf * xhat).sum(red)
+        tot = ctx.reducer.sum(torch.stack([sdy, sdyx], dim=1))
+        dx = (dyf - (tot[0] / count).view(shape)
+              - xhat * (tot[1] / count).view(shape)) * \
+            (invstd * gamma.to(acc)).view(shape)
+        dgamma = (sdyx.sum(0).to(gamma.dtype)
+                  if ctx.needs_input_grad[1] else None)
+        dbeta = (sdy.sum(0).to(ctx.beta_dtype)
+                 if ctx.needs_input_grad[2] else None)
+        return dx.to(x.dtype), dgamma, dbeta, None, None, None
+
+
+def sync_batch_norm(x, gamma, beta, reducer, *, eps=1e-3, fix_gamma=True,
+                    axis=1):
+    """Batch normalisation with the statistics of a batch split over
+    ranks (``reducer``: ``parallel.collectives.BatchReducer`` over the
+    axes that split it), or of ``reducer.shards`` shards stacked on
+    ``x``'s leading axis (``FoldedReducer``): the reference's
+    ``BatchNorm`` under a dp mesh, where GSPMD makes the batch reduction
+    global (``mxnet_tpu/ops/nn.py:376-398``).  ``axis`` is the channel
+    axis of one shard.  Returns ``(out, mean, var)`` as
+    :func:`batch_norm` does under ``use_batch_stats``.
+
+    Two passes, as ``jnp.mean`` and ``jnp.var``: the mean from the
+    all-reduced f32 sums, then the population variance from the
+    all-reduced f32 sums of (x - mean)².  The normalisation takes them in
+    f32; the returned statistics are rounded to ``x``'s type, the type
+    the forward sees them in.  The same torch ops on the CPU and on the
+    card (torch's own sync-BN ops have no CPU kernel)."""
+    lead = 1 if reducer.folded else 0
+    xs = x if lead else x.unsqueeze(0)
+    c = axis % (x.dim() - lead) + 1
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    out, mean, var = _SyncBatchNorm.apply(xs, g, beta, reducer, c, eps)
+    if not lead:
+        out = out.squeeze(0)
+    return out, mean.to(x.dtype), var.to(x.dtype)
 
 
 def _promoting(fn):

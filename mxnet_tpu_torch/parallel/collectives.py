@@ -16,7 +16,7 @@ function           forward                        backward
 ``reduce_from``    all-reduce (sum)               identity
 ``gather_from``    all-gather along ``dim``       this rank's slice
 ``scatter_to``     this rank's slice of ``dim``   all-gather along ``dim``
-``gather_sum``     all-gather along dim 0         reduce-scatter (sum)
+``gather_sum``     all-gather along ``dim``       reduce-scatter (sum)
 ``all_to_all``     all-to-all of dim-0 chunks     all-to-all back
 ``ppermute``       send to index+shift, receive   the reverse rotation
 ``all_reduce``     all-reduce (sum)               all-reduce (sum)
@@ -27,6 +27,15 @@ tensor-parallel pairs, where every rank of the axis computes the same
 thing outside the sharded matmul; ``gather_sum`` gathers a parameter
 sharded over an axis whose ranks see different data (ZeRO-3 over dp),
 so the gradient of each shard sums the ranks' contributions.
+
+The batch statistics of a batch split over ranks (cross-rank BatchNorm,
+``ops.nn.sync_batch_norm``) are summed by a reducer: :class:`BatchReducer`
+all-reduces over every axis that splits the batch, :class:`FoldedReducer`
+sums the shards one process holds stacked on a leading axis (every rank
+of the mesh on one device).  The normalisation calls it itself, in its
+forward and in its backward: ``reduce_from`` would be wrong there, its
+identity backward assumes every rank receives the same upstream
+gradient, and each dp rank's comes from its own part of the batch.
 
 :func:`tally` counts the bytes each call moves per axis while it is
 open (a trainer opens it around a signature's first run to learn the
@@ -44,7 +53,7 @@ import torch.distributed as dist
 __all__ = ["live", "all_reduce_", "copy_to", "reduce_from", "gather_from",
            "scatter_to", "gather_sum", "all_to_all", "ppermute",
            "all_reduce", "reduce_scatter_flat", "all_gather_flat",
-           "flat_chunk", "tally"]
+           "flat_chunk", "tally", "BatchReducer", "FoldedReducer"]
 
 _tallies = []
 _lock = threading.Lock()
@@ -185,13 +194,16 @@ class _ScatterTo(torch.autograd.Function):
 
 class _GatherSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return _gather(x, axis, 0)
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _gather(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter_flat(g, ctx.axis), None
+        g = g.movedim(ctx.dim, 0)
+        mine = reduce_scatter_flat(g.reshape(-1), ctx.axis)
+        mine = mine.view((g.shape[0] // ctx.axis.size,) + tuple(g.shape[1:]))
+        return mine.movedim(0, ctx.dim), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -268,8 +280,8 @@ def scatter_to(x, axis, dim=-1):
     return _ScatterTo.apply(x, axis, dim % x.dim()) if live(axis) else x
 
 
-def gather_sum(x, axis):
-    return _GatherSum.apply(x, axis) if live(axis) else x
+def gather_sum(x, axis, dim=0):
+    return _GatherSum.apply(x, axis, dim % x.dim()) if live(axis) else x
 
 
 def all_to_all(x, axis):
@@ -287,3 +299,39 @@ def all_reduce(x, axis):
     """Differentiable all-reduce (sum): the backward sums the ranks'
     gradients too, for a value every rank's loss reads."""
     return _AllReduce.apply(x, axis) if live(axis) else x
+
+
+class BatchReducer:
+    """Sums of per-shard statistics over the ranks that split a batch:
+    ``axes`` the live mesh axes the batch is split over.  ``sum(t)``
+    takes ``t`` of shape ``(1, ...)`` (this rank's one shard) and returns
+    the sum over every rank, of shape ``(...)``: one all-reduce per axis,
+    no gradient (the caller differentiates by hand)."""
+
+    folded = False
+
+    def __init__(self, axes):
+        self.axes = tuple(a for a in axes if live(a))
+        self.shards = 1
+        for a in self.axes:
+            self.shards *= a.size
+
+    def sum(self, t):
+        t = t[0].contiguous().clone()
+        for a in self.axes:
+            all_reduce_(t, a)
+        return t
+
+
+class FoldedReducer:
+    """The same sums for ``shards`` shards held in one process, stacked on
+    a leading axis: ``sum(t)`` of ``t`` of shape ``(shards, ...)`` is its
+    sum over that axis.  It runs the multi-rank body on one device."""
+
+    folded = True
+
+    def __init__(self, shards):
+        self.shards = int(shards)
+
+    def sum(self, t):
+        return t.sum(dim=0)

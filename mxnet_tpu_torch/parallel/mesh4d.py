@@ -470,7 +470,8 @@ class Mesh4DTrainer:
             with torch.enable_grad():
                 tree = pytree.tree_unflatten([self._cast(p) for p in ps],
                                              self._treedef)
-                with _tp.scope(plan.mesh, batch_split=bool(self._data),
+                with _tp.scope(plan.mesh,
+                               batch_axes=[(a, 0) for a in self._data],
                                moe_axes=[a.name for a in self._data]) \
                         as sc, ids:
                     out, aux, dropped = _unpack(

@@ -19,22 +19,34 @@ mean, and the loss it returns is that sum.
 
 Per parameter (:class:`_Layout`), as the reference's shardings decide:
 
-* its own spec (``Parameter.shard``, the ``tp`` axis): the rank holds
-  its shard; a ``Dense`` reads it through the tensor-parallel matmul
-  (``tensor_parallel.dense``), any other block through an all-gather
-  over tp made in the step;
-* ZeRO (``zero_stage`` 1–3): a parameter with a still-unsharded axis
-  divisible by the dp width (the reference's ``_composed_zero_spec``)
-  keeps its optimizer state as this rank's 1/dp chunk of the flattened
-  (tp-local) value.  Stages 1 and 2 coincide, as in the reference: the
-  gradient is reduce-scattered over dp into the chunk, the chunk of the
-  master is updated, and the masters are all-gathered back.  Stage 3
-  also keeps the master as the chunk (only for a parameter without its
-  own spec, as ``_param_sharding`` does), all-gathered for each forward;
-  the gather's backward reduce-scatters the gradient.  Chunking a
-  flattened value changes nothing in an elementwise update, which every
-  optimizer op with a multi-tensor form is;
-* otherwise the gradient is all-reduced over dp (and sp).
+* its own spec (``Parameter.shard``): any ``PartitionSpec`` the
+  reference takes, one axis name or a tuple of names (major first) per
+  dim.  The rank holds its box of the value (``mesh.spec_box``), as the
+  reference's ``NamedSharding`` does.  A ``Dense`` whose weight is cut
+  over tp alone reads its shard through the tensor-parallel matmul
+  (``tensor_parallel.dense``); anything else is all-gathered in the
+  step, inner axis first.  The gather's backward depends on the axis: over
+  an axis that splits the batch (dp, and sp over the sequence) the
+  ranks' gradients differ and are reduce-scattered (``gather_sum``);
+  over any other (tp, ep, pp) every rank holds the same gradient and
+  keeps its slice (``gather_from``).  A reduce-scatter over tp would
+  multiply the gradient by the tp width, a slice over dp would drop the
+  other ranks' share;
+* ZeRO (``zero_stage`` 1–3), composed as the reference's
+  ``_composed_zero_spec``: a spec that names dp is left as it is; else a
+  parameter with a free dim divisible by the dp width keeps its
+  optimizer state as this rank's 1/dp chunk of the flattened (local)
+  value.  Stages 1 and 2 coincide, as in the reference: the gradient is
+  reduce-scattered over dp into the chunk, the chunk of the master is
+  updated, and the masters are all-gathered back.  Stage 3 also keeps
+  the master as the chunk (only for a parameter without its own spec,
+  as ``_param_sharding`` does), all-gathered for each forward; the
+  gather's backward reduce-scatters the gradient.  Chunking a flattened
+  value changes nothing in an elementwise update, which every optimizer
+  op with a multi-tensor form is, and holds the same bytes as the
+  reference's cut of the largest divisible dim;
+* otherwise the gradient is all-reduced over dp (and sp): over every
+  data axis its gather did not already reduce-scatter.
 
 Reductions of one kind are bucketed: one flat buffer and one collective
 for all the parameters they cover.  Every collective over an axis of
@@ -51,11 +63,17 @@ import torch.distributed as dist
 
 from ..base import MXNetError
 from . import collectives as comm
-from .mesh import spec_axes
+from .mesh import spec_axes, spec_box, spec_gather
 
 __all__ = ["MeshRun"]
 
 _PLAIN, _CHUNKED, _FSDP = "plain", "chunked", "fsdp"
+
+
+def _names(entry):
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
 class _Layout:
@@ -69,43 +87,46 @@ class _Layout:
             raise MXNetError(f"parameter {key}: spec {param._sharding!r} "
                              f"longer than its shape {shape}")
         spec += [None] * (len(shape) - len(spec))
-        self.tp_dim, self.tp = None, None
-        for dim, s in enumerate(spec):
-            if s is None:
-                continue
-            if s != "tp":
-                raise MXNetError(
-                    f"parameter {key}: PartitionSpec {param._sharding!r}; "
-                    f"the port shards parameters over 'tp' only (other "
-                    f"axes: queue 1 item 11d)")
-            if self.tp_dim is not None:
-                raise MXNetError(f"parameter {key}: 'tp' named twice in "
-                                 f"{param._sharding!r}")
-            ax = mesh.axis("tp")
-            if ax is None:
-                raise MXNetError(f"parameter {key} is sharded over 'tp'; "
-                                 f"the mesh {mesh.shape} has no tp axis")
-            if shape[dim] % ax.size:
-                raise MXNetError(f"parameter {key}: dim {dim} ({shape[dim]})"
-                                 f" not divisible by tp={ax.size}")
-            self.tp_dim = dim
-            if comm.live(ax):
-                self.tp = ax
-        local = list(shape)
-        if self.tp is not None:
-            local[self.tp_dim] //= self.tp.size
-        self.shape, self.local_shape = shape, tuple(local)
+        self.spec = tuple(spec)
+        # [(dim, axis)] of the live axes the value is cut over, in spec
+        # order (dims in order, each dim's names major first)
+        self.cuts, named = [], set()
+        for dim, entry in enumerate(spec):
+            for name in _names(entry):
+                if name in named:
+                    raise MXNetError(f"parameter {key}: axis {name!r} named "
+                                     f"twice in {param._sharding!r}")
+                named.add(name)
+                ax = mesh.axis(name)
+                if ax is None:
+                    raise MXNetError(f"parameter {key} is sharded over "
+                                     f"{name!r}; the mesh {mesh.shape} has "
+                                     f"no {name} axis")
+                if comm.live(ax):
+                    self.cuts.append((dim, ax))
+        try:
+            self.start, self.local_shape = spec_box(shape, spec, mesh)
+        except ValueError as e:
+            raise MXNetError(f"parameter {key}: {e}") from None
+        self.named = named
+        self.own = {ax.name for _, ax in self.cuts}
+        self.shape = shape
         self.numel = int(math.prod(self.local_shape))
+        # the tp axis when tp alone cuts it, as a tensor-parallel Dense
+        # reads it (tensor_parallel.dense)
+        self.tp_dim, self.tp = None, None
+        if named == {"tp"} and len(self.cuts) == 1:
+            self.tp_dim, self.tp = self.cuts[0]
         # ZeRO: the reference's composition rule decides which parameters
-        # shard over dp (a dp-divisible axis the spec leaves free)
+        # shard over dp (a dp-divisible dim the spec leaves free; none
+        # when the spec names dp)
         dp = mesh.axis("dp")
-        divisible = comm.live(dp) and any(
+        divisible = comm.live(dp) and "dp" not in named and any(
             spec[d] is None and shape[d] % dp.size == 0
             for d in range(len(shape)))
         self.kind = _PLAIN
         if zero_stage >= 1 and divisible and param.grad_req != "null":
-            own = self.tp_dim is not None
-            self.kind = _FSDP if zero_stage >= 3 and not own else _CHUNKED
+            self.kind = _FSDP if zero_stage >= 3 and not named else _CHUNKED
         self.dp = dp if self.kind != _PLAIN else None
         self.chunk = self.numel // dp.size if self.dp is not None else None
         # whether a Dense reads the local tp shard (else it is gathered);
@@ -115,14 +136,12 @@ class _Layout:
     @property
     def sharded(self) -> bool:
         """The rank holds less than the whole master."""
-        return self.tp is not None or self.kind == _FSDP
+        return bool(self.cuts) or self.kind == _FSDP
 
     def local_of(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's master cut from the whole value."""
-        t = full
-        if self.tp is not None:
-            n = self.local_shape[self.tp_dim]
-            t = t.narrow(self.tp_dim, self.tp.index * n, n)
+        t = full[tuple(slice(a, a + n) for a, n in
+                       zip(self.start, self.local_shape))]
         if self.kind == _FSDP:
             t = comm.flat_chunk(t.contiguous(), self.dp)
         return t.contiguous()
@@ -139,11 +158,12 @@ class MeshRun:
     """The mesh, the layouts and the collectives of one meshed trainer."""
 
     def __init__(self, mesh, plan, net, params, keys, batch_axis, seq_axis,
-                 zero_stage):
+                 zero_stage, micro_batches=1):
         if not mesh.is_member:
             raise MXNetError("this rank is not on the trainer's mesh")
         self.mesh, self.plan = mesh, plan
         self.batch_axis = batch_axis
+        self.micro_batches = int(micro_batches)
         self.seq_axis = (seq_axis if seq_axis is not None
                          and "sp" in mesh.shape and seq_axis != batch_axis
                          else None)
@@ -151,16 +171,20 @@ class MeshRun:
         self.sp = mesh.axis("sp") if self.seq_axis is not None else None
         self.data_axes = [a for a in (self.dp, self.sp) if comm.live(a)]
         self.n_data = math.prod(a.size for a in self.data_axes)
+        # ((axis, batch dim), ...) for the layers' scope (BatchNorm)
+        self.batch_axes = tuple((a, d) for a, d in (
+            (self.dp, batch_axis), (self.sp, self.seq_axis))
+            if comm.live(a))
         self.layouts = [_Layout(k, p, mesh, zero_stage)
                         for k, p in zip(keys, params)]
         # a Dense reads its own weight and bias as tp shards
         # (tensor_parallel.dense); any other block gets them gathered
         dense = _dense_params(net)
         for lay in self.layouts:
-            lay.tp_native = id(lay.param) in dense
+            lay.tp_native = lay.tp is not None and id(lay.param) in dense
         self.masters: List[Optional[torch.Tensor]] = [None] * len(params)
         self.tp_local = {id(lay.param): lay.tp for lay in self.layouts
-                         if lay.tp is not None and lay.tp_native}
+                         if lay.tp_native}
         # bytes the step's sequence-parallel collectives move, by axis,
         # from its first run (collectives.tally)
         self.step_bytes = None
@@ -187,14 +211,19 @@ class MeshRun:
 
     def compute(self, tensors):
         """The tensors a forward reads, from the (cast) masters: stage-3
-        chunks all-gathered over dp, tp shards a Dense cannot read
-        all-gathered over tp."""
+        chunks all-gathered over dp, boxes all-gathered over their axes
+        (inner first) unless a Dense reads its tp shard itself.  Over an
+        axis that splits the batch the gather's backward reduce-scatters
+        the gradient; over any other it slices it."""
+        batch = {a.name for a in self.data_axes}
         out = []
         for t, lay in zip(tensors, self.layouts):
             if lay.kind == _FSDP:
                 t = comm.gather_sum(t, lay.dp).view(lay.local_shape)
-            if lay.tp is not None and not lay.tp_native:
-                t = comm.gather_from(t, lay.tp, lay.tp_dim)
+            if not lay.tp_native:
+                for dim, ax in reversed(lay.cuts):
+                    t = (comm.gather_sum(t, ax, dim) if ax.name in batch
+                         else comm.gather_from(t, ax, dim))
             out.append(t)
         return out
 
@@ -202,24 +231,32 @@ class MeshRun:
     def local_batch(self, x, lead=0):
         """This rank's shard of a batch array (numpy or tensor):
         ``batch_axis`` over dp, ``seq_axis`` over sp; ``lead`` leading
-        axes (a ``run_steps`` window) come first."""
+        axes (a ``run_steps`` window) come first.  Under ``micro_batches``
+        k the dp shard is taken micro-batch by micro-batch: the rank's
+        j-th micro-batch is its shard of the global j-th, the rows whose
+        statistics a BatchNorm of that micro-batch takes over all ranks,
+        as the reference's micro-batches are cut from the global
+        batch."""
         nd = x.ndim - lead
         for ax, dim in ((self.dp, self.batch_axis),
                         (self.sp, self.seq_axis)):
             if not comm.live(ax) or dim is None or dim >= nd:
                 continue
             d = lead + dim
-            if x.shape[d] % ax.size:
+            k = self.micro_batches if ax is self.dp else 1
+            if x.shape[d] % (ax.size * k):
                 raise MXNetError(f"batch dim {dim} ({x.shape[d]}) not "
                                  f"divisible by the {ax.name} axis size "
-                                 f"{ax.size}")
-            n = x.shape[d] // ax.size
+                                 f"{ax.size}" + (f" times micro_batches="
+                                                 f"{k}" if k > 1 else ""))
+            m = x.shape[d] // (ax.size * k)
+            shape = tuple(x.shape)
+            x = x.reshape(shape[:d] + (k, ax.size, m) + shape[d + 1:])
             if isinstance(x, torch.Tensor):
-                x = x.narrow(d, ax.index * n, n)
+                x = x.select(d + 1, ax.index)
             else:
-                idx = [slice(None)] * x.ndim
-                idx[d] = slice(ax.index * n, (ax.index + 1) * n)
-                x = x[tuple(idx)]
+                x = x.take(ax.index, axis=d + 1)
+            x = x.reshape(shape[:d] + (k * m,) + shape[d + 1:])
         return x
 
     # -- the step's collectives ------------------------------------------------
@@ -236,12 +273,17 @@ class MeshRun:
 
     def reduce_grads(self, grads, live):
         """The live parameters' gradients summed over the data axes: the
-        optimizer's view of each (stage 1/2: this rank's chunk)."""
+        optimizer's view of each (stage 1/2: this rank's chunk).  A
+        gradient whose gather already reduce-scattered it over an axis
+        (a box cut over dp or sp, a stage-3 chunk) is not reduced over
+        that axis again."""
         grads = list(grads)
         lays = [self.layouts[i] for i in live]
-        plain = [j for j, lay in enumerate(lays) if lay.kind == _PLAIN]
-        chunked = [j for j, lay in enumerate(lays) if lay.kind == _CHUNKED]
         if comm.live(self.dp):
+            plain = [j for j, lay in enumerate(lays)
+                     if lay.kind == _PLAIN and "dp" not in lay.own]
+            chunked = [j for j, lay in enumerate(lays)
+                       if lay.kind == _CHUNKED]
             for j, g in zip(plain, _bucket_all_reduce(
                     [grads[j] for j in plain], self.dp)):
                 grads[j] = g
@@ -249,7 +291,9 @@ class MeshRun:
                     [grads[j] for j in chunked], self.dp)):
                 grads[j] = g
         if comm.live(self.sp):
-            for j, g in enumerate(_bucket_all_reduce(grads, self.sp)):
+            rest = [j for j, lay in enumerate(lays) if "sp" not in lay.own]
+            for j, g in zip(rest, _bucket_all_reduce(
+                    [grads[j] for j in rest], self.sp)):
                 grads[j] = g
         return grads
 
@@ -290,20 +334,15 @@ class MeshRun:
         if lay.kind in (_FSDP, _CHUNKED) and t.numel() == lay.chunk:
             t = comm.all_gather_flat(t.reshape(-1), lay.dp).view(
                 lay.local_shape)
-        if lay.tp is not None:
-            t = comm._gather(t, lay.tp, lay.tp_dim)
-        return t
+        return spec_gather(t, lay.spec, self.mesh)
 
     # -- persistence -----------------------------------------------------------
     def box(self, i):
-        """``(start, stop)`` of this rank's tp-local part of parameter
-        ``i`` in the whole value (the whole value off tp)."""
+        """``(start, stop)`` of this rank's box of parameter ``i`` in the
+        whole value (the whole value for one without a spec)."""
         lay = self.layouts[i]
-        start = [0] * len(lay.shape)
-        if lay.tp is not None:
-            start[lay.tp_dim] = lay.tp.index * lay.local_shape[lay.tp_dim]
-        return tuple(start), tuple(a + n for a, n in
-                                   zip(start, lay.local_shape))
+        return lay.start, tuple(a + n for a, n in
+                                zip(lay.start, lay.local_shape))
 
     def _chunked(self, i, t):
         lay = self.layouts[i]
@@ -317,18 +356,15 @@ class MeshRun:
         from ..checkpoint import box_pieces
         lay = self.layouts[i]
         chunked = self._chunked(i, t)
-        own = ({"tp"} if lay.tp is not None else set()) | \
-            ({"dp"} if chunked else set())
+        own = lay.own | ({"dp"} if chunked else set())
         if not self.mesh.writes(own):
             return None
-        start, _ = self.box(i)
-        return box_pieces(lay.shape, start, lay.local_shape, t,
+        return box_pieces(lay.shape, lay.start, lay.local_shape, t,
                           lay.dp.index * lay.chunk if chunked else None)
 
     def from_box(self, i, box, like):
-        """This rank's tensor, shaped as ``like``, from its tp-local box
-        of the whole value (a ZeRO chunk cut from it when ``like`` is
-        one)."""
+        """This rank's tensor, shaped as ``like``, from its box of the
+        whole value (a ZeRO chunk cut from it when ``like`` is one)."""
         if self._chunked(i, like):
             return comm.flat_chunk(box.contiguous(), self.layouts[i].dp)
         return box.reshape(like.shape)
@@ -347,7 +383,9 @@ class MeshRun:
             p = lay.param
             nbytes = int(math.prod(lay.shape)) * p.dtype.itemsize
             if ndp > 1:
-                if lay.kind != _PLAIN:
+                # the optimizer state's spec names dp: ZeRO's composed
+                # chunk, or the parameter's own spec
+                if lay.kind != _PLAIN or "dp" in lay.named:
                     rs += int(nbytes * gfrac) * (ndp - 1) // ndp
                     ag += nbytes * (ndp - 1) // ndp
                 else:

@@ -11,9 +11,11 @@ step.  Inside it:
   when the batch is sharded over ``sp`` (``seq_axis``);
 * ``MultiHeadAttention(ring_mesh=...)`` runs the sequence-parallel body
   on the local shard instead of sharding whole tensors itself;
-* ``BatchNorm`` in training mode refuses a batch split over the ranks:
-  its statistics would be the rank's, where the reference's are the
-  whole batch's (cross-rank statistics are not ported yet).
+* ``BatchNorm`` in training mode takes the whole batch's statistics
+  when the batch is split over live axes (``batch_axes``): it asks
+  :func:`batch_reducer` for the reducer over those axes and runs
+  ``ops.nn.sync_batch_norm``, as the reference's BatchNorm under GSPMD
+  reduces over the whole batch.
 
 A Dense weight in the gluon (out, in) layout:
 
@@ -26,10 +28,16 @@ A Dense weight in the gluon (out, in) layout:
   (``reduce_from``); the bias adds after the sum.
 
 Every rank of the tp axis computes the same thing outside the sharded
-matmul.  The output of a column-parallel layer is gathered before the
-next layer rather than kept sharded into a following row-parallel one
-(Megatron's pairing, which saves a gather and a slice): simpler, the
-same numbers, more traffic — a later change may pair them.
+matmul.  Megatron's pairing: where the code sees that a column-parallel
+Dense's only consumer is a row-parallel Dense on the same axis, with at
+most an elementwise activation between them (``TransformerBlock``'s
+``ffn1 → act → ffn2``, adjacent Dense pairs in a ``(Hybrid)Sequential``),
+it runs them under :func:`paired`: the column output stays this rank's
+slice (a replicated column bias is sliced to it, ``scatter_to``) and the
+row Dense reads that slice without ``scatter_to``.  That saves the
+column's gather in the forward and the row's in the backward, the same
+numbers.  Everywhere else a column output is gathered: a layer that
+expects the whole tensor must not get a part of it.
 """
 from __future__ import annotations
 
@@ -42,20 +50,21 @@ from . import collectives as comm
 from .mesh import spec_axes
 
 __all__ = ["scope", "active", "local_axis", "dense", "seq_offset",
-           "refuse_split_batch_stats"]
+           "batch_reducer", "pair_axis", "paired"]
 
 _local = threading.local()
 
 
 class _Scope:
-    __slots__ = ("mesh", "seq_sharded", "tp_local", "batch_split",
-                 "moe_axes", "tp_rows")
+    __slots__ = ("mesh", "seq_sharded", "tp_local", "batch_axes",
+                 "moe_axes", "tp_rows", "paired")
 
-    def __init__(self, mesh, seq_sharded, tp_local, batch_split, moe_axes):
+    def __init__(self, mesh, seq_sharded, tp_local, batch_axes, moe_axes):
         self.mesh = mesh
         self.seq_sharded = bool(seq_sharded)
-        # the rank holds a part of the batch (a live dp or sp axis)
-        self.batch_split = bool(batch_split)
+        # ((axis, dim), ...): the live axes that split the batch (dp, and
+        # sp over the sequence), each with the batch dim it splits
+        self.batch_axes = tuple(batch_axes or ())
         # id(parameter) -> the tp axis, for parameters read as local shards
         self.tp_local: Dict[int, object] = tp_local
         # the axes the tokens of a switch_moe called without a mesh are
@@ -63,13 +72,16 @@ class _Scope:
         self.moe_axes = tuple(moe_axes or ())
         # MeshPlan.tp_row calls in the scope
         self.tp_rows = 0
+        # id(weight) -> "out" (a column Dense keeping its slice) or "in"
+        # (a row Dense reading one), under ``paired``
+        self.paired: Dict[int, str] = {}
 
 
 @contextlib.contextmanager
-def scope(mesh, seq_sharded=False, tp_local=None, batch_split=False,
+def scope(mesh, seq_sharded=False, tp_local=None, batch_axes=(),
           moe_axes=None):
     prev = getattr(_local, "scope", None)
-    _local.scope = _Scope(mesh, seq_sharded, tp_local or {}, batch_split,
+    _local.scope = _Scope(mesh, seq_sharded, tp_local or {}, batch_axes,
                           moe_axes)
     try:
         yield _local.scope
@@ -99,15 +111,18 @@ def seq_offset(s_local: int):
     return ax.index * s_local, ax.size * s_local
 
 
-def refuse_split_batch_stats(layer):
-    """Raise where a layer would take batch statistics of this rank's
-    part of a batch split over the mesh."""
+def batch_reducer(channel_axis: int, ndim: int):
+    """The reducer of a BatchNorm's statistics (channels on
+    ``channel_axis`` of an ``ndim``-D input) in this step: a
+    ``collectives.BatchReducer`` over the live axes that split the batch
+    along a dim it reduces, or None where the rank holds the whole batch
+    (no scope, one rank, ``predict``)."""
     s = active()
-    if s is not None and s.batch_split:
-        raise MXNetError(
-            f"{layer} in training mode on a batch split over the mesh "
-            f"needs the whole batch's statistics (cross-rank BatchNorm): "
-            f"not ported yet (queue 1 item 11d)")
+    if s is None:
+        return None
+    c = channel_axis % ndim
+    axes = [a for a, d in s.batch_axes if d % ndim != c]
+    return comm.BatchReducer(axes) if axes else None
 
 
 def _tp_dim(spec):
@@ -125,18 +140,61 @@ def _tp_dim(spec):
 
 def dense(fc, x, w, b, w_param, b_param, ax, flatten):
     """``fc(x, w, b, flatten)`` with ``w`` (and maybe ``b``) this rank's
-    tp shard of ``w_param`` / ``b_param``."""
+    tp shard of ``w_param`` / ``b_param``; under :func:`paired` a column
+    layer returns its slice and a row layer takes one."""
     dim = _tp_dim(w_param._sharding)
     b_local = b_param is not None and "tp" in spec_axes(b_param._sharding)
+    role = active().paired.get(id(w_param))
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
     if dim == 0:
         x = comm.copy_to(x, ax)
+        if role == "out":
+            if b is not None and not b_local:
+                b = comm.scatter_to(b, ax, -1)
+            return fc(x, w, b, False)
         y = fc(x, w, b if b_local else None, False)
         y = comm.gather_from(y, ax, -1)
         return y + b if b is not None and not b_local else y
     if b_local:
         raise MXNetError("a row-parallel Dense (weight P(None, 'tp')) "
                          "takes a replicated bias")
-    y = comm.reduce_from(fc(comm.scatter_to(x, ax, -1), w, None, False), ax)
+    if role != "in":
+        x = comm.scatter_to(x, ax, -1)
+    y = comm.reduce_from(fc(x, w, None, False), ax)
     return y + b if b is not None else y
+
+
+def pair_axis(col, row):
+    """The tp axis when Dense ``col`` is read column parallel and Dense
+    ``row`` row parallel on the same axis in this step (Megatron's
+    pair), else None."""
+    a = local_axis(getattr(col, "weight", None))
+    if a is None or a is not local_axis(getattr(row, "weight", None)):
+        return None
+    if row._flatten and not col._flatten:
+        return None         # the row layer would fold a sliced dim
+    try:
+        dims = (_tp_dim(col.weight._sharding), _tp_dim(row.weight._sharding))
+    except MXNetError:
+        return None
+    return a if dims == (0, 1) else None
+
+
+@contextlib.contextmanager
+def paired(col, row):
+    """Run ``col``'s output into ``row`` as Megatron's pair when
+    :func:`pair_axis` allows it (the caller guarantees that ``row`` is
+    the column output's only consumer, through at most an elementwise
+    activation); else a no-op."""
+    s = active()
+    if s is None or pair_axis(col, row) is None:
+        yield
+        return
+    keys = (id(col.weight), id(row.weight))
+    s.paired[keys[0]], s.paired[keys[1]] = "out", "in"
+    try:
+        yield
+    finally:
+        for k in keys:
+            s.paired.pop(k, None)

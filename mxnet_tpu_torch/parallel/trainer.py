@@ -97,8 +97,10 @@ With a mesh (``mesh=make_mesh(...)`` or a ``MeshPlan``; with none,
 ``MXNET_MESH``, else every rank of a started process group over dp) the
 trainer is one rank of an SPMD job over ``torch.distributed``
 (``parallel/spmd.py``): each rank trains on its shard of the batch
-(``batch_axis`` over dp, ``seq_axis`` over sp), holds its shards of the
-parameters sharded over tp (``Parameter.shard``) and, under ZeRO
+(``batch_axis`` over dp, ``seq_axis`` over sp; BatchNorm takes the
+statistics of the whole batch, summed over those axes), holds its
+shards of the parameters its specs cut (``Parameter.shard``, over any
+mesh axis) and, under ZeRO
 (``zero_stage`` / ``zero`` 1–3, default ``MXNET_ZERO``), its dp chunk of
 the optimizer state (stage 3: of the master too), and makes the step's
 collectives inside the step.  Every rank passes the same whole batch, as
@@ -233,7 +235,7 @@ class SPMDTrainer:
             from .spmd import MeshRun
             self._mesh_run = MeshRun(mesh, self.plan, self.net, self._plist,
                                      self._pkeys, self.batch_axis, seq_axis,
-                                     self.zero_stage)
+                                     self.zero_stage, self.micro_batches)
             self._mesh_run.take()
         views = self._state_views(self._masters())
         self._opt_state = {
@@ -384,7 +386,7 @@ class SPMDTrainer:
         if run is None:
             return contextlib.nullcontext()
         return _tp.scope(run.mesh, step and run.sp is not None, run.tp_local,
-                         batch_split=step and run.n_data > 1)
+                         batch_axes=run.batch_axes if step else ())
 
     def _loss_and_grads(self, masters, live, ids, data, label):
         """``(loss, grads, aux)``: the gradients of the live masters, and

@@ -213,17 +213,6 @@ def test_parallel_names_match_the_reference():
         assert "not ported yet" not in inspect.getsource(obj), name
 
 
-def test_batchnorm_on_a_split_batch_is_refused(pool):
-    """The reference's BatchNorm under dp takes the whole batch's
-    statistics; per-rank statistics would differ, so the port refuses
-    until cross-rank BatchNorm is ported."""
-    got = [r for r in pool.run("case_batchnorm_refused", {"dp": 2})
-           if r is not None]
-    assert len(got) == 2
-    for msg in got:
-        assert msg.startswith("MXNetError") and "not ported yet" in msg
-
-
 def test_sharded_parameter_guards(pool):
     """A parameter the trainer holds as shards refuses reads while its
     full value is stale (after a step, or a ``set_full_value``) and

@@ -370,27 +370,6 @@ def case_one_rank(weights, batches, opt_params):
     return out
 
 
-def case_batchnorm_refused(axes):
-    """A BatchNorm net stepped on a batch split over dp: the error."""
-    import torch
-    from mxnet_tpu_torch.gluon import loss as gloss
-    from mxnet_tpu_torch.gluon import nn
-    from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
-    mesh = make_mesh(axes)
-    if not mesh.is_member:
-        return None
-    net = nn.HybridSequential()
-    net.add(nn.Dense(8, in_units=4), nn.BatchNorm(in_channels=8),
-            nn.Dense(2, in_units=8))
-    net.initialize(device="cpu")
-    tr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), mesh=mesh)
-    try:
-        tr.step(torch.ones(4, 4), torch.zeros(4))
-    except Exception as e:          # the message is the result
-        return f"{type(e).__name__}: {e}"
-    return None
-
-
 def case_shard_guards(weights, batches):
     """A Dense net with its head sharded on tp at dp2×tp2 (ZeRO-3 for the
     rest): what a parameter the trainer holds as shards allows before
@@ -1108,3 +1087,192 @@ if __name__ == "__main__":
     import sys
     if sys.argv[1:2] == ["launch_worker"]:
         launch_worker(sys.argv[2])
+
+
+# -- cross-rank BatchNorm ---------------------------------------------------------
+
+def layer_net(nn, layers):
+    """A HybridSequential of ``layers``, ``(class name, args, kwargs)``
+    tuples: the same net in either package's ``gluon.nn``."""
+    net = nn.HybridSequential()
+    for name, args, kw in layers:
+        net.add(getattr(nn, name)(*args, **kw))
+    return net
+
+
+def _bits(t):
+    """A tensor's bytes, for bitwise comparisons across ranks."""
+    return t.detach().cpu().contiguous().numpy().tobytes()
+
+
+def case_bn_train(layers, weights, axes, batches, opt, mode, trainer_kw):
+    """A net with BatchNorm through a meshed SPMDTrainer (SGD) on the
+    whole batches, each rank training on its dp shard: ``(losses,
+    gathered parameters, the running statistics' bits)``; ``mode``
+    ``"run_steps"`` runs the batches' count of steps on the first batch
+    in one window.  ``axes`` None: the unmeshed trainer."""
+    import torch
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    mesh = make_mesh(axes) if axes is not None else None
+    if mesh is not None and not mesh.is_member:
+        return None
+    net = layer_net(nn, layers)
+    net.initialize(device="cpu")
+    for k, p in net.collect_params().items():
+        p.set_data(torch.as_tensor(weights[k]))
+    kw = {"mesh": mesh} if mesh is not None else {"device": "cpu"}
+    tr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                     optimizer_params=opt, **kw, **trainer_kw)
+    if mode == "step":
+        losses = [float(tr.step(d, l).asnumpy()) for d, l in batches]
+    else:
+        losses = [float(v) for v in tr.run_steps(
+            batches[0][0], batches[0][1], len(batches)).asnumpy()]
+    tr.gather_params()
+    params = {k: _np(p._tensor()) for k, p in tr._params.items()}
+    stats = {k: _bits(p._tensor()) for k, p in tr._params.items()
+             if k.endswith(("running_mean", "running_var"))}
+    return losses, params, stats
+
+
+def case_bn_reducer(x_shards, gamma, beta, dy_shards, axes):
+    """``sync_batch_norm`` on this rank's shard with the reducer over
+    ``axes``: ``(out, mean, var, dx, dgamma, dbeta)`` of the shard (dγ
+    and dβ this rank's sums)."""
+    import torch
+    from mxnet_tpu_torch.ops.nn import sync_batch_norm
+    from mxnet_tpu_torch.parallel import collectives as comm
+    from mxnet_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(axes)
+    if not mesh.is_member:
+        return None
+    i = mesh.coordinate("dp")
+    x = torch.tensor(x_shards[i], requires_grad=True)
+    g = torch.tensor(gamma, requires_grad=True)
+    b = torch.tensor(beta, requires_grad=True)
+    out, mean, var = sync_batch_norm(
+        x, g, b, comm.BatchReducer([mesh.axis("dp")]), eps=1e-5,
+        fix_gamma=False)
+    dx, dg, db = torch.autograd.grad(out, [x, g, b],
+                                     torch.tensor(dy_shards[i]))
+    return tuple(_np(t) for t in (out, mean, var, dx, dg, db))
+
+
+# -- parameter specs over every axis, Megatron's pairing ----------------------------
+
+def expert_net(weights, experts, hidden, units, classes, specs=None):
+    """An expert-stacked weight (E, H, F) read whole by one matmul, then a
+    Dense head, with the given weights and specs."""
+    import torch
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.block import HybridBlock
+    from mxnet_tpu_torch.gluon.parameter import Parameter
+
+    class Experts(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.w = Parameter("w", shape=(experts, hidden, units))
+
+        def forward(self, x):
+            return torch.relu(x @ self.w._tensor().reshape(
+                experts * hidden, units))
+
+    net = nn.HybridSequential()
+    net.add(Experts(), nn.Dense(classes, in_units=units))
+    net.initialize(device="cpu")
+    for k, p in net.collect_params().items():
+        p.set_data(torch.as_tensor(weights[k]))
+        if specs and k in specs:
+            p.shard(_spec(specs[k]))
+    return net
+
+
+def case_spec_train(kind, weights, specs, axes, opt, batches, zero_stage):
+    """A Dense net (``kind`` "dense") or the expert net ("experts") with
+    parameter specs over any mesh axis through a meshed SPMDTrainer
+    (Adam): ``(losses, gathered params, gathered states, opt-state bytes
+    on this rank, {key: this rank's master shape})``."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    mesh = make_mesh(axes)
+    if not mesh.is_member:
+        return None
+    net = (dense_net(weights, specs=specs) if kind == "dense" else
+           expert_net(weights, specs=specs, **EXPERT_DIMS))
+    tr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), optimizer="adam",
+                     optimizer_params=opt, mesh=mesh, zero_stage=zero_stage)
+    shapes = {k: tuple(m.shape) for k, m in zip(tr._pkeys, tr._masters())}
+    return train(tr, batches) + (shapes,)
+
+
+EXPERT_DIMS = dict(experts=4, hidden=2, units=6, classes=4)
+
+
+def case_spec_resave(weights, batches, opt, root):
+    """A trainer with P("dp", None) at dp4 takes two steps and saves; a
+    trainer at dp2 x tp2 with the weights spec'd P(("dp", "tp"), None) and
+    P(None, "tp") under ZeRO 1 restores it.  Both gathered: ``(saved
+    params, saved states, restored params, restored states)``."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    zeros = {k: onp.zeros_like(v) for k, v in weights.items()}
+    a = SPMDTrainer(dense_net(weights, specs={"0.weight": ("dp", None)}),
+                    gloss.SoftmaxCrossEntropyLoss(), optimizer="adam",
+                    optimizer_params=opt, mesh=make_mesh({"dp": 4}))
+    for d, l in batches:
+        a.step(d, l)
+    a.save_checkpoint(root)
+    b = SPMDTrainer(dense_net(zeros, specs={"0.weight": (("dp", "tp"), None),
+                                            "1.weight": (None, "tp")}),
+                    gloss.SoftmaxCrossEntropyLoss(), optimizer="adam",
+                    optimizer_params=opt,
+                    mesh=make_mesh({"dp": 2, "tp": 2}), zero_stage=1)
+    b.load_checkpoint(root)
+    out = []
+    for tr in (a, b):
+        tr.gather_params()
+        out.append({k: _np(p._tensor()) for k, p in tr._params.items()})
+        out.append({k: [_np(t) for t in st]
+                    for k, st in tr.gather_states().items()})
+    return tuple(out)
+
+
+def case_pairing(weights, specs, axes, batches, opt, nested):
+    """A column- then a row-parallel Dense at dp x tp, adjacent in one
+    HybridSequential (Megatron's pair) or, ``nested``, the row layer
+    inside a child Sequential (not paired): ``(losses, gathered params,
+    gathered states, the first step's bytes over tp by
+    collectives.tally)``."""
+    import torch
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    mesh = make_mesh(axes)
+    if not mesh.is_member:
+        return None
+    net = nn.HybridSequential()
+    col = nn.Dense(16, in_units=8, activation="relu")
+    row = nn.Dense(4, in_units=16)
+    if nested:
+        net.add(col, nn.HybridSequential().add(row))
+    else:
+        net.add(col, row)
+    net.initialize(device="cpu")
+    for name, blk in (("0", col), ("1", row)):
+        for attr in ("weight", "bias"):
+            p = getattr(blk, attr)
+            p.set_data(torch.as_tensor(weights[f"{name}.{attr}"]))
+            if f"{name}.{attr}" in specs:
+                p.shard(_spec(specs[f"{name}.{attr}"]))
+    tr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                     optimizer_params=opt, mesh=mesh)
+    losses = [float(tr.step(d, l).asnumpy()) for d, l in batches]
+    tp_bytes = (tr._mesh_run.step_bytes or {}).get("tp", 0)
+    tr.gather_params()
+    params = {k: _np(p._tensor()) for k, p in zip(("0.weight", "0.bias",
+                                                    "1.weight", "1.bias"),
+                                                   (col.weight, col.bias,
+                                                    row.weight, row.bias))}
+    return losses, params, tp_bytes
