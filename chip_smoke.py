@@ -414,6 +414,40 @@ exits non-zero and prints no result:
              unmeshed trainer: a warm step and 10 replays, losses
              bitwise equal, K1-K3 8 launches a replayed step (counts
              zeroed just before, read just after) with no plain call.
+27. vision_zoo — the rest of bench.py's parity grids (``bench.py:81-90``)
+             and the randomness of a captured step, fp32 with TF32 off
+             unless named.  Weights are Xavier from ``mx.random``'s host
+             generator (``mx.random.seed`` before ``initialize``), data
+             and float labels made on the card from a seeded generator.
+             (a) ``TRAIN_PARITY_GRID`` as ``_train_bench`` runs it:
+             Inception-v3 (batch 128, 299²) and AlexNet (batch 512,
+             224²), ``get_model(name, classes=1000)``, ``SPMDTrainer``
+             with SGD lr 0.05 momentum 0.9 wd 1e-4 on ``make_mesh({"dp":
+             -1})`` (a group of one over NCCL); img/s by the slope
+             between ``run_steps`` windows of 4 and 24; losses finite
+             and falling; peak memory.  (b) randomness under capture, on
+             AlexNet (batch 64, 224², both Dropouts in its classifier),
+             cuDNN deterministic: a warm step and 3 replays bitwise
+             equal to 4 ``_step_eager`` steps from the same
+             ``mx.random`` state (losses, masters, momenta); a second
+             captured trainer seeded alike repeats the first bitwise; at
+             lr 0 (weights still) consecutive replays, and the steps of
+             a ``run_steps`` window, give distinct losses (fresh masks);
+             each Dropout's kept fraction (outputs kept over inputs
+             non-zero, one eager step) within 5σ of 0.5; a checkpoint
+             saved after the 4 steps and loaded after a fifth repeats the
+             fifth bitwise; the eager Gluon loop's whole-step capture
+             (``cached_step``, 4 steps) bitwise equal to the loop under
+             ``MXNET_CACHED_STEP=0``, one capture, no break.  (c)
+             ``INFER_PARITY_GRID`` as ``_infer_bench`` runs it:
+             resnet152_v1 (128), inceptionv3 (128, 299²), vgg16 (64) and
+             alexnet (256), each in fp32 and bf16 (``net.cast``), img/s
+             by the slope between windows of 4 and 24 forwards; the bf16
+             logits within 2e-2 of the largest fp32 logit.  (d)
+             squeezenet1_1, densenet121 and mobilenet_v2_1_0 at batch 32,
+             224²: the eval forward on the card against the same net on
+             the CPU in f64 (relative L2 1e-4), and one training step
+             each, its loss finite.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
 carry ``launches_gluon_train``, ``launches_ckpt``,
@@ -3702,6 +3736,7 @@ def gluon_capture_plain_branch(torch, mx, failures):
         os.environ["MXNET_CACHED_STEP"] = env
         try:
             net = Branchy()
+            mx.random.seed(0)       # both runs start from the same weights
             net.initialize(ctx=mx.gpu(0))
             trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
                                        {"learning_rate": 0.01},
@@ -6878,6 +6913,362 @@ def phase_dp_resnet(torch, fa_mod, smi):
     return {k: {"launches": v} for k, v in launched.items()}
 
 
+# -- the vision zoo (slice 20) ------------------------------------------------------
+
+# bench.py's TRAIN_PARITY_GRID and INFER_PARITY_GRID (bench.py:81-90):
+# (zoo name, batch, image); their V100 anchors are not this card's
+ZOO_TRAIN = (("inceptionv3", 128, 299), ("alexnet", 512, 224))
+ZOO_INFER = (("resnet152_v1", 128, 224), ("inceptionv3", 128, 299),
+             ("vgg16", 64, 224), ("alexnet", 256, 224))
+ZOO_PARITY = ("squeezenet1_1", "densenet121", "mobilenet_v2_1_0")
+ZOO_PARITY_BATCH = 32
+ZOO_RNG_BATCH = 64                # part (b): AlexNet at 224²
+
+
+def zoo_net(torch, name, image, seed=0, device=None):
+    """``get_model(name, classes=1000)``, Xavier weights from
+    ``mx.random``'s host generator seeded with ``seed`` (the same
+    weights on any device), deferred dims filled by one eval forward."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    device = device or DEV
+    net = get_model(name, classes=1000)
+    mx.random.seed(seed)
+    net.initialize(init=mx.initializer.Xavier(), device=device)
+    with torch.no_grad():
+        net(torch.zeros((1, 3, image, image), device=device))
+    return net
+
+
+def zoo_batch(torch, batch, image, seed=0):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    data = torch.randn((batch, 3, image, image), generator=g, device=DEV)
+    label = torch.randint(0, 1000, (batch,), generator=g,
+                          device=DEV).float()
+    return data, label
+
+
+def zoo_trainer(torch, net, mesh=None, lr=None, wd=None):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    opt = dict(RESNET_SGD)
+    if lr is not None:
+        opt["learning_rate"] = lr
+    if wd is not None:
+        opt["wd"] = wd
+    kw = {"mesh": mesh} if mesh is not None else {"device": DEV}
+    return SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                       optimizer_params=opt, **kw)
+
+
+def zoo_train_rows(torch, mesh, smi):
+    """(a): bench.py's training grid."""
+    rows = {}
+    for name, batch, image in ZOO_TRAIN:
+        t0 = time.perf_counter()
+        trainer = zoo_trainer(torch, zoo_net(torch, name, image), mesh)
+        data, label = zoo_batch(torch, batch, image)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        w0 = time.perf_counter()
+        losses = [float(trainer.step(data, label))]
+        warm_s = time.perf_counter() - w0
+        step_graph(trainer)
+
+        def run(n):
+            losses.extend(float(v) for v in
+                          trainer.run_steps(data, label, n)._data.cpu())
+
+        slope, t1, t2 = marginal(run)
+        if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"vision_zoo {name}: losses not finite "
+                                 f"and falling: {losses[:3]} ... "
+                                 f"{losses[-3:]}")
+        rows[name] = {"batch": batch, "image": image, "dtype": "float32",
+                      "img_per_s": batch / slope, "step_ms": slope * 1e3,
+                      "window_s": {str(WINDOWS[0]): t1,
+                                   str(WINDOWS[1]): t2},
+                      "warmup_s": warm_s, "captures": trainer.compiles,
+                      "losses_first_last": [losses[0], losses[-1]],
+                      "losses_steps": len(losses),
+                      "max_allocated_bytes": torch.cuda.max_memory_allocated(),
+                      "row_s": time.perf_counter() - t0}
+        emit({"phase": "vision_zoo", "part": "train", "gpu": smi,
+              "model": name, **rows[name]})
+        del trainer, data, label
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_state(trainer):
+    return {k: t.clone() for k, t in resnet_state(trainer).items()}
+
+
+def kept_fractions(torch, trainer, net, data, label):
+    """Each Dropout's kept fraction in one eager step: outputs kept over
+    inputs non-zero, from forward hooks."""
+    from mxnet_tpu_torch.gluon import nn
+    seen = []
+
+    def hook(block, inputs, out):
+        nz = int((inputs[0] != 0).sum())
+        seen.append((int((out != 0).sum()), nz))
+
+    handles = [b.register_forward_hook(hook) for b in net.modules()
+               if isinstance(b, nn.Dropout)]
+    try:
+        trainer._step_eager(data, label)
+    finally:
+        for h in handles:
+            h.detach()
+    return seen
+
+
+def zoo_rng_checks(torch, smi, failures, tmpdir):
+    """(b): randomness under capture on AlexNet."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.imperative import cached_step
+    t0 = time.perf_counter()
+    out = {}
+    image, batch = 224, ZOO_RNG_BATCH
+    data, label = zoo_batch(torch, batch, image, seed=1)
+    torch.backends.cudnn.deterministic = True
+    try:
+        def fresh(lr=0.01, **kw):
+            # lr 0.01: at bench.py's 0.05 AlexNet diverges within a few
+            # steps of a small batch, and a NaN equals nothing
+            return zoo_trainer(torch, zoo_net(torch, "alexnet", image,
+                                              seed=1), lr=lr, **kw)
+
+        captured, again, eager = fresh(), fresh(), fresh()
+        runs = {}
+        for key, tr, fn in (("captured", captured, "step"),
+                            ("captured_again", again, "step"),
+                            ("eager", eager, "_step_eager")):
+            mx.random.seed(7)
+            runs[key] = ([float(getattr(tr, fn)(data, label))
+                          for _ in range(4)], zoo_state(tr))
+        step_graph(captured)
+        for key in ("eager", "captured_again"):
+            diff = [k for k, t in runs["captured"][1].items()
+                    if not torch.equal(t, runs[key][1][k])]
+            same = runs["captured"][0] == runs[key][0] and not diff
+            out[f"replay_vs_{key}_bitwise"] = same
+            if not same:
+                failures.append(f"captured vs {key}: losses "
+                                f"{runs['captured'][0]} vs {runs[key][0]}, "
+                                f"state {diff[:4]}")
+        out["losses_captured"] = runs["captured"][0]
+        # a checkpoint after the 4 steps, a fifth step, the load, the
+        # fifth again: the same mask, so the same bits
+        captured.save_checkpoint(tmpdir, block=True)
+        fifth = float(captured.step(data, label))
+        after = zoo_state(captured)
+        mx.random.seed(99)
+        captured.load_checkpoint(tmpdir)
+        again5 = float(captured.step(data, label))
+        diff = [k for k, t in zoo_state(captured).items()
+                if not torch.equal(t, after[k])]
+        out["checkpoint_resume_bitwise"] = again5 == fifth and not diff
+        if not out["checkpoint_resume_bitwise"]:
+            failures.append(f"checkpoint resume: {again5} vs {fifth}, "
+                            f"state {diff[:4]}")
+        if captured.compiles != 1:
+            failures.append(f"{captured.compiles} captures for one "
+                            f"signature")
+        del captured, again, eager, runs, after
+        gc.collect()
+        # at lr 0 and wd 0 the weights stay: only the masks part losses
+        still = fresh(lr=0.0, wd=0.0)
+        steps = [float(still.step(data, label)) for _ in range(3)]
+        window = [float(v) for v in still.run_steps(data, label, 3)
+                  ._data.cpu()]
+        out["lr0_losses"] = {"steps": steps, "run_steps": window}
+        if len(set(steps + window)) != 6:
+            failures.append(f"replays at lr 0 repeat a loss (a mask baked "
+                            f"into the graph?): {steps} {window}")
+        kept = kept_fractions(torch, still, still.net, data, label)
+        out["dropout_kept"] = []
+        for k, n in kept:
+            frac, sigma = k / n, (0.25 / n) ** 0.5
+            out["dropout_kept"].append({"kept": k, "inputs_non_zero": n,
+                                        "fraction": frac, "sigma": sigma})
+            if abs(frac - 0.5) > 5 * sigma:
+                failures.append(f"Dropout kept {frac} of {n}, beyond 5σ "
+                                f"({sigma}) of 0.5")
+        if len(kept) != 2:
+            failures.append(f"{len(kept)} Dropout calls in AlexNet's step")
+        del still
+        gc.collect()
+        out["cached_step"] = zoo_cached_step(torch, mx, cached_step, data,
+                                             label, failures)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["part_s"] = time.perf_counter() - t0
+    emit({"phase": "vision_zoo", "part": "randomness", "gpu": smi,
+          "model": "alexnet", "batch": batch, "image": image, **out})
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_cached_step(torch, mx, cached_step, data, label, failures):
+    """The eager Gluon loop on AlexNet, 4 steps with the whole-step
+    capture and 4 without, from the same weights and seed."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    x, y = mx.nd.array(data), mx.nd.array(label)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def run(env):
+        os.environ["MXNET_CACHED_STEP"] = env
+        try:
+            net = zoo_net(torch, "alexnet", 224, seed=1)
+            tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                  {"learning_rate": 0.01,
+                                   "momentum": 0.9}, kvstore=None)
+            mx.random.seed(5)
+            for _ in range(4):
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                tr.step(data.shape[0])
+            torch.cuda.synchronize()
+            return ({k: p.data()._data.detach().clone()
+                     for k, p in net.collect_params().items()},
+                    cached_step.trainer_state(tr))
+        finally:
+            os.environ.pop("MXNET_CACHED_STEP", None)
+
+    got, state = run("1")
+    want, _ = run("0")
+    row = {"steps": 4, "captures": state["captures"],
+           "breaks": state["breaks"], "last_reason": state["last_reason"],
+           "bitwise_equal_eager": all(torch.equal(got[k], want[k])
+                                      for k in got)}
+    if not (row["bitwise_equal_eager"] and state["captures"] == 1
+            and state["breaks"] == 0):
+        failures.append(f"cached_step on AlexNet: {row}")
+    return row
+
+
+def zoo_infer_rows(torch, smi, failures):
+    """(c): bench.py's inference grid, fp32 and bf16."""
+    rows = {}
+    for name, batch, image in ZOO_INFER:
+        t0 = time.perf_counter()
+        net = zoo_net(torch, name, image)
+        g = torch.Generator(device=DEV).manual_seed(0)
+        x32 = torch.randn((batch, 3, image, image), generator=g, device=DEV)
+        row, logits = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "bfloat16":
+                net.cast("bfloat16")
+            x = x32.to(getattr(torch, dtype))
+
+            def forward():
+                with torch.no_grad():
+                    return net(x)
+
+            def run(n):
+                acc = torch.zeros((), device=DEV)
+                for _ in range(n):
+                    acc += forward().float().sum()
+                float(acc)
+
+            logits[dtype] = forward().float()
+            slope, t1, t2 = marginal(run)
+            row[dtype] = {"img_per_s": batch / slope,
+                          "forward_ms": slope * 1e3,
+                          "window_s": {str(WINDOWS[0]): t1,
+                                       str(WINDOWS[1]): t2}}
+        scale = float(logits["float32"].abs().max())
+        err = float((logits["bfloat16"] - logits["float32"]).abs().max())
+        ok = bool(torch.isfinite(logits["bfloat16"]).all()) and \
+            err <= 2e-2 * scale
+        if not ok:
+            failures.append(f"{name}: bf16 logits vs fp32 max |err| {err} "
+                            f"beyond 2e-2 x {scale}")
+        rows[name] = {"batch": batch, "image": image, "rows": row,
+                      "bf16_vs_fp32_logits": {"max_abs_err": err,
+                                              "max_abs_ref": scale},
+                      "row_s": time.perf_counter() - t0}
+        emit({"phase": "vision_zoo", "part": "infer", "gpu": smi,
+              "model": name, "tf32": False, **rows[name]})
+        del net, x32, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def zoo_parity(torch, smi, failures):
+    """(d): three more families on the card against the CPU in f64, and
+    one training step each."""
+    rows = {}
+    for name in ZOO_PARITY:
+        t0 = time.perf_counter()
+        net = zoo_net(torch, name, 224)
+        host = zoo_net(torch, name, 224, device="cpu")
+        host.cast("float64")
+        g = torch.Generator(device=DEV).manual_seed(2)
+        x = torch.randn((ZOO_PARITY_BATCH, 3, 224, 224), generator=g,
+                        device=DEV)
+        with torch.no_grad():
+            got = net(x)
+            want = host(x.double().cpu())
+        err = rel_l2(got, want)
+        if not (bool(torch.isfinite(got).all()) and err <= 1e-4):
+            failures.append(f"{name}: card vs CPU f64 relative L2 {err}")
+        trainer = zoo_trainer(torch, net)
+        label = torch.randint(0, 1000, (ZOO_PARITY_BATCH,), generator=g,
+                              device=DEV).float()
+        loss = float(trainer.step(x, label))
+        if not onp.isfinite(loss):
+            failures.append(f"{name}: training step loss {loss}")
+        rows[name] = {"batch": ZOO_PARITY_BATCH, "image": 224,
+                      "card_vs_cpu_f64_rel_l2": err, "tolerance": 1e-4,
+                      "step_loss": loss, "row_s": time.perf_counter() - t0}
+        emit({"phase": "vision_zoo", "part": "parity", "gpu": smi,
+              "model": name, **rows[name]})
+        del net, host, trainer, x
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_vision_zoo(torch, smi):
+    """Phase 27: the rest of bench.py's parity grids and the randomness
+    of a captured step (see the module docstring)."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from mxnet_tpu_torch.parallel import make_mesh
+    t0 = time.perf_counter()
+    failures = []
+    mesh = make_mesh({"dp": -1})           # a group of one over NCCL
+    tmpdir = tempfile.mkdtemp(prefix="zoo_ckpt_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        train = zoo_train_rows(torch, mesh, smi)
+        rng = zoo_rng_checks(torch, smi, failures, tmpdir)
+        infer = zoo_infer_rows(torch, smi, failures)
+        parity = zoo_parity(torch, smi, failures)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit({"phase": "vision_zoo", "part": "summary", "gpu": smi,
+          "train_img_per_s": {k: v["img_per_s"] for k, v in train.items()},
+          "infer_img_per_s": {k: {d: r["img_per_s"] for d, r in
+                                  v["rows"].items()}
+                              for k, v in infer.items()},
+          "replay_vs_eager_bitwise": rng.get("replay_vs_eager_bitwise"),
+          "parity_rel_l2": {k: v["card_vs_cpu_f64_rel_l2"]
+                            for k, v in parity.items()},
+          "failures": failures, "phase_s": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError(f"vision_zoo: {failures}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6986,6 +7377,7 @@ def main():
     for row in kernels:                  # K1-K3 with specs off tp, (c)
         if row["name"] in dpr_counts:
             row["launches_dp_resnet"] = dpr_counts[row["name"]]["launches"]
+    phase_vision_zoo(torch, smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -52,10 +52,11 @@ from . import gluon, initializer, optimizer, parallel, serving  # noqa: F401
 from . import data, image, io, recordio  # noqa: F401
 from . import monitor  # noqa: F401
 from . import embedding  # noqa: F401
+from . import random  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray",
            "gluon", "initializer", "optimizer", "parallel", "serving",
            "tracing", "telemetry", "log", "amp", "kvstore", "kv",
            "lr_scheduler", "data", "image", "io", "recordio", "profiler",
-           "monitor", "embedding"]
+           "monitor", "embedding", "random"]

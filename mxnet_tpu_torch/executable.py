@@ -41,6 +41,13 @@ captured: a call runs ``fn`` on the static inputs.  On CUDA an
 executable captures or raises; it never falls back to running ``fn``
 eagerly.
 
+A function that draws from ``mx.random`` (a Dropout in a training step)
+draws in its warm run, and the capture then registers the device's
+generator with the graph: each replay takes the generator's offset at
+that moment and advances it, so replays draw fresh numbers and a replay
+is bitwise the eager run from the same generator state
+(``ops/random.py``).
+
 A capture records kernel launches without running them, so the launch
 counts that the wrappers tick in Python (``paged_attention.launches``,
 ``rope.launches``, the flash kernels' ``launches``) move from the
@@ -54,6 +61,7 @@ import numpy as onp
 import torch
 
 from .base import MXNetError
+from .ops import random as _rng
 from .ops.attention import flash_bwd_dkdv, flash_bwd_dq, flash_fwd
 from .ops.paged_attention import paged_attention
 from .ops.rope import rope
@@ -189,11 +197,17 @@ class Executable:
         if side is None:
             side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
+        drew = _rng.draws(dev)
         with torch.cuda.stream(side):
             warm = self.fn(*self.inputs)      # configs, K4's scratch
+        drew = _rng.draws(dev) != drew
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [f.launches for f in _COUNTED]
         graph = torch.cuda.CUDAGraph()
+        if drew:
+            # each replay draws anew from mx.random's generator, at its
+            # offset then, and moves it on as the eager run does
+            graph.register_generator_state(_rng.generator(dev))
         from . import profiler
         try:
             # a running profiler cycle is closed around the capture

@@ -47,6 +47,7 @@ from .. import initializer as init_mod
 from .. import telemetry, tracing
 from ..base import MXNetError
 from ..imperative import cached_step as _cs
+from ..ops import random as _rng
 from .parameter import Parameter, ParameterDict, init_device
 
 __all__ = ["Block", "HybridBlock", "current_trace"]
@@ -65,11 +66,22 @@ class _TraceContext:
     thread (remat) finds it too, and closes it once the forward has
     returned: what a recomputation hands in then is dropped,
     and the values stay those the forward recorded.  The values are
-    detached: they carry no gradient."""
+    detached: they carry no gradient.
+
+    It is also the randomness of the forward (the reference's
+    ``_TraceContext.next_key``, ``mxnet_tpu/gluon/block.py:46-48``):
+    while it is entered it is ``mx.random``'s trace hook on this thread,
+    so a Dropout inside draws through :meth:`draw`.  The forward's draws
+    come from the device's generator, in order, and are kept; a
+    recomputation after :meth:`close` (remat's, in the backward) is
+    handed the same draws again, in the same order, so that it rebuilds
+    the activations the forward made."""
 
     def __init__(self):
         self.aux: "OrderedDict[Parameter, torch.Tensor]" = OrderedDict()
         self.closed = False
+        self._drawn = []
+        self._replayed = 0
 
     def aux_update(self, param: Parameter, new_value: torch.Tensor):
         """Register ``param <- new_value`` (the last value for a
@@ -80,12 +92,30 @@ class _TraceContext:
     def close(self):
         self.closed = True
 
+    def draw(self, make, device):
+        """``mx.random``'s draw inside the forward: a new one from the
+        device's generator while open, the forward's own again, in turn,
+        once closed."""
+        if self.closed:
+            if self._replayed >= len(self._drawn):
+                raise MXNetError("a recomputed forward drew more random "
+                                 "numbers than the forward did")
+            out = self._drawn[self._replayed]
+            self._replayed += 1
+            return out
+        out = make(_rng.generator(device))
+        self._drawn.append(out)
+        return out
+
     def __enter__(self):
         _TRACE.__dict__.setdefault("stack", []).append(self)
+        self._replayed = 0
+        self._old_hook = _rng.set_trace_hook(self.draw)
         return self
 
     def __exit__(self, *exc):
         _TRACE.stack.pop()
+        _rng.set_trace_hook(self._old_hook)
         return False
 
 
@@ -233,12 +263,13 @@ class Block(torch.nn.Module):
         ``Context`` or a list of one) or the port's ``device=``; without
         either, the ``with mx.cpu():`` / ``with mx.gpu(n):`` scope's, else
         ``cuda`` (which raises without a card: the CPU is used only when
-        asked for).  Values are drawn from ``generator`` (default: a host
-        generator seeded with 0) in ``collect_params()`` order, deferred
-        ones at their first forward."""
+        asked for).  Values are drawn from ``generator`` (default:
+        ``mx.random``'s host generator, so ``mx.random.seed`` sets them
+        and the same seed repeats them) in ``collect_params()`` order,
+        deferred ones at their first forward."""
         dev = init_device(ctx, device)
         if generator is None:
-            generator = torch.Generator().manual_seed(0)
+            generator = _rng.generator("cpu")
         default = init_mod.create(init)
         for p in self.collect_params().values():
             p.initialize(init=None, device=dev, default_init=default,

@@ -1,24 +1,26 @@
 """model_zoo.vision (counterpart of ``mxnet_tpu/gluon/model_zoo/vision``):
-the ResNet family, and ``get_model`` over its names.  The reference's
-other families (AlexNet, VGG, MobileNet, SqueezeNet, DenseNet,
-Inception) are not ported yet: ``get_model`` names them as such."""
+ResNet v1/v2, AlexNet, VGG 11–19 (with and without BatchNorm),
+MobileNet v1/v2, SqueezeNet 1.0/1.1, DenseNet 121–201 and Inception v3,
+and ``get_model`` over their names."""
 from ....base import MXNetError
-from . import resnet  # noqa: F401
-from .resnet import *  # noqa: F401,F403
-from .resnet import __all__ as _resnet_all
+from . import resnet as _resnet
+from . import alexnet as _alexnet
+from . import vgg as _vgg
+from . import mobilenet as _mobilenet
+from . import squeezenet as _squeezenet
+from . import densenet as _densenet
+from . import inception as _inception
 
-__all__ = list(_resnet_all) + ["get_model"]
-
-_models = {name: getattr(resnet, name) for name in _resnet_all
-           if name[0].islower() and not name.startswith("get_")}
-
-# the reference's other model names, which the port does not have yet
-_NOT_PORTED = (
-    ["alexnet", "inception_v3", "squeezenet1_0", "squeezenet1_1"]
-    + [f"vgg{n}{bn}" for n in (11, 13, 16, 19) for bn in ("", "_bn")]
-    + [f"mobilenet{m}" for m in ("1_0", "0_75", "0_5", "0_25")]
-    + [f"mobilenet_v2_{m}" for m in ("1_0", "0_75", "0_5", "0_25")]
-    + [f"densenet{n}" for n in (121, 161, 169, 201)])
+__all__ = ["get_model"]
+_models = {}
+for _mod in (_resnet, _alexnet, _vgg, _mobilenet, _squeezenet, _densenet,
+             _inception):
+    for _name in _mod.__all__:
+        _obj = getattr(_mod, _name)
+        globals()[_name] = _obj
+        __all__.append(_name)
+        if _name[0].islower() and not _name.startswith("get_"):
+            _models[_name] = _obj
 
 
 def get_model(name, **kwargs):
@@ -26,15 +28,12 @@ def get_model(name, **kwargs):
     underscore spellings and its dotted ones (``squeezenet1.0``,
     ``mobilenetv2_1.0``, ``inceptionv3``)."""
     name = name.lower()
-    alias = (name.replace(".", "_")
-             .replace("mobilenetv2_", "mobilenet_v2_")
-             .replace("inceptionv3", "inception_v3"))
-    if name not in _models and alias in _models:
-        name = alias
-    if name in _models:
-        return _models[name](**kwargs)
-    if alias in _NOT_PORTED:
-        raise MXNetError(f"model {name!r} is not ported yet; the port has "
+    if name not in _models:
+        alias = (name.replace(".", "_")
+                 .replace("mobilenetv2_", "mobilenet_v2_")
+                 .replace("inceptionv3", "inception_v3"))
+        name = alias if alias in _models else name
+    if name not in _models:
+        raise MXNetError(f"model {name!r} not found; available: "
                          f"{sorted(_models)}")
-    raise MXNetError(f"model {name!r} not found; available: "
-                     f"{sorted(_models)}")
+    return _models[name](**kwargs)

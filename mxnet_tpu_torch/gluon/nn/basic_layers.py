@@ -1,17 +1,18 @@
-"""Basic Gluon layers on the training paths (counterpart of part of
+"""Basic Gluon layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
 ``HybridSequential``,
 ``Dense``, ``Dropout``, ``Embedding``, ``BatchNorm``, ``BatchNormReLU``,
-``SyncBatchNorm``, ``LayerNorm``, ``Flatten``, ``Identity``,
-``Activation`` and ``GELU``."""
+``SyncBatchNorm``, ``LayerNorm``, ``GroupNorm``, ``InstanceNorm``,
+``Flatten``, ``Lambda``, ``HybridLambda``, ``Identity``,
+``Concatenate``, ``HybridConcatenate`` and the activations
+(``Activation``, ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``,
+``Swish``/``SiLU``, ``Softmax``, ``LogSoftmax``)."""
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ... import autograd as ag
 from ... import initializer as init_mod
-from ...base import MXNetError
 from ...imperative import cached_step as _cs
 from ...ops import nn as nn_ops
 from ...ops import tensor as tensor_ops
@@ -21,7 +22,10 @@ from ..parameter import Parameter
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
            "BatchNorm", "BatchNormReLU", "SyncBatchNorm", "LayerNorm",
-           "Flatten", "Identity", "Activation", "GELU"]
+           "GroupNorm", "InstanceNorm", "Flatten", "Lambda", "HybridLambda",
+           "Identity", "Concatenate", "HybridConcatenate", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "GELU", "Swish", "SiLU",
+           "Softmax", "LogSoftmax"]
 
 
 class _SequentialMixin:
@@ -138,18 +142,21 @@ class Dense(HybridBlock):
 
 class Dropout(HybridBlock):
     """Zeroes elements at ``rate`` in training mode
-    (``autograd.is_training()``), through PyTorch's generator."""
+    (``autograd.is_training()``) and scales the rest by ``1/(1-rate)``,
+    one mask shared along ``axes`` (``mxnet_tpu/gluon/nn/basic_layers.py:
+    136-154``), over the ``Dropout`` op: the mask comes from
+    ``mx.random`` or from the enclosing trainer step's trace."""
 
     def __init__(self, rate, axes=(), **kwargs):
         super().__init__(**kwargs)
-        if tuple(axes):
-            raise MXNetError("Dropout over shared axes is not ported yet")
         self._rate = rate
+        self._axes = tuple(axes)
 
     def forward(self, x):
-        if not ag.is_training() or self._rate <= 0:
-            return x
-        return F.dropout(x, self._rate, training=True)
+        return nn_ops.dropout(x, p=self._rate, axes=self._axes)
+
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
 class Embedding(HybridBlock):
@@ -363,3 +370,179 @@ class GELU(HybridBlock):
     def forward(self, x):
         return nn_ops.leaky_relu(
             x, act_type="gelu" if self._approx == "erf" else "gelu_tanh")
+
+
+class _ChannelNorm(HybridBlock):
+    """gamma and beta over the channels, deferred to the first
+    forward."""
+
+    def __init__(self, center, scale, beta_initializer, gamma_initializer,
+                 in_channels, **kwargs):
+        super().__init__(**kwargs)
+        self.gamma = Parameter(shape=(in_channels,),
+                               init=init_mod.create(gamma_initializer),
+                               allow_deferred_init=True,
+                               grad_req="write" if scale else "null")
+        self.beta = Parameter(shape=(in_channels,),
+                              init=init_mod.create(beta_initializer),
+                              allow_deferred_init=True,
+                              grad_req="write" if center else "null")
+
+    def _affine(self, c):
+        for p in (self.gamma, self.beta):
+            if p._deferred_init is not None:
+                p._finish_deferred_init((c,))
+        return self.gamma._tensor(), self.beta._tensor()
+
+
+class GroupNorm(_ChannelNorm):
+    """Normalisation over channel groups and the spatial axes
+    (``mxnet_tpu/gluon/nn/basic_layers.py:308-330``)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(center, scale, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+
+    def forward(self, x):
+        g, b = self._affine(x.shape[1])
+        return nn_ops.group_norm(x, g, b, num_groups=self._num_groups,
+                                 eps=self._epsilon)
+
+
+class InstanceNorm(_ChannelNorm):
+    """Normalisation of each sample over every axis but ``axis``
+    (``mxnet_tpu/gluon/nn/basic_layers.py:333-356``)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(center, scale, beta_initializer, gamma_initializer,
+                         in_channels, **kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+
+    def forward(self, x):
+        g, b = self._affine(x.shape[self._axis % x.dim()])
+        return tensor_ops.instance_norm(x, g, b, eps=self._epsilon,
+                                        axis=self._axis)
+
+
+class _LambdaMixin:
+    """``function`` (a callable, or the name of an ``mx.nd`` function,
+    which takes NDArrays) applied to the inputs."""
+
+    def __init__(self, function, **kwargs):
+        super().__init__(**kwargs)
+        self._func = function if callable(function) else None
+        self._fname = function if isinstance(function, str) else None
+
+    def forward(self, *args):
+        if self._func is not None:
+            return self._func(*args)
+        from ... import ndarray as nd
+        from ...ndarray.ndarray import NDArray
+        out = getattr(nd, self._fname)(*[NDArray._wrap(a) if isinstance(
+            a, torch.Tensor) else a for a in args])
+        return out._data if isinstance(out, NDArray) else out
+
+
+class Lambda(_LambdaMixin, Block):
+    """(``mxnet_tpu/gluon/nn/basic_layers.py:359-369``)"""
+
+
+class HybridLambda(_LambdaMixin, HybridBlock):
+    """(``mxnet_tpu/gluon/nn/basic_layers.py:372-382``)"""
+
+
+class _ConcatenateMixin:
+    """Every child on the same input, their outputs concatenated along
+    ``axis``."""
+
+    def __init__(self, axis=-1, **kwargs):
+        super().__init__(**kwargs)
+        self.axis = axis
+
+    def forward(self, x):
+        return tensor_ops.concat(*[block(x) for block in
+                                   self._children.values()], dim=self.axis)
+
+
+class Concatenate(_ConcatenateMixin, Sequential):
+    """(``mxnet_tpu/gluon/nn/basic_layers.py:390-400``)"""
+
+
+class HybridConcatenate(_ConcatenateMixin, HybridSequential):
+    """(``mxnet_tpu/gluon/nn/basic_layers.py:403-411``)"""
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha=0.01, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return nn_ops.leaky_relu(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope per channel (``alpha``, shape
+    ``(in_channels,)``, initialised to 0.25)."""
+
+    def __init__(self, alpha_initializer=None, in_channels=1, **kwargs):
+        super().__init__(**kwargs)
+        self.alpha = Parameter(name="alpha", shape=(in_channels,),
+                               init=alpha_initializer
+                               or init_mod.Constant(0.25))
+
+    def forward(self, x):
+        return nn_ops.leaky_relu(x, self.alpha._tensor(), act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return nn_ops.leaky_relu(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def forward(self, x):
+        return nn_ops.leaky_relu(x, act_type="selu")
+
+
+class Swish(HybridBlock):
+    """``x · sigmoid(beta · x)``."""
+
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def forward(self, x):
+        return x * (1.0 / (1.0 + torch.exp(-self._beta * x)))
+
+
+SiLU = Swish
+
+
+class Softmax(HybridBlock):
+    def __init__(self, axis=-1, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+
+    def forward(self, x):
+        return nn_ops.softmax(x, axis=self._axis)
+
+
+class LogSoftmax(HybridBlock):
+    def __init__(self, axis=-1, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+
+    def forward(self, x):
+        return nn_ops.log_softmax(x, axis=self._axis)

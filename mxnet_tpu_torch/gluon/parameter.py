@@ -153,13 +153,13 @@ class Parameter:
         ``Context`` or a list of one) or ``device``; without either, on
         the ``with mx.cpu():`` / ``with mx.gpu(n):`` scope's device, else
         on ``cuda``.  ``generator`` is the host ``torch.Generator``
-        values are drawn from (a fresh one seeded with 0 when left
+        values are drawn from (``mx.random``'s host generator when left
         out)."""
         if self._data is not None and not force_reinit:
             return
         dev = init_device(ctx, device)
         if generator is None:
-            generator = torch.Generator().manual_seed(0)
+            generator = _host_generator()
         eff = self.init if init is None else init
         eff = eff or default_init or init_mod.Uniform()
         if not _shape_known(self.shape):
@@ -405,6 +405,12 @@ def init_device(ctx=None, device=None) -> torch.device:
     return resolve_device(device)
 
 
+def _host_generator():
+    """``mx.random``'s host generator, which initializers draw from."""
+    from ..ops import random as _rng
+    return _rng.generator("cpu")
+
+
 class ParameterDict(OrderedDict):
     """Hierarchical name → Parameter, in registration order."""
 
@@ -412,9 +418,10 @@ class ParameterDict(OrderedDict):
                    device=None, generator=None, **kwargs):
         """Initialize every parameter with ``init`` (over each one's own
         initializer, as the reference does), drawn from one
-        ``generator`` in order."""
+        ``generator`` (default ``mx.random``'s host generator) in
+        order."""
         if generator is None:
-            generator = torch.Generator().manual_seed(0)
+            generator = _host_generator()
         for p in self.values():
             p.initialize(init=init, ctx=ctx, force_reinit=force_reinit,
                          device=device, generator=generator)

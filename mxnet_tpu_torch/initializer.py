@@ -16,8 +16,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Initializer", "register", "create", "Zero", "One", "Uniform",
-           "Normal", "Xavier"]
+__all__ = ["Initializer", "register", "create", "Zero", "One", "Constant",
+           "Uniform", "Normal", "Xavier"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -82,6 +82,18 @@ class One(Initializer):
 
 
 _REGISTRY["ones"] = One
+
+
+@register
+class Constant(Initializer):
+    """Every weight element ``value`` (PReLU's slopes)."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, name, shape, dtype, generator):
+        return torch.full(shape, self.value, dtype=dtype)
 
 
 @register

@@ -30,7 +30,7 @@ from ..ops import tensor as tensor_ops
 from ..ops.registry import apply_torch, invoke
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "waitall", "save", "load", "load_frombuffer"]
+           "concat", "stack", "waitall", "save", "load", "load_frombuffer"]
 
 
 def _device(ctx: Optional[Context]) -> torch.device:
@@ -346,6 +346,123 @@ class NDArray:
     def tanh(self): return invoke("tanh", [self])
     def relu(self): return invoke("relu", [self])
 
+    # the reference's other method-style ops
+    # (``mxnet_tpu/ndarray/ndarray.py:147-150, :358, :395-508``)
+    @property
+    def T(self):
+        return self.transpose()
+
+    def __matmul__(self, o): return self._binop(o, "matmul")
+
+    def item(self):
+        return self.asscalar()
+
+    def tolist(self):
+        return self.asnumpy().tolist()
+
+    def reshape_like(self, other):
+        return invoke("reshape", [self], shape=other.shape)
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        return invoke("transpose", [self], axes=axes or None)
+
+    def flatten(self): return invoke("flatten", [self])
+
+    def expand_dims(self, axis):
+        return invoke("expand_dims", [self], axis=axis)
+
+    def squeeze(self, axis=None):
+        return invoke("squeeze", [self], axis=axis)
+
+    def swapaxes(self, dim1, dim2):
+        return invoke("swapaxes", [self], dim1=dim1, dim2=dim2)
+
+    def prod(self, axis=None, keepdims=False):
+        return invoke("prod", [self], axis=axis, keepdims=keepdims)
+
+    def nansum(self, axis=None, keepdims=False):
+        return invoke("nansum", [self], axis=axis, keepdims=keepdims)
+
+    def nanprod(self, axis=None, keepdims=False):
+        return invoke("nanprod", [self], axis=axis, keepdims=keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return invoke("norm", [self], ord=ord, axis=axis, keepdims=keepdims)
+
+    def argmax(self, axis=None, keepdims=False):
+        return invoke("argmax", [self], axis=axis, keepdims=keepdims)
+
+    def argmin(self, axis=None, keepdims=False):
+        return invoke("argmin", [self], axis=axis, keepdims=keepdims)
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return invoke("argsort", [self], axis=axis, is_ascend=is_ascend)
+
+    def sort(self, axis=-1, is_ascend=True):
+        return invoke("sort", [self], axis=axis, is_ascend=is_ascend)
+
+    def topk(self, k=1, axis=-1, ret_typ="indices", is_ascend=False):
+        return invoke("topk", [self], k=k, axis=axis, ret_typ=ret_typ,
+                      is_ascend=is_ascend)
+
+    def clip(self, a_min=None, a_max=None):
+        return invoke("clip", [self], a_min=a_min, a_max=a_max)
+
+    def round(self): return invoke("round", [self])
+    def rint(self): return invoke("rint", [self])
+    def fix(self): return invoke("fix", [self])
+    def floor(self): return invoke("floor", [self])
+    def ceil(self): return invoke("ceil", [self])
+    def trunc(self): return invoke("trunc", [self])
+    def diag(self, k=0): return invoke("diag", [self], k=k)
+
+    def pad(self, mode="constant", pad_width=None, constant_value=0.0):
+        return invoke("pad", [self], mode=mode,
+                      pad_width=tuple(pad_width or ()),
+                      constant_value=constant_value)
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return invoke("split", [self], num_outputs=num_outputs, axis=axis,
+                      squeeze_axis=squeeze_axis)
+
+    def softmax(self, axis=-1):
+        return invoke("softmax", [self], axis=axis)
+
+    def log_softmax(self, axis=-1):
+        return invoke("log_softmax", [self], axis=axis)
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return invoke("dot", [self, other], transpose_a=transpose_a,
+                      transpose_b=transpose_b)
+
+    def slice(self, begin, end, step=None):
+        return invoke("slice", [self], begin=begin, end=end, step=step)
+
+    def slice_axis(self, axis, begin, end):
+        return invoke("slice_axis", [self], axis=axis, begin=begin, end=end)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return invoke("take", [self, indices], axis=axis, mode=mode)
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0):
+        return invoke("one_hot", [self], depth=depth, on_value=on_value,
+                      off_value=off_value)
+
+    def tile(self, reps): return invoke("tile", [self], reps=reps)
+
+    def repeat(self, repeats, axis=None):
+        return invoke("repeat", [self], repeats=repeats, axis=axis)
+
+    def broadcast_to(self, shape):
+        return invoke("broadcast_to", [self], shape=tuple(shape))
+
+    def broadcast_like(self, other):
+        return invoke("broadcast_like", [self, other])
+
+    def flip(self, axis): return invoke("flip", [self], axis=axis)
+
 
 def _norm_index(key):
     """NDArray indices → their tensors (numeric ones as int64)."""
@@ -441,6 +558,16 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
     if repeat > 1:
         t = t.repeat_interleave(repeat)
     return NDArray._wrap(t)
+
+
+def concat(*arrays, dim=1) -> NDArray:
+    """The arrays joined along ``dim``."""
+    return invoke("concat", list(arrays), dim=dim)
+
+
+def stack(*arrays, axis=0) -> NDArray:
+    """The arrays stacked on a new axis ``axis``."""
+    return invoke("stack", list(arrays), axis=axis)
 
 
 def waitall():

@@ -157,6 +157,13 @@ def pooling(x, *, kernel=(), pool_type="max", global_pool=False, stride=None,
     s = _tup(stride, n) if stride is not None else k
     p = _tup(pad, n) if pad is not None else (0,) * n
     pads = _pool_pads(x, k, s, p, pooling_convention)
+    out = [(x.shape[2 + i] + lo + hi - k[i]) // s[i] + 1
+           for i, (lo, hi) in enumerate(pads)]
+    if min(out) <= 0:
+        # a window larger than the padded input: no output along that
+        # axis, as the reference's reduce_window gives (torch raises)
+        return x.new_empty(tuple(x.shape[:2]) + tuple(max(o, 0)
+                                                      for o in out))
     symmetric = all(lo == hi and 2 * lo <= ki for (lo, hi), ki in zip(pads, k))
     if pool_type == "max":
         if symmetric:        # torch pads max pooling with -inf itself
@@ -326,14 +333,48 @@ def activation(x, *, act_type):
     return fn(x)
 
 
-def leaky_relu(x, *, act_type):
-    """The GELU cases of ``LeakyReLU``: ``gelu`` is the exact erf form,
-    ``gelu_tanh`` the tanh approximation."""
+@register("LeakyReLU")
+def leaky_relu(x, gamma=None, *, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """``LeakyReLU``'s activations (``mxnet_tpu/ops/nn.py:297-316``):
+    ``leaky`` (``slope·x`` below 0), ``prelu`` (a learned slope per
+    channel, ``gamma``, on axis 1), ``elu``, ``selu``, ``gelu`` (the
+    exact erf form), ``gelu_tanh`` (the tanh approximation) and ``rrelu``
+    (the mean slope, as in evaluation)."""
+    if act_type == "leaky":
+        return torch.where(x > 0, x, slope * x)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (x.dim() - 2)) \
+            if x.dim() > 1 else gamma
+        return torch.where(x > 0, x, g * x)
+    if act_type == "elu":
+        return torch.where(x > 0, x, slope * torch.expm1(x))
+    if act_type == "selu":
+        alpha, lam = 1.6732632423543772, 1.0507009873554805
+        return lam * torch.where(x > 0, x, alpha * torch.expm1(x))
     if act_type == "gelu":
         return F.gelu(x)
     if act_type == "gelu_tanh":
         return F.gelu(x, approximate="tanh")
-    raise ValueError(f"act_type {act_type!r} is not ported yet")
+    if act_type == "rrelu":
+        return torch.where(x > 0, x, 0.5 * (lower_bound + upper_bound) * x)
+    raise ValueError(f"unknown act_type {act_type}")
+
+
+@register("GroupNorm", aliases=("group_norm",))
+def group_norm(x, gamma, beta, *, num_groups=1, eps=1e-5,
+               output_mean_var=False):
+    """Normalisation over each group of ``num_groups`` channel groups
+    and the spatial axes (``mxnet_tpu/ops/nn.py:418-428``), population
+    variance; ``gamma`` and ``beta`` per channel."""
+    n, c = x.shape[:2]
+    xg = x.reshape((n, num_groups, c // num_groups) + tuple(x.shape[2:]))
+    red = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=red, keepdim=True)
+    var = (xg - mean).square().mean(dim=red, keepdim=True)
+    xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return xn * gamma.reshape(shape) + beta.reshape(shape)
 
 
 @register("log_softmax")
@@ -386,6 +427,39 @@ def softmax_output(data, label, *, grad_scale=1.0, ignore_label=-1.0,
     no part in the forward, and the gradient is autograd's of the
     softmax."""
     return torch.softmax(data, dim=1 if multi_output else -1)
+
+
+@register("Dropout", aliases=("dropout",))
+def dropout(x, *, p=0.5, mode="training", axes=()):
+    """Each element of ``x`` zeroed with probability ``p`` and the
+    survivors scaled by ``1/(1-p)`` (``mxnet_tpu/ops/nn.py:448-458``);
+    the mask is shared along ``axes`` (size 1 there, broadcast).  Mode
+    ``"training"`` drops only in training mode
+    (``autograd.is_training()``), ``"always"`` always.  The mask comes
+    from ``mx.random`` (``ops/random.py``: the device's generator, or the
+    enclosing trace's draws), never from torch's global generator.  In a
+    meshed step whose batch is split over ranks, the whole batch's mask
+    is drawn and this rank keeps its part
+    (``tensor_parallel.batch_shards``)."""
+    from .. import autograd as ag
+    from ..parallel import tensor_parallel as _tp
+    from . import random as _rng
+    if p <= 0 or (mode != "always" and not ag.is_training()):
+        return x
+    keep = 1.0 - p
+    shape = [1 if i in {a % x.dim() for a in axes} else n
+             for i, n in enumerate(x.shape)]
+    shards = [(d, k, i) for d, k, i in _tp.batch_shards(x.dim())
+              if shape[d] != 1]
+    whole = list(shape)
+    for d, k, _ in shards:
+        whole[d] *= k
+    mask = _rng.draw(lambda g: torch.rand(
+        tuple(whole), generator=g, device=x.device) < keep, x.device)
+    for d, _, i in shards:
+        mask = mask.narrow(d, i * shape[d], shape[d])
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 @register("LayerNorm", aliases=("layer_norm",))

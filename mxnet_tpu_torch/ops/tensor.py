@@ -13,7 +13,14 @@ The registered ops below are what ``mx.nd`` and the NDArray operators
 reach through the registry: the binary ops
 with their ``broadcast_*`` aliases, the ``*_scalar`` ops of the operator
 sugar, the unary ops, the reductions, ``cast``, ``flatten``,
-``reshape`` and ``zeros_like``/``ones_like``.
+``reshape`` and ``zeros_like``/``ones_like``, and the rest of the
+reference's list (``mxnet_tpu/ops/tensor.py``): ``clip``, ``norm``,
+``argmax``/``argmin``, the cumulative ops, the products (``batch_dot``,
+``matmul``, ``tensordot``, ...), the shape ops (``transpose``,
+``concat``, ``stack``, ``split``, ``slice*``, ``tile``, ``repeat``,
+``pad``, ``flip``, ``broadcast_*``, ...), indexing (``take``, ``pick``,
+``one_hot``, ``where``, ``gather_nd``, ...), ordering (``sort``,
+``argsort``, ``topk``) and the sequence ops.
 """
 from __future__ import annotations
 
@@ -22,20 +29,26 @@ import threading
 import torch
 
 from ..base import MXNetError, dtype_name, torch_dtype
-from .registry import register
+from .registry import alias, register
 
 __all__ = ["dot", "pick", "embedding", "sparse_embedding", "IdCheck",
-           "cast", "flatten", "float_only"]
+           "cast", "flatten", "float_only", "concat"]
 
 
 @register("dot")
-def dot(a, b, *, transpose_b=False):
-    """``a·b`` for a matrix ``b`` (contracting a's last axis, as
-    ``jnp.dot`` does); ``transpose_b`` uses ``bᵀ``."""
-    if b.dim() != 2:
-        raise MXNetError(f"dot: the port takes a matrix b, got "
-                         f"{tuple(b.shape)}")
-    return torch.matmul(a, b.t() if transpose_b else b)
+def dot(a, b, *, transpose_a=False, transpose_b=False):
+    """``jnp.dot(a, b)`` (``mxnet_tpu/ops/tensor.py:181-187``): a's last
+    axis against b's only axis, or against b's second-to-last;
+    ``transpose_a`` / ``transpose_b`` take ``aᵀ`` / ``bᵀ`` first (for
+    more than two axes, a's first axis moved last and b's last moved
+    first, as the reference does)."""
+    if transpose_a:
+        a = a.t() if a.dim() <= 2 else a.movedim(0, -1)
+    if transpose_b:
+        b = b.t() if b.dim() <= 2 else b.movedim(-1, 0)
+    if b.dim() <= 2 or a.dim() == 0:
+        return torch.matmul(a, b) if a.dim() and b.dim() else a * b
+    return torch.tensordot(a, b, dims=([a.dim() - 1], [b.dim() - 2]))
 
 
 def pick(a, index, *, axis=-1):
@@ -389,3 +402,557 @@ def _zeros_like(a):
 @register("ones_like")
 def _ones_like(a):
     return torch.ones_like(a)
+
+
+# --------------------------------------------------------------------------
+# the rest of the reference's list (``mxnet_tpu/ops/tensor.py``)
+# --------------------------------------------------------------------------
+
+def _promote(fn):
+    """``fn`` on integer or bool input promoted to float32, as jnp's
+    float functions promote it."""
+    def op(a):
+        return fn(a if a.is_floating_point() or a.is_complex()
+                  else a.float())
+    return op
+
+
+def _cbrt(a):
+    return torch.sign(a) * a.abs().pow(1.0 / 3.0)
+
+
+for _name, _fn in (
+        ("sign", torch.sign), ("rint", torch.round), ("round", torch.round),
+        ("ceil", torch.ceil), ("floor", torch.floor), ("trunc", torch.trunc),
+        ("fix", torch.trunc), ("rsqrt", _promote(torch.rsqrt)),
+        ("cbrt", _promote(_cbrt)),
+        ("rcbrt", _promote(lambda a: 1.0 / _cbrt(a))),
+        ("expm1", _promote(torch.expm1)), ("log10", _promote(torch.log10)),
+        ("log2", _promote(torch.log2)), ("log1p", _promote(torch.log1p)),
+        ("sin", _promote(torch.sin)), ("cos", _promote(torch.cos)),
+        ("tan", _promote(torch.tan)), ("arcsin", _promote(torch.asin)),
+        ("arccos", _promote(torch.acos)), ("arctan", _promote(torch.atan)),
+        ("sinh", _promote(torch.sinh)), ("cosh", _promote(torch.cosh)),
+        ("arcsinh", _promote(torch.asinh)),
+        ("arccosh", _promote(torch.acosh)),
+        ("arctanh", _promote(torch.atanh)),
+        ("degrees", _promote(torch.rad2deg)),
+        ("radians", _promote(torch.deg2rad)),
+        ("erf", _promote(torch.erf)), ("erfinv", _promote(torch.erfinv)),
+        ("gamma", _promote(lambda a: torch.exp(torch.lgamma(a)))),
+        ("gammaln", _promote(torch.lgamma)),
+        ("digamma", _promote(torch.digamma)),
+        ("reciprocal", torch.reciprocal),
+        ("logical_not", lambda a: torch.logical_not(a).to(a.dtype)),
+        ("softsign", _promote(lambda a: a / (1 + a.abs()))),
+        ("isnan", torch.isnan), ("isinf", torch.isinf),
+        ("isfinite", torch.isfinite)):
+    def _unary2(a, _f=_fn):
+        return _f(a)
+    _unary2.__name__ = _name
+    register(_name, aliases=("lgamma",) if _name == "gammaln" else ())(
+        _unary2)
+
+alias("negative", "_np_negative")
+
+for _name, _fn, _aliases in (
+        ("broadcast_hypot", torch.hypot, ("hypot",)),
+        ("broadcast_logical_and",
+         lambda a, b: torch.logical_and(a, b).to(a.dtype), ("logical_and",)),
+        ("broadcast_logical_or",
+         lambda a, b: torch.logical_or(a, b).to(a.dtype), ("logical_or",)),
+        ("broadcast_logical_xor",
+         lambda a, b: torch.logical_xor(a, b).to(a.dtype), ("logical_xor",)),
+        ("arctan2", torch.atan2, ())):
+    def _binary2(a, b, _f=_fn):
+        return _f(a, b)
+    _binary2.__name__ = _name
+    register(_name, aliases=_aliases)(_binary2)
+
+
+@register("clip")
+def _clip(a, *, a_min=None, a_max=None):
+    """``a`` limited to ``[a_min, a_max]`` (either may be None)."""
+    return torch.clamp(a, a_min, a_max)
+
+
+@register("smooth_l1")
+def _smooth_l1(a, *, scalar=1.0):
+    """``0.5 (s x)²`` where ``|x| < 1/s²``, else ``|x| - 0.5/s²``."""
+    s2 = scalar * scalar
+    ax = a.abs()
+    return torch.where(ax < 1.0 / s2, 0.5 * s2 * a * a, ax - 0.5 / s2)
+
+
+def _prod(a, dims, keepdims):
+    out = a if a.is_floating_point() else a.to(
+        a.dtype if a.dtype in (torch.int32, torch.int64) else torch.int32)
+    for d in sorted(dims, reverse=True):
+        out = torch.prod(out, dim=d, keepdim=keepdims)
+    return out
+
+
+for _name, _fn in (
+        ("prod", _prod),
+        ("nansum", lambda a, d, k: torch.nansum(a, dim=d, keepdim=k)),
+        ("nanprod", lambda a, d, k: _prod(torch.where(
+            torch.isnan(a), torch.ones_like(a), a), d, k))):
+    def _reduce2(a, *, axis=None, keepdims=False, exclude=False, _f=_fn):
+        dims = _dims(a, axis, exclude)
+        return _f(a, dims, keepdims)
+    _reduce2.__name__ = _name
+    register(_name)(_reduce2)
+
+
+@register("norm")
+def _norm(a, *, ord=2, axis=None, keepdims=False):
+    """The 1-norm (``ord=1``) or the 2-norm over ``axis``."""
+    dims = _dims(a, axis, False)
+    if ord == 1:
+        return torch.sum(a.abs(), dim=dims, keepdim=keepdims)
+    return torch.sqrt(torch.sum(a.square(), dim=dims, keepdim=keepdims))
+
+
+def _arg(fn):
+    def op(a, *, axis=None, keepdims=False):
+        if axis is None:
+            out = fn(a.reshape(-1), dim=0)
+            if keepdims:
+                out = out.reshape((1,) * a.dim())
+        else:
+            out = fn(a, dim=int(axis), keepdim=keepdims)
+        return out.to(torch.float32)    # the reference's float indices
+    return op
+
+
+register("argmax")(_arg(torch.argmax))
+register("argmin")(_arg(torch.argmin))
+
+
+def _cum(fn):
+    def op(a, *, axis=None, dtype=None):
+        x = a.reshape(-1) if axis is None else a
+        if dtype is None and not a.is_floating_point():
+            dtype = a.dtype if a.dtype in (torch.int32, torch.int64) \
+                else torch.int32
+        return fn(x, dim=0 if axis is None else int(axis),
+                  dtype=None if dtype is None else torch_dtype(dtype))
+    return op
+
+
+register("cumsum", aliases=("_np_cumsum",))(_cum(torch.cumsum))
+register("cumprod")(_cum(torch.cumprod))
+
+
+@register("logsumexp")
+def _logsumexp(a, *, axis=None, keepdims=False):
+    return torch.logsumexp(a, dim=_dims(a, axis, False), keepdim=keepdims)
+
+
+@register("batch_dot")
+def _batch_dot(a, b, *, transpose_a=False, transpose_b=False):
+    """Batched matrix products over the leading axes."""
+    if transpose_a:
+        a = a.transpose(-1, -2)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    return torch.matmul(a, b)
+
+
+register("matmul", aliases=("_npi_matmul",))(
+    lambda a, b: torch.matmul(a, b))
+register("tensordot")(
+    lambda a, b, *, axes=2: torch.tensordot(
+        a, b, dims=axes if isinstance(axes, int)
+        else [list(x) if isinstance(x, (tuple, list)) else [x]
+              for x in axes]))
+register("kron")(lambda a, b: torch.kron(a, b))
+register("outer")(lambda a, b: torch.outer(a.reshape(-1), b.reshape(-1)))
+register("vdot")(lambda a, b: torch.vdot(a.reshape(-1), b.reshape(-1)))
+register("inner")(lambda a, b: torch.inner(a, b))
+
+
+@register("khatri_rao")
+def _khatri_rao(*mats):
+    """The column-wise Kronecker product of matrices."""
+    out = mats[0]
+    for m in mats[1:]:
+        out = (out[:, None, :] * m[None, :, :]).reshape(-1, out.shape[-1])
+    return out
+
+
+@register("transpose")
+def _transpose(a, *, axes=None):
+    """``a``'s axes in the order ``axes`` (reversed when None or
+    empty)."""
+    if not axes:
+        return a.permute(*reversed(range(a.dim())))
+    return a.permute(*axes)
+
+
+register("swapaxes", aliases=("SwapAxis",))(
+    lambda a, *, dim1=0, dim2=0: a.transpose(dim1, dim2))
+register("expand_dims")(lambda a, *, axis: a.unsqueeze(axis))
+
+
+@register("squeeze")
+def _squeeze(a, *, axis=None):
+    if axis is None:
+        return a.squeeze()
+    return a.squeeze(axis if isinstance(axis, int) else tuple(axis))
+
+
+@register("concat", aliases=("Concat",))
+def concat(*args, dim=1):
+    """The inputs joined along ``dim``."""
+    return torch.cat(args, dim=dim)
+
+
+@register("stack")
+def _stack(*args, axis=0):
+    return torch.stack(args, dim=axis)
+
+
+@register("split", aliases=("SliceChannel", "split_v2"))
+def _split(a, *, num_outputs=None, axis=1, squeeze_axis=False,
+           indices=None):
+    """``a`` cut along ``axis`` into ``num_outputs`` equal parts, or at
+    ``indices``; a list of arrays."""
+    n = a.shape[axis]
+    if indices is not None:
+        cuts = [0] + [int(i) for i in indices] + [n]
+        parts = [a.narrow(axis, lo, max(hi - lo, 0))
+                 for lo, hi in zip(cuts[:-1], cuts[1:])]
+    else:
+        if n % num_outputs:
+            raise MXNetError(f"split: axis {axis} of size {n} does not "
+                             f"divide into {num_outputs} parts")
+        parts = list(torch.split(a, n // num_outputs, dim=axis))
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return parts
+
+
+def _take_slice(a, axis, b, e, s):
+    """``a[..., b:e:s, ...]`` on ``axis`` (a negative step too)."""
+    start, stop, step = slice(b, e, s).indices(a.shape[axis])
+    if step > 0:
+        return a[(slice(None),) * axis + (slice(start, stop, step),)]
+    idx = torch.arange(start, stop, step, device=a.device)
+    return a.index_select(axis, idx)
+
+
+@register("slice", aliases=("crop",))
+def _slice(a, *, begin, end, step=None):
+    """``a[b0:e0:s0, b1:e1:s1, ...]`` (None entries take the whole
+    range)."""
+    step = step or [None] * len(begin)
+    out = a
+    for ax, (b, e, st) in enumerate(zip(begin, end, step)):
+        out = _take_slice(out, ax, b, e, st)
+    return out
+
+
+@register("slice_axis")
+def _slice_axis(a, *, axis, begin, end):
+    return _take_slice(a, axis % a.dim(), begin, end, None)
+
+
+@register("slice_like")
+def _slice_like(a, b, *, axes=()):
+    out = a
+    for ax in (axes or range(min(a.dim(), b.dim()))):
+        out = out.narrow(ax, 0, b.shape[ax])
+    return out
+
+
+register("tile")(lambda a, *, reps: torch.tile(
+    a, (reps,) if isinstance(reps, int) else tuple(reps)))
+
+
+@register("repeat")
+def _repeat(a, *, repeats, axis=None):
+    """Each element repeated ``repeats`` times along ``axis`` (of the
+    flattened array when None)."""
+    return torch.repeat_interleave(a, repeats, dim=axis)
+
+
+def _pad_index(n, before, after, mode, device):
+    i = torch.arange(-before, n + after, device=device)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1) if n > 1 else 1
+    i = i.abs() % period
+    return torch.where(i >= n, period - i, i)
+
+
+@register("pad", aliases=("Pad",))
+def _pad(a, *, mode="constant", pad_width=(), constant_value=0.0):
+    """``a`` padded by ``pad_width`` (before and after for each axis in
+    turn): with ``constant_value``, or by ``edge`` or ``reflect``."""
+    pw = list(zip(pad_width[::2], pad_width[1::2]))
+    if mode == "constant":
+        flat = []
+        for before, after in reversed(pw):
+            flat += [int(before), int(after)]
+        return torch.nn.functional.pad(a, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise MXNetError(f"pad: mode {mode!r} is not known")
+    out = a
+    for ax, (before, after) in enumerate(pw):
+        if before or after:
+            out = out.index_select(ax, _pad_index(
+                out.shape[ax], int(before), int(after), mode, a.device))
+    return out
+
+
+register("flip", aliases=("reverse",))(
+    lambda a, *, axis: torch.flip(a, (axis,) if isinstance(axis, int)
+                                  else tuple(axis)))
+register("roll")(lambda a, *, shift, axis=None: torch.roll(
+    a, shift, axis))
+
+
+@register("depth_to_space")
+def _depth_to_space(a, *, block_size):
+    n, c, h, w = a.shape
+    b = block_size
+    x = a.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register("space_to_depth")
+def _space_to_depth(a, *, block_size):
+    n, c, h, w = a.shape
+    b = block_size
+    x = a.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+@register("diag")
+def _diag(a, *, k=0):
+    return torch.diag(a, k) if a.dim() <= 2 else torch.diagonal(
+        a, offset=k, dim1=0, dim2=1)
+
+
+@register("broadcast_to")
+def _broadcast_to(a, *, shape):
+    """``a`` broadcast to ``shape`` (0 keeps a's size there)."""
+    shape = tuple(s if s != 0 else a.shape[i] for i, s in enumerate(shape))
+    return a.expand(shape)
+
+
+register("broadcast_like")(lambda a, b: a.expand(b.shape))
+
+
+@register("broadcast_axis", aliases=("broadcast_axes",))
+def _broadcast_axis(a, *, axis=(), size=()):
+    axis = (axis,) if isinstance(axis, int) else axis
+    size = (size,) if isinstance(size, int) else size
+    shape = list(a.shape)
+    for ax, n in zip(axis, size):
+        shape[ax] = n
+    return a.expand(tuple(shape))
+
+
+@register("take")
+def _take(a, indices, *, axis=0, mode="clip"):
+    """Slices of ``a`` along ``axis`` at ``indices`` (clipped to the
+    axis, or wrapped with ``mode="wrap"``)."""
+    n = a.shape[axis]
+    idx = indices.long()
+    idx = idx.clamp(0, n - 1) if mode == "clip" else idx.remainder(n)
+    out = a.index_select(axis, idx.reshape(-1))
+    return out.reshape(a.shape[:axis] + tuple(indices.shape)
+                       + a.shape[axis + 1:])
+
+
+@register("pick")
+def _pick_op(a, index, *, axis=-1, keepdims=False, mode="clip"):
+    """``a``'s entry at ``index`` along ``axis`` (indices clipped)."""
+    out = pick(a, index, axis=axis)
+    return out.unsqueeze(axis % a.dim()) if keepdims else out
+
+
+@register("gather_nd")
+def _gather_nd(a, indices):
+    return a[tuple(indices.long())]
+
+
+@register("scatter_nd")
+def _scatter_nd(data, indices, *, shape):
+    out = torch.zeros(tuple(shape), dtype=data.dtype, device=data.device)
+    return out.index_put_(tuple(indices.long()), data)
+
+
+@register("one_hot")
+def _one_hot(indices, *, depth, on_value=1.0, off_value=0.0,
+             dtype="float32"):
+    """``on_value`` at each index's position on a new last axis of size
+    ``depth``, ``off_value`` elsewhere (an index outside ``[0, depth)``
+    gives a row of ``off_value``)."""
+    hit = indices.long().unsqueeze(-1) == torch.arange(
+        depth, device=indices.device)
+    oh = hit.to(torch.float32)
+    return (oh * (on_value - off_value) + off_value).to(torch_dtype(dtype))
+
+
+@register("where")
+def _where(cond, a, b):
+    """``a`` where ``cond`` is non-zero, else ``b``."""
+    return torch.where(cond.bool(), a, b)
+
+
+@register("boolean_mask_nonzero")
+def _nonzero(a):
+    return torch.nonzero(a)
+
+
+@register("take_along_axis")
+def _take_along_axis(a, indices, *, axis):
+    return torch.take_along_dim(a, indices.long(), dim=axis)
+
+
+@register("sort")
+def _sort(a, *, axis=-1, is_ascend=True):
+    out = torch.sort(a, dim=axis, stable=True).values
+    return out if is_ascend else torch.flip(out, (axis,))
+
+
+@register("argsort")
+def _argsort(a, *, axis=-1, is_ascend=True, dtype="float32"):
+    """The ascending order's indices (reversed for ``is_ascend=False``),
+    as ``dtype``."""
+    out = torch.argsort(a, dim=axis, stable=True)
+    if not is_ascend:
+        out = torch.flip(out, (axis,))
+    return out.to(torch_dtype(dtype))
+
+
+@register("topk")
+def _topk(a, *, k=1, axis=-1, ret_typ="indices", is_ascend=False,
+          dtype="float32"):
+    """The ``k`` largest (smallest with ``is_ascend``) entries along
+    ``axis``, in order: their ``indices`` (as ``dtype``), their
+    ``value``, ``both``, or a ``mask`` of a's shape and dtype marking
+    them."""
+    ax = -1 if axis is None else axis
+    vals, idx = torch.topk(a, k, dim=ax, largest=not is_ascend, sorted=True)
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "both":
+        return [vals, idx.to(torch_dtype(dtype))]
+    if ret_typ == "mask":
+        return torch.zeros_like(a).scatter_(ax, idx, 1)
+    return idx.to(torch_dtype(dtype))
+
+
+@register("full_like")
+def _full_like(a, *, fill_value):
+    return torch.full_like(a, fill_value)
+
+
+@register("shape_array")
+def _shape_array(a):
+    """``a``'s shape as int32 (the reference asks for int64, which JAX
+    without x64 gives as int32)."""
+    return torch.tensor(a.shape, dtype=torch.int32, device=a.device)
+
+
+@register("size_array")
+def _size_array(a):
+    return torch.tensor([a.numel()], dtype=torch.int32, device=a.device)
+
+
+@register("SequenceMask", aliases=("sequence_mask",))
+def _sequence_mask(data, sequence_length=None, *, use_sequence_length=False,
+                   value=0.0, axis=0):
+    """Steps at or past each sequence's length set to ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    steps = torch.arange(data.shape[axis], device=data.device)
+    mask = steps[:, None] < sequence_length[None, :]
+    if axis == 1:
+        mask = mask.t()
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - 2))
+    return torch.where(mask, data, torch.tensor(value, dtype=data.dtype,
+                                                device=data.device))
+
+
+@register("SequenceLast", aliases=("sequence_last",))
+def _sequence_last(data, sequence_length=None, *, use_sequence_length=False,
+                   axis=0):
+    """Each sequence's last valid step."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, -1)
+    last = (sequence_length - 1).long()
+    moved = data.movedim(axis, 0)
+    idx = last.reshape((1, -1) + (1,) * (moved.dim() - 2))
+    return torch.take_along_dim(moved, idx, dim=0)[0]
+
+
+@register("SequenceReverse", aliases=("sequence_reverse",))
+def _sequence_reverse(data, sequence_length=None, *,
+                      use_sequence_length=False, axis=0):
+    """Each sequence's valid steps reversed, the padding left in
+    place."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (axis,))
+    moved = data.movedim(axis, 0)
+    steps = torch.arange(moved.shape[0], device=data.device)[:, None]
+    lens = sequence_length.long()[None, :]
+    src = torch.where(steps < lens, lens - 1 - steps, steps)
+    out = torch.take_along_dim(
+        moved, src.reshape(tuple(src.shape) + (1,) * (moved.dim() - 2)),
+        dim=0)
+    return out.movedim(0, axis)
+
+
+@register("L2Normalization")
+def _l2_normalization(data, *, eps=1e-10, mode="instance"):
+    if mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, data.dim()))
+    return data / torch.sqrt(data.square().sum(dim=axes, keepdim=True) + eps)
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, *, eps=1e-3, axis=1):
+    """Normalisation over every axis but the batch and ``axis``
+    (``mxnet_tpu/ops/tensor.py:618-632``), population variance."""
+    ax = axis % data.dim()
+    excluded = {0, 1} if ax == 0 else {0, ax}
+    axes = tuple(i for i in range(data.dim()) if i not in excluded)
+    mean = data.mean(dim=axes, keepdim=True)
+    var = (data - mean).square().mean(dim=axes, keepdim=True)
+    xn = (data - mean) / torch.sqrt(var + eps)
+    shape = [1] * data.dim()
+    shape[ax] = -1
+    return xn * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("allclose")
+def _allclose(a, b, *, rtol=1e-5, atol=1e-8, equal_nan=False):
+    return torch.tensor([float(torch.allclose(
+        a, b, rtol=rtol, atol=atol, equal_nan=equal_nan))],
+        dtype=torch.float32, device=a.device)
+
+
+@register("histogram")
+def _histogram(a, *, bin_cnt=10, range=None):
+    """Counts in ``bin_cnt`` equal bins over ``range`` (default a's
+    min and max) and the bins' edges."""
+    lo, hi = range if range is not None else (float(a.min()),
+                                               float(a.max()))
+    x = a.reshape(-1).float()
+    edges = torch.linspace(lo, hi, bin_cnt + 1, device=a.device)
+    inside = (x >= lo) & (x <= hi)
+    b = ((x - lo) / (hi - lo) * bin_cnt).floor().long().clamp(0, bin_cnt - 1)
+    cnt = torch.zeros(bin_cnt, dtype=torch.int32, device=a.device)
+    cnt.index_add_(0, b[inside], torch.ones_like(b[inside],
+                                                 dtype=torch.int32))
+    return [cnt, edges.to(a.dtype if a.is_floating_point()
+                          else torch.float32)]

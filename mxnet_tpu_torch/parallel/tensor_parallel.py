@@ -15,7 +15,10 @@ step.  Inside it:
   when the batch is split over live axes (``batch_axes``): it asks
   :func:`batch_reducer` for the reducer over those axes and runs
   ``ops.nn.sync_batch_norm``, as the reference's BatchNorm under GSPMD
-  reduces over the whole batch.
+  reduces over the whole batch;
+* ``Dropout`` draws the whole batch's mask and keeps this rank's part of
+  it (:func:`batch_shards`), so ranks seeded alike drop different
+  elements of different rows, as one device would.
 
 A Dense weight in the gluon (out, in) layout:
 
@@ -50,7 +53,7 @@ from . import collectives as comm
 from .mesh import spec_axes
 
 __all__ = ["scope", "active", "local_axis", "dense", "seq_offset",
-           "batch_reducer", "pair_axis", "paired"]
+           "batch_reducer", "batch_shards", "pair_axis", "paired"]
 
 _local = threading.local()
 
@@ -123,6 +126,27 @@ def batch_reducer(channel_axis: int, ndim: int):
     c = channel_axis % ndim
     axes = [a for a, d in s.batch_axes if d % ndim != c]
     return comm.BatchReducer(axes) if axes else None
+
+
+def batch_shards(ndim: int):
+    """``((dim, parts, index), ...)``: how this step's batch (an
+    ``ndim``-D activation) is split over the live axes, one entry per
+    split dim: the number of parts it is cut into and this rank's part.
+    Several axes on one dim split it outer first, in the order of
+    ``batch_axes`` (as ``Mesh4DTrainer._local`` cuts dp, then ep), so
+    the part is ``Σ index_j · Π size_k (k after j)``.  Empty where the
+    rank holds the whole batch.  A Dropout draws the whole batch's mask
+    and keeps this rank's part, as the reference draws a global mask
+    that GSPMD shards."""
+    s = active()
+    if s is None:
+        return ()
+    split = {}
+    for a, d in s.batch_axes:
+        if d < ndim:
+            parts, index = split.get(d % ndim, (1, 0))
+            split[d % ndim] = (parts * a.size, index * a.size + a.index)
+    return tuple((d, parts, index) for d, (parts, index) in split.items())
 
 
 def _tp_dim(spec):

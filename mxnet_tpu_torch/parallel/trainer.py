@@ -88,10 +88,25 @@ and ``opt/<k>/<i>``, the header ``num_update``, ``slots``, ``meta``,
 ``mesh_axes`` and, under AMP, the scaler's state), and ``fit`` with its
 auto-resume.  A load writes into the existing masters, optimizer states
 and AMP state in place (``copy_``): the graphs captured before it stay
-valid, and the next step replays one of them.  The reference also
-saves its global PRNG chain (``rng_key``); the port has no ``mx.random``
-yet and no step of it draws randomness, so it writes a chain through
-unchanged when a loaded checkpoint carried one and otherwise none.
+valid, and the next step replays one of them.  The header's ``rng_key``
+stands for ``mx.random``'s state as the save found it, in the
+reference's two-word key format (``ops/random.py`` ``key_words``: the
+reference reads that entry as its JAX key, and resumes from the port's
+checkpoint), and ``rng_state`` is that state whole
+(``get_state_bits``).  A load restores ``rng_state``, so a resumed run
+draws the Dropout masks the uninterrupted run would have drawn; from the
+reference's checkpoint, which has only its key, it seeds every
+generator from the key.
+
+Randomness (``mxnet_tpu/parallel/trainer.py:246-254, :568-577``): the
+forward draws through its trace context (``gluon.block._TraceContext``,
+``mx.random``'s trace hook inside the step), from the device's
+generator.  A captured step registers that generator with its graph, so
+each replay (each step of ``run_steps`` too) draws fresh masks from the
+generator's state at that moment, bitwise as ``_step_eager`` from the
+same state would; remat's recomputation is handed the forward's own
+draws.  On a mesh every rank draws the whole batch's mask and keeps its
+part, so ranks seeded alike drop what one device would.
 
 With a mesh (``mesh=make_mesh(...)`` or a ``MeshPlan``; with none,
 ``MXNET_MESH``, else every rank of a started process group over dp) the
@@ -138,6 +153,7 @@ from ..amp import policy as _amp_policy
 from ..amp.loss_scaler import (LossScaler, advance_device, all_finite,
                                device_state, enter_device)
 from ..executable import CaptureOwner, Executable, input_spec
+from ..ops import random as _rng
 from ..gluon.block import _TraceContext
 from ..imperative.cached_step import ensure_real
 from ..ndarray.ndarray import NDArray
@@ -242,9 +258,6 @@ class SPMDTrainer:
             k: tuple(self.optimizer.create_state(i, views[i]))
             for i, k in enumerate(self._pkeys)}
         self.num_update = 0
-        # the reference's PRNG chain, kept from a loaded checkpoint or
-        # states file and written back into the next one (never drawn)
-        self._rng_key = None
         # signature -> (Executable, its IdCheck); the addresses of the
         # masters and states they were captured on
         self._exec = {}
@@ -823,8 +836,7 @@ class SPMDTrainer:
         header = {"format": self._STATES_FORMAT,
                   "num_update": self.num_update,
                   "slots": slots, "dtypes": dtypes}
-        if self._rng_key:
-            header["rng_key"] = self._rng_key
+        header.update(_rng_header())
 
         def arrays():
             for i, k in enumerate(self._pkeys):
@@ -875,8 +887,7 @@ class SPMDTrainer:
         self._restore_states(states, fname)
         self.num_update = int(header["num_update"])
         self.optimizer.num_update = self.num_update
-        if header.get("rng_key"):
-            self._rng_key = header["rng_key"]
+        _restore_rng(header)
 
     def _local_part(self, k, j, full, source):
         """This rank's part of state slot ``j`` of parameter ``k`` from
@@ -943,8 +954,7 @@ class SPMDTrainer:
                   # wrote them
                   "mesh_axes": (dict(self.mesh.shape) if self.mesh
                                 is not None else {"dp": 1})}
-        if self._rng_key:
-            header["rng_key"] = self._rng_key
+        header.update(_rng_header())
         if self._amp_scaler is not None:
             # the masters are f32 whatever the compute dtype; the header
             # keeps the policy and the scaler's state for the resume
@@ -1022,8 +1032,7 @@ class SPMDTrainer:
         self._stale_after_step()
         self.num_update = int(header.get("num_update", self.num_update))
         self.optimizer.num_update = self.num_update
-        if header.get("rng_key"):
-            self._rng_key = header["rng_key"]
+        _restore_rng(header)
         amp_hdr = header.get("amp")
         if amp_hdr and self._amp_scaler is not None \
                 and amp_hdr.get("scaler"):
@@ -1103,6 +1112,22 @@ class SPMDTrainer:
                 meta={"fit_seen": seen,
                       "cursor": {"epoch": epochs - 1, "batch": seen}})
         return losses
+
+
+def _rng_header() -> dict:
+    """``mx.random``'s state for a checkpoint or states header: the
+    two-word ``rng_key`` the reference reads and the exact
+    ``rng_state``."""
+    bits = _rng.get_state_bits()
+    return {"rng_key": _rng.key_words(bits), "rng_state": bits.tolist()}
+
+
+def _restore_rng(header) -> None:
+    """Restore :func:`_rng_header`'s state (a reference header's
+    ``rng_key`` alone seeds the generators)."""
+    bits = header.get("rng_state") or header.get("rng_key")
+    if bits:
+        _rng.set_state_bits(bits)
 
 
 def _token_count(d, lead=0) -> int:

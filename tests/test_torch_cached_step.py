@@ -430,6 +430,7 @@ def _gate_run(monkeypatch, env):
     not)."""
     monkeypatch.setenv("MXNET_CACHED_STEP", env)
     net = _Gate()
+    mt.random.seed(0)       # both runs start from the same weights
     net.initialize(ctx=mt.cpu())
     tr = mt.gluon.Trainer(net.collect_params(), "sgd",
                           {"learning_rate": 0.1}, kvstore=None)

@@ -207,29 +207,43 @@ def test_v2_layout_manifest_and_shards(tmp_path):
 
 
 def test_prng_chain_is_carried_not_drawn(tmp_path):
-    """A reference behaviour the port does not copy: the reference saves
-    and restores its global PRNG chain (``rng_key``).  The port has no
-    ``mx.random`` yet and draws nothing, so it writes no chain of its
-    own, and writes a loaded one through unchanged."""
+    """The reference saves and restores its global PRNG chain
+    (``rng_key``); the port saves ``mx.random``'s state: the exact state
+    as ``rng_state`` and, under ``rng_key``, two words in the reference's
+    key format.  A load restores the state exactly; a header with only
+    the reference's key seeds the generators from it, the same way at
+    each load."""
+    from mxnet_tpu_torch.ops import random as prng
     tr = _trainer()
     d, l = _batches(1)[0]
     tr.step(d, l)
+    state = prng.get_state_bits()
     path = tr.save_checkpoint(tmp_path / "a")
     with open(os.path.join(path, "manifest.json")) as f:
         doc = json.load(f)
-    assert "rng_key" not in doc["header"]
+    assert doc["header"]["rng_state"] == state.tolist()
+    assert doc["header"]["rng_key"] == prng.key_words(state)
+    assert len(doc["header"]["rng_key"]) == 2
+    prng.seed(7)
+    tr2 = _trainer(seed=5)
+    tr2.load_checkpoint(tmp_path / "a")
+    onp.testing.assert_array_equal(prng.get_state_bits(), state)
+    del doc["header"]["rng_state"]
     doc["header"]["rng_key"] = [3, 1, 4, 1]
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(doc, f)
-    tr2 = _trainer(seed=5)
     tr2.load_checkpoint(tmp_path / "a")
-    tr2.step(d, l)
-    path = tr2.save_checkpoint(tmp_path / "b")
-    with open(os.path.join(path, "manifest.json")) as f:
-        assert json.load(f)["header"]["rng_key"] == [3, 1, 4, 1]
+    seeded = prng.get_state_bits()
+    assert not onp.array_equal(seeded, state)
+    tr2.load_checkpoint(tmp_path / "a")
+    onp.testing.assert_array_equal(prng.get_state_bits(), seeded)
     tr2.save_states(str(tmp_path / "s.npz"))
     with onp.load(str(tmp_path / "s.npz"), allow_pickle=False) as z:
-        assert json.loads(bytes(z["__header__"]))["rng_key"] == [3, 1, 4, 1]
+        hdr = json.loads(bytes(z["__header__"]))
+    assert hdr["rng_state"] == seeded.tolist()
+    prng.seed(11)
+    tr2.load_states(str(tmp_path / "s.npz"))
+    onp.testing.assert_array_equal(prng.get_state_bits(), seeded)
 
 
 def test_load_states_tolerates_short_dtypes_header(tmp_path):

@@ -164,6 +164,35 @@ def test_moe_ep_path_matches_the_reference(pool):
     assert got[0][0][0][-1] < got[0][0][0][0]
 
 
+def test_dp_ep_dropout_keeps_the_rows_of_the_one_device_mask(pool):
+    """dp2×ep2 cuts the batch's dim 0 over two axes, dp outer: each rank
+    draws the whole batch's mask and keeps rows ``(i_dp·2 + i_ep)·B`` to
+    ``+B`` of it, the rows ``Mesh4DTrainer`` gives it, so the four ranks'
+    masks put together are the one-device mask, bit for bit."""
+    rng = onp.random.RandomState(5)
+    params = (rng.randn(16, 32).astype("float32") * 0.1,
+              rng.randn(32, 16).astype("float32") * 0.1)
+    x = rng.uniform(0.5, 1.5, (32, 16)).astype("float32")
+    y = rng.randn(32, 16).astype("float32")
+    got = [r for r in pool.run("case_mesh4d_dropout", params, x, y, 0.5, 7)
+           if r is not None]
+    assert len(got) == 4
+    import mxnet_tpu_torch as mt
+    with mt.cpu():
+        mt.random.seed(7)
+        whole = mt.nd.Dropout(mt.nd.array(x), p=0.5,
+                              mode="always").asnumpy() != 0
+    B = x.shape[0] // 4
+    rows = {}
+    for i_dp, i_ep, mask in got:
+        assert mask.shape == (B, 16)
+        rows[i_dp * 2 + i_ep] = mask
+    assert sorted(rows) == [0, 1, 2, 3]
+    for part, mask in rows.items():
+        onp.testing.assert_array_equal(mask, whole[part * B:(part + 1) * B],
+                                       err_msg=f"part {part}")
+
+
 def test_refusals(pool):
     """ep in a spec under pp (``test_mesh4d.py:148``), and a stage
     function that reads tp shards but never reduces their partial

@@ -151,10 +151,9 @@ def test_get_model_and_the_default_optimizer():
     assert isinstance(net, vision.ResNetV1)
     assert isinstance(mt.gluon.model_zoo.get_model("ResNet18_V2"),
                       vision.ResNetV2)
-    with pytest.raises(MXNetError, match="not ported yet"):
-        vision.get_model("squeezenet1.0")
-    with pytest.raises(MXNetError, match="not ported yet"):
-        vision.get_model("vgg16_bn")
+    # the rest of the zoo is ported: the reference's spellings build
+    assert isinstance(vision.get_model("squeezenet1.0"), vision.SqueezeNet)
+    assert isinstance(vision.get_model("vgg16_bn"), vision.VGG)
     with pytest.raises(MXNetError, match="not found"):
         vision.get_model("resnet51_v1")
     with pytest.raises(MXNetError, match="pretrained"):

@@ -60,13 +60,17 @@ def _same_state():
     to its default: the MoE drop counter (``moe``), the SLO provider
     (``serving_slo``) and the AMP policy (``amp``).  Another test in the
     same process (the reference's MoE tests drop tokens) must not decide
-    which sections a record here carries."""
+    which sections a record here carries.  Also this thread's input wait
+    not yet drained into a record: a prefetcher an earlier test consumed
+    while a sink was set (``tests/test_data_pipeline.py``) leaves it for
+    the next record, which would then carry that test's wait."""
     from mxnet_tpu.amp import policy as jpolicy
     from mxnet_tpu_torch.amp import policy
     for tel in (telemetry, jtel):
         tel.clear_sinks()
         tel.set_slo_provider(None)
         tel.reset("moe.")          # a dropped token adds a record section
+        tel._wait_tls.__dict__.pop("ms", None)
     for pol in (policy, jpolicy):
         pol.deactivate()
 

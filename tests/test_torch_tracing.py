@@ -33,6 +33,7 @@ def _clean(monkeypatch):
     for k in ("MXNET_TRACE", "MXNET_TRACE_JSONL", "MXNET_WATCHDOG_SEC",
               "MXNET_TRACE_BUFFER"):
         monkeypatch.delenv(k, raising=False)
+    _one_epoch(monkeypatch)
     for tr in (tracing, jtr):
         tr.stop_watchdog()
         tr._env_default()
@@ -42,6 +43,15 @@ def _clean(monkeypatch):
         tr.stop_watchdog()
         tr._env_default()
         tr.clear()
+
+
+def _one_epoch(monkeypatch):
+    """One epoch for both recorders: ``_script`` books its spans at
+    ``_EPOCH + 1.0``, and a duration computed at another float magnitude
+    rounds differently, so two epochs on either side of a power of two
+    (the packages imported seconds apart early in a process's life)
+    would make the same interval two totals."""
+    monkeypatch.setattr(jtr, "_EPOCH", tracing._EPOCH)
 
 
 def _names(pkg_dir):
@@ -117,6 +127,40 @@ def test_buckets_and_aggregate_match_the_reference():
         tr.end(sp)
     tracing.clear()
     assert set(tracing.bucket_totals_ms().values()) == {0.0}
+
+
+def _both_totals():
+    """Each package's bucket totals after ``_script``, from clear
+    recorders, which it leaves clear."""
+    out = []
+    for tr in (tracing, jtr):
+        tr.clear()
+        opened = _script(tr)
+        out.append(tr.bucket_totals_ms())
+        tr.end(opened)
+        tr.clear()
+    return out
+
+
+@pytest.mark.parametrize("port,ref", [(62.5, 64.5), (1022.5, 1024.5),
+                                      (4094.5, 4096.5)])
+def test_bucket_totals_do_not_depend_on_when_each_package_was_imported(
+        monkeypatch, port, ref):
+    # the port imported just below a power of two of the clock and the
+    # reference two seconds later, past it: the same intervals book
+    # totals that differ in their last bits, until ``_one_epoch`` (the
+    # fixture's alignment) gives the reference the port's epoch
+    monkeypatch.setattr(tracing, "_EPOCH", port)
+    monkeypatch.setattr(jtr, "_EPOCH", ref)
+    apart = _both_totals()
+    assert apart[0] != apart[1]
+    _one_epoch(monkeypatch)
+    assert jtr._EPOCH == port
+    together = _both_totals()
+    assert together[0] == together[1]
+    assert together[0] == pytest.approx(
+        {"input_wait": 2.0, "h2d": 1.0, "compile": 4.0, "collective": 3.0,
+         "optimizer": 2.0, "checkpoint": 0.5})
 
 
 # the spans _script books at fixed times

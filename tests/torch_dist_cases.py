@@ -566,6 +566,34 @@ def case_mesh4d(plan_kw, fn, params, specs, x, y, windows, opts,
             tr.state_bytes_per_device(), tr.compiles)
 
 
+def case_mesh4d_dropout(params, x, y, p, seed):
+    """``Mesh4DTrainer`` over dp2 × ep2 (both axes split the batch's dim
+    0) with a Dropout (``mode="always"``) on the stage's input, seeded
+    with ``mx.random.seed(seed)`` just before one step: this rank's
+    ``(dp index, ep index, mask of its rows)``, the mask read off the
+    Dropout's output (``x`` has no zeros)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    from mxnet_tpu_torch.parallel import MeshPlan, Mesh4DTrainer
+    plan = MeshPlan(dp=2, ep=2)
+    if not plan.mesh.is_member:
+        return None
+    masks = []
+
+    def mlp(ps, h):
+        a, b = ps
+        h = ops_nn.dropout(h, p=p, mode="always")
+        masks.append(_np(h != 0))
+        return torch.relu(h @ a) @ b
+
+    tr = Mesh4DTrainer(plan, mlp, mse, tuple(params))
+    mx.random.seed(seed)
+    tr.run_steps(x, y, n_steps=1)
+    return (plan.mesh.axis("dp").index, plan.mesh.axis("ep").index,
+            masks[0])
+
+
 def case_mesh4d_refusals(params):
     """Mesh4DTrainer's refusals: ep in a spec under pp, and a tp-sharded
     stage function that never calls tp_row."""
@@ -1276,3 +1304,29 @@ def case_pairing(weights, specs, axes, batches, opt, nested):
                                                    (col.weight, col.bias,
                                                     row.weight, row.bias))}
     return losses, params, tp_bytes
+
+
+def case_dropout_train(layers, weights, axes, batches, opt, seed):
+    """A net with Dropout through SPMDTrainer (SGD), ``mx.random`` seeded
+    with ``seed`` just before the steps, each rank on its dp shard of the
+    whole batches: ``(losses, gathered parameters)``.  ``axes`` None: the
+    unmeshed trainer."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import SPMDTrainer, make_mesh
+    mesh = make_mesh(axes) if axes is not None else None
+    if mesh is not None and not mesh.is_member:
+        return None
+    net = layer_net(nn, layers)
+    net.initialize(device="cpu")
+    for k, p in net.collect_params().items():
+        p.set_data(torch.as_tensor(weights[k]))
+    kw = {"mesh": mesh} if mesh is not None else {"device": "cpu"}
+    tr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                     optimizer_params=opt, **kw)
+    mx.random.seed(seed)
+    losses = [float(tr.step(d, l).asnumpy()) for d, l in batches]
+    tr.gather_params()
+    return losses, {k: _np(p._tensor()) for k, p in tr._params.items()}
