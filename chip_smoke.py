@@ -448,6 +448,41 @@ exits non-zero and prints no result:
              224²: the eval forward on the card against the same net on
              the CPU in f64 (relative L2 1e-4), and one training step
              each, its loss finite.
+28. export — the symbol and deployment path, fp32 with TF32 off and
+             cuDNN deterministic unless named.  (a) bench.py's
+             ResNet-50 v1 (Xavier seed 0) hybridized on the card at
+             batches 1, 8 and 128 and exported (``HybridBlock.export``),
+             then ``net.cast("bfloat16")`` and again; the same net made
+             on the CPU and exported there at batch 1.  A fresh process
+             (``--export-child``, started once the first export is
+             written, while the others are made) loads each export on the
+             card
+             (``SymbolBlock.imports``; the CPU's through
+             ``move_to_device_pass``), checks the loaded parameters
+             bitwise against the same net made there from the seed, and
+             holds the imported forward against the hybridized one:
+             fp32 within rtol 1e-5 (bitwise or not, printed), bf16
+             within 1e-2 of the largest logit, the CPU's export within
+             1e-5 of it; img/s at 128 by the slope between windows of 2
+             and 8 forwards, imported and hybridized in turns; then
+             ``ServingServer.predict`` over the imported fp32 block (its
+             buckets the exported batches, 32 clients x 8 calls): req/s,
+             occupancy, no capture or eager batch while serving, each
+             row bitwise equal to the imported forward of a padded batch
+             of its bucket.  (b) bench.py's transformer LM (vocab 32000,
+             units 512, 8 layers, 8 heads, bf16) exported at (1, 512)
+             and (8, 512) and imported there: logits within 2e-2 of the
+             hybridized forward's largest, K1 8 launches a forward of
+             the imported program (counts zeroed just before, read just
+             after) and no plain call.  (c) in this process, while the
+             other imports: ``mx.sym.trace`` of ResNet-50 fp32, then
+             ``simple_bind`` at batch 64 on the card: the eval forward
+             within rtol 1e-5 of the Gluon forward, two eval replays
+             bitwise equal to the eager graph, the training forward and
+             backward's gradients within relative L2 1e-5 of the Gluon
+             net's autograd gradients in inference mode (the traced
+             BatchNorm reads the running statistics), and
+             ``save_checkpoint`` → ``load_checkpoint`` → bind bitwise.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
 carry ``launches_gluon_train``, ``launches_ckpt``,
@@ -455,7 +490,7 @@ carry ``launches_gluon_train``, ``launches_ckpt``,
 ``launches_distributed``, ``launches_ring_fold``, ``launches_pipeline``,
 ``launches_mesh4d``, ``launches_kvstore`` and ``launches_dp_resnet``,
 K1
-``launches_batch_serve``); the last is
+``launches_batch_serve`` and ``launches_export``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -477,6 +512,11 @@ ms, idle share (of the profiled and of the unprofiled host ms) and the
 kernels a step (copies and memsets apart); and each kernel's launches a
 step by name from a CUDA-only trace; then the host blocks once more,
 after the profiles.  The last line is ``{"trees": [...]}``.
+
+    python3 chip_smoke.py --export-child DIR
+
+is phase 28's importing process (it reads the exports in DIR and
+prints one JSON line).
 
     python3 chip_smoke.py --gluon-ab TREE [TREE ...]
 
@@ -7269,6 +7309,419 @@ def phase_vision_zoo(torch, smi):
         raise AssertionError(f"vision_zoo: {failures}")
 
 
+# -- phase 28: the symbol and deployment path ---------------------------------
+
+EXPORT_BATCHES = (1, 8, 128)      # ResNet-50's exported signatures
+EXPORT_LM_BATCHES = (1, 8)        # the LM's, at EXPORT_LM_SEQ tokens
+EXPORT_LM_SEQ = 512
+EXPORT_BIND_BATCH = 64            # (c): simple_bind of the traced graph
+EXPORT_WINDOWS = (2, 8, 2)        # img/s at 128 by the slope
+
+
+def export_inputs(batch, seed=7):
+    """(batch, 3, 224, 224) images from a seeded host generator."""
+    return onp.random.RandomState(seed).randn(
+        batch, 3, RESNET_IMAGE, RESNET_IMAGE).astype(onp.float32)
+
+
+def export_lm_ids(batch, seed=8):
+    return onp.random.RandomState(seed).randint(
+        0, VOCAB, (batch, EXPORT_LM_SEQ)).astype(onp.int32)
+
+
+def export_files(root):
+    """What the exporting process writes and the importing one reads."""
+    return {name: (os.path.join(root, f"{name}-symbol.json"),
+                   os.path.join(root, f"{name}-0000.params"))
+            for name in ("r50_float32", "r50_bfloat16", "r50_cpu", "lm")}
+
+
+def export_exports(torch, root, first_written=None):
+    """The exporting side of (a) and (b): ResNet-50 hybridized on the
+    card at each batch of EXPORT_BATCHES in fp32, then cast to bf16 and
+    again, each exported; the same net made on the CPU and exported
+    there at batch 1 (imported on the card through
+    ``move_to_device_pass``); the LM in bf16 at (1, 512) and (8, 512).
+    ``first_written()`` is called once the fp32 export is on disk.
+    Returns the seconds each export took."""
+    from mxnet_tpu_torch.ndarray import NDArray
+    seconds = {}
+    x = export_inputs(max(EXPORT_BATCHES))
+    net = resnet_net(torch, DEV)
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            net.cast("bfloat16")
+        net.hybridize()                   # drops the other type's graphs
+        for b in EXPORT_BATCHES:
+            xb = torch.as_tensor(x[:b], device=DEV).to(getattr(torch, dtype))
+            net(NDArray._wrap(xb))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        net.export(os.path.join(root, f"r50_{dtype}"))
+        seconds[f"r50_{dtype}"] = time.perf_counter() - t
+        if dtype == "float32" and first_written is not None:
+            first_written()
+    del net
+    cpu = resnet_net(torch, "cpu")
+    cpu.hybridize()
+    cpu(NDArray._wrap(torch.as_tensor(x[:1])))
+    t = time.perf_counter()
+    cpu.export(os.path.join(root, "r50_cpu"))
+    seconds["r50_cpu"] = time.perf_counter() - t
+    del cpu
+    lm = train_model(torch)
+    lm.cast("bfloat16")
+    lm.hybridize()
+    ids = export_lm_ids(max(EXPORT_LM_BATCHES))
+    for b in EXPORT_LM_BATCHES:
+        lm(NDArray._wrap(torch.as_tensor(ids[:b], device=DEV)))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lm.export(os.path.join(root, "lm"))
+    seconds["lm"] = time.perf_counter() - t
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def export_ctx(mx):
+    """The context of DEV (the card; the CPU in a rehearsal)."""
+    return mx.gpu(0) if DEV == "cuda" else mx.cpu()
+
+
+def export_wait(root, timeout=600):
+    """Until the exporting process has written every export."""
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(root, "exports.done")):
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("export child: the exports never came")
+        time.sleep(0.05)
+
+
+def export_child(torch, root):
+    """The importing side, in a fresh process (``--export-child ROOT``):
+    each export loaded on the card with ``SymbolBlock.imports``, held
+    against the hybridized forward of the same net made here from the
+    same seed (its parameters first checked bitwise against the loaded
+    ``.params``), timed against it in turns, served, and the LM's K1
+    launches counted.  Prints one JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = True
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import attention as fa_mod
+    files = export_files(root)
+    out = {"load_s": {}}
+    loaded = {}
+    for name, (sym_file, param_file) in files.items():
+        if name != "r50_float32":
+            # the exporting process writes the rest while this one
+            # starts and loads the first
+            export_wait(root)
+        t = time.perf_counter()
+        loaded[name] = SymbolBlock.imports(sym_file, ["data"], param_file,
+                                           ctx=export_ctx(mx))
+        out["load_s"][name] = time.perf_counter() - t
+    x = export_inputs(max(EXPORT_BATCHES))
+
+    def same_params(net, blk):
+        mine = net.collect_params()
+        return all(torch.equal(mine[k]._data, p._data)
+                   for k, p in blk.collect_params().items())
+
+    def fwd(block, xb):
+        with torch.no_grad():
+            return block(NDArray._wrap(xb))._data
+
+    net = resnet_net(torch, DEV)
+    net.hybridize()
+    # the CPU's export, moved to the card, against the card's forward
+    x1 = torch.as_tensor(x[:1], device=DEV)
+    hyb, imp = fwd(net, x1), fwd(loaded["r50_cpu"], x1)
+    out["r50_cpu"] = {
+        "params_bitwise": same_params(net, loaded["r50_cpu"]),
+        "max_abs_err": float((hyb - imp).abs().max()),
+        "largest_logit": float(hyb.abs().max()),
+        "moved_to": str(loaded["r50_cpu"]._device)}
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        if dtype == "bfloat16":
+            net.cast("bfloat16")
+        net.hybridize()
+        blk = loaded[f"r50_{dtype}"]
+        row = {"params_bitwise": same_params(net, blk), "batches": {}}
+        for b in EXPORT_BATCHES:
+            xb = torch.as_tensor(x[:b], device=DEV).to(getattr(torch, dtype))
+            hyb, imp = fwd(net, xb).float(), fwd(blk, xb).float()
+            scale = float(hyb.abs().max())
+            row["batches"][str(b)] = {
+                "bitwise": bool(torch.equal(hyb, imp)),
+                "max_abs_err": float((hyb - imp).abs().max()),
+                "max_rel_err": float(((hyb - imp).abs()
+                                      / hyb.abs().clamp_min(1e-30)).max()),
+                "largest_logit": scale}
+        xb = torch.as_tensor(x, device=DEV).to(getattr(torch, dtype))
+        rates = {"hybridized": [], "imported": []}
+        for _ in range(2):                              # in turns
+            for mode, block in (("hybridized", net), ("imported", blk)):
+                def run(n, block=block):
+                    for _ in range(n):
+                        fwd(block, xb)
+                    torch.cuda.synchronize()
+                slope, _, _ = marginal(run, EXPORT_WINDOWS)
+                rates[mode].append(xb.shape[0] / slope)
+        row["img_per_s_at_128"] = rates
+        rows[dtype] = row
+    del net
+    out["r50"] = rows
+    out["serve"] = export_child_serve(torch, loaded["r50_float32"], x)
+    out["lm"] = export_child_lm(torch, fa_mod, loaded["lm"], fwd,
+                                same_params)
+    emit(out)
+
+
+def export_child_serve(torch, blk, x):
+    """``ServingServer.predict`` over the imported fp32 block: its
+    buckets are the exported batch sizes; 32 client threads x 8 calls on
+    32 seeded images; each served row bitwise against the imported
+    forward of a padded batch of its bucket holding the image."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.serving import ServingServer
+    srv = ServingServer(blk, batcher_args={"max_batch_size": 32,
+                                           "max_delay_ms": 2,
+                                           "queue_depth": 1024})
+    images = list(x[:SERVE_CLIENTS])
+    srv.warmup(list(EXPORT_BATCHES))
+    served = {}
+    lock = threading.Lock()
+
+    def predict(img):
+        got = srv.predict(img, timeout_ms=120000)
+        with lock:
+            served.setdefault(id(img), []).append(onp.asarray(got))
+        return got
+
+    recs = ServingRecords()
+    telemetry.add_sink(recs)
+    c0 = serving_counts(telemetry)
+    lat, wall = closed_loop(predict, images, SERVE_CLIENTS, SERVE_CALLS)
+    telemetry.remove_sink(recs)
+    moved = counts_moved(c0, serving_counts(telemetry))
+    srv.stop()
+    summary = loop_summary(lat, wall, recs.records)
+    bad = 0
+    for img in images:
+        refs = []
+        for b in EXPORT_BATCHES:
+            pad = onp.zeros((b,) + img.shape, onp.float32)
+            pad[0] = img
+            with torch.no_grad():
+                refs.append(blk(NDArray._wrap(torch.as_tensor(
+                    pad, device=DEV)))._data[0].cpu().numpy())
+        for row in served[id(img)]:
+            if not any(onp.array_equal(row, r) for r in refs):
+                bad += 1
+    summary.update({"rows_not_bitwise": bad, "buckets": list(
+        EXPORT_BATCHES), "captures_while_serving":
+        moved["compile.serving.count"],
+        "eager_batches": moved["serving.eager_batches"]})
+    return summary
+
+
+def export_child_lm(torch, fa_mod, blk, fwd, same_params):
+    """The LM's import: within 2e-2 of the largest logit of the
+    hybridized forward at each exported batch, and K1's launches in one
+    imported forward (counts zeroed just before, read just after)."""
+    net = train_model(torch)
+    net.cast("bfloat16")
+    net.hybridize()
+    ids = export_lm_ids(max(EXPORT_LM_BATCHES))
+    row = {"params_bitwise": same_params(net, blk), "batches": {}}
+    for b in EXPORT_LM_BATCHES:
+        t = torch.as_tensor(ids[:b], device=DEV)
+        hyb, imp = fwd(net, t).float(), fwd(blk, t).float()
+        scale = float(hyb.abs().max())
+        row["batches"][str(b)] = {
+            "max_abs_err_over_largest": float((hyb - imp).abs().max())
+            / scale, "largest_logit": scale}
+    t = torch.as_tensor(ids[:1], device=DEV)
+    fwd(blk, t)
+    torch.cuda.synchronize()
+    fa_mod.flash_fwd.launches = fa_mod.flash_fwd.plain_calls = 0
+    fwd(blk, t)
+    torch.cuda.synchronize()
+    row["k1_launches_a_forward"] = fa_mod.flash_fwd.launches
+    row["k1_plain_calls"] = fa_mod.flash_fwd.plain_calls
+    return row
+
+
+def export_bind(torch, root, smi, failures):
+    """(c): ``mx.sym.trace`` of ResNet-50 fp32 on the card, then
+    ``simple_bind`` at batch 64: the eval forward against the Gluon
+    forward (rtol 1e-5), two eval replays bitwise against the eager
+    graph, the training forward and backward's gradients against the
+    Gluon net's autograd ones in inference mode (the traced graph's
+    BatchNorm reads the running statistics; relative L2 1e-5 each), and
+    ``save_checkpoint`` → ``load_checkpoint`` → bind bitwise."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import NDArray
+    net = resnet_net(torch, DEV)
+    x = torch.as_tensor(export_inputs(EXPORT_BIND_BATCH, seed=9),
+                        device=DEV)
+    t = time.perf_counter()
+    sym, args, aux = mx.sym.trace(net, NDArray._wrap(x))
+    trace_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with export_ctx(mx):
+        ex = sym.simple_bind(data=tuple(x.shape))
+    ex.copy_params_from(args, aux)
+    bind_s = time.perf_counter() - t
+    out = ex.forward(is_train=False, data=NDArray._wrap(x))[0]._data
+    with torch.no_grad():
+        gluon = net(x)
+    fwd_err = float(((out - gluon).abs() / (gluon.abs() + 1e-5
+                                             * gluon.abs().max())).max())
+    if fwd_err > 1e-5:
+        failures.append(f"bind eval forward rel err {fwd_err}")
+    replays = [ex.forward(is_train=False)[0]._data.clone()
+               for _ in range(2)]
+    eager = ex.eager()[0]
+    replay_bitwise = all(torch.equal(r, eager) for r in replays)
+    if not replay_bitwise:
+        failures.append("bind eval replays differ from the eager graph")
+    if ex.compiles != 1:
+        failures.append(f"bind captured {ex.compiles} signatures")
+    cot = torch.as_tensor(onp.random.RandomState(10).randn(
+        *out.shape).astype(onp.float32), device=DEV)
+    ex.forward(is_train=True)
+    ex.backward(NDArray._wrap(cot))
+    params = net.collect_params()
+    leaves = [p._data for k, p in params.items() if k in args]
+    for v in leaves:
+        v.grad = None
+    with torch.enable_grad():
+        for v in leaves:
+            v.requires_grad_(True)
+        with mx.autograd.predict_mode():
+            y = net(x)
+        grads = torch.autograd.grad((y * cot).sum(), leaves)
+    worst = max(rel_l2(ex.grad_dict[k]._data, g)
+                for k, g in zip([k for k in params if k in args], grads))
+    if worst > 1e-5:
+        failures.append(f"bind gradients rel L2 {worst}")
+    prefix = os.path.join(root, "ckpt")
+    mx.model.save_checkpoint(prefix, 1, sym, args, aux)
+    with export_ctx(mx):
+        sym2, args2, aux2 = mx.model.load_checkpoint(prefix, 1)
+    ex2 = sym2.bind(args={**args2, "data": NDArray._wrap(x)},
+                    aux_states=aux2)
+    ckpt_bitwise = bool(torch.equal(ex2.forward()[0]._data, out))
+    if not ckpt_bitwise:
+        failures.append("checkpoint round trip not bitwise")
+    return {"arguments": len(sym.list_arguments()),
+            "aux_states": len(sym.list_auxiliary_states()),
+            "trace_s": trace_s, "simple_bind_s": bind_s,
+            "eval_max_rel_err": fwd_err,
+            "eval_replays_bitwise": replay_bitwise,
+            "grad_worst_rel_l2": worst, "checkpoint_bitwise": ckpt_bitwise,
+            "gpu": smi}
+
+
+def phase_export(torch, fa_mod, smi):
+    """Phase 28: the symbol and deployment path (see the module
+    docstring).  Returns K1's launches a forward of the imported LM."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    failures = []
+    root = tempfile.mkdtemp(prefix="export_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    procs = []
+
+    def start_child():
+        # the importing process starts once the first export is written,
+        # and loads it while this one writes the rest; (c) runs here
+        # while it loads those (its timed part comes later)
+        procs.append((time.perf_counter(), subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--export-child",
+             root], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+
+    try:
+        export_s = export_exports(torch, root, start_child)
+        open(os.path.join(root, "exports.done"), "w").close()
+        emit({"phase": "export", "part": "exported", "gpu": smi,
+              "export_s": export_s,
+              "json_bytes": {k: os.path.getsize(v[0]) for k, v in
+                             export_files(root).items()}})
+        t, proc = procs[0]
+        bind = export_bind(torch, root, smi, failures)
+        stdout, stderr = proc.communicate(timeout=600)
+        child_s = time.perf_counter() - t
+        emit({"phase": "export", "part": "bind", **bind})
+        if proc.returncode:
+            raise AssertionError(f"export child failed:\n{stderr[-4000:]}")
+        child = json.loads(stdout.strip().splitlines()[-1])
+        export_gates(child, failures)
+        emit({"phase": "export", "part": "imported", "gpu": smi,
+              "child_s": child_s, **child})
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.backends.cudnn.deterministic = deterministic
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "export", "part": "summary", "gpu": smi,
+          "failures": failures, "phase_s": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError(f"export: {failures}")
+    return {"flash_fwd": {
+        "launches": child["lm"]["k1_launches_a_forward"]}}
+
+
+def export_gates(child, failures):
+    """(a) and (b)'s gates on what the importing process measured."""
+    for dtype, row in child["r50"].items():
+        if not row["params_bitwise"]:
+            failures.append(f"r50 {dtype}: parameters differ")
+        for b, r in row["batches"].items():
+            if dtype == "float32" and r["max_rel_err"] > 1e-5 and \
+                    r["max_abs_err"] > 1e-5 * r["largest_logit"]:
+                failures.append(f"r50 fp32 batch {b}: {r}")
+            if dtype == "bfloat16" and \
+                    r["max_abs_err"] > 1e-2 * r["largest_logit"]:
+                failures.append(f"r50 bf16 batch {b}: {r}")
+    cpu = child["r50_cpu"]
+    if not cpu["params_bitwise"] or \
+            cpu["max_abs_err"] > 1e-5 * cpu["largest_logit"]:
+        failures.append(f"r50 exported on the CPU: {cpu}")
+    serve = child["serve"]
+    if serve["rows_not_bitwise"] or serve["captures_while_serving"] or \
+            serve["eager_batches"]:
+        failures.append(f"serving the imported block: {serve}")
+    lm = child["lm"]
+    if not lm["params_bitwise"]:
+        failures.append("lm: parameters differ")
+    for b, r in lm["batches"].items():
+        if r["max_abs_err_over_largest"] > 2e-2:
+            failures.append(f"lm batch {b}: {r}")
+    if lm["k1_launches_a_forward"] != LAYERS or lm["k1_plain_calls"]:
+        failures.append(f"lm: K1 {lm['k1_launches_a_forward']} launches "
+                        f"and {lm['k1_plain_calls']} plain calls a "
+                        f"forward, want {LAYERS} and 0")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7285,6 +7738,9 @@ def main():
         return 0
     if sys.argv[1:2] == ["--gluon-ab"]:
         return gluon_ab([os.path.abspath(t) for t in sys.argv[2:]])
+    if sys.argv[1:2] == ["--export-child"]:
+        export_child(torch, os.path.abspath(sys.argv[2]))
+        return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mxnet_tpu_torch.ops import attention as fa_mod
     from mxnet_tpu_torch.ops import layernorm_residual as lnr_mod
@@ -7378,6 +7834,10 @@ def main():
         if row["name"] in dpr_counts:
             row["launches_dp_resnet"] = dpr_counts[row["name"]]["launches"]
     phase_vision_zoo(torch, smi)
+    export_counts = phase_export(torch, fa_mod, smi)
+    for row in kernels:                  # K1 in the imported LM's forward
+        if row["name"] in export_counts:
+            row["launches_export"] = export_counts[row["name"]]["launches"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

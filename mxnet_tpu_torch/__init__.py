@@ -53,10 +53,17 @@ from . import data, image, io, recordio  # noqa: F401
 from . import monitor  # noqa: F401
 from . import embedding  # noqa: F401
 from . import random  # noqa: F401
+from . import name, attribute  # noqa: F401
+from .attribute import AttrScope  # noqa: F401
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from . import executor, model, callback, visualization  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray",
            "gluon", "initializer", "optimizer", "parallel", "serving",
            "tracing", "telemetry", "log", "amp", "kvstore", "kv",
            "lr_scheduler", "data", "image", "io", "recordio", "profiler",
-           "monitor", "embedding", "random"]
+           "monitor", "embedding", "random", "name", "attribute", "AttrScope",
+           "symbol", "sym", "executor", "model", "callback",
+           "visualization"]

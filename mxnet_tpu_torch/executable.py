@@ -50,7 +50,7 @@ is bitwise the eager run from the same generator state
 
 A capture records kernel launches without running them, so the launch
 counts that the wrappers tick in Python (``paged_attention.launches``,
-``rope.launches``, the flash kernels' ``launches``) move from the
+``rope.launches``, the flash kernels' and K6's ``launches``) move from the
 capture to every replay.
 """
 from __future__ import annotations
@@ -63,6 +63,7 @@ import torch
 from .base import MXNetError
 from .ops import random as _rng
 from .ops.attention import flash_bwd_dkdv, flash_bwd_dq, flash_fwd
+from .ops.layernorm_residual import layer_norm_residual
 from .ops.paged_attention import paged_attention
 from .ops.rope import rope
 
@@ -70,7 +71,8 @@ __all__ = ["Executable", "CaptureOwner", "Rows", "input_spec"]
 
 _ALIGN = 16
 # wrappers whose launches a graph holds
-_COUNTED = (paged_attention, rope, flash_fwd, flash_bwd_dkdv, flash_bwd_dq)
+_COUNTED = (paged_attention, rope, flash_fwd, flash_bwd_dkdv, flash_bwd_dq,
+            layer_norm_residual)
 
 
 class CaptureOwner:

@@ -5,11 +5,11 @@ layers, losses and the model zoo, ``data`` (datasets, samplers, the
 DataLoader and the vision transforms), ``metric`` and ``utils``."""
 from . import loss, model_zoo, nn  # noqa: F401
 from . import data, metric, utils  # noqa: F401
-from .block import Block, HybridBlock  # noqa: F401
+from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
 from .parameter import (DeferredInitializationError,  # noqa: F401
                         Parameter, ParameterDict)
 from .trainer import Trainer  # noqa: F401
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict",
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter", "ParameterDict",
            "DeferredInitializationError", "Trainer", "nn", "loss",
            "model_zoo", "data", "metric", "utils"]

@@ -50,7 +50,12 @@ from ..imperative import cached_step as _cs
 from ..ops import random as _rng
 from .parameter import Parameter, ParameterDict, init_device
 
-__all__ = ["Block", "HybridBlock", "current_trace"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "current_trace"]
+
+# the format string of the port's exports (the reference's is
+# "mxnet_tpu-stablehlo-v2": StableHLO, which torch cannot run)
+EXPORT_FORMAT = "mxnet_tpu_torch-export-v1"
+_REFERENCE_EXPORT_FORMAT = "mxnet_tpu-stablehlo-v2"
 
 
 class _TraceContext:
@@ -357,6 +362,60 @@ class Block(torch.nn.Module):
                 raise MXNetError(f"file {filename} contains extra "
                                  f"parameters: {extra}")
 
+    def summary(self, *inputs):
+        """Print one forward's table of layers (``mxnet_tpu/gluon/block.py:
+        274-343``): each block's path and type, its output's shape, its
+        parameters (a parameter shared with an earlier block counted as
+        shared), and the totals.  The forward runs eagerly in inference
+        mode, hybridized blocks too, with forward hooks attached for it."""
+        rows, handles, seen_params, visited = [], [], set(), set()
+
+        def make_hook(blk, path):
+            def hook(_blk, _in, out):
+                first = out[0] if isinstance(out, (tuple, list)) else out
+                shape = tuple(getattr(first, "shape", ()) or ())
+                n_params = shared = 0
+                for p in blk._reg_params.values():
+                    n = int(p._data.numel()) if p._data is not None else 0
+                    if id(p) in seen_params:
+                        shared += n
+                    else:
+                        seen_params.add(id(p))
+                        n_params += n
+                rows.append((path or type(blk).__name__,
+                             type(blk).__name__, shape, n_params, shared))
+            return hook
+
+        def attach(blk, path):
+            if id(blk) not in visited:
+                visited.add(id(blk))
+                handles.append(blk.register_forward_hook(
+                    make_hook(blk, path)))
+            for name, child in blk._children.items():
+                attach(child, f"{path}.{name}" if path else name)
+
+        attach(self, "")
+        try:
+            with ag.pause(train_mode=False):
+                self(*inputs)
+        finally:
+            for h in handles:
+                h.detach()
+        w = 34
+        header = (f"{'Layer (type)':<{w}}{'Output Shape':<20}"
+                  f"{'Param #':<10}{'Shared #':<10}")
+        sep = "-" * len(header)
+        lines = [sep, header, "=" * len(header)]
+        total = tot_shared = 0
+        for path, cls, shape, n, sh in rows:
+            lines.append(f"{path + ' (' + cls + ')':<{w}}{str(shape):<20}"
+                         f"{n:<10}{sh:<10}")
+            total += n
+            tot_shared += sh
+        lines += ["=" * len(header), f"Total params: {total}",
+                  f"Shared params: {tot_shared}", sep]
+        print("\n".join(lines))
+
     def save(self, prefix):
         self.save_parameters(prefix + ".params")
 
@@ -489,6 +548,81 @@ class HybridBlock(Block):
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
 
+    def export(self, path: str, epoch: int = 0, params_format: str = "npz"):
+        """Write ``{path}-symbol.json`` and ``{path}-{epoch:04d}.params``,
+        which :meth:`SymbolBlock.imports` loads and runs in a process that
+        never saw this block's class (``mxnet_tpu/gluon/block.py:549-645``).
+
+        The json is the reference's envelope (``format``, ``params``,
+        ``nodes`` with ``inputs`` / ``n_out`` / ``aux`` / ``payload``),
+        with one node per inference-mode signature the hybridized block
+        has run: its ``payload`` is a ``torch.export`` program (base64 of
+        the ``.pt2`` bytes) of the forward, which takes the parameters'
+        values (in ``params`` order) and then the inputs.  The hand
+        kernels stay in it as the port's custom ops
+        (``mxnet_tpu_torch::flash_attention``,
+        ``mxnet_tpu_torch::layer_norm_residual``); an embedding's ids are
+        clamped in the program and their range is an extra output,
+        checked after the call (``vocabs``).  The parameters are in the
+        ``.params`` file, written by ``nd.save`` as npz or, with
+        ``params_format="mxnet"``, in MXNet's binary format with ``arg:``
+        / ``aux:`` prefixes."""
+        if not self._cached_graphs:
+            raise MXNetError(
+                "Please first call block.hybridize() and then run forward "
+                "at least once before calling export")
+        import base64
+        import io
+        import json
+        from ..ndarray import save as nd_save
+        pfile = f"{path}-{epoch:04d}.params"
+        params = self.collect_params()
+        if params_format == "mxnet":
+            nd_save(pfile, {("aux:" if p._is_aux else "arg:") + k:
+                            p._reduce() for k, p in params.items()},
+                    format="mxnet")
+        else:
+            self.save_parameters(pfile)
+        pkeys = list(params.keys())
+        pvals = [params[k] for k in pkeys]
+        nodes = []
+        for sig, entry in self._cached_graphs.items():
+            if sig[0] or sig[1]:
+                # a training-mode graph would bake in dropout masks and
+                # batch statistics: only inference graphs are exported
+                continue
+            dev = pvals[0]._data.device if pvals else torch.device("cpu")
+            inputs = [torch.zeros(shape, dtype=dt, device=dev)
+                      for shape, dt in entry.in_specs]
+            call = _ExportCall(self, pvals, entry.in_tree)
+            args = tuple(p._data.detach() for p in pvals) + tuple(inputs)
+            with torch.no_grad():
+                prog = torch.export.export(call, args, strict=False)
+            # the .pt2 would keep the example inputs, the weights among
+            # them: they are in the .params file
+            prog._example_inputs = None
+            buf = io.BytesIO()
+            torch.export.save(prog, buf)
+            nodes.append({
+                "inputs": [{"shape": list(shape),
+                            "dtype": str(dt).replace("torch.", "")}
+                           for shape, dt in entry.in_specs],
+                "n_out": call.info["n_out"],
+                "aux": [],
+                "vocabs": _EXPORT_SEEN.pop(id(call))["vocabs"],
+                "device": str(dev),
+                "payload": base64.b64encode(buf.getvalue()).decode(),
+            })
+        if not nodes:
+            raise MXNetError(
+                "export found no inference-mode signature; run a forward "
+                "outside autograd.record() and training mode first")
+        manifest = {"format": EXPORT_FORMAT, "params": pkeys,
+                    "nodes": nodes}
+        with open(f"{path}-symbol.json", "w") as f:
+            json.dump(manifest, f)
+        return f"{path}-symbol.json", pfile
+
     def _call_nd(self, args, kwargs):
         if self._active and not ag.is_recording() and not self.has_hooks():
             return self._call_cached(args, kwargs)
@@ -573,6 +707,8 @@ class _CachedForward:
             params[0]._data.device
         self.ids = IdCheck()
         self.tree = None
+        self.in_tree = tree
+        self.in_specs = [(tuple(t.shape), t.dtype) for t in tensors]
         self.aux_params = []
         training = ag.is_training()
         call = torch.nn.Module.__call__
@@ -596,3 +732,221 @@ class _CachedForward:
     def current_ptrs(self):
         return tuple(p._data.data_ptr() if p._data is not None else 0
                      for p in self.params)
+
+
+def _set_value(p: Parameter, t: torch.Tensor):
+    """A loaded value for a new parameter, in the value's own type."""
+    p.dtype = t.dtype
+    p.set_data(t)
+
+
+_EXPORT_SEEN: Dict[int, dict] = {}
+
+
+class _ExportCall(torch.nn.Module):
+    """The function an export traces: the parameters' values (handed to
+    the layers through ``Parameter._override``), then the inputs, in
+    inference mode; the outputs' tensors, then the ids' range when an
+    embedding ran.  The block is held outside the module's attributes, so
+    that its weights are inputs of the program, not part of it."""
+
+    def __init__(self, block, params, tree):
+        super().__init__()
+        self.__dict__["_block"] = block
+        self._params = list(params)
+        self._tree = tree
+        _EXPORT_SEEN[id(self)] = {"n_out": None, "vocabs": []}
+
+    @property
+    def info(self):
+        """What the traced forward saw (kept outside the module, whose
+        attributes the export restores after tracing)."""
+        return _EXPORT_SEEN[id(self)]
+
+    def forward(self, *flat):
+        from ..ops.tensor import IdCheck
+        n = len(self._params)
+        for p, v in zip(self._params, flat[:n]):
+            p._override = v
+        ids = IdCheck()
+        try:
+            a, kw = _join_args(self._tree, flat[n:])
+            # inference mode without touching torch's grad mode: the
+            # export runs under no_grad, so the program holds no
+            # set-grad region
+            with ag.predict_mode(), _TraceContext(), ids:
+                out = torch.nn.Module.__call__(self._block, *a, **kw)
+        finally:
+            for p in self._params:
+                p._override = None
+        leaves, _ = _cs._flatten(out)
+        self.info["n_out"] = len(leaves)
+        self.info["vocabs"] = list(ids.vocabs)
+        bounds = ids.bounds()
+        return tuple(leaves) + ((bounds,) if bounds is not None else ())
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph run as a Gluon block (``mxnet_tpu/gluon/block.py:
+    649-720``): the symbol's arguments that are not inputs become
+    Parameters (auxiliary states with ``grad_req="null"``), initialised
+    from ``params`` when given.  Its forward runs the graph's ops, so it
+    takes gradients and hybridizes as any block.  :meth:`imports` loads
+    a symbol json (either package's, or MXNet 1.x's) with its ``.params``,
+    or an export of :meth:`HybridBlock.export`."""
+
+    def __init__(self, outputs, inputs, params: Optional[dict] = None):
+        super().__init__()
+        from ..ndarray.ndarray import NDArray
+        from ..symbol import Group, Symbol
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(list(outputs))
+        if not isinstance(outputs, Symbol):
+            raise MXNetError("SymbolBlock expects a Symbol")
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self.__dict__["_symbol"] = outputs
+        self._input_names = [i if isinstance(i, str) else i.name
+                             for i in inputs]
+        aux_names = outputs.list_auxiliary_states()
+        self._arg_names = outputs.list_arguments() + aux_names
+        self.__dict__["_fn"] = outputs._lower(self._arg_names)
+        params = params or {}
+        params = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                  else k: v for k, v in params.items()}
+        for name in self._arg_names:
+            if name in self._input_names:
+                continue
+            p = Parameter(name=name, allow_deferred_init=True,
+                          grad_req="null" if name in aux_names else "write",
+                          aux_state=name in aux_names)
+            if name in params:
+                v = params[name]
+                _set_value(p, v._data if isinstance(v, NDArray)
+                           else torch.as_tensor(v))
+            self._reg_params[name] = p
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A block from ``symbol_file`` (and ``param_file``), its values
+        on ``ctx`` (default: the current context).  An export of the port
+        gives an :class:`_ExportedBlock`; one of the reference (StableHLO)
+        raises."""
+        import json
+        from ..context import current_context
+        ctx = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
+        ctx = ctx if ctx is not None else current_context()
+        with open(symbol_file) as f:
+            raw = json.load(f)
+        fmt = raw.get("format") if isinstance(raw, dict) else None
+        if fmt == _REFERENCE_EXPORT_FORMAT:
+            raise MXNetError(
+                f"{symbol_file} is an export of the JAX package (format "
+                f"{fmt!r}): its programs are StableHLO, which PyTorch "
+                "cannot run; export the block again with this package, or "
+                "load its symbol json and .params instead")
+        if fmt == EXPORT_FORMAT:
+            return _ExportedBlock(raw, param_file, ctx)
+        from ..symbol import load as sym_load
+        outputs = sym_load(symbol_file)
+        params = {}
+        if param_file:
+            from ..ndarray import load as nd_load
+            with ctx:
+                params = nd_load(param_file)
+        return SymbolBlock(outputs, input_names, params=params)
+
+    def forward(self, *args):
+        if len(args) != len(self._input_names):
+            raise MXNetError(
+                f"SymbolBlock expects {len(self._input_names)} inputs "
+                f"{self._input_names}, got {len(args)}")
+        feed = dict(zip(self._input_names, args))
+        arrays = []
+        for name in self._arg_names:
+            if name in feed:
+                arrays.append(feed[name])
+                continue
+            p = self._reg_params[name]
+            if p._data is None and p._override is None:
+                raise MXNetError(
+                    f"SymbolBlock parameter {name!r} has no value; pass it "
+                    "via params= or set_data() before forward")
+            arrays.append(p._tensor())
+        outs = self._fn(arrays)
+        return outs[0] if len(outs) == 1 else outs
+
+
+class _ExportedBlock(Block):
+    """A block rebuilt from a :meth:`HybridBlock.export`
+    (``mxnet_tpu/gluon/block.py:723-780``): the parameters from the
+    ``.params`` file and one ``torch.export`` program per exported input
+    signature, moved to ``ctx`` (``move_to_device_pass``) when exported
+    on another device.  A call picks the program of its inputs' shapes
+    and dtypes and raises for any other.  It runs where the defining
+    class is absent; the port must be imported (its custom ops)."""
+
+    def __init__(self, manifest, param_file=None, ctx=None):
+        super().__init__()
+        import base64
+        import io
+        from ..context import current_context
+        ctx = ctx if ctx is not None else current_context()
+        self._device = ctx.torch_device
+        self._pkeys = list(manifest["params"])
+        loaded = {}
+        if param_file:
+            from ..ndarray import load as nd_load
+            with ctx:
+                loaded = nd_load(param_file)
+            loaded = {k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                      else k: v for k, v in loaded.items()}
+        for name in self._pkeys:
+            p = Parameter(name=name, allow_deferred_init=True,
+                          grad_req="null")
+            if name in loaded:
+                _set_value(p, loaded[name]._data.to(self._device))
+            self._reg_params[name] = p
+        self._entries = []
+        for node in manifest["nodes"]:
+            prog = torch.export.load(io.BytesIO(
+                base64.b64decode(node["payload"])))
+            if torch.device(node.get("device", "cpu")) != self._device:
+                from torch.export.passes import move_to_device_pass
+                prog = move_to_device_pass(prog, self._device)
+            sig = tuple((tuple(i["shape"]), i["dtype"])
+                        for i in node["inputs"])
+            self.__dict__.setdefault("_mods", []).append(prog.module())
+            self._entries.append((sig, len(self._mods) - 1,
+                                  int(node["n_out"]),
+                                  list(node.get("vocabs") or [])))
+
+    def input_signatures(self):
+        """The exported input signatures, ``[((shape, dtype), ...), ...]``:
+        the serving engine's shape buckets."""
+        return [sig for sig, _, _, _ in self._entries]
+
+    def run(self, *tensors):
+        """The program of these tensors' signature on them: ``(outputs,
+        id bounds or None, vocabs)``, nothing checked."""
+        want = tuple((tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                     for t in tensors)
+        entry = next((e for e in self._entries if e[0] == want), None)
+        if entry is None:
+            raise MXNetError(f"no exported signature matches inputs "
+                             f"{want}; available: "
+                             f"{[e[0] for e in self._entries]}")
+        _, i, n_out, vocabs = entry
+        flat = self._mods[i](
+            *[self._reg_params[k]._tensor() for k in self._pkeys], *tensors)
+        flat = list(flat) if isinstance(flat, (tuple, list)) else [flat]
+        return flat[:n_out], (flat[n_out] if vocabs else None), vocabs
+
+    def forward(self, *args):
+        from ..ops.tensor import IdCheck
+        with torch.no_grad():
+            outs, bounds, vocabs = self.run(*[
+                a.to(self._device) for a in args])
+        if vocabs:
+            IdCheck.raise_if_bad(bounds.cpu(), vocabs)
+        return outs[0] if len(outs) == 1 else list(outs)

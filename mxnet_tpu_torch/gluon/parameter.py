@@ -264,6 +264,12 @@ class Parameter:
             f"SPMDTrainer and its full value is stale: call "
             f"trainer.gather_params() (collective: every rank) first")
 
+    def var(self):
+        """This parameter as a symbol variable of its name
+        (``mx.sym.var(name)``)."""
+        from ..symbol import var
+        return var(self.name)
+
     def shard(self, partition_spec):
         """Annotate the parameter with a mesh ``PartitionSpec``
         (``mxnet_tpu_torch.parallel.PartitionSpec``), which a meshed

@@ -1,7 +1,8 @@
 """Flash attention: plain PyTorch versions, the three CUDA C++ kernels
-(forward K1, backward K2 and K3), the ``torch.autograd.Function`` that
-ties them together, and the multi-head attention op the transformer
-calls (counterpart of ``mxnet_tpu/ops/attention.py``).
+(forward K1, backward K2 and K3), K1 as a torch custom op
+(``mxnet_tpu_torch::flash_attention``, which ``torch.export`` keeps as
+one node), the ``torch.autograd.Function`` that ties it to K2 and K3,
+and the multi-head attention op the transformer calls (counterpart of ``mxnet_tpu/ops/attention.py``).
 
 Replaces the TPU kernels ``_fa_fwd_kernel`` (K1, reached through
 ``_fa_forward_pallas``), ``_fa_bwd_dkdv_kernel`` (K2) and
@@ -36,17 +37,19 @@ and :func:`attention_reference`, as in the reference.
 """
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
 from .. import kernels as _kernels
 from ..base import MXNetError
+from .registry import register
 
 __all__ = ["flash_attention", "attention_reference", "flash_fwd",
            "flash_bwd_dkdv", "flash_bwd_dq", "flash_forward_reference",
            "flash_forward_blocked", "flash_backward_reference",
            "split_bf16x3", "split_heads", "merge_heads",
-           "multi_head_attention", "build"]
+           "multi_head_attention", "flash_attention_op", "build"]
 
 _NEG_INF = -1e30            # finite -inf stand-in: keeps masked rows NaN-free
 _HEAD_DIMS = (64, 128)      # instantiated in csrc/flash_attention.cu
@@ -363,15 +366,46 @@ for _fn in (flash_fwd, flash_bwd_dkdv, flash_bwd_dq):
     _fn.plain_calls = 0
 
 
+@torch.library.custom_op("mxnet_tpu_torch::flash_attention",
+                         mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, scale: float,
+                       tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a torch custom op: ``(out, lse)`` on (BH, S, D) tensors
+    through :func:`flash_fwd` (the kernel on a card, its plain version on
+    the CPU).  ``tile`` 0 takes the kernel registry's config for the
+    shape, resolved when the op runs.  ``torch.export`` keeps the op as
+    one named node (a ``ctypes`` launch cannot be traced), and a program
+    that holds it runs the kernel where it is loaded.  Its gradient is
+    :class:`_FlashAttention`'s."""
+    tile = _op_tile(q, k, v, causal, scale, tile)
+    return flash_fwd(q, k, v, causal=causal, sm_scale=scale, tile=tile)
+
+
+@flash_attention_op.register_fake
+def _flash_op_fake(q, k, v, causal, scale, tile):
+    return (torch.empty_like(q),
+            q.new_empty((q.shape[0], q.shape[1]), dtype=torch.float32))
+
+
+def _op_tile(q, k, v, causal, scale, tile):
+    """The tile a call runs: ``tile`` when given, else the registry's
+    config on a card (64 on the CPU, whose plain version ignores it)."""
+    if tile or q.device.type == "cpu":
+        return int(tile) or 64
+    return _resolve_tile(q, k, v, bool(causal), scale, None, None)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Counterpart of the reference's ``custom_vjp``: the forward runs K1
-    and saves ``(q, k, v, out, lse)``; the backward forms delta in f32
-    and runs K2 and K3."""
+    """Counterpart of the reference's ``custom_vjp``: the forward is K1's
+    custom op and saves ``(q, k, v, out, lse)``; the backward forms delta
+    in f32 and runs K2 and K3.  (The op's own autograd registration would
+    cost each eager call some 0.3 ms of host time more:
+    ``tools/custom_op_cost.py``.)"""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, tile):
-        out, lse = flash_fwd(q, k, v, causal=causal, sm_scale=scale,
-                             tile=tile)
+        out, lse = flash_attention_op(q, k, v, causal, scale, tile)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.tile = causal, scale, tile
         return out
@@ -381,10 +415,30 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = _delta(do, out)
-        kw = dict(causal=ctx.causal, sm_scale=ctx.scale, tile=ctx.tile)
+        kw = dict(causal=ctx.causal, sm_scale=ctx.scale,
+                  tile=_op_tile(q, k, v, ctx.causal, ctx.scale, ctx.tile))
         dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
         return dq, dk, dv, None, None, None
+
+
+def _flash_op_flops(q_shape, k_shape, *args, **kwargs):
+    """``FlopCounterMode``'s count for K1: the two products, 2·BH·Sq·Sk·D
+    each (the causal half is not taken off, as XLA's count)."""
+    bh, sq, d = q_shape
+    return 4 * bh * sq * k_shape[1] * d
+
+
+def _register_flops():
+    try:
+        from torch.utils.flop_counter import register_flop_formula
+        register_flop_formula(torch.ops.mxnet_tpu_torch.flash_attention)(
+            _flash_op_flops)
+    except (ImportError, AttributeError, TypeError):
+        pass
+
+
+_register_flops()
 
 
 def build(device="cuda"):
@@ -429,7 +483,7 @@ def _flash_kernel_run(config, q, k, v, causal=False, sm_scale=None):
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     with torch.enable_grad():
         out = _FlashAttention.apply(q, k, v, bool(causal), scale,
-                                    config["tile"])
+                                    int(config["tile"]))
         torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
     return out.detach()
 
@@ -505,8 +559,9 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None,
     qf = q.reshape(b * h, sq, d).contiguous()
     kf = k.reshape(b * h, k.shape[2], d).contiguous()
     vf = v.reshape(b * h, v.shape[2], d).contiguous()
-    tile = 64
-    if q.device.type != "cpu":
+    tile = 0
+    if (block_q is not None or block_k is not None) \
+            and q.device.type != "cpu":
         tile = _resolve_tile(qf, kf, vf, bool(causal), scale, block_q,
                              block_k)
     out = _FlashAttention.apply(qf, kf, vf, bool(causal), scale, tile)
@@ -543,3 +598,9 @@ def multi_head_attention(q, k, v, *, num_heads, causal=False,
             vh = torch.repeat_interleave(vh, num_heads // hkv, dim=1)
         out = attention_reference(qh, kh, vh, causal=causal)
     return merge_heads(out)
+
+
+register("flash_attention", aliases=("_npx_flash_attention",))(
+    flash_attention)
+register("multi_head_attention", aliases=("_npx_multi_head_attention",))(
+    multi_head_attention)

@@ -17,7 +17,10 @@ Backward: as in the reference, which takes the vjp of its unfused
 lowering outside any kernel (``mxnet_tpu/ops/layernorm_residual.py:91``),
 the gradients are plain PyTorch in f32 (:func:`_lnr_backward`); there is
 no backward kernel.  Unlike the reference (``:173-177``), a CUDA call
-never falls back to the plain version: it launches K6 or raises.
+never falls back to the plain version: it launches K6 or raises.  The
+forward is a torch custom op (``mxnet_tpu_torch::layer_norm_residual``)
+inside the ``torch.autograd.Function``, so that ``torch.export`` keeps
+it as one node.
 """
 import ctypes
 
@@ -28,7 +31,8 @@ from ..base import MXNetError
 from .attention import _pow2_bucket
 from .registry import register
 
-__all__ = ["layer_norm_residual", "layer_norm_residual_reference", "build"]
+__all__ = ["layer_norm_residual", "layer_norm_residual_reference",
+           "layer_norm_residual_op", "build"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ROWS_PER_BLOCK = (2, 4, 8, 16)      # warps (one per row) per block
@@ -151,16 +155,42 @@ def _forward(x, residual, gamma, beta, eps, rows_per_block):
     return _lnr_cuda(x, residual, gamma, beta, eps, rows_per_block)
 
 
+@torch.library.custom_op("mxnet_tpu_torch::layer_norm_residual",
+                         mutates_args=())
+def layer_norm_residual_op(x: torch.Tensor, residual: torch.Tensor,
+                           gamma: torch.Tensor, beta: torch.Tensor,
+                           eps: float, rows_per_block: int) -> torch.Tensor:
+    """K6 as a torch custom op (the counterpart of the reference's
+    ``custom_vjp``): the kernel on a card, the plain version on the CPU;
+    ``rows_per_block`` 0 takes the kernel registry's config for the
+    shape, resolved when the op runs.  ``torch.export`` keeps it as one
+    named node.  Its gradient is :class:`_LayerNormResidual`'s."""
+    if x.device.type != "cpu" and not rows_per_block:
+        sig, dt = _lnr_signature(x, residual, gamma, beta)
+        rows_per_block = _kernels.resolve(
+            "layer_norm_residual", sig, dt,
+            tune_args=((x, residual, gamma, beta),
+                       {"eps": eps}))["rows_per_block"]
+    return _forward(x, residual, gamma, beta, eps, rows_per_block)
+
+
+@layer_norm_residual_op.register_fake
+def _lnr_op_fake(x, residual, gamma, beta, eps, rows_per_block):
+    return torch.empty_like(x)
+
+
 class _LayerNormResidual(torch.autograd.Function):
-    """Counterpart of the reference's ``custom_vjp``: the forward runs K6
-    (the plain version on CPU tensors) and saves its inputs; the backward
-    is :func:`_lnr_backward`."""
+    """Counterpart of the reference's ``custom_vjp``: the forward is K6's
+    custom op and saves its inputs; the backward is :func:`_lnr_backward`.
+    (The op's own autograd registration would cost each eager call some
+    0.35 ms of host time more: ``tools/custom_op_cost.py``.)"""
 
     @staticmethod
     def forward(ctx, x, residual, gamma, beta, eps, rows_per_block):
         ctx.save_for_backward(x, residual, gamma, beta)
         ctx.eps = eps
-        return _forward(x, residual, gamma, beta, eps, rows_per_block)
+        return layer_norm_residual_op(x, residual, gamma, beta, eps,
+                                      rows_per_block)
 
     @staticmethod
     def backward(ctx, dout):
@@ -244,15 +274,7 @@ def layer_norm_residual(x, residual, gamma, beta, *, eps=1e-5,
     if not use_pallas:
         layer_norm_residual.plain_calls += 1
         return layer_norm_residual_reference(x, residual, gamma, beta, eps)
-    rows_per_block = None
-    if x.device.type != "cpu":
-        sig, dt = _lnr_signature(x, residual, gamma, beta)
-        rows_per_block = _kernels.resolve(
-            "layer_norm_residual", sig, dt,
-            tune_args=((x, residual, gamma, beta),
-                       {"eps": eps}))["rows_per_block"]
-    return _LayerNormResidual.apply(x, residual, gamma, beta, float(eps),
-                                    rows_per_block)
+    return _LayerNormResidual.apply(x, residual, gamma, beta, float(eps), 0)
 
 
 layer_norm_residual.launches = 0

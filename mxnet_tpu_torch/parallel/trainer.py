@@ -672,6 +672,71 @@ class SPMDTrainer:
             telemetry.end_step(tok, "SPMDTrainer")
         return NDArray._wrap(loss)
 
+    def warm_start(self) -> int:
+        """The reference loads serialized step executables from its
+        artifact store here (``mxnet_tpu/parallel/trainer.py:515-540``).
+        The port has none to load: a step's CUDA graph cannot leave the
+        process that captured it, and its kernels and their tuning are
+        cached on disk already.  Returns 0, and logs why."""
+        from ..log import get_logger
+        get_logger("mxnet_tpu_torch.parallel").warning(
+            "warm_start: 0 executables loaded; a captured step lives in "
+            "its process (the first step captures it), and the kernels "
+            "and their tuning are cached on disk already")
+        return 0
+
+    # the reference's cost_analysis keys that torch has no counterpart
+    # for (XLA's cost model and buffer assignment)
+    COST_KEYS_UNFILLED = ("bytes accessed", "transcendentals",
+                          "optimal_seconds", "utilization",
+                          "temp_size_in_bytes", "output_size_in_bytes")
+
+    def cost_analysis(self, data, label, n_steps=None):
+        """The step's cost for ``(data, label)``'s signature, with the
+        reference's keys where torch has a counterpart
+        (``mxnet_tpu/parallel/trainer.py:980-1023``): ``flops``, the
+        forward and backward's matmul and convolution flops by
+        ``torch.utils.flop_counter.FlopCounterMode`` (times ``n_steps``
+        for a window), and ``argument_size_in_bytes``, the bytes of the
+        masters, optimizer states and batch the step takes.  ``unfilled``
+        lists the reference's keys it cannot fill
+        (:attr:`COST_KEYS_UNFILLED`).  The forward and backward run once
+        eagerly on the current values and change nothing: the optimizer
+        does not step, no auxiliary state is written, and ``mx.random``'s
+        generator is put back.  A kernel launched through ``ctypes`` (K2
+        and K3 in the backward, on a card) is not seen by the counter;
+        K1's forward counts 4·BH·Sq·Sk·D by its custom op's formula."""
+        from torch.utils.flop_counter import FlopCounterMode
+        d, l = self._on_device(data), self._on_device(label)
+        sig = (tuple(d.shape), str(d.dtype), tuple(l.shape), str(l.dtype))
+        if n_steps is not None:
+            sig = sig + (int(n_steps), False)
+        cache = self.__dict__.setdefault("_cost_cache", {})
+        if sig in cache:
+            return cache[sig]
+        if self._data_transform is not None:
+            d = self._data_transform(d)
+        masters = self._masters()
+        live = [i for i, p in enumerate(self._plist)
+                if p.grad_req != "null"]
+        gen = _rng.generator(self.device)
+        state = gen.get_state()
+        counter = FlopCounterMode(display=False)
+        try:
+            with counter, torch.enable_grad():
+                self._loss_and_grads(masters, live, IdCheck(), d, l)
+        finally:
+            gen.set_state(state)
+        args = list(masters) + [t for k in self._pkeys
+                                for t in self._opt_state[k]] + [d, l]
+        out = {"flops": float(counter.get_total_flops()
+                              * (int(n_steps) if n_steps else 1)),
+               "argument_size_in_bytes": int(sum(
+                   t.numel() * t.element_size() for t in args)),
+               "unfilled": list(self.COST_KEYS_UNFILLED)}
+        cache[sig] = out
+        return out
+
     def opt_state_bytes_per_device(self) -> int:
         """Optimizer-state bytes on this rank's device: all of it on one
         device, ~1/dp of it under ZeRO (a step that emits a record

@@ -24,9 +24,15 @@ on the host.  numpy has no bfloat16, so a bf16 output leaf is widened to
 float32 on the host, which is exact (the reference returns ml_dtypes
 bf16 arrays).
 
-An exported block (``SymbolBlock.imports``, queue 1 item 13) and the
-executable artifact store (``MXNET_ARTIFACT_DIR``, queue 1 item 12) are
-not ported yet: both raise where the reference would take them.
+An exported block (``HybridBlock.export`` → ``SymbolBlock.imports``, an
+``_ExportedBlock``) is served as the reference serves one: its buckets
+are the exported batch sizes, its example shape and dtype the exported
+signatures', and each bucket's program is captured as one CUDA graph.
+``MXNET_ARTIFACT_DIR`` (the reference's store of serialized
+executables) is accepted and logged once: a CUDA graph cannot leave its
+process, and kernels and tuning choices are already cached on disk
+(``build/``, ``MXNET_KERNEL_CACHE_DIR``), so the port has no executable
+artifact to store.
 """
 from __future__ import annotations
 
@@ -139,6 +145,15 @@ class _Bucket:
             leaves, self.tree = _cs._flatten(out)
             return leaves, self.ids.bounds()
 
+        if callable(getattr(block, "input_signatures", None)):
+            def fn(x):
+                # an exported program: its ids are clamped inside and
+                # their range is one of its outputs
+                outs, bounds, self.ids.vocabs = block.run(x)
+                leaves, self.tree = _cs._flatten(
+                    outs[0] if len(outs) == 1 else list(outs))
+                return leaves, bounds
+
         spec = torch.empty(shape, dtype=torch_dtype(dtype), device="meta")
         self.exe = Executable(fn, [spec], device,
                               *owner.capture_with(device), warm="zeros")
@@ -176,9 +191,6 @@ class InferenceEngine:
                  seq_axes: Sequence[int] = (),
                  max_sigs: Optional[int] = None,
                  name: Optional[str] = None):
-        if callable(getattr(block, "input_signatures", None)):
-            raise MXNetError("serving an exported block (SymbolBlock."
-                             "imports) is not ported yet (queue 1 item 13)")
         self._block = block
         self._name = name or type(block).__name__
         self._example_shape = (tuple(example_shape)
@@ -201,8 +213,34 @@ class InferenceEngine:
         self._owner = None
         self._init_done = False
         self._embedding = None
+        self._artifact_logged = False
+        if callable(getattr(block, "input_signatures", None)):
+            self._adopt_exported_spec()
 
     # -- spec / admission ---------------------------------------------------
+
+    def _adopt_exported_spec(self):
+        """An exported block serves the signatures it was exported with:
+        its batch sizes are the buckets (``mxnet_tpu/serving/engine.py:
+        134-157``)."""
+        sigs = self._block.input_signatures()
+        if not sigs:
+            raise MXNetError("exported block carries no input signatures")
+        if any(len(s) != 1 for s in sigs):
+            raise MXNetError("serving supports single-input exported "
+                             f"blocks; got signatures {sigs}")
+        shapes = [s[0][0] for s in sigs]
+        dtypes = {s[0][1] for s in sigs}
+        if len(dtypes) != 1:
+            raise MXNetError(f"exported signatures disagree on dtype: "
+                             f"{dtypes}")
+        self._dtype = dtypes.pop()
+        trailing = {tuple(sh[1:]) for sh in shapes}
+        if len(trailing) != 1:
+            raise MXNetError(f"exported signatures disagree on example "
+                             f"shape: {shapes}")
+        self._example_shape = trailing.pop()
+        self._bucket_sizes = sorted({int(sh[0]) for sh in shapes})
 
     @property
     def example_shape(self):
@@ -370,9 +408,13 @@ class InferenceEngine:
         graph); None when the capture failed, which latches this bucket
         eager."""
         import os
-        if os.environ.get("MXNET_ARTIFACT_DIR"):
-            raise MXNetError("MXNET_ARTIFACT_DIR: the executable artifact "
-                             "store is not ported yet (queue 1 item 12)")
+        if os.environ.get("MXNET_ARTIFACT_DIR") and not self._artifact_logged:
+            self._artifact_logged = True
+            get_logger("mxnet_tpu_torch.serving").warning(
+                "MXNET_ARTIFACT_DIR=%s: nothing is stored there; a CUDA "
+                "graph lives in its process, and the kernels and their "
+                "tuning are cached on disk already",
+                os.environ["MXNET_ARTIFACT_DIR"])
         shape, dtype = key
         tag = self._bucket_tag(key)
         device = self._device()

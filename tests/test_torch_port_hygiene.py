@@ -82,11 +82,11 @@ def _module(rel):
         ".__init__")
 
 
-# One process imports torch, then forks a child for each check: each
-# module imported alone, the whole port walked, and the bare import
-# under an audit hook.  Every child starts from the same state (torch
-# loaded, nothing of the port), as a fresh interpreter that imports the
-# port would after its first line.
+# One process imports torch, then forks a child for each check (up to
+# four at a time): each module imported alone, the whole port walked,
+# and the bare import under an audit hook.  Every child starts from the
+# same state (torch loaded, nothing of the port), as a fresh interpreter
+# that imports the port would after its first line.
 _CHILDREN = textwrap.dedent("""
     import importlib, json, os, pkgutil, sys, traceback
     import torch
@@ -131,8 +131,19 @@ _CHILDREN = textwrap.dedent("""
 
     checks = [("whole", whole), ("bare", bare)] + [
         (m, lambda m=m: alone(m)) for m in {mods!r}]
-    out = {{}}
+    out, running = {{}}, []
+
+    def collect():
+        name, pid, r = running.pop(0)
+        with os.fdopen(r) as f:
+            data = f.read()
+        os.waitpid(pid, 0)
+        out[name] = json.loads(data)
+
+    # up to four children at a time, each forked from this same state
     for name, fn in checks:
+        if len(running) == 4:
+            collect()
         r, w = os.pipe()
         pid = os.fork()
         if pid == 0:
@@ -145,10 +156,9 @@ _CHILDREN = textwrap.dedent("""
                 f.write(json.dumps(res))
             os._exit(0)
         os.close(w)
-        with os.fdopen(r) as f:
-            data = f.read()
-        os.waitpid(pid, 0)
-        out[name] = json.loads(data)
+        running.append((name, pid, r))
+    while running:
+        collect()
     print(json.dumps(out))
 """)
 

@@ -53,7 +53,15 @@ against ``mxnet_tpu`` on the same numpy inputs on the CPU:
 * batch serving's two choices: an id out of range fails its batch with
   ``MXNetError`` where the reference gives NaN rows, and a bf16 output
   comes back widened to float32 (exact) where the reference returns
-  ml_dtypes bf16.
+  ml_dtypes bf16;
+* the symbol and deployment path's: a reference export (StableHLO)
+  raises ``MXNetError`` at the port's ``SymbolBlock.imports``;
+  ``SPMDTrainer.warm_start`` loads nothing (0), with
+  ``MXNET_ARTIFACT_DIR`` set too; ``cost_analysis`` fills ``flops`` and
+  ``argument_size_in_bytes`` and lists the reference's other keys
+  (XLA's cost model and buffer assignment) as ``unfilled``;
+  ``mx.name.Prefix`` names a composed node once (the reference twice);
+  ``Parameter.var()`` works (the reference's raises ``AttributeError``).
 """
 import pathlib
 import subprocess
@@ -1019,3 +1027,88 @@ def test_fused_step_refreshes_the_opt_state_gauge():
         tr.step(5)
         got[name] = tel.gauge("opt_state.bytes_per_device").value
     assert got["port"] == got["reference"] == w.nbytes
+
+
+# -- the symbol and deployment path -------------------------------------------
+
+def _ref_dense():
+    net = jax_nn.HybridSequential()
+    net.add(jax_nn.Dense(4, in_units=3))
+    net.initialize()
+    return net
+
+
+def test_a_reference_export_raises_at_import(tmp_path):
+    """The reference's export holds StableHLO, which torch cannot run:
+    the port's ``SymbolBlock.imports`` says so instead of failing
+    later."""
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    net = _ref_dense()
+    net.hybridize()
+    net(mx.nd.array(onp.ones((2, 3), "float32")))
+    sym_file, param_file = net.export(str(tmp_path / "ref"))
+    with pytest.raises(mt.MXNetError, match="StableHLO"):
+        SymbolBlock.imports(sym_file, ["data"], param_file, ctx=mt.cpu())
+
+
+def test_warm_start_loads_nothing(monkeypatch, tmp_path):
+    """The reference installs stored step executables; the port has none
+    to store (a CUDA graph lives in its process): 0, with the store's
+    directory set or not."""
+    net = nn.Dense(4, in_units=3)
+    net.initialize(device="cpu")
+    tr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), device="cpu")
+    assert tr.warm_start() == 0
+    monkeypatch.setenv("MXNET_ARTIFACT_DIR", str(tmp_path))
+    assert tr.warm_start() == 0
+
+
+def test_cost_analysis_keys_torch_cannot_fill():
+    """Every key of the reference's ``cost_analysis`` is either filled by
+    the port (``flops``, ``argument_size_in_bytes``) or listed, by its
+    stem, in ``unfilled``."""
+    from mxnet_tpu.gluon import loss as jax_loss
+    from mxnet_tpu.parallel import SPMDTrainer as RefTrainer
+    from mxnet_tpu.parallel.mesh import make_mesh
+    x = onp.ones((2, 3), "float32")
+    y = onp.array([1, 2], "float32")
+    ref = RefTrainer(_ref_dense(), jax_loss.SoftmaxCrossEntropyLoss(),
+                     optimizer="sgd",
+                     optimizer_params={"learning_rate": 0.1},
+                     mesh=make_mesh({"dp": 1}, devices=jax.devices()[:1]))
+    ref.step(mx.nd.array(x), mx.nd.array(y))
+    ref_keys = set(ref.cost_analysis(mx.nd.array(x), mx.nd.array(y)))
+    net = nn.Dense(4, in_units=3)
+    net.initialize(device="cpu")
+    tr = SPMDTrainer(net, gloss.SoftmaxCrossEntropyLoss(), device="cpu")
+    got = tr.cost_analysis(x, y)
+    filled = set(got) - {"unfilled"}
+    assert filled == {"flops", "argument_size_in_bytes"} <= ref_keys
+    assert got["flops"] == 2 * (2 * 2 * 3 * 4)      # x·W and dW; no dx
+    for key in ref_keys - filled:
+        assert any(key.startswith(stem) for stem in got["unfilled"]), key
+
+
+def test_prefix_names_a_composed_node_once():
+    """The reference's composer passes an auto name through the name
+    manager twice, so under ``Prefix("p_")`` the node is
+    ``p_p_fullyconnectedN`` beside its ``p_fullyconnectedN_weight``; the
+    port's node and its variables share one prefix."""
+    with mx.name.Prefix("p_"):
+        ref = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=2)
+    with mt.name.Prefix("p_"):
+        got = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=2)
+    assert ref.name.startswith("p_p_fullyconnected")
+    assert ref.list_arguments()[1].startswith("p_fullyconnected")
+    assert got.list_arguments()[1] == got.name + "_weight"
+    assert got.name.startswith("p_fullyconnected")
+
+
+def test_parameter_var_is_a_symbol_variable():
+    """``Parameter.var()`` in the reference calls ``Symbol.var``, which
+    does not exist; the port's gives ``mx.sym.var(name)``."""
+    from mxnet_tpu.gluon.parameter import Parameter as RefParameter
+    with pytest.raises(AttributeError):
+        RefParameter("w").var()
+    v = mt.gluon.Parameter("w").var()
+    assert isinstance(v, mt.sym.Symbol) and v.list_arguments() == ["w"]

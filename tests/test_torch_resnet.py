@@ -96,8 +96,8 @@ def _ref_train(dtype=None, remat=False, micro_batches=1, images=4):
     (losses, masters, momenta) as numpy."""
     x, y = BATCHES[images]
     net = jax_vision.get_resnet(1, 18, classes=10, thumbnail=True)
-    net.initialize()
-    net(NDArray(onp.zeros((1, 3, 16, 16), onp.float32)))
+    # the values set straight in: no initialisation of its own, whose
+    # deferred forward would compile op by op
     for k, p in net.collect_params().items():
         p.set_data(_init18()[k])
     tr = JaxTrainer(net, jax_loss.SoftmaxCrossEntropyLoss(),

@@ -423,21 +423,35 @@ def test_replaced_parameters_drop_the_buckets_graphs():
     onp.testing.assert_array_equal(onp.stack(results), ref)
 
 
-# -- what is not ported yet -------------------------------------------------
+# -- what was not ported before: exported blocks, the artifact store --------
 
-def test_exported_blocks_and_the_artifact_store_say_not_ported(monkeypatch):
-    """The reference serves an exported block (``SymbolBlock.imports``)
-    and looks each bucket up in the artifact store; the port raises."""
+def test_exported_blocks_and_the_artifact_store_say_not_ported(monkeypatch,
+                                                               caplog):
+    """Both are served now: an exported block's signatures set the
+    engine's buckets, example shape and dtype (as the reference's), and
+    ``MXNET_ARTIFACT_DIR`` is accepted with one log line while the engine
+    captures and serves as without it (the port has no executable
+    artifact to store)."""
     class Exported(nn.Sequential):
         def input_signatures(self):
-            return [(((2, UNITS), "float32"),)]
+            return [(((2, UNITS), "float32"),), (((8, UNITS), "float32"),)]
 
-    with pytest.raises(MXNetError, match="not ported yet.*item 13"):
-        InferenceEngine(Exported())
-    eng = _engine(_make_net())
+    eng = InferenceEngine(Exported())
+    assert eng.example_shape == (UNITS,) and eng.dtype == "float32"
+    assert eng._bucket_sizes == [2, 8]
+    net = _make_net()
+    eng = _engine(net)
     monkeypatch.setenv("MXNET_ARTIFACT_DIR", "/nonexistent")
-    with pytest.raises(MXNetError, match="not ported yet.*item 12"):
-        eng.warmup([2])
+    with caplog.at_level("WARNING", logger="mxnet_tpu_torch.serving"):
+        assert eng.warmup([2]) and eng.warmup([4])
+    assert sum("MXNET_ARTIFACT_DIR" in r.getMessage()
+               for r in caplog.records) == 1
+    xs = _examples(2, seed=5)
+    results, meta = eng.infer_batch(xs)
+    assert meta["compiled"]
+    with torch.no_grad():
+        ref = net(torch.from_numpy(onp.stack(xs))).numpy()
+    onp.testing.assert_array_equal(onp.stack(results), ref)
 
 
 # -- server surface ---------------------------------------------------------
