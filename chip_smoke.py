@@ -483,6 +483,38 @@ exits non-zero and prints no result:
              net's autograd gradients in inference mode (the traced
              BatchNorm reads the running statistics), and
              ``save_checkpoint`` → ``load_checkpoint`` → bind bitwise.
+29. rnn    — the recurrent family, fp32 with TF32 off.  (a) the ``RNN``
+             op's torch call (cuDNN's RNN) against its plain step loop
+             (``rnn_plain``), both on the card at the LM's widths (T 24,
+             N 20, H = input 1500, 2 layers): lstm, gru, rnn_tanh,
+             rnn_relu, bidirectional LSTM, LSTMP (P 500), ragged
+             ``use_sequence_length`` (GRU bidirectional and LSTM, rows of
+             length 0 and T), ``lstm_state_clip_*`` and dropout 0.65
+             (the same ``mx.random`` state: the same masks on both
+             paths): outputs, states and the gradients w.r.t. data,
+             states and the flat vector within ``RNN_TOL`` (1e-4 of the
+             largest); cuDNN RNN kernels by name in the op's trace and
+             none in the loop's; device ms of both, and of the LM's LSTM
+             on the flat vector's views against ``torch.nn.LSTM`` with
+             flattened weights (the compaction's cost); CTC at (T 100,
+             N 32, C 5000, L 20) against ``F.ctc_loss`` on the card and
+             the same recursion on the CPU (loss 1e-5, gradient 1e-3,
+             ``CTC_TOL``), with both times.  (b) the word-level LM of
+             ``examples/gluon/word_language_model.py`` at its upstream
+             large width (vocab 33278, emsize = nhid 1500, 2 layers,
+             dropout 0.65, tied) on ``synth_corpus`` at that vocabulary
+             (4 bptt windows an epoch), the example's loop (batch 20,
+             bptt 24, SGD lr 20 through ``gluon.Trainer``, clip 2.0,
+             truncated BPTT): 20 steps on the cuDNN path and 20 on the
+             plain path from the same weights and generator state,
+             losses within ``LM_TOL`` and falling; tokens/s of the eager
+             step and of the hybridized forward at batch 20 (one graph,
+             equal to the eager forward); cuDNN's RNN kernels a step by
+             name from ``profiler.device_op_table``; the whole-step
+             capture's state (captures, breaks, last reason).  (c) the
+             reference's parameter names and shapes (seeded numpy)
+             loaded by ``convert.load_collected_params`` into the LM on
+             the card and on the CPU: logits within ``RNN_TOL``.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
 carry ``launches_gluon_train``, ``launches_ckpt``,
@@ -7722,6 +7754,531 @@ def export_gates(child, failures):
                         f"forward, want {LAYERS} and 0")
 
 
+# -- phase 29: the recurrent family -------------------------------------------
+
+RNN_T, RNN_N, RNN_H = 24, 20, 1500   # (a): the LM's bptt, batch and width
+RNN_PROJ = 500                       # (a): LSTMP's H 1500 -> P 500
+RNN_TOL = 1e-4                       # (a): cuDNN against the plain loop
+RNN_CTC = (100, 32, 5000, 20)        # (a): CTC's T, N, C and L
+# (a): CTC's loss and gradient against F.ctc_loss and the CPU: at a loss
+# of ~800 the log-space exponents carry an f32 error of ~800·2^-23 ≈ 1e-4
+# relative, which the gradients (exp of them) show
+CTC_TOL = {"loss": 1e-5, "grad": 1e-3}
+LM_VOCAB = 33278                     # (b): WikiText-2's vocabulary
+LM_WIDTH, LM_LAYERS, LM_DROPOUT = 1500, 2, 0.65   # --emsize/--nhid 1500
+LM_BATCH, LM_BPTT, LM_LR, LM_CLIP = 20, 24, 20.0, 2.0
+LM_STEPS = 20                        # (b): steps on each path
+LM_WINDOWS = 4                       # (b): bptt windows an epoch
+LM_SEED = 0
+LM_TOL = 1e-3                        # (b): loss rtol, cuDNN against plain
+LM_INFER_CALLS = 50                  # (b): hybridized forwards timed
+
+
+def synth_corpus(n_tokens, vocab, seed=0):
+    """``examples/gluon/word_language_model.py:33``'s corpus (an order-2
+    Markov chain over ``vocab`` tokens with 5% uniform noise), copied so
+    that this script imports nothing of the reference package."""
+    rng = onp.random.RandomState(seed)
+    toks = onp.empty(n_tokens, onp.int64)
+    toks[0], toks[1] = rng.randint(0, vocab, 2)
+    noise = rng.rand(n_tokens) < 0.05
+    for i in range(2, n_tokens):
+        if noise[i]:
+            toks[i] = rng.randint(0, vocab)
+        else:
+            toks[i] = (3 * toks[i - 1] + 5 * toks[i - 2] + 1) % vocab
+    return toks
+
+
+def batchify(tokens, batch_size):
+    """The example's (T, N) time-major streams."""
+    n = len(tokens) // batch_size
+    return tokens[: n * batch_size].reshape(batch_size, n).T.copy()
+
+def rnn_lm(vocab, embed=64, hidden=64, layers=2, dropout=0.2, tied=True):
+    """The word-level LM of ``examples/gluon/word_language_model.py:58-88``
+    on the port: Embedding -> Dropout -> ``rnn.LSTM`` (TNC) -> Dropout ->
+    the decoder tied to the embedding through ``dot(..., transpose_b=
+    True)`` (a ``Dense`` when untied).  ``forward(ids (T, N) int,
+    states=None) -> (logits (T, N, vocab), [h, c])``."""
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+    from mxnet_tpu_torch.ops import tensor as tensor_ops
+
+    class RNNModel(gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.tied = tied and embed == hidden
+            self.embed = nn.Embedding(vocab, embed)
+            self.drop = nn.Dropout(dropout)
+            self.lstm = rnn.LSTM(hidden, num_layers=layers, layout="TNC",
+                                 dropout=dropout)
+            if not self.tied:
+                self.decoder = nn.Dense(vocab, flatten=False)
+
+        def forward(self, x, states=None):
+            emb = self.drop(self.embed(x))
+            if states is None:
+                states = [torch.zeros(i["shape"], dtype=emb.dtype,
+                                      device=emb.device)
+                          for i in self.lstm.state_info(x.shape[1])]
+            out, states = self.lstm(emb, states)
+            out = self.drop(out)
+            if self.tied:
+                w = self.embed.weight._tensor()
+                logits = tensor_ops.dot(out.reshape(-1, out.shape[-1]), w,
+                                        transpose_b=True)
+                logits = logits.reshape(out.shape[0], out.shape[1], -1)
+            else:
+                logits = self.decoder(out)
+            return logits, states
+
+        def begin_state(self, batch_size):
+            return self.lstm.begin_state(batch_size)
+
+    return RNNModel()
+
+
+def rnn_lm_step(mx, net, loss_fn, trainer, x, y, states, batch, clip):
+    """One step of the example's loop (``word_language_model.py:130-
+    141``): detach the states by rewrapping them, forward and loss under
+    ``record()``, backward, ``clip_global_norm`` over every gradient (a
+    host float each step), ``trainer.step``.  Returns (loss NDArray,
+    states, the pre-clip norm)."""
+    from mxnet_tpu_torch.ndarray import NDArray
+    if states is not None:
+        states = [NDArray(s._data) for s in states]
+    with mx.autograd.record():
+        logits, states = net(x, states)
+        loss = loss_fn(logits, y)
+    loss.backward()
+    norm = mx.gluon.utils.clip_global_norm(
+        [p.grad() for p in net.collect_params().values()
+         if p.grad_req != "null"], clip)
+    trainer.step(batch)
+    return loss, states, norm
+
+
+def rel_err(a, b):
+    """Largest ``|a − b| / (|b| + max|b|)`` (``test_torch_parity.close``'s
+    measure), in f64 on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    if b.numel() == 0:
+        return 0.0
+    scale = float(b.abs().max())
+    return float(((a - b).abs() / (b.abs() + scale + 1e-300)).max())
+
+
+def rnn_inputs(torch, mode, layers, bidir, proj, seed):
+    """Seeded (x, flat, h0, c0 or None) on the card at the LM's widths,
+    the flat vector at Xavier's scale of the LSTM's (6000, 1500)."""
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    D = 2 if bidir else 1
+    P = proj or RNN_H
+    n = rnn_ops.rnn_param_size(mode, RNN_H, RNN_H, layers, bidir, proj)
+    x = torch.randn(RNN_T, RNN_N, RNN_H, device=DEV, generator=g)
+    flat = (torch.rand(n, device=DEV, generator=g) * 2 - 1) * 0.028
+    h0 = 0.1 * torch.randn(layers * D, RNN_N, P, device=DEV, generator=g)
+    c0 = (0.1 * torch.randn(layers * D, RNN_N, RNN_H, device=DEV,
+                            generator=g) if mode == "lstm" else None)
+    return [t for t in (x, flat, h0, c0) if t is not None]
+
+
+def ragged_lengths(seed):
+    """Seeded lengths in [0, T] for the batch: one row full, one empty."""
+    lens = onp.random.RandomState(seed).randint(0, RNN_T + 1, RNN_N)
+    lens[0], lens[-1] = RNN_T, 0
+    return lens.tolist()
+
+
+def rnn_case(torch, fn, inputs, extra, kw, cts=None):
+    """``fn`` (``rnn`` or ``rnn_plain``) forward and backward: (outputs,
+    gradients w.r.t. the float inputs, cotangents)."""
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*ins, *extra, **kw)
+    if cts is None:
+        g = torch.Generator(device=DEV).manual_seed(99)
+        cts = [torch.randn(o.shape, device=DEV, generator=g)
+               for o in outs]
+    grads = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(outs, cts)), ins)
+    return [o.detach() for o in outs], list(grads), cts
+
+
+def rnn_kernel_names(torch, fn):
+    """Device kernels of one call of ``fn``, by name, and whether any is
+    cuDNN's RNN (a name holding ``rnn`` or ``lstm``, any case)."""
+    names = kernels_by_name(torch, fn, n=1)
+    rnn_names = {k: v for k, v in names.items()
+                 if "rnn" in k.lower() or "lstm" in k.lower()}
+    return names, rnn_names
+
+
+def rnn_parity(torch, smi, failures):
+    """(a): every case cuDNN (``rnn``) against the plain loop
+    (``rnn_plain``) on the card, fp32 with TF32 off."""
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+    cases = [("lstm", "lstm", 2, False, None, None, {}),
+             ("gru", "gru", 2, False, None, None, {}),
+             ("rnn_tanh", "rnn_tanh", 2, False, None, None, {}),
+             ("rnn_relu", "rnn_relu", 2, False, None, None, {}),
+             ("lstm_bidirectional", "lstm", 2, True, None, None, {}),
+             ("lstmp", "lstm", 2, False, RNN_PROJ, None, {}),
+             ("gru_bidirectional_lengths", "gru", 2, True, None,
+              ragged_lengths(1), {}),
+             ("lstm_lengths", "lstm", 2, False, None, ragged_lengths(2), {}),
+             ("lstm_clip", "lstm", 2, True, None, None,
+              dict(lstm_state_clip_min=-0.05, lstm_state_clip_max=0.05)),
+             ("lstm_dropout", "lstm", 2, False, None, None, dict(p=0.65))]
+    rows = {}
+    for i, (name, mode, layers, bidir, proj, lengths, extra_kw) in \
+            enumerate(cases):
+        inputs = rnn_inputs(torch, mode, layers, bidir, proj, seed=100 + i)
+        extra = ([torch.tensor(lengths, device=DEV)]
+                 if lengths is not None else [])
+        kw = dict(state_size=RNN_H, num_layers=layers, mode=mode,
+                  bidirectional=bidir, state_outputs=True,
+                  projection_size=proj,
+                  use_sequence_length=lengths is not None, **extra_kw)
+        mx_random.seed(7)
+        f_out, f_grad, cts = rnn_case(torch, rnn_ops.rnn, inputs, extra, kw)
+        mx_random.seed(7)
+        p_out, p_grad, _ = rnn_case(torch, rnn_ops.rnn_plain, inputs, extra,
+                                    kw, cts)
+        err_out = max(rel_err(a, b) for a, b in zip(f_out, p_out))
+        err_grad = max(rel_err(a, b) for a, b in zip(f_grad, p_grad))
+        row = {"max_rel_err_outputs_states": err_out,
+               "max_rel_err_grads": err_grad}
+        if "p" in extra_kw:
+            # the same generator state: the same masks on both paths
+            row["zero_pattern_equal"] = bool(torch.equal(f_out[0] == 0,
+                                                         p_out[0] == 0))
+            if not row["zero_pattern_equal"]:
+                failures.append(f"(a) {name}: dropout masks differ")
+        if "lstm_state_clip_min" in extra_kw:
+            row["c_max_abs"] = float(f_out[2].abs().max())
+            if row["c_max_abs"] > 0.05 + 1e-7:
+                failures.append(f"(a) {name}: c not clipped")
+        if max(err_out, err_grad) > RNN_TOL or not all(
+                torch.isfinite(t).all() for t in f_out + f_grad):
+            failures.append(f"(a) {name}: rel err {err_out} / {err_grad} "
+                            f"over {RNN_TOL}")
+        ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+
+        def fused_call():
+            outs = rnn_ops.rnn(*ins, *extra, **kw)
+            torch.autograd.grad(sum((o * c).sum()
+                                    for o, c in zip(outs, cts)), ins)
+
+        def plain_call():
+            outs = rnn_ops.rnn_plain(*ins, *extra, **kw)
+            torch.autograd.grad(sum((o * c).sum()
+                                    for o, c in zip(outs, cts)), ins)
+        names, rnn_names = rnn_kernel_names(torch, fused_call)
+        _, plain_rnn = rnn_kernel_names(torch, plain_call)
+        if not rnn_names or plain_rnn:
+            failures.append(f"(a) {name}: cuDNN RNN kernels {rnn_names} on "
+                            f"the cuDNN path, {plain_rnn} on the plain one")
+        row["cudnn_rnn_kernels"] = rnn_names
+        row["fused_ms"] = device_ms(torch, fused_call, runs=10)
+        row["plain_ms"] = device_ms(torch, plain_call, runs=10)
+        rows[name] = row
+        emit({"phase": "rnn", "part": "a", "case": name, "gpu": smi, **row})
+    rows["lstm"]["compact_cost"] = rnn_compaction(torch, smi)
+    return rows
+
+
+def rnn_compaction(torch, smi):
+    """The LM's LSTM forward and backward on views into the reference's
+    flat layout (torch compacts them into cuDNN's buffer each call)
+    against ``torch.nn.LSTM`` with its weights already in one buffer
+    (``flatten_parameters``): device ms of each."""
+    import warnings
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+    x, flat, h0, c0 = rnn_inputs(torch, "lstm", 2, False, None, seed=1)
+    x.requires_grad_(True)
+    flat.requires_grad_(True)
+    kw = dict(state_size=RNN_H, num_layers=2, mode="lstm",
+              state_outputs=True)
+    lib = torch.nn.LSTM(RNN_H, RNN_H, num_layers=2).to(DEV)
+    lib.flatten_parameters()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rnn_ops.rnn(x, flat, h0, c0, **kw)
+    warned = [str(w.message)[:80] for w in caught
+              if "contiguous" in str(w.message)]
+
+    def ours():
+        out = rnn_ops.rnn(x, flat, h0, c0, **kw)[0]
+        torch.autograd.grad(out.sum(), [x, flat])
+
+    def library():
+        out = lib(x, (h0, c0))[0]
+        torch.autograd.grad(out.sum(), [x] + list(lib.parameters()))
+    row = {"views_ms": device_ms(torch, ours, runs=20),
+           "flattened_library_ms": device_ms(torch, library, runs=20),
+           "warning": warned[:1]}
+    emit({"phase": "rnn", "part": "a", "case": "compaction", "gpu": smi,
+          **row})
+    return row
+
+
+def ctc_parity(torch, smi, failures):
+    """(a): CTC on the card (the reference's recursion in torch) against
+    ``F.ctc_loss`` there (cuDNN's or torch's CUDA kernel) and against
+    the same recursion on the CPU: loss and gradient."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    T, N, C, L = RNN_CTC
+    g = torch.Generator(device=DEV).manual_seed(5)
+    data = torch.randn(T, N, C, device=DEV, generator=g)
+    rng = onp.random.RandomState(5)
+    label = rng.randint(1, C, (N, L)).astype("f4")
+    lens = rng.randint(L // 2, L + 1, N)
+    for n in range(N):
+        label[n, lens[n]:] = -1
+    label_t = torch.from_numpy(label).to(DEV)
+    x = data.clone().requires_grad_(True)
+    ours = nn_ops.ctc_loss(x, label_t)
+    g_ours, = torch.autograd.grad(ours.sum(), x)
+    x2 = data.clone().requires_grad_(True)
+    lib = F.ctc_loss(torch.log_softmax(x2, -1), label_t.clamp(min=0).long(),
+                     torch.full((N,), T, dtype=torch.long),
+                     torch.from_numpy(lens).long(), blank=0,
+                     reduction="none")
+    g_lib, = torch.autograd.grad(lib.sum(), x2)
+    x3 = data.cpu().requires_grad_(True)
+    cpu = nn_ops.ctc_loss(x3, label_t.cpu())
+    g_cpu, = torch.autograd.grad(cpu.sum(), x3)
+    row = {"vs_library_loss": rel_err(ours, lib),
+           "vs_library_grad": rel_err(g_ours, g_lib),
+           "vs_cpu_loss": rel_err(ours, cpu), "vs_cpu_grad": rel_err(g_ours,
+                                                                    g_cpu)}
+    if max(row["vs_library_loss"], row["vs_cpu_loss"]) > CTC_TOL["loss"] \
+            or max(row["vs_library_grad"], row["vs_cpu_grad"]) > \
+            CTC_TOL["grad"]:
+        failures.append(f"(a) ctc: {row} over {CTC_TOL}")
+
+    def ours_call():
+        torch.autograd.grad(nn_ops.ctc_loss(x, label_t).sum(), x)
+
+    def lib_call():
+        out = F.ctc_loss(torch.log_softmax(x2, -1),
+                         label_t.clamp(min=0).long(),
+                         torch.full((N,), T, dtype=torch.long),
+                         torch.from_numpy(lens).long(), reduction="none")
+        torch.autograd.grad(out.sum(), x2)
+    row["ms"] = device_ms(torch, ours_call, runs=10)
+    row["library_ms"] = device_ms(torch, lib_call, runs=10)
+    row["loss_mean"] = float(ours.detach().mean())
+    emit({"phase": "rnn", "part": "a", "case": "ctc", "gpu": smi, **row})
+    return row
+
+
+LM_NAMES = ["embed.weight"] + [
+    f"lstm.l{layer}_{k}" for layer in range(LM_LAYERS)
+    for k in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias")]
+
+
+def lm_numpy_params(seed):
+    """The LM's weights as the reference's ``{name: p.data().asnumpy()}``
+    of ``examples/gluon/word_language_model.py``'s ``RNNModel`` (tied,
+    2 layers at 1500) holds them: its names and shapes, Xavier-scaled
+    values from a seeded numpy generator."""
+    rng = onp.random.RandomState(seed)
+    H = LM_WIDTH
+    shapes = {"embed.weight": (LM_VOCAB, H)}
+    for layer in range(LM_LAYERS):
+        shapes[f"lstm.l{layer}_i2h_weight"] = (4 * H, H)
+        shapes[f"lstm.l{layer}_h2h_weight"] = (4 * H, H)
+        shapes[f"lstm.l{layer}_i2h_bias"] = (4 * H,)
+        shapes[f"lstm.l{layer}_h2h_bias"] = (4 * H,)
+    out = {}
+    for name in LM_NAMES:
+        shape = shapes[name]
+        if name.endswith("bias"):
+            out[name] = onp.zeros(shape, "f4")
+        else:
+            scale = (3.0 / ((shape[0] + shape[1]) / 2)) ** 0.5
+            out[name] = rng.uniform(-scale, scale, shape).astype("f4")
+    return out
+
+
+def lm_run(torch, mx, cuda, path, params, data, smi):
+    """20 steps of the example's loop on ``path`` (``"cudnn"``: the
+    layer's torch call; ``"plain"``: its step loop) from ``params``, the
+    generator seeded alike: losses, clip norms, tokens/s and the
+    trainer's cached-step state."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.imperative import cached_step
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+    run_cells = rnn_ops.run_cells
+    if path == "plain":
+        rnn_ops.run_cells = rnn_ops.cells_plain
+    try:
+        net = rnn_lm(LM_VOCAB, LM_WIDTH, LM_WIDTH, LM_LAYERS, LM_DROPOUT)
+        net.initialize(init=mx.initializer.Xavier(), device=DEV)
+        net(torch.zeros(LM_BPTT, LM_BATCH, dtype=torch.int32,
+                        device=DEV))
+        convert.load_collected_params(net, params, device=DEV)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": LM_LR})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        mx.random.seed(LM_SEED + 1)
+        losses, norms, states, t0 = [], [], None, None
+        for step in range(LM_STEPS):
+            if step == 5:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            t = (step % LM_WINDOWS) * LM_BPTT
+            if step % LM_WINDOWS == 0:
+                states = None                  # a new epoch
+            x = mx.nd.array(data[t:t + LM_BPTT], ctx=cuda, dtype="int32")
+            y = mx.nd.array(data[t + 1:t + 1 + LM_BPTT], ctx=cuda)
+            loss, states, norm = rnn_lm_step(mx, net, loss_fn, trainer, x,
+                                             y, states, LM_BATCH, LM_CLIP)
+            losses.append(float(loss.asnumpy().mean()))
+            norms.append(norm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tok_s = (LM_STEPS - 5) * LM_BPTT * LM_BATCH / wall
+        return {"net": net, "trainer": trainer, "losses": losses,
+                "norms": norms, "tokens_per_s": tok_s,
+                "cached_step": cached_step.trainer_state(trainer),
+                "loss_fn": loss_fn, "x": x, "y": y, "states": states}
+    finally:
+        rnn_ops.run_cells = run_cells
+
+
+def lm_profile(torch, mx, run, root):
+    """cuDNN's RNN kernels by name and count a step, from a profiler
+    cycle over 2 steps (``profiler.device_op_table``)."""
+    from mxnet_tpu_torch import profiler
+    profiler.set_config(filename=os.path.join(root, "rnn_profile.json"))
+    states = run["states"]
+    rnn_lm_step(mx, run["net"], run["loss_fn"], run["trainer"], run["x"],
+                run["y"], states, LM_BATCH, LM_CLIP)
+    profiler.start()
+    for _ in range(2):
+        _, states, _ = rnn_lm_step(mx, run["net"], run["loss_fn"],
+                                   run["trainer"], run["x"], run["y"],
+                                   states, LM_BATCH, LM_CLIP)
+    torch.cuda.synchronize()
+    profiler.stop()
+    table = profiler.device_op_table()
+    per_step = {k[:100]: v["count"] / 2 for k, v in table.items()}
+    rnn = {k: v for k, v in per_step.items()
+           if "rnn" in k.lower() or "lstm" in k.lower()}
+    return rnn, len(table), sum(per_step.values())
+
+
+def lm_infer(torch, mx, net, data, cuda):
+    """Tokens/s of the hybridized inference forward at batch 20 (one
+    captured graph), and its logits against the eager forward's."""
+    x = mx.nd.array(data[:LM_BPTT], ctx=cuda, dtype="int32")
+    states = net.begin_state(LM_BATCH)
+    eager, _ = net(x, states)
+    net.hybridize()
+    net(x, states)                              # the capture
+    got, _ = net(x, states)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM_INFER_CALLS):
+        out, _ = net(x, states)
+    out.asnumpy()
+    wall = time.perf_counter() - t0
+    graphs = len(net._cached_graphs)
+    net.hybridize(False)
+    return (LM_INFER_CALLS * LM_BPTT * LM_BATCH / wall,
+            rel_err(got._data, eager._data), graphs)
+
+
+def phase_rnn(torch, smi):
+    """Phase 29: the recurrent family (see the module docstring)."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.amp import policy
+    t0 = time.perf_counter()
+    failures = []
+    if policy.enabled() or torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        failures.append("the phase runs fp32: AMP or TF32 was left on")
+    os.environ["MXNET_CACHED_STEP"] = "1"
+    cuda = mx.gpu(0) if DEV == "cuda" else mx.cpu()
+    root = tempfile.mkdtemp(prefix="rnn_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        parity = rnn_parity(torch, smi, failures)
+        ctc = ctc_parity(torch, smi, failures)
+        # (b) the word-level LM at full width
+        toks = synth_corpus(LM_BATCH * (LM_WINDOWS * LM_BPTT + 1), LM_VOCAB,
+                            seed=LM_SEED)
+        data = batchify(toks, LM_BATCH)
+        params = lm_numpy_params(LM_SEED)
+        runs = {p: lm_run(torch, mx, cuda, p, params, data, smi)
+                for p in ("cudnn", "plain")}
+        a, b = runs["cudnn"]["losses"], runs["plain"]["losses"]
+        loss_err = max(abs(u - v) / abs(v) for u, v in zip(a, b))
+        falls = onp.mean(a[-LM_WINDOWS:]) < onp.mean(a[:LM_WINDOWS])
+        if loss_err > LM_TOL or not falls or not onp.isfinite(a).all():
+            failures.append(f"(b) losses cudnn {a} plain {b}: rel err "
+                            f"{loss_err} (limit {LM_TOL}), falls {falls}")
+        rnn_kernels, n_names, kernels_step = lm_profile(
+            torch, mx, runs["cudnn"], root)
+        if not rnn_kernels:
+            failures.append("(b) no cuDNN RNN kernel in the step's trace")
+        infer_tok_s, infer_err, graphs = lm_infer(
+            torch, mx, runs["cudnn"]["net"], data, cuda)
+        if infer_err > 1e-5 or graphs != 1:
+            failures.append(f"(b) hybridized forward rel err {infer_err}, "
+                            f"{graphs} graphs")
+        emit({"phase": "rnn", "part": "b", "gpu": smi,
+              "losses_cudnn": a, "losses_plain": b,
+              "max_loss_rel_err": loss_err, "loss_falls": bool(falls),
+              "clip_norms": runs["cudnn"]["norms"],
+              "train_tokens_per_s": {p: r["tokens_per_s"]
+                                     for p, r in runs.items()},
+              "infer_tokens_per_s": infer_tok_s,
+              "infer_vs_eager_rel_err": infer_err,
+              "cudnn_rnn_kernels_a_step": rnn_kernels,
+              "kernels_a_step": kernels_step,
+              "cached_step": {p: r["cached_step"] for p, r in runs.items()}})
+        # (c) the reference's weights by name, card against CPU
+        net = runs["cudnn"]["net"]
+        convert.load_collected_params(net, params, device=DEV)
+        cpu_net = rnn_lm(LM_VOCAB, LM_WIDTH, LM_WIDTH, LM_LAYERS,
+                         LM_DROPOUT)
+        cpu_net.initialize(device="cpu")
+        cpu_net(torch.zeros(LM_BPTT, LM_BATCH, dtype=torch.int32))
+        convert.load_collected_params(cpu_net, params, device="cpu")
+        ids = torch.from_numpy(data[:LM_BPTT].astype("int32"))
+        with torch.no_grad():
+            card = net(ids.to(DEV))[0]
+            host = cpu_net(ids)[0]
+        carried = rel_err(card, host)
+        if carried > RNN_TOL or list(net.collect_params()) != LM_NAMES:
+            failures.append(f"(c) card vs CPU logits rel err {carried}")
+        del runs, net, cpu_net
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "rnn", "part": "summary", "gpu": smi,
+          "parity": {k: [v["max_rel_err_outputs_states"],
+                         v["max_rel_err_grads"]] for k, v in parity.items()},
+          "lm_ms": {k: [v["fused_ms"], v["plain_ms"]]
+                    for k, v in parity.items()},
+          "ctc": ctc, "carried_rel_err": carried,
+          "failures": failures, "phase_s": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError(f"rnn: {failures}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7838,6 +8395,7 @@ def main():
     for row in kernels:                  # K1 in the imported LM's forward
         if row["name"] in export_counts:
             row["launches_export"] = export_counts[row["name"]]["launches"]
+    phase_rnn(torch, smi)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

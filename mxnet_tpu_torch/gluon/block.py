@@ -271,12 +271,29 @@ class Block(torch.nn.Module):
         asked for).  Values are drawn from ``generator`` (default:
         ``mx.random``'s host generator, so ``mx.random.seed`` sets them
         and the same seed repeats them) in ``collect_params()`` order,
-        deferred ones at their first forward."""
+        deferred ones at their first forward.  ``init=Load(...)`` sets
+        each parameter it holds by its hierarchical name (the others
+        take its ``default_init``)."""
         dev = init_device(ctx, device)
         if generator is None:
             generator = _rng.generator("cpu")
+        params = self.collect_params()
+        if isinstance(init, init_mod.Load):
+            # Load matches the hierarchical names, as the reference's
+            # Block.initialize does (a short name like "weight" is
+            # ambiguous across layers)
+            for path, p in params.items():
+                per = (init_mod._FixedArray(init.param[path])
+                       if path in init.param else init.default_init)
+                if per is None:
+                    raise MXNetError(
+                        f"Cannot initialize {path}: not found in loaded "
+                        f"params and no default initializer provided")
+                p.initialize(init=per, device=dev, default_init=per,
+                             force_reinit=force_reinit, generator=generator)
+            return
         default = init_mod.create(init)
-        for p in self.collect_params().values():
+        for p in params.values():
             p.initialize(init=None, device=dev, default_init=default,
                          force_reinit=force_reinit, generator=generator)
 

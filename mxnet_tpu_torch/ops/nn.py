@@ -6,8 +6,8 @@
 over ranks.  The registered ones (``FullyConnected``,
 ``Convolution``, ``Pooling``, ``BatchNorm``, ``Activation``, ``softmax``,
 ``log_softmax``, ``softmax_cross_entropy``, ``SoftmaxOutput``,
-``LayerNorm``) are what ``mx.nd`` reaches; those on the AMP lists cast
-their inputs under the AMP policy (``ops/registry.register``).  Plain
+``LayerNorm``, ``CTCLoss``) are what ``mx.nd`` reaches; those on the AMP
+lists cast their inputs under the AMP policy (``ops/registry.register``).  Plain
 PyTorch (cuDNN and cuBLAS behind it on the card): the reference left
 these to XLA, not to Pallas.  The layout is NCHW (channels first); the channels-last layouts
 the reference also takes are not ported yet and raise."""
@@ -27,7 +27,7 @@ __all__ = ["fully_connected", "convolution", "pooling", "batch_norm",
            "sync_batch_norm",
            "activation", "leaky_relu", "softmax", "log_softmax",
            "softmax_cross_entropy", "softmax_output", "layer_norm",
-           "safe_accumulation_enabled"]
+           "ctc_loss", "safe_accumulation_enabled"]
 
 
 def safe_accumulation_enabled() -> bool:
@@ -475,3 +475,88 @@ def layer_norm(x, gamma, beta, *, axis=-1, eps=1e-5):
     shape[axis] = -1
     out = xn * gamma.reshape(shape) + beta.reshape(shape)
     return out.to(low) if low is not None else out
+
+
+class _LogAddExp(torch.autograd.Function):
+    """``log(eᵃ + eᵇ)`` with the reference's derivative (``jnp.logaddexp``'s
+    ``e^(a − out)``, ``e^(b − out)``): where both terms are the ``-1e30``
+    that stands for −∞, ``out`` rounds to ``-1e30`` and each term's
+    derivative is 1, not ½, as the reference's CTC gradients have it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.maximum(a, b) + torch.log1p(torch.exp(-(a - b).abs()))
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        return g * torch.exp(a - out), g * torch.exp(b - out)
+
+
+_CTC_NEG_INF = -1e30
+
+
+@register("CTCLoss", aliases=("ctc_loss",))
+def ctc_loss(data, label, data_lengths=None, label_lengths=None, *,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """Connectionist temporal classification loss, one value a sequence
+    (``mxnet_tpu/ops/nn.py:472-525``): ``data`` (T, N, C) activations
+    (log-softmaxed here), ``label`` (N, L).  The blank is class 0
+    (``"first"``) or C−1 (``"last"``); without ``use_label_lengths`` a
+    label's length is its count of entries ≥ 0 (padding is < 0).
+
+    The reference's recursion over the extended labels in log space, in
+    torch on either device (a loop over T of a few (N, 2L+1) ops): its
+    ``-1e30`` stands for −∞, so an unreachable alignment costs about
+    1e30 (``F.ctc_loss`` gives ``inf``), an empty label reads the
+    blank-only path twice (``−log 2`` below the true loss), and the
+    gradients are those of its ``logaddexp`` (:class:`_LogAddExp`).
+    ``F.ctc_loss`` agrees with it only where those cases are absent, so
+    it is not the port's path; ``chip_smoke.py`` times it beside this
+    one.  On the AMP fp32 list: the inputs are cast to f32 under the
+    AMP policy."""
+    T, N, C = data.shape
+    logp = torch.log_softmax(data, -1)
+    blank = 0 if blank_label == "first" else C - 1
+    lab = label.to(torch.int64)
+    L = lab.shape[1]
+    S = 2 * L + 1
+    dev = data.device
+    ext = torch.full((N, S), blank, dtype=torch.int64, device=dev)
+    ext[:, 1::2] = lab
+    if use_label_lengths and label_lengths is not None:
+        lab_len = label_lengths.to(torch.int64)
+    else:
+        lab_len = (lab >= 0).sum(1)
+    ext_len = 2 * lab_len + 1
+    if use_data_lengths and data_lengths is not None:
+        data_len = data_lengths.to(torch.int64)
+    else:
+        data_len = torch.full((N,), T, dtype=torch.int64, device=dev)
+    # a negative label wraps as the reference's take_along_axis does
+    gidx = torch.where(ext < 0, ext + C, ext).clamp(0, C - 1)
+    probs = logp.gather(2, gidx[None].expand(T, N, S))        # (T, N, S)
+    neg = torch.full((N, S), _CTC_NEG_INF, dtype=logp.dtype, device=dev)
+    cols = [probs[0, :, :1]]
+    if S > 1:
+        cols.append(torch.where(ext_len > 1, probs[0, :, 1],
+                                neg[:, 1])[:, None])
+        cols.append(neg[:, 2:])
+    alpha = torch.cat(cols, 1)
+    before = torch.cat([torch.full((N, 2), -1, dtype=torch.int64,
+                                   device=dev), ext[:, :-2]], 1)
+    can_skip = ((torch.arange(S, device=dev) % 2 == 1)[None, :]
+                & (ext != before))
+    lae = _LogAddExp.apply
+    for t in range(1, T):
+        s1 = torch.cat([neg[:, :1], alpha[:, :-1]], 1)
+        s2 = torch.cat([neg[:, :2], alpha[:, :-2]], 1)[:, :S]
+        a = lae(alpha, s1)
+        a = torch.where(can_skip, lae(a, s2), a)
+        alpha = torch.where((t < data_len)[:, None], a + probs[t], alpha)
+    last = (ext_len - 1).clamp(0, S - 1)[:, None]
+    prev = (ext_len - 2).clamp(0, S - 1)[:, None]
+    return -lae(alpha.gather(1, last)[:, 0], alpha.gather(1, prev)[:, 0])

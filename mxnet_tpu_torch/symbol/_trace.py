@@ -44,8 +44,8 @@ __all__ = ["Recorder"]
 
 def _op_modules():
     from ..ops import (attention, layernorm_residual, legacy, nn, random,
-                       tensor)
-    return (nn, tensor, attention, layernorm_residual, legacy, random)
+                       rnn, tensor)
+    return (nn, tensor, attention, layernorm_residual, legacy, random, rnn)
 
 
 def _embedding_params(args, kwargs):

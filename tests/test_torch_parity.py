@@ -117,6 +117,50 @@ def assert_parity(jax_fn, torch_fn, arrays, dtype="float32", grad=True,
     return [_np(r) for r in ref], [_np(g) for g in got]
 
 
+def assert_parity_jit(jax_fn, torch_fn, arrays, diff_inputs=None, seed=0,
+                      tol=None):
+    """:func:`assert_parity` in float32 with the reference's side compiled
+    once: ``jax.jit`` of its outputs and their vjp with the cotangents
+    together (a function with a scan, eager, compiles its scan at every
+    call and again under ``jax.grad``).  Non-float inputs are not
+    differentiated.  Returns ``(reference outputs, port outputs)``."""
+    tol = tol or TOL["float32"]
+    floating = [onp.issubdtype(onp.asarray(a).dtype, onp.floating)
+                for a in arrays]
+    if diff_inputs is None:
+        diff_inputs = [i for i, f in enumerate(floating) if f]
+    j_in = [jnp.asarray(a) for a in arrays]
+    t_in = [torch.from_numpy(onp.array(a)) for a in arrays]
+    for i in diff_inputs:
+        t_in[i].requires_grad_(True)
+    got = _tuple(torch_fn(*t_in))
+    rng = onp.random.RandomState(seed + 1)
+    cts = [rng.standard_normal(tuple(g.shape)).astype(onp.float32)
+           for g in got]
+
+    def ref_side(diff, rest, cts):
+        def f(*d):
+            full = list(rest)
+            for i, v in zip(diff_inputs, d):
+                full[i] = v
+            return _tuple(jax_fn(*full))
+        out, vjp = jax.vjp(f, *diff)
+        return out, vjp(tuple(c.astype(o.dtype) for c, o in zip(cts, out)))
+
+    ref, ref_grads = jax.jit(ref_side)(
+        [j_in[i] for i in diff_inputs], j_in, [jnp.asarray(c) for c in cts])
+    assert len(ref) == len(got)
+    for n, (r, g) in enumerate(zip(ref, got)):
+        close(g, r, tol["forward"], f"output {n}")
+    loss = sum((g.float() * torch.from_numpy(c)).sum()
+               for g, c in zip(got, cts))
+    got_grads = torch.autograd.grad(loss, [t_in[i] for i in diff_inputs],
+                                    allow_unused=True)
+    for i, r, g in zip(diff_inputs, ref_grads, got_grads):
+        g = torch.zeros_like(t_in[i]) if g is None else g
+        close(g, r, tol["grad"], f"gradient of input {i}")
+    return [_np(r) for r in ref], [_np(g) for g in got]
+
 # -- the helper's own test ----------------------------------------------------
 
 def _jax_dense_tanh(x, w, b):

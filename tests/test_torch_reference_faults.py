@@ -62,6 +62,28 @@ against ``mxnet_tpu`` on the same numpy inputs on the CPU:
   (XLA's cost model and buffer assignment) as ``unfilled``;
   ``mx.name.Prefix`` names a composed node once (the reference twice);
   ``Parameter.var()`` works (the reference's raises ``AttributeError``).
+
+The recurrent family's behaviours the port copies from the reference,
+each shown in both packages (values at fp32 1e-5):
+
+* the Gluon ``RNN`` / ``LSTM`` / ``GRU`` layers take ``sequence_length``
+  and do not use it;
+* the ``RNN`` op's ``lstm_state_clip_min`` / ``_max`` clip only each
+  layer's returned cell state, never the cell inside the recurrence
+  (cuDNN's clip would), and nothing without ``_min``;
+* the ``RNN`` op's dropout ``p > 0`` drops between layers outside
+  training too;
+* CTC: an unreachable alignment costs 1e30 (``-1e30`` stands for −∞),
+  an empty label ``log 2`` less than its blank path's cost, and Gluon's
+  ``CTCLoss`` given ``label_lengths`` without ``pred_lengths`` does not
+  read them;
+* ``LSTMBias`` on a parameter whose name ends in ``bias`` gives zeros
+  (the name rule comes first).
+
+And one it does not copy: ``mx.sym.trace`` of a net holding a Gluon RNN
+layer raises ``MXNetError`` in the port (torch's RNN call maps to no op
+of the reference), where the reference's trace records no node for the
+layer and bakes its output into the symbol as a captured constant.
 """
 import pathlib
 import subprocess
@@ -1112,3 +1134,171 @@ def test_parameter_var_is_a_symbol_variable():
         RefParameter("w").var()
     v = mt.gluon.Parameter("w").var()
     assert isinstance(v, mt.sym.Symbol) and v.list_arguments() == ["w"]
+
+
+# -- the recurrent family: the reference's behaviours the port keeps -----------
+
+def _rnn_layers(kind, **kw):
+    from mxnet_tpu.gluon import rnn as ref_rnn
+    from mxnet_tpu_torch.gluon import rnn as port_rnn
+    mx.random.seed(0)
+    ref = getattr(ref_rnn, kind)(5, input_size=3, **kw)
+    ref.initialize(init=mx.initializer.Xavier())
+    port = getattr(port_rnn, kind)(5, input_size=3, **kw)
+    port.initialize(device="cpu")
+    convert.load_collected_params(
+        port, {k: p.data().asnumpy()
+               for k, p in ref.collect_params().items()}, device="cpu")
+    return ref, port
+
+
+def test_rnn_layer_ignores_sequence_length():
+    """``forward(x, states, sequence_length)``: every row runs all T
+    steps, in both packages."""
+    ref, port = _rnn_layers("LSTM", num_layers=2, bidirectional=True)
+    x = onp.random.RandomState(0).randn(6, 2, 3).astype("f4")
+    lens = onp.array([2, 6], "f4")
+    outs = {}
+    for name, pkg, net, ctx in (("ref", mx, ref, {}),
+                                ("port", mt, port, {"ctx": mt.cpu()})):
+        st = net.begin_state(batch_size=2)
+        xs = pkg.nd.array(x, **ctx)
+        with_len, _ = net(xs, st, pkg.nd.array(lens, **ctx))
+        without, _ = net(xs, st)
+        onp.testing.assert_array_equal(with_len.asnumpy(),
+                                       without.asnumpy())
+        assert abs(with_len.asnumpy()[2:, 0]).max() > 0
+        outs[name] = with_len.asnumpy()
+    onp.testing.assert_allclose(outs["port"], outs["ref"], rtol=1e-5,
+                                atol=1e-6)
+
+
+def _clip_case():
+    from mxnet_tpu_torch.ops.rnn import rnn_param_size
+    rng = onp.random.RandomState(1)
+    n = rnn_param_size("lstm", 3, 4, 2)
+    arrays = [rng.randn(6, 2, 3).astype("f4"),
+              rng.uniform(-1, 1, n).astype("f4"),
+              rng.randn(2, 2, 4).astype("f4"),
+              rng.randn(2, 2, 4).astype("f4")]
+    return arrays, dict(state_size=4, num_layers=2, mode="lstm",
+                        state_outputs=True)
+
+
+def test_rnn_op_clips_only_the_returned_cell_state():
+    """With the clip, the output sequence and the returned h equal the
+    unclipped run's; only the returned c is clipped; ``_max`` alone
+    clips nothing."""
+    from mxnet_tpu.ops.registry import invoke as ref_invoke
+    from mxnet_tpu_torch.ops.registry import invoke as port_invoke
+    arrays, kw = _clip_case()
+    clip = dict(lstm_state_clip_min=-0.1, lstm_state_clip_max=0.1)
+    for invoke, wrap in ((ref_invoke, mx.nd.array), (port_invoke, _port)):
+        plain = [o.asnumpy() for o in invoke("RNN", [wrap(a) for a in arrays],
+                                             **kw)]
+        clipped = [o.asnumpy() for o in invoke(
+            "RNN", [wrap(a) for a in arrays], **kw, **clip)]
+        only_max = [o.asnumpy() for o in invoke(
+            "RNN", [wrap(a) for a in arrays], **kw, lstm_state_clip_max=0.1)]
+        onp.testing.assert_array_equal(clipped[0], plain[0])
+        onp.testing.assert_array_equal(clipped[1], plain[1])
+        onp.testing.assert_array_equal(clipped[2],
+                                       onp.clip(plain[2], -0.1, 0.1))
+        assert abs(plain[2]).max() > 0.1
+        for a, b in zip(only_max, plain):
+            onp.testing.assert_array_equal(a, b)
+
+
+def test_rnn_op_dropout_applies_outside_training():
+    """``p > 0`` drops between layers with no ``record()`` or training
+    mode, in both packages (the Gluon layers pass ``p`` only in
+    training)."""
+    from mxnet_tpu.ops.registry import invoke as ref_invoke
+    from mxnet_tpu_torch.ops.registry import invoke as port_invoke
+    F_ = 32
+    flat = onp.concatenate([onp.eye(F_, dtype="f4").ravel(),
+                            onp.zeros(F_ * F_, "f4"),
+                            onp.eye(F_, dtype="f4").ravel(),
+                            onp.zeros(F_ * F_, "f4"), onp.zeros(4 * F_, "f4")])
+    x = onp.random.RandomState(2).uniform(0.5, 1.5, (4, 8, F_)).astype("f4")
+    h0 = onp.zeros((2, 8, F_), "f4")
+    kw = dict(state_size=F_, num_layers=2, mode="rnn_relu", p=0.5)
+    for invoke, wrap in ((ref_invoke, mx.nd.array), (port_invoke, _port)):
+        assert not mt.autograd.is_training() and not mx.autograd.is_training()
+        out = invoke("RNN", [wrap(a) for a in (x, flat, h0)], **kw)
+        out = (out[0] if isinstance(out, list) else out).asnumpy()
+        share = float((out == 0).mean())
+        assert 0.4 < share < 0.6, share
+
+
+def test_ctc_keeps_the_references_sentinels_and_gluon_arguments():
+    """An unreachable alignment gives 1e30 and an empty label the blank
+    path's cost less ``log 2`` in both packages; Gluon's ``CTCLoss``
+    with ``label_lengths`` alone gives the loss of the padded labels in
+    both (the lengths land in the op's unused ``data_lengths`` slot)."""
+    from mxnet_tpu.gluon import loss as ref_loss
+    from mxnet_tpu.ops.registry import get as ref_get
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    rng = onp.random.RandomState(3)
+    data = rng.randn(3, 2, 4).astype("f4")
+    label = onp.array([[2, 2, 2], [-1, -1, -1]], "f4")
+    ref = onp.asarray(ref_get("CTCLoss").fn(jnp.asarray(data),
+                                            jnp.asarray(label)))
+    got = nn_ops.ctc_loss(torch.from_numpy(data),
+                          torch.from_numpy(label)).numpy()
+    logp = torch.log_softmax(torch.from_numpy(data), -1)
+    blank = -float(logp[:, 1, 0].sum())
+    for out in (ref, got):
+        assert out[0] == onp.float32(1e30)
+        assert abs(out[1] - (blank - onp.log(2))) < 1e-5
+    pred = rng.randn(2, 6, 5).astype("f4")                 # NTC
+    lab = onp.array([[1, 2, 3], [4, 1, 2]], "f4")
+    short = onp.array([1, 2], "f4")
+    r = ref_loss.CTCLoss()(mx.nd.array(pred), mx.nd.array(lab),
+                           label_lengths=mx.nd.array(short)).asnumpy()
+    r_full = ref_loss.CTCLoss()(mx.nd.array(pred),
+                                mx.nd.array(lab)).asnumpy()
+    g = gloss.CTCLoss()(torch.from_numpy(pred), torch.from_numpy(lab),
+                        label_lengths=torch.from_numpy(short)).numpy()
+    onp.testing.assert_allclose(r, r_full, rtol=1e-6)
+    onp.testing.assert_allclose(g, r, rtol=1e-5)
+
+
+def test_lstm_bias_on_a_bias_name_gives_zeros():
+    """``LSTMBias`` as a layer's ``i2h_bias_initializer``: the name rule
+    for ``*bias`` runs first, so the bias is zeros in both packages
+    (the forget-gate value shows under another name)."""
+    from mxnet_tpu.gluon import rnn as ref_rnn
+    from mxnet_tpu_torch.gluon import rnn as port_rnn
+    ref = ref_rnn.LSTM(4, input_size=3,
+                       i2h_bias_initializer=mx.initializer.LSTMBias(1.0))
+    ref.initialize()
+    port = port_rnn.LSTM(4, input_size=3,
+                         i2h_bias_initializer=mt.initializer.LSTMBias(1.0))
+    port.initialize(device="cpu")
+    for net in (ref, port):
+        onp.testing.assert_array_equal(net.l0_i2h_bias.data().asnumpy(),
+                                       onp.zeros(16, "f4"))
+    want = onp.zeros(16, "f4")
+    want[4:8] = 1.0
+    onp.testing.assert_array_equal(
+        mt.initializer.LSTMBias(1.0).init_array(
+            "forget", (16,), torch.float32, torch.Generator()).numpy(), want)
+
+
+def test_trace_of_an_rnn_layer_raises_where_the_reference_bakes_it_in():
+    from mxnet_tpu.gluon import nn as ref_nn
+    from mxnet_tpu.gluon import rnn as ref_rnn
+    from mxnet_tpu_torch.gluon import rnn as port_rnn
+    x = onp.random.RandomState(4).randn(5, 2, 3).astype("f4")
+    ref = ref_nn.HybridSequential()
+    ref.add(ref_rnn.LSTM(4, input_size=3), ref_nn.Dense(2, flatten=False))
+    ref.initialize()
+    sym, args, _ = mx.sym.trace(ref, mx.nd.array(x))
+    assert [a for a in sym.list_arguments() if "lstm" in a or "l0" in a] \
+        == []
+    port = nn.HybridSequential()
+    port.add(port_rnn.LSTM(4, input_size=3), nn.Dense(2, flatten=False))
+    port.initialize(device="cpu")
+    with pytest.raises(mt.MXNetError, match="lstm"):
+        mt.sym.trace(port, torch.from_numpy(x))
