@@ -515,6 +515,44 @@ exits non-zero and prints no result:
              reference's parameter names and shapes (seeded numpy)
              loaded by ``convert.load_collected_params`` into the LM on
              the card and on the CPU: logits within ``RNN_TOL``.
+30. numpy  — the numpy front end.  (a) ViT-B/16 (``get_vit(224, 16,
+             1000, units=768, num_layers=12, num_heads=12, ffn_ratio=4)``,
+             Xavier seed 0) in bf16 through ``SPMDTrainer`` (Adam, lr
+             1e-4) at batch 128 on images and labels drawn by
+             ``mx.np.random`` on the card: the warm step and capture,
+             then 4 replayed steps with K1-K5's counts zeroed just
+             before and read just after (K1-K3 12 launches a step each,
+             K4 / K5 none, no plain call), img/s by the slope between ``run_steps``
+             windows of 2 and 8, losses finite and falling, peak memory,
+             ``cost_analysis``'s flops beside the step's matmul flops,
+             ``predict`` img/s at 128 by the same slope; the fp32 check
+             (TF32 off): 3 steps with ``use_flash=True`` against
+             ``use_flash=False`` from one state at batch 32
+             (``NP_FP32_TOL``); before it, K1-K3 at the step's
+             (1536, 197, 197, 64) non-causal, at the tile the kernel
+             registry resolves for it, against their plain versions in
+             bf16 and fp32 (``flash_check``, the parity phase's
+             tolerances).  (b) the 2.0 user loop at batch 64, fp32:
+             ``npx.set_np()``, the ``mx.np`` batch, ``autograd.record()``,
+             ``-np.mean(npx.pick(npx.log_softmax(net(x)), y))``,
+             ``gluon.Trainer.step``: an eager warm step, then 6 steps
+             under the whole-step capture (``compiles`` 1, ``hits`` 5, no
+             break, no fallback, outputs ``mx.np.ndarray``, K1-K3 12
+             launches a step), 3 replays bitwise equal to 3
+             ``MXNET_CACHED_STEP=0`` steps from the same state (cuDNN
+             deterministic), host ms a step of both.  (c) every case of
+             ``tests/torch_np_sweep.py`` (the CPU parity sweep: each
+             ``mx.np`` function, ``np.linalg`` on cuSOLVER, ``np.fft`` on
+             cuFFT, the samplers by moments, every ``_npi_`` /
+             ``_linalg_`` / ``_random_pdf_`` op) on CUDA tensors against
+             the same call on CPU tensors at the case's tolerance, every
+             output on the card; the count of cases and each family's
+             worst error.  (d) ``npx.rope`` (K5), ``npx.paged_attention``
+             (K4) and ``npx.flash_attention`` (K1): one dispatch and one
+             launch a call, no plain call, bitwise equal to the direct
+             call, within ``NP_KERNEL_TOL`` of the plain version;
+             ``npx.masked_softmax`` and the ``interleaved_matmul_*`` ops
+             on the card against the CPU.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K7; K1-K3 also
 carry ``launches_gluon_train``, ``launches_ckpt``,
@@ -522,7 +560,8 @@ carry ``launches_gluon_train``, ``launches_ckpt``,
 ``launches_distributed``, ``launches_ring_fold``, ``launches_pipeline``,
 ``launches_mesh4d``, ``launches_kvstore`` and ``launches_dp_resnet``,
 K1
-``launches_batch_serve`` and ``launches_export``); the last is
+``launches_batch_serve`` and ``launches_export``; K1-K5
+``launches_numpy``); the last is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU, and
 outside a checkout of the repository (it imports the port from beside
 itself).
@@ -8279,6 +8318,469 @@ def phase_rnn(torch, smi):
         raise AssertionError(f"rnn: {failures}")
 
 
+NP_VIT = dict(image_size=224, patch_size=16, classes=1000, units=768,
+              num_layers=12, num_heads=12, ffn_ratio=4)   # ViT-B/16
+NP_BATCH = 128                   # (a): bf16 training and predict
+NP_LOOP_BATCH = 64               # (b): the 2.0 user loop
+NP_FP32_BATCH = 32               # (a): the fp32 flash / dense check
+NP_WINDOWS = (2, 8, 1)           # (a): run_steps windows (20 steps)
+NP_LR = 1e-4
+NP_SEED = 23
+NP_LOOP_STEPS = 6                # (b): captured steps after the eager one
+NP_REPLAY_STEPS = 3              # (b): replays against eager steps
+NP_FP32_TOL = {"first_loss_rtol": 1e-5, "loss_rtol": 1e-4}
+NP_KERNEL_TOL = {"rope": 1e-5, "paged_attention": 1e-4,
+                 "flash_attention": 1e-4, "plain_ops": 1e-5}
+
+
+def np_vit(torch, use_flash=True, seed=0):
+    """ViT-B/16 on the card, Xavier from a host generator seeded with
+    ``seed``, its deferred dims filled by a one-image forward."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import get_vit
+    net = get_vit(**NP_VIT, use_flash=use_flash)
+    net.initialize(init=initializer.Xavier(), device=DEV,
+                   generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        net(torch.zeros((1, 3, NP_VIT["image_size"], NP_VIT["image_size"]),
+                        device=DEV))
+    return net
+
+
+def np_batch(mx, batch, seed):
+    """Images and float labels drawn by ``mx.np.random`` on the card."""
+    mx.random.seed(seed)
+    ctx = mx.gpu(0) if DEV == "cuda" else mx.cpu()
+    size = NP_VIT["image_size"]
+    data = mx.np.random.normal(0.0, 1.0, size=(batch, 3, size, size),
+                               ctx=ctx)
+    label = mx.np.random.randint(0, NP_VIT["classes"], size=(batch,),
+                                 ctx=ctx).astype("float32")
+    return data, label
+
+
+def np_vit_flops(batch):
+    """Matmul flops of a ViT-B/16 training step (forward and backward,
+    3 x the forward): the blocks' four projections and the FFN, the
+    attention's two products, the patch stem and the head."""
+    c = NP_VIT
+    n = (c["image_size"] // c["patch_size"]) ** 2 + 1
+    e, f = c["units"], c["units"] * c["ffn_ratio"]
+    block = 2 * n * (4 * e * e + 2 * e * f) + 2 * 2 * n * n * e
+    stem = 2 * (n - 1) * e * 3 * c["patch_size"] ** 2
+    head = 2 * e * c["classes"]
+    return 3 * batch * (c["num_layers"] * block + stem + head)
+
+
+def np_train(torch, mx, fa_mod, rope_mod, pa_mod, smi, failures):
+    """(a) ViT-B/16 bf16 through SPMDTrainer at batch 128.  Counts K1-K3
+    (12 launches a replayed step) and K4 / K5 (none: the ViT runs
+    neither) over the same replayed steps."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    others = (rope_mod.rope, pa_mod.paged_attention)
+    t0 = time.perf_counter()
+    net = np_vit(torch)
+    trainer = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam",
+                          optimizer_params={"learning_rate": NP_LR},
+                          dtype="bfloat16", device=DEV)
+    data, label = np_batch(mx, NP_BATCH, NP_SEED)
+    on_card = type(data).__name__ == "ndarray" and \
+        data._data.device.type == DEV
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w0 = time.perf_counter()
+    losses = [float(trainer.step(data, label))]     # the warm step + capture
+    warm_s = time.perf_counter() - w0
+    step_graph(trainer)
+    steps = 4
+    reset_counts(*fns, *others)
+    for _ in range(steps):
+        losses.append(float(trainer.step(data, label)))
+    torch.cuda.synchronize()
+    counts = {f.__name__: {"launches": f.launches,
+                           "plain_calls": f.plain_calls}
+              for f in fns + others}
+    layers = NP_VIT["num_layers"]
+    for f in fns + others:
+        want = layers * steps if f in fns else 0
+        if counts[f.__name__] != {"launches": want, "plain_calls": 0}:
+            failures.append(f"(a) {f.__name__} ran {counts[f.__name__]}: "
+                            f"want {want} launches over {steps} replayed "
+                            f"steps")
+
+    def run(n):
+        losses.extend(float(v) for v in
+                      trainer.run_steps(data, label, n)._data.cpu())
+
+    slope, t1, t2 = marginal(run, NP_WINDOWS)
+    peak = torch.cuda.max_memory_allocated()
+    if trainer.compiles != 1:
+        failures.append(f"(a) {trainer.compiles} captures for one "
+                        f"signature")
+    if not on_card:
+        failures.append("(a) the mx.np batch is not on the card")
+    if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"(a) losses not finite and falling: {losses}")
+    cost = trainer.cost_analysis(data, label)
+    flops = np_vit_flops(NP_BATCH)
+
+    def predict(n):
+        for _ in range(n):
+            out = trainer.predict(data)
+        float(out._data[0, 0])
+
+    # where a replayed step's device time goes, by kind of kernel
+    prof = profiled_kinds(torch, lambda: float(trainer.step(data, label)),
+                          3)
+    p_slope, p1, p2 = marginal(predict, NP_WINDOWS)
+    logits = trainer.predict(data)
+    if tuple(logits.shape) != (NP_BATCH, NP_VIT["classes"]) or \
+            not bool(torch.isfinite(logits._data).all()):
+        failures.append("(a) predict's logits not finite of (128, 1000)")
+    row = {"model": "vit_b16", **NP_VIT, "batch": NP_BATCH,
+           "dtype": "bfloat16", "optimizer": "adam", "lr": NP_LR,
+           "data": "mx.np.random on the card", "warmup_s": warm_s,
+           "img_per_s": NP_BATCH / slope, "step_ms": slope * 1e3,
+           "window_s": {str(NP_WINDOWS[0]): t1, str(NP_WINDOWS[1]): t2},
+           "train_tflop_per_s": flops / slope / 1e12,
+           "flops_a_step_matmul": flops,
+           "cost_analysis_flops": cost.get("flops"),
+           "cost_analysis_note": "torch's FlopCounterMode: K2 and K3 "
+           "(ctypes launches) are not seen",
+           "predict_img_per_s": NP_BATCH / p_slope,
+           "predict_ms": p_slope * 1e3,
+           "counts": counts, "launches_per_replayed_step": layers,
+           "profile_replayed_step": prof,
+           "peak_allocated_bytes": peak, "captures": trainer.compiles,
+           "losses_first_last": [losses[0], losses[-1]],
+           "losses_steps": len(losses),
+           "row_s": time.perf_counter() - t0}
+    emit({"phase": "numpy", "part": "a", "gpu": smi, **row})
+    del trainer, net, data, label, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+def np_fp32_check(torch, mx, failures):
+    """(a) fp32, TF32 off: 3 steps of ``use_flash=True`` against
+    ``use_flash=False`` from one state."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import SPMDTrainer
+    data, label = np_batch(mx, NP_FP32_BATCH, NP_SEED + 1)
+    runs = {}
+    for flash in (True, False):
+        net = np_vit(torch, use_flash=flash, seed=5)
+        tr = SPMDTrainer(net, SoftmaxCrossEntropyLoss(), optimizer="adam",
+                         optimizer_params={"learning_rate": NP_LR},
+                         device=DEV)
+        runs[flash] = [float(tr.step(data, label)) for _ in range(3)]
+        del tr, net
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = runs[True], runs[False]
+    rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    if rel[0] > NP_FP32_TOL["first_loss_rtol"] or \
+            max(rel) > NP_FP32_TOL["loss_rtol"]:
+        failures.append(f"(a) fp32 flash {a} vs dense {b}: rel {rel}")
+    return {"batch": NP_FP32_BATCH, "losses_flash": a, "losses_dense": b,
+            "rel_err": rel, "tolerance": NP_FP32_TOL}
+
+
+def np_user_loop(torch, mx, fa_mod, smi, failures):
+    """(b) The 2.0 user loop, eager and under the whole-step capture."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.imperative import cached_step
+    fns = (fa_mod.flash_fwd, fa_mod.flash_bwd_dkdv, fa_mod.flash_bwd_dq)
+    mx.npx.set_np()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = np_vit(torch, seed=7)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": NP_LR})
+        x, y = np_batch(mx, NP_LOOP_BATCH, NP_SEED + 2)
+        flavors = set()
+
+        def step(read=True):
+            with mx.autograd.record():
+                out = net(x)
+                loss = -mx.np.mean(mx.npx.pick(mx.npx.log_softmax(out), y))
+            flavors.update((type(out).__name__, type(loss).__name__))
+            loss.backward()
+            trainer.step(1)
+            return float(loss) if read else loss
+
+        def eager_step():
+            os.environ["MXNET_CACHED_STEP"] = "0"
+            try:
+                return step()
+            finally:
+                os.environ["MXNET_CACHED_STEP"] = "1"
+
+        losses = [step()]                            # the eager warm step
+        s0 = cached_step.stats()
+        dispatch = telemetry.counter("dispatch.count")
+        reset_counts(*fns)
+        for _ in range(NP_LOOP_STEPS):
+            losses.append(float(step(read=False)))
+        torch.cuda.synchronize()
+        counts = {f.__name__: {"launches": f.launches,
+                               "plain_calls": f.plain_calls} for f in fns}
+        s1 = cached_step.stats()
+        stats = {k: s1[k] - s0[k]
+                 for k in ("compiles", "hits", "graph_breaks", "fallbacks")}
+        state = cached_step.trainer_state(trainer)
+        want = {"compiles": 1, "hits": NP_LOOP_STEPS - 1, "graph_breaks": 0,
+                "fallbacks": 0}
+        if stats != want:
+            failures.append(f"(b) cached step {stats} (want {want}); last "
+                            f"reason {state.get('last_reason')}")
+        if flavors != {"ndarray"}:
+            failures.append(f"(b) outputs of the np loop are {flavors}")
+        layers = NP_VIT["num_layers"]
+        for name, c in counts.items():
+            if c != {"launches": layers * NP_LOOP_STEPS, "plain_calls": 0}:
+                failures.append(f"(b) {name} ran {c}")
+        snap = gluon_snapshot(trainer)
+        lc = [step() for _ in range(NP_REPLAY_STEPS)]
+        captured = gluon_snapshot(trainer)
+        gluon_restore(torch, trainer, snap)
+        le = [eager_step() for _ in range(NP_REPLAY_STEPS)]
+        bad, dev = gluon_differ(torch, trainer, captured)
+        if lc != le or bad:
+            failures.append(f"(b) captured losses {lc} vs eager {le}; "
+                            f"{len(bad)} tensors differ, max |d| {dev}")
+        if not all(onp.isfinite(losses)) or not losses[-1] < losses[0]:
+            failures.append(f"(b) losses not finite and falling: {losses}")
+        host = host_ms_blocks({"captured": step, "eager": eager_step},
+                              calls=2, rounds=2)
+        del dispatch
+        out = {"batch": NP_LOOP_BATCH, "dtype": "float32",
+               "loop": "npx.set_np, mx.np batch, autograd.record, "
+               "-np.mean(npx.pick(npx.log_softmax(net(x)), y)), "
+               "gluon.Trainer.step", "losses": losses,
+               "cached_step": stats, "last_reason": state.get("last_reason"),
+               "counts": counts, "output_flavor": sorted(flavors),
+               "replay_check": {"losses_captured": lc, "losses_eager": le,
+                                "tensors_differing": len(bad),
+                                "bitwise_equal": lc == le and not bad},
+               "host_ms": host,
+               "img_per_s_host": {k: NP_LOOP_BATCH / (v["median"] / 1e3)
+                                  for k, v in host.items()}}
+        emit({"phase": "numpy", "part": "b", "gpu": smi, **out})
+        del trainer, net, x, y
+    finally:
+        torch.backends.cudnn.deterministic = det
+        mx.npx.reset_np()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def np_namespace(torch, mx, smi, failures):
+    """(c) every case of the CPU parity sweep on CUDA tensors against the
+    same call on CPU tensors; every output on the card."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_np_sweep as S
+    card = mx.gpu(0) if DEV == "cuda" else mx.cpu()
+
+    def run(case, ctx):
+        make = mx.np.array if case.array_kind == "np" else mx.nd.array
+        S.seed_case(mx, case)
+        with ctx:
+            args = [make(a) if isinstance(a, onp.ndarray) else a
+                    for a in case.args]
+            out = case.call(mx, *args)
+        flat = out if isinstance(out, (list, tuple)) else [out]
+        devs = set()
+        for o in flat:
+            for x in (o if isinstance(o, (list, tuple)) else [o]):
+                devs.add(x._data.device.type if hasattr(x, "_data")
+                         else "host")
+        return S.host(out), devs
+
+    worst, off_card, bad = {}, [], []
+    for case in S.CASES:
+        want, _ = run(case, mx.cpu())
+        got, devs = run(case, card)
+        if devs != {DEV}:
+            off_card.append((case.id, sorted(devs)))
+        try:
+            S.compare(case, got, want)
+        except AssertionError as e:
+            bad.append(f"{case.family}/{case.id}: {str(e)[:300]}")
+        w = S.worst(case, got, want)
+        worst[case.family] = max(worst.get(case.family, 0.0), w)
+    if off_card:
+        failures.append(f"(c) outputs off the card: {off_card}")
+    if bad:
+        failures.append(f"(c) {len(bad)} cases differ: {bad[:8]}")
+    out = {"cases": len(S.CASES), "failed": len(bad),
+           "outputs_off_card": off_card, "worst_abs_err_by_family": worst,
+           "compare": "values and dtypes at each case's tolerance; "
+           "factorizations by reconstruction, samplers by moments"}
+    emit({"phase": "numpy", "part": "c", "gpu": smi, **out})
+    return out
+
+
+def np_kernel_names(torch, mx, fa_mod, rope_mod, pa_mod, smi, failures):
+    """(d) K5, K4 and K1 through ``npx.rope``, ``npx.paged_attention``
+    and ``npx.flash_attention``: one launch a call through the funnel, no
+    plain call, bitwise equal to the direct call and within the kernels'
+    tolerances of the plain versions; ``npx.masked_softmax`` and the
+    ``interleaved_matmul_*`` ops on the card against the same ops on the
+    CPU."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops import registry
+    dispatch = telemetry.counter("dispatch.count")
+    card = mx.gpu(0) if DEV == "cuda" else mx.cpu()
+    r = onp.random.RandomState(NP_SEED)
+    rows, counts = {}, {}
+
+    def through(name, fn, call, direct, plain, tol):
+        d0 = dispatch.value
+        reset_counts(fn)
+        out = call()
+        torch.cuda.synchronize()
+        c = {"launches": fn.launches, "plain_calls": fn.plain_calls}
+        disp = dispatch.value - d0
+        counts[fn.__name__] = c
+        d = direct()
+        torch.cuda.synchronize()
+        same = torch.equal(out._data, d)
+        err = float((out._data.float() - plain().float()).abs().max())
+        rows[name] = {"counts": c, "dispatches": disp,
+                      "bitwise_equal_direct": same, "max_abs_err": err,
+                      "tolerance": tol}
+        if c != {"launches": 1, "plain_calls": 0} or disp != 1 or \
+                not same or not err <= tol:
+            failures.append(f"(d) {name}: {rows[name]}")
+
+    x = r.randn(8, 197, 12, 64).astype("float32")
+    pos = onp.tile(onp.arange(197, dtype="int32"), (8, 1))
+    with card:
+        xa, pa_ = mx.np.array(x), mx.np.array(pos, dtype="int32")
+    through("npx.rope", rope_mod.rope,
+            lambda: mx.npx.rope(xa, pa_),
+            lambda: rope_mod.rope(xa._data, pa_._data),
+            lambda: rope_mod.rope_reference(xa._data, pa_._data),
+            NP_KERNEL_TOL["rope"])
+    slots, heads, d, page, pages = 8, 8, 64, 16, 64
+    q = r.randn(slots, heads, d).astype("float32")
+    kp = r.randn(pages * slots, page, heads, d).astype("float32")
+    vp = r.randn(pages * slots, page, heads, d).astype("float32")
+    tables = r.permutation(pages * slots).reshape(slots, pages).astype(
+        "int32")
+    lengths = r.randint(1, pages * page, size=slots).astype("int32")
+    with card:
+        pa_args = [mx.np.array(a, dtype=a.dtype) for a in (q, kp, vp, tables,
+                                                           lengths)]
+    raw = [a._data for a in pa_args]
+    through("npx.paged_attention", pa_mod.paged_attention,
+            lambda: mx.npx.paged_attention(*pa_args),
+            lambda: pa_mod.paged_attention(*raw),
+            lambda: pa_mod.paged_attention_reference(*raw),
+            NP_KERNEL_TOL["paged_attention"])
+    qkv = [r.randn(2, 12, 197, 64).astype("float32") for _ in range(3)]
+    with card:
+        fa_args = [mx.np.array(a) for a in qkv]
+    raw = [a._data for a in fa_args]
+    through("npx.flash_attention", fa_mod.flash_fwd,
+            lambda: mx.npx.flash_attention(*fa_args),
+            lambda: fa_mod.flash_attention(*raw),
+            lambda: fa_mod.attention_reference(*raw),
+            NP_KERNEL_TOL["flash_attention"])
+    # the plain ops of the slice: the card against the CPU
+    sa = r.randn(3, 2, 4 * 8 * 3).astype("float32")
+    att = r.rand(2 * 4, 3, 3).astype("float32")
+    xs = r.randn(6, 11).astype("float32")
+    ms = (r.rand(6, 11) < 0.6).astype("float32")
+    for name, arrays, params in (
+            ("masked_softmax", (xs, ms), {}),
+            ("masked_log_softmax", (xs, ms), {}),
+            ("interleaved_matmul_selfatt_qk", (sa,), {"heads": 4}),
+            ("interleaved_matmul_selfatt_valatt", (sa, att), {"heads": 4}),
+            ("interleaved_matmul_encdec_qk", (sa[..., :32], sa[..., :64]),
+             {"heads": 4}),
+            ("interleaved_matmul_encdec_valatt", (sa[..., :64], att),
+             {"heads": 4})):
+        outs = {}
+        for ctx in (card, mx.cpu()):
+            with ctx:
+                nds = [mx.np.array(a) for a in arrays]
+            o = registry.invoke(name, nds, **params)
+            outs[ctx.device_type] = o.asnumpy()
+        a, b = outs[card.device_type], outs["cpu"]
+        fin = onp.isfinite(b)
+        err = float(onp.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0
+        ok = (onp.isfinite(a) == fin).all() and \
+            err <= NP_KERNEL_TOL["plain_ops"] * max(1.0, float(
+                onp.abs(b[fin]).max()))
+        rows[name] = {"max_abs_err_card_vs_cpu": err,
+                      "tolerance": NP_KERNEL_TOL["plain_ops"]}
+        if not ok:
+            failures.append(f"(d) {name}: card vs CPU {err}")
+    emit({"phase": "numpy", "part": "d", "gpu": smi, "calls": rows})
+    return counts, rows
+
+
+def phase_numpy(torch, fa_mod, rope_mod, pa_mod, smi):
+    """Phase 30: the numpy front end (see the module docstring).  Returns
+    the launches of K1-K5 on the phase's paths: K1-K3 over (a)'s
+    replayed steps, K4 / K5 (and K1 again) through their npx names."""
+    import mxnet_tpu_torch as mx
+    t0 = time.perf_counter()
+    failures = []
+    os.environ["MXNET_CACHED_STEP"] = "1"
+    # K1-K3 at the ViT-B/16 step's shape (batch x heads, 197 keys,
+    # non-causal; bf16 K1's second 128-key stage masks keys 197-255) and
+    # at the tile the kernel registry resolves for it, the one (a) runs
+    bh = NP_BATCH * NP_VIT["num_heads"]
+    vit_flash, tiles = {}, {}
+    for dtype, (tf, tl, tg) in {torch.bfloat16: (2e-2, 1e-4, 2e-2),
+                                torch.float32: (1e-4, 1e-4, 1e-3)}.items():
+        case = flash_case(torch, bh, 197, 197, 64, dtype, seed=197)
+        q, k, v, _ = case
+        tile = fa_mod._resolve_tile(q, k, v, False, q.shape[-1] ** -0.5,
+                                    None, None)
+        tiles[str(dtype)] = tile
+        vit_flash[str(dtype)] = flash_check(torch, fa_mod, case, False, tile,
+                                            tf, tl, tg)
+        del case, q, k, v
+        torch.cuda.empty_cache()
+    emit({"phase": "numpy", "part": "flash_197", "gpu": smi,
+          "bh_sq_sk_d": [bh, 197, 197, 64], "causal": False,
+          "tile_resolved": tiles, "max_abs_err": vit_flash})
+    train_counts, train_row = np_train(torch, mx, fa_mod, rope_mod, pa_mod,
+                                       smi, failures)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    if any(tf32):
+        failures.append("(a) the fp32 check needs TF32 off")
+    fp32 = np_fp32_check(torch, mx, failures)
+    emit({"phase": "numpy", "part": "a_fp32", "gpu": smi, **fp32})
+    loop_counts, loop = np_user_loop(torch, mx, fa_mod, smi, failures)
+    ns = np_namespace(torch, mx, smi, failures)
+    name_counts, names = np_kernel_names(torch, mx, fa_mod, rope_mod, pa_mod,
+                                         smi, failures)
+    counts = {k: {"launches": v["launches"]} for k, v in train_counts.items()}
+    for k, v in name_counts.items():
+        counts[k]["npx_launches"] = v["launches"]
+    emit({"phase": "numpy", "part": "summary", "gpu": smi,
+          "train_img_per_s": train_row["img_per_s"],
+          "predict_img_per_s": train_row["predict_img_per_s"],
+          "loop_bitwise": loop["replay_check"]["bitwise_equal"],
+          "namespace_cases": ns["cases"], "counts": counts,
+          "failures": failures, "phase_s": time.perf_counter() - t0})
+    if failures:
+        raise AssertionError(f"numpy: {failures}")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8396,6 +8898,10 @@ def main():
         if row["name"] in export_counts:
             row["launches_export"] = export_counts[row["name"]]["launches"]
     phase_rnn(torch, smi)
+    np_counts = phase_numpy(torch, fa_mod, rope_mod, pa_mod, smi)
+    for row in kernels:          # K1-K3 on ViT-B/16, K1/K4/K5 through npx
+        if row["name"] in np_counts:
+            row["launches_numpy"] = np_counts[row["name"]]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

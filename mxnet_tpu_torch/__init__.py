@@ -33,7 +33,11 @@ stream ahead of the step; and observability — the full step record and
 its sinks (``telemetry``), the span recorder with its export and stall
 watchdog (``tracing``), ``profiler`` over ``torch.profiler`` with the
 card's kernels by name (``kineto``), ``monitor``, and ``clustermon``
-(spools, straggler incidents, Prometheus; imported at first use)::
+(spools, straggler incidents, Prometheus; imported at first use); and
+the numpy front end — ``np`` (``mx.np``: ``ndarray`` and numpy's
+functions in torch ops, with ``np.linalg``, ``np.fft`` and
+``np.random``), ``npx`` (the extension ops, the kernels by their
+``_npx_`` names) and ``util`` (``set_np`` and the 64-bit switches)::
 
     import mxnet_tpu_torch as mx
     x = mx.nd.array(data, ctx=mx.gpu(0))
@@ -58,6 +62,12 @@ from .attribute import AttrScope  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import executor, model, callback, visualization  # noqa: F401
+from . import util  # noqa: F401
+from . import numpy  # noqa: F401
+from . import numpy as np  # noqa: F401
+from . import numpy_extension  # noqa: F401
+from . import numpy_extension as npx  # noqa: F401
+from .util import is_np_array, set_np, reset_np  # noqa: F401
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "num_gpus", "autograd", "ops", "rtc", "ndarray", "nd", "NDArray",
@@ -66,4 +76,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "lr_scheduler", "data", "image", "io", "recordio", "profiler",
            "monitor", "embedding", "random", "name", "attribute", "AttrScope",
            "symbol", "sym", "executor", "model", "callback",
-           "visualization"]
+           "visualization", "util", "numpy", "np", "numpy_extension", "npx",
+           "is_np_array", "set_np", "reset_np"]

@@ -47,9 +47,12 @@ DTYPES = {
     "bfloat16": torch.bfloat16,
     "uint8": torch.uint8,
     "int8": torch.int8,
+    "int16": torch.int16,
     "int32": torch.int32,
     "int64": torch.int64,
     "bool": torch.bool,
+    "complex64": torch.complex64,
+    "complex128": torch.complex128,
 }
 
 _NAMES = {v: k for k, v in DTYPES.items()}

@@ -48,6 +48,7 @@ from .. import telemetry, tracing
 from ..base import MXNetError
 from ..imperative import cached_step as _cs
 from ..ops import random as _rng
+from ..ops import registry as _reg
 from .parameter import Parameter, ParameterDict, init_device
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock", "current_trace"]
@@ -140,6 +141,15 @@ def _has_nd(values) -> bool:
                                       and _has_nd(v)):
             return True
     return False
+
+
+def _has_np(values) -> bool:
+    """Whether an argument is an ``mx.np.ndarray`` (the block's outputs
+    then take that flavor, as an op's do)."""
+    cls = _reg._NP_CLS[0]
+    return cls is not None and any(
+        type(v) is cls or (isinstance(v, (tuple, list)) and _has_np(v))
+        for v in values)
 
 
 def _unwrap(v):
@@ -468,6 +478,8 @@ class Block(torch.nn.Module):
             hook(self, _wrap(args))
         if _has_nd(args) or _has_nd(kwargs.values()):
             out = self._call_nd(args, kwargs)
+            if _has_np(args):
+                out = _reg.np_flavor(out)
         elif _cs.in_plain_forward():
             out = _unwrap(self._call_nd(
                 _wrap(args), {k: _wrap(v) for k, v in kwargs.items()}))

@@ -18,9 +18,18 @@ this rank's sequence shard and runs the per-shard body; called on whole
 sequences it shards them itself and gathers the output.
 ``TransformerBlock`` and ``TransformerLM`` pass ``ring_mesh`` and
 ``sp_mode`` to their attention layers, and the LM offsets its positions
-by the rank's shard.  ``generate`` and the ViT are not ported yet.
+by the rank's shard.
+
+``VisionTransformer`` / ``get_vit`` (``transformer.py:326-377``): the
+patch stem as a strided ``Conv2D``, the ``cls_token`` and ``pos_embed``
+Parameters of the top-level block (named as the reference names them),
+non-causal ``TransformerBlock`` s (K1–K3 at the ragged length of the
+patches plus CLS: 197 at 224² and patch 16), the final LayerNorm and the
+CLS head.  ``generate`` is not ported yet.
 """
 from __future__ import annotations
+
+import torch
 
 from ... import initializer
 from ...base import MXNetError
@@ -32,7 +41,7 @@ from ..block import HybridBlock
 from ..parameter import Parameter
 
 __all__ = ["MultiHeadAttention", "TransformerBlock", "TransformerLM",
-           "get_transformer_lm"]
+           "get_transformer_lm", "VisionTransformer", "get_vit"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -190,3 +199,54 @@ def get_transformer_lm(vocab_size, units=256, num_layers=4, num_heads=4,
     """Factory (model-zoo style)."""
     return TransformerLM(vocab_size, units=units, num_layers=num_layers,
                          num_heads=num_heads, **kwargs)
+
+
+class VisionTransformer(HybridBlock):
+    """ViT classifier: (B, C, H, W) images → (B, classes) logits.  The
+    patch embedding is a strided convolution; a learned CLS token leads
+    the patch tokens, learned positions are added, and the encoder's
+    non-causal blocks attend over all of them.  ``use_flash=False``
+    takes the dense attention (the comparison the card's checks make)."""
+
+    def __init__(self, image_size=224, patch_size=16, classes=1000,
+                 units=384, num_layers=6, num_heads=6, ffn_ratio=4,
+                 dropout=0.0, in_channels=3, use_flash=True, **kwargs):
+        super().__init__(**kwargs)
+        if image_size % patch_size:
+            raise MXNetError("image_size must be divisible by patch_size")
+        self._patch = patch_size
+        self._np = (image_size // patch_size) ** 2
+        self.patch_embed = nn.Conv2D(units, kernel_size=patch_size,
+                                     strides=patch_size,
+                                     in_channels=in_channels)
+        self.cls_token = Parameter(name="cls_token", shape=(1, 1, units),
+                                   init=initializer.Normal(0.02))
+        self.pos_embed = Parameter(name="pos_embed",
+                                   shape=(1, self._np + 1, units),
+                                   init=initializer.Normal(0.02))
+        self.blocks = nn.HybridSequential()
+        for _ in range(num_layers):
+            self.blocks.add(TransformerBlock(units, num_heads,
+                                             ffn_ratio=ffn_ratio,
+                                             causal=False, dropout=dropout,
+                                             use_flash=use_flash))
+        self.ln = nn.LayerNorm()
+        self.head = nn.Dense(classes)
+
+    def forward(self, x):
+        p = self.patch_embed(x)                         # (B, E, H', W')
+        b, e = p.shape[0], p.shape[1]
+        tokens = p.reshape(b, e, -1).transpose(1, 2)    # (B, N, E)
+        cls = self.cls_token._tensor().to(tokens.dtype).expand(b, 1, e)
+        tokens = torch.cat([cls, tokens], dim=1)
+        tokens = tokens + self.pos_embed._tensor().to(tokens.dtype)
+        tokens = self.ln(self.blocks(tokens))
+        return self.head(tokens[:, 0])
+
+
+def get_vit(image_size=224, patch_size=16, classes=1000,
+            **kwargs) -> VisionTransformer:
+    """Factory (model-zoo style).  ViT-B/16 is ``get_vit(224, 16, 1000,
+    units=768, num_layers=12, num_heads=12, ffn_ratio=4)``."""
+    return VisionTransformer(image_size=image_size, patch_size=patch_size,
+                             classes=classes, **kwargs)

@@ -5,13 +5,14 @@ the port's op registry when it is imported, so only ported ops appear
 ``save`` / ``load`` / ``load_frombuffer`` and the reference's binary
 format (``legacy_serialization``), ``sparse`` (row-sparse and CSR
 storage, ``cast_storage``), ``random`` (the samplers over
-``mx.random``) and ``Dropout``."""
+``mx.random``), ``linalg`` (the ``_linalg_*`` ops) and ``Dropout``."""
 from .. import ops as _ops  # noqa: F401  (registers every op first)
 from .ndarray import (NDArray, array, zeros, ones, full, empty, arange,
                       concat, stack, waitall, save, load, load_frombuffer)
 from .register import populate_namespace, make_op_func
 from . import sparse  # noqa: F401
 from . import random  # noqa: F401
+from . import linalg  # noqa: F401
 from .random import shuffle  # noqa: F401
 from .sparse import cast_storage  # noqa: F401
 

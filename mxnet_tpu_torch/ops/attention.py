@@ -510,7 +510,10 @@ _kernels.register_kernel(_kernels.KernelSpec(
     default_config={"tile": 64},
     signature=_flash_signature, make_args=_flash_make_args,
     tune_grid=({"bh": 64, "sq": 2048, "sk": 2048, "d": 64,
-                "causal": True, "dtype": "bfloat16"},),
+                "causal": True, "dtype": "bfloat16"},
+               # ViT-B/16 at batch 128: 12 heads, 197 tokens, non-causal
+               {"bh": 1536, "sq": 197, "sk": 197, "d": 64,
+                "causal": False, "dtype": "bfloat16"}),
 ))
 
 
@@ -604,3 +607,100 @@ register("flash_attention", aliases=("_npx_flash_attention",))(
     flash_attention)
 register("multi_head_attention", aliases=("_npx_multi_head_attention",))(
     multi_head_attention)
+
+
+# -- masked softmax and the contrib transformer ops
+# (``mxnet_tpu/ops/attention.py:654-739``): plain PyTorch ------------------
+
+_NEG_INF = -1e30    # a finite stand-in for -inf: masked rows stay NaN-free
+
+
+def masked_softmax(x, mask=None, *, axis=-1, temperature=1.0):
+    """Softmax over ``axis`` of the positions where ``mask`` is true;
+    masked positions are 0."""
+    if mask is not None:
+        m = mask.bool()
+        x = torch.where(m, x, torch.full_like(x, _NEG_INF))
+    p = torch.softmax(x / temperature, dim=axis)
+    if mask is not None:
+        p = torch.where(m, p, torch.zeros_like(p))
+    return p
+
+
+def masked_log_softmax(x, mask=None, *, axis=-1, temperature=1.0):
+    """Log-softmax over the unmasked positions; masked ones are -inf."""
+    if mask is not None:
+        m = mask.bool()
+        x = torch.where(m, x, torch.full_like(x, _NEG_INF))
+    out = torch.log_softmax(x / temperature, dim=axis)
+    if mask is not None:
+        out = torch.where(m, out, torch.full_like(out, -math.inf))
+    return out
+
+
+def div_sqrt_dim(x):
+    """``x / sqrt(x.shape[-1])``."""
+    return x / math.sqrt(x.shape[-1])
+
+
+def _split_interleaved(qkv, heads, n):
+    """(S, B, heads*hd*n) → n tensors of (B*heads, S, hd)."""
+    s_, b, e = qkv.shape
+    hd = e // (heads * n)
+    t = qkv.reshape(s_, b, heads, n, hd)
+    return [t[:, :, :, i, :].permute(1, 2, 0, 3).reshape(b * heads, s_, hd)
+            for i in range(n)]
+
+
+def _attend_and_merge_heads(attention, v, heads):
+    """attention (B*H, Sq, Sk) × v (B*H, Sk, hd) → (Sq, B, H*hd)."""
+    out = torch.bmm(attention, v)
+    bh, s_, hd = out.shape
+    b = bh // heads
+    return out.reshape(b, heads, s_, hd).permute(2, 0, 1, 3).reshape(
+        s_, b, heads * hd)
+
+
+def interleaved_matmul_selfatt_qk(queries_keys_values, *, heads):
+    """Scaled q·kᵀ of an interleaved (S, B, heads*hd*3) projection."""
+    q, k, _ = _split_interleaved(queries_keys_values, heads, 3)
+    return torch.bmm(q / math.sqrt(q.shape[-1]), k.transpose(1, 2))
+
+
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention, *,
+                                      heads):
+    """The attention-weighted v of an interleaved projection, heads
+    merged to (S, B, heads*hd)."""
+    _, _, v = _split_interleaved(queries_keys_values, heads, 3)
+    return _attend_and_merge_heads(attention, v, heads)
+
+
+def interleaved_matmul_encdec_qk(queries, keys_values, *, heads):
+    """Scaled q·kᵀ of (Sq, B, heads*hd) queries against an interleaved
+    (Sk, B, heads*hd*2) key/value projection."""
+    sq, b, e = queries.shape
+    hd = e // heads
+    q = queries.reshape(sq, b, heads, hd).permute(1, 2, 0, 3).reshape(
+        b * heads, sq, hd) / math.sqrt(hd)
+    k, _ = _split_interleaved(keys_values, heads, 2)
+    return torch.bmm(q, k.transpose(1, 2))
+
+
+def interleaved_matmul_encdec_valatt(keys_values, attention, *, heads):
+    _, v = _split_interleaved(keys_values, heads, 2)
+    return _attend_and_merge_heads(attention, v, heads)
+
+
+register("masked_softmax", aliases=("_npx_masked_softmax",))(masked_softmax)
+register("masked_log_softmax", aliases=("_npx_masked_log_softmax",))(
+    masked_log_softmax)
+register("_contrib_div_sqrt_dim", aliases=("div_sqrt_dim",))(div_sqrt_dim)
+for _name, _fn in (("interleaved_matmul_selfatt_qk",
+                    interleaved_matmul_selfatt_qk),
+                   ("interleaved_matmul_selfatt_valatt",
+                    interleaved_matmul_selfatt_valatt),
+                   ("interleaved_matmul_encdec_qk",
+                    interleaved_matmul_encdec_qk),
+                   ("interleaved_matmul_encdec_valatt",
+                    interleaved_matmul_encdec_valatt)):
+    register("_contrib_" + _name, aliases=(_name,))(_fn)

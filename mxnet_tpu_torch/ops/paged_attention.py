@@ -29,6 +29,7 @@ import torch
 
 from .. import kernels as _kernels
 from ..base import MXNetError
+from .registry import register
 
 __all__ = ["paged_attention", "paged_attention_reference",
            "paged_attention_split_reference", "build"]
@@ -323,3 +324,19 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
 
 paged_attention.launches = 0
 paged_attention.plain_calls = 0
+
+
+def _paged_attention_op(q, k_pool, v_pool, tables, lengths, *,
+                        sm_scale=None, block_k=None, warps=None,
+                        partition=None):
+    """The registered ``paged_attention`` / ``_npx_paged_attention``:
+    :func:`paged_attention` (K4 on a card).  ``block_k``, the reference's
+    Pallas key block, has no counterpart in K4's launch and is accepted
+    and ignored; ``warps`` and ``partition`` are K4's own."""
+    return paged_attention(q, k_pool, v_pool, tables, lengths,
+                           sm_scale=sm_scale, warps=warps,
+                           partition=partition)
+
+
+register("paged_attention", aliases=("_npx_paged_attention",))(
+    _paged_attention_op)

@@ -420,3 +420,254 @@ def _sample_gen_negative_binomial(mu, alpha, *, shape=(), dtype="float32"):
         lam = torch.where(a <= 1e-8, m, gam * (m * a))
         return _poisson_of(g, lam.contiguous())
     return _multisample(body, (mu, alpha), shape, dtype)
+
+
+# -- the numpy samplers ``_npi_*`` (``mxnet_tpu/ops/random.py:195-370``):
+# parameters as tensor inputs or keywords; ``size`` the output shape, else
+# the parameters' broadcast shape; drawn through :func:`draw` ---------------
+
+def _np_size(size, params):
+    if size is not None:
+        return (size,) if isinstance(size, int) else tuple(size)
+    shapes = [tuple(p.shape) for p in params if isinstance(p, torch.Tensor)]
+    return tuple(torch.broadcast_shapes(*shapes)) if shapes else ()
+
+
+def _np_sampler(name, names, body, default_dtype=torch.float32):
+    """Register ``body(g, shape, device, *params)`` as ``name``: params
+    ``names`` come positionally as tensors or as keywords."""
+    def fn(*tensors, size=None, ctx=None, dtype=None, **kw):
+        vals = []
+        for i, (pname, default) in enumerate(names):
+            v = tensors[i] if i < len(tensors) else kw.get(pname, default)
+            vals.append(v)
+        dev = tensors[0].device if tensors else _device(ctx)
+        vals = [v.to(dev).float() if isinstance(v, torch.Tensor) else v
+                for v in vals]
+        shape = _np_size(size, vals)
+        out = draw(lambda g: body(g, shape, dev, *vals), dev)
+        return out.to(default_dtype if dtype is None else _dt(dtype))
+    fn.__name__ = name
+    fn.__doc__ = body.__doc__
+    return register(name)(fn)
+
+
+def _bc(v, shape, dev):
+    return torch.as_tensor(v, dtype=torch.float32, device=dev).expand(
+        shape).contiguous()
+
+
+_np_sampler("_npi_uniform", (("low", 0.0), ("high", 1.0)),
+            lambda g, s, d, lo, hi: _uniform01(g, s, d) * (hi - lo) + lo)
+_np_sampler("_npi_normal", (("loc", 0.0), ("scale", 1.0)),
+            lambda g, s, d, m, sd: m + sd * torch.randn(s, generator=g,
+                                                        device=d))
+_np_sampler("_npi_exponential", (("scale", 1.0),),
+            lambda g, s, d, sc: torch.empty(s, device=d).exponential_(
+                1.0, generator=g) * sc)
+_np_sampler("_npi_gamma", (("shape", 1.0), ("scale", 1.0)),
+            lambda g, s, d, a, sc: torch._standard_gamma(
+                _bc(a, s, d), generator=g) * sc)
+_np_sampler("_npi_gumbel", (("loc", 0.0), ("scale", 1.0)),
+            lambda g, s, d, m, sc: m - sc * torch.log(
+                -torch.log(_uniform01(g, s, d, 1e-7))))
+_np_sampler("_npi_laplace", (("loc", 0.0), ("scale", 1.0)),
+            lambda g, s, d, m, sc: _laplace(g, s, d, loc=m, scale=sc))
+_np_sampler("_npi_logistic", (("loc", 0.0), ("scale", 1.0)),
+            lambda g, s, d, m, sc: _logistic(g, s, d, loc=m, scale=sc))
+_np_sampler("_npi_pareto", (("a", 1.0),),
+            lambda g, s, d, a: torch.expm1(torch.empty(s, device=d)
+                                           .exponential_(1.0, generator=g)
+                                           / a))
+_np_sampler("_npi_powerd", (("a", 1.0),),
+            lambda g, s, d, a: _uniform01(g, s, d, 1e-7) ** (1.0 / a))
+_np_sampler("_npi_rayleigh", (("scale", 1.0),),
+            lambda g, s, d, sc: _rayleigh(g, s, d, scale=sc))
+_np_sampler("_npi_weibull", (("a", 1.0),),
+            lambda g, s, d, a: (-torch.log(_uniform01(g, s, d, 1e-7)))
+            ** (1.0 / a))
+
+
+def _npi_sized(name, body):
+    """``body(g, shape, dev, *tensors, size, **kw)`` registered as is."""
+    def fn(*tensors, size=None, ctx=None, dtype=None, **kw):
+        dev = tensors[0].device if tensors else _device(ctx)
+        return draw(lambda g: body(g, dev, *tensors, size=size,
+                                   dtype=dtype, **kw), dev)
+    fn.__name__ = name
+    fn.__doc__ = body.__doc__
+    return register(name)(fn)
+
+
+def _uniform_n(g, dev, *params, low=0.0, high=1.0, size=None, dtype=None):
+    """Uniform with ``size`` leading the parameters' shape."""
+    lo = params[0].float() if len(params) > 0 else low
+    hi = params[1].float() if len(params) > 1 else high
+    s = _np_size(size, []) + _np_size(None, [lo, hi])
+    return (_uniform01(g, s, dev) * (hi - lo) + lo).to(_dt(dtype))
+
+
+def _normal_n(g, dev, *params, loc=0.0, scale=1.0, size=None, dtype=None):
+    """Normal with ``size`` leading the parameters' shape."""
+    m = params[0].float() if len(params) > 0 else loc
+    sd = params[1].float() if len(params) > 1 else scale
+    s = _np_size(size, []) + _np_size(None, [m, sd])
+    return (m + sd * torch.randn(s, generator=g, device=dev)).to(_dt(dtype))
+
+
+def _bernoulli_np(g, dev, *params, prob=None, logit=None, size=None,
+                  dtype=None, is_logit=False):
+    """1 with probability ``prob`` (or ``sigmoid(logit)``)."""
+    if params:
+        if is_logit or (prob is None and logit is not None):
+            logit = params[0]
+        else:
+            prob = params[0]
+    if prob is None:
+        prob = torch.sigmoid(torch.as_tensor(logit, dtype=torch.float32,
+                                             device=dev))
+    s = _np_size(size, [prob] if isinstance(prob, torch.Tensor) else [])
+    return (_uniform01(g, s, dev) < prob).to(_dt(dtype))
+
+
+def _dirichlet_np(g, dev, *params, alpha=None, size=None, dtype=None):
+    """Dirichlet over the last axis of the concentrations ``alpha``."""
+    a = (params[0] if params else torch.as_tensor(
+        alpha, device=dev)).float()
+    if a.dim() < 1:
+        raise ValueError("dirichlet: alpha must be at least 1-d")
+    s = _np_size(size, []) + tuple(a.shape)
+    x = torch._standard_gamma(a.expand(s).contiguous(), generator=g)
+    return (x / x.sum(-1, keepdim=True)).to(_dt(dtype))
+
+
+def _choice_np(g, dev, *params, a=None, size=None, replace=True,
+               weights=None, dtype=None):
+    """``np.random.choice``: ``a`` an int or the first tensor input,
+    optional probabilities as the second."""
+    arr = params[0] if params else a
+    p = params[1] if len(params) > 1 else weights
+    s = _np_size(size, [])
+    k = 1
+    for v in s:
+        k *= v
+    n = int(arr) if not isinstance(arr, torch.Tensor) or arr.dim() == 0 \
+        else arr.shape[0]
+    if p is not None:
+        idx = torch.multinomial(torch.as_tensor(p, device=dev).float(), k,
+                                replacement=replace, generator=g)
+    elif replace:
+        idx = torch.randint(0, n, (k,), generator=g, device=dev)
+    else:
+        idx = torch.randperm(n, generator=g, device=dev)[:k]
+    idx = idx.reshape(s)
+    if isinstance(arr, torch.Tensor) and arr.dim() > 0:
+        return arr[idx]
+    return idx.to(_int_default())
+
+
+def _multinomial_np(g, dev, *params, n=1, pvals=None, size=None,
+                    dtype=None):
+    """Counts of ``n`` categorical draws."""
+    p = (params[0] if params else torch.as_tensor(pvals,
+                                                  device=dev)).float()
+    k = p.shape[-1]
+    s = _np_size(size, []) + tuple(p.shape[:-1])
+    rows_p = torch.broadcast_to(p, s + (k,)).reshape(-1, k)
+    rows = rows_p.shape[0]
+    idx = torch.multinomial(rows_p.contiguous(), int(n), replacement=True,
+                            generator=g)
+    counts = torch.zeros(rows, k, dtype=_int_default(), device=dev)
+    counts.scatter_add_(1, idx, torch.ones_like(idx, dtype=counts.dtype))
+    return counts.reshape(s + (k,))
+
+
+def _int_default():
+    """The reference's default integer: int64 under a 64-bit switch of
+    ``util``, else int32."""
+    from ..util import x64_enabled
+    return torch.int64 if x64_enabled() else torch.int32
+
+
+for _name, _body in (("_npi_uniform_n", _uniform_n),
+                     ("_npi_normal_n", _normal_n),
+                     ("_npi_bernoulli", _bernoulli_np),
+                     ("_npi_dirichlet", _dirichlet_np),
+                     ("_npi_choice", _choice_np),
+                     ("_npi_multinomial", _multinomial_np)):
+    _npi_sized(_name, _body)
+
+
+# -- densities ``_random_pdf_*`` (``mxnet_tpu/ops/random.py:463-530``):
+# exact functions, one distribution per row of the parameters, the samples
+# along the trailing axis ---------------------------------------------------
+
+def _pdf(name):
+    def deco(logp_fn):
+        def fn(sample, *params, is_log=False):
+            logp = logp_fn(sample, *params)
+            return logp if is_log else torch.exp(logp)
+        fn.__name__ = name
+        fn.__doc__ = logp_fn.__doc__
+        return register(name)(fn)
+    return deco
+
+
+@_pdf("_random_pdf_uniform")
+def _pdf_uniform(sample, low, high):
+    # 0 * sample outside: a density flat in the sample still has a
+    # (zero) gradient for it, as the reference's
+    p = torch.where((sample >= low[..., None]) & (sample <= high[..., None]),
+                    1.0 / (high - low)[..., None], 0.0 * sample)
+    return torch.log(torch.clamp(p, min=1e-37))
+
+
+@_pdf("_random_pdf_normal")
+def _pdf_normal(sample, mu, sigma):
+    m, s = mu[..., None], sigma[..., None]
+    return -0.5 * torch.square((sample - m) / s) - torch.log(
+        s * (2.0 * torch.pi) ** 0.5)
+
+
+@_pdf("_random_pdf_gamma")
+def _pdf_gamma(sample, alpha, beta):
+    a, b = alpha[..., None], 1.0 / beta[..., None]
+    return a * torch.log(b) + (a - 1) * torch.log(sample) - b * sample \
+        - torch.lgamma(a)
+
+
+@_pdf("_random_pdf_exponential")
+def _pdf_exponential(sample, lam):
+    lm = lam[..., None]
+    return torch.log(lm) - lm * sample
+
+
+@_pdf("_random_pdf_poisson")
+def _pdf_poisson(sample, lam):
+    lm = lam[..., None]
+    return sample * torch.log(torch.clamp(lm, min=1e-37)) - lm \
+        - torch.lgamma(sample + 1.0)
+
+
+@_pdf("_random_pdf_negative_binomial")
+def _pdf_negative_binomial(sample, k, p):
+    kk, pp = k[..., None], p[..., None]
+    return torch.lgamma(sample + kk) - torch.lgamma(sample + 1.0) \
+        - torch.lgamma(kk) + kk * torch.log(pp) + sample * torch.log1p(-pp)
+
+
+@_pdf("_random_pdf_generalized_negative_binomial")
+def _pdf_gen_negative_binomial(sample, mu, alpha):
+    m, a = mu[..., None], alpha[..., None]
+    r = 1.0 / a
+    p = r / (r + m)
+    return torch.lgamma(sample + r) - torch.lgamma(sample + 1.0) \
+        - torch.lgamma(r) + r * torch.log(p) + sample * torch.log1p(-p)
+
+
+@_pdf("_random_pdf_dirichlet")
+def _pdf_dirichlet(sample, alpha):
+    a = alpha[..., None, :] if alpha.dim() == sample.dim() - 1 else alpha
+    return torch.sum((a - 1.0) * torch.log(sample), dim=-1) \
+        + torch.lgamma(torch.sum(a, dim=-1)) \
+        - torch.sum(torch.lgamma(a), dim=-1)

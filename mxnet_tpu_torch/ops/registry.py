@@ -46,9 +46,13 @@ from ..imperative import cached_step as _cached_step
 _DISPATCH_CT = telemetry.counter("dispatch.count")
 
 __all__ = ["Operator", "register", "alias", "get", "list_ops", "invoke",
-           "dispatch", "apply_torch", "SigBudget"]
+           "dispatch", "apply_torch", "np_flavor", "SigBudget"]
 
 _REGISTRY: Dict[str, "Operator"] = {}
+
+# ``mx.np.ndarray`` once ``mx.np`` is imported: an op with an input of
+# the numpy flavor gives outputs of that flavor, as in the reference
+_NP_CLS = [None]
 
 
 class Operator:
@@ -110,8 +114,28 @@ def apply_torch(fn: Callable, nd_inputs: Sequence[Any], key=None):
     through.  ``key`` names the call for the whole-step capture (None:
     not capturable)."""
     if _cached_step._GATE:
-        return _cached_step.funnel(fn, key, nd_inputs, _run)
-    return _run(fn, nd_inputs)
+        out = _cached_step.funnel(fn, key, nd_inputs, _run)
+    else:
+        out = _run(fn, nd_inputs)
+    cls = _NP_CLS[0]
+    if cls is not None:
+        for x in nd_inputs:
+            if type(x) is cls:
+                return np_flavor(out, cls)
+    return out
+
+
+def np_flavor(out, cls=None):
+    """``out`` (an NDArray, or a list or tuple of them) with each plain
+    NDArray turned into an ``mx.np.ndarray`` in place (the two share one
+    layout)."""
+    cls = cls or _NP_CLS[0]
+    if isinstance(out, (list, tuple)):
+        for o in out:
+            np_flavor(o, cls)
+    elif cls is not None and type(out) is cls.__base__:
+        out.__class__ = cls
+    return out
 
 
 def _run(fn: Callable, nd_inputs: Sequence[Any]):
@@ -213,6 +237,9 @@ class SigBudget:
 def _env_numerics_key():
     """The switches ops read as they run, for the key of every captured
     executable: a graph captured under other numerics (the AMP policy on
-    or off, its dtype, ``MXNET_SAFE_ACCUMULATION``) is never replayed."""
+    or off, its dtype, ``MXNET_SAFE_ACCUMULATION``, the 64-bit switches
+    of ``util`` that ``mx.np`` results follow) is never replayed."""
+    from ..util import x64_enabled
     from .nn import safe_accumulation_enabled
-    return (safe_accumulation_enabled(), _amp_policy.cache_token())
+    return (safe_accumulation_enabled(), _amp_policy.cache_token(),
+            x64_enabled())

@@ -46,6 +46,7 @@ import torch
 
 from .. import kernels as _kernels
 from ..base import MXNetError
+from .registry import register
 
 __all__ = ["rope", "rope_qk", "rope_reference", "build"]
 
@@ -275,3 +276,14 @@ def rope_qk(q, k, positions, *, base=10000.0):
 
 rope.launches = 0
 rope.plain_calls = 0
+
+
+def _rope_op(x, positions, *, base=10000.0, block_r=None, config=None):
+    """The registered ``rope`` / ``_npx_rope``: :func:`rope` (K5 on a
+    card).  ``block_r``, the reference's Pallas row block, has no
+    counterpart in K5's launch and is accepted and ignored; ``config``
+    is K5's own."""
+    return rope(x, positions, base=base, config=config)
+
+
+register("rope", aliases=("_npx_rope",))(_rope_op)

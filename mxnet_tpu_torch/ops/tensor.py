@@ -463,7 +463,7 @@ for _name, _fn, _aliases in (
          lambda a, b: torch.logical_or(a, b).to(a.dtype), ("logical_or",)),
         ("broadcast_logical_xor",
          lambda a, b: torch.logical_xor(a, b).to(a.dtype), ("logical_xor",)),
-        ("arctan2", torch.atan2, ())):
+        ("arctan2", torch.atan2, ("_npi_arctan2",))):
     def _binary2(a, b, _f=_fn):
         return _f(a, b)
     _binary2.__name__ = _name

@@ -74,6 +74,12 @@ KVSTORE_MODULES = ["ndarray/sparse.py", "kvstore/__init__.py",
                    "embedding/__init__.py", "embedding/sharded.py",
                    "embedding/cache.py", "ops/tensor.py", "autograd.py",
                    "gluon/trainer.py"]
+# the numpy front end: each module imported alone loads no JAX either
+NUMPY_MODULES = ["util.py", "_numpy_dispatch.py", "numpy/__init__.py",
+                 "numpy/linalg.py", "numpy/fft.py", "numpy/random.py",
+                 "numpy_extension/__init__.py", "ops/np_impl.py",
+                 "ops/npi.py", "ops/linalg.py", "ndarray/linalg.py",
+                 "gluon/model_zoo/transformer.py"]
 CASE_BODIES = ROOT / "tests" / "torch_dist_cases.py"
 
 
@@ -169,7 +175,8 @@ def children():
     mods = sorted({_module(r) for r in
                    RESNET_MODULES + PERSISTENCE_MODULES + CAPTURE_MODULES
                    + INPUT_MODULES + OBSERVABILITY_MODULES
-                   + DISTRIBUTION_MODULES + KVSTORE_MODULES})
+                   + DISTRIBUTION_MODULES + KVSTORE_MODULES
+                   + NUMPY_MODULES})
     out = subprocess.run(
         [sys.executable, "-c", _CHILDREN.format(bad=BAD_TOP, mods=mods)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -421,3 +428,18 @@ def test_a_mesh_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(MXNetError, match="device='cpu'"):
         make_mesh({"dp": -1})
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("rel", NUMPY_MODULES)
+def test_numpy_front_end_modules_are_held_to_the_rules(rel, children):
+    """The numpy front end's modules (``numpy/``, ``numpy_extension/``,
+    ``util``, the dispatch protocol, the ``_npi_`` and ``_linalg_`` ops
+    and the ViT) are among the sources checked above, and each imports
+    alone (a child process that had imported only torch) without loading
+    JAX, ``ml_dtypes`` or the reference."""
+    path = PORT / rel
+    assert path in SOURCES
+    assert not ML_DTYPES.search(path.read_text()), rel
+    res = children[_module(rel)]
+    assert res["ok"], res.get("error")
+    assert res["bad"] == [], res["bad"]
